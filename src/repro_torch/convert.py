@@ -1,0 +1,77 @@
+"""Carry the reference's inputs and state into the port and back.
+
+There are no model weights in this system: the data is the weights. What
+crosses between the packages is numpy: pools (ids, payloads, valid),
+`Solution` fields and `RuleState` rows. `np.asarray` reads the reference's
+arrays without importing its framework, so a test can hand both packages
+the same state mid-run.
+
+Type mapping: uint32 bitmap words ↔ int64 tensors holding the same
+values (the port's word representation, see kernels/rules.py); int32
+ids/evals ↔ int64; f32 and bool unchanged.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.greedy import Solution
+from repro_torch.core.objective import RuleState
+from repro_torch.runtime.device import DeviceLike, resolve_device
+
+
+def to_torch(x, device: DeviceLike = None):
+    """numpy-like → tensor on `device`; uint32 words and int32 ids widen
+    to int64; None passes through."""
+    if x is None:
+        return None
+    a = np.array(x)                  # a writable copy for torch
+    if a.dtype in (np.uint32, np.int32):
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=resolve_device(device))
+
+
+def to_numpy(t, dtype=None):
+    """tensor → numpy, optionally cast (int64 words → np.uint32, …)."""
+    if t is None:
+        return None
+    a = t.detach().cpu().numpy()
+    return a.astype(dtype) if dtype is not None else a
+
+
+def solution_to_torch(sol: Any, device: DeviceLike = None) -> Solution:
+    """A reference `Solution` (any object with ids/payloads/valid/value/
+    evals arrays) → the port's Solution."""
+    return Solution(*(to_torch(getattr(sol, f), device)
+                      for f in ("ids", "payloads", "valid", "value",
+                                "evals")))
+
+
+def solution_to_numpy(sol: Solution, bitmap: bool = False
+                      ) -> Dict[str, np.ndarray]:
+    """The port's Solution → numpy fields in the reference's dtypes."""
+    return {"ids": to_numpy(sol.ids, np.int32),
+            "payloads": to_numpy(sol.payloads,
+                                 np.uint32 if bitmap else None),
+            "valid": to_numpy(sol.valid),
+            "value": to_numpy(sol.value),
+            "evals": to_numpy(sol.evals, np.int32)}
+
+
+def state_to_torch(state: Any, device: DeviceLike = None) -> RuleState:
+    """A reference `RuleState` → the port's RuleState (same batch shape)."""
+    return RuleState(*(to_torch(getattr(state, f), device)
+                       for f in ("ground", "gvalid", "row", "base",
+                                 "n_eff")))
+
+
+def state_to_numpy(state: RuleState, bitmap: bool = False
+                   ) -> Dict[str, np.ndarray]:
+    """The port's RuleState → numpy fields in the reference's dtypes."""
+    return {"ground": to_numpy(state.ground),
+            "gvalid": to_numpy(state.gvalid),
+            "row": to_numpy(state.row, np.uint32 if bitmap else None),
+            "base": to_numpy(state.base),
+            "n_eff": to_numpy(state.n_eff)}

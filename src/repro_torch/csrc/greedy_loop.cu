@@ -1,0 +1,155 @@
+// Streaming whole-greedy loop: all k steps of B greedies in ONE launch.
+//
+// Replaces the Pallas kernel
+// src/repro/kernels/greedy_loop.py:greedy_loop_pallas (_stream_kernel),
+// the leaf greedy of the main path. Inputs: the cached (B, N, C) f32
+// matrices, the (B, N) state rows and (B, C) candidate masks. Outputs:
+// final rows (B, N), bests (B, k) int32 (-1 = rejected step) and raw
+// gains (B, k) f32 - the semantics of kernels/ref.py:greedy_loop.
+//
+// What bounds it on the H100: device-memory bytes. Each step re-reads
+// every greedy's whole cache (32 leaves x ~3,200^2 x 4 B ~ 1.3 GB at the
+// Tiny-ImageNet shape, far over the 50 MB L2) for ~3 flops per entry, so
+// a step costs at least ~0.4 ms of HBM time at 3.35 TB/s.
+//
+// What the design does about it: the TPU ran its (step, row-block) grid
+// in order on one core; here each greedy spans P blocks that hold a
+// contiguous slice of ground rows, so a step streams the cache through
+// all SMs at once (one block per greedy would leave the card idle and
+// read 40 MB per step through one SM). Blocks do not run in order on a
+// GPU, so the kernel is launched cooperatively (all B*P blocks
+// co-resident, sized by the wrapper from the occupancy calculator) and
+// one grid barrier per step separates "write per-block gain partials"
+// from "reduce them". Every block of a greedy then reduces the P
+// partials of every column itself, in a fixed block order (no float
+// atomics: runs repeat bit for bit), takes the masked first-argmax and
+// updates its own shared-memory copy of the mask - so the winner is
+// known everywhere without a second barrier. Partials alternate between
+// two buffers by step parity, so a fast block never overwrites a step's
+// partials while a slow block still reads them. The state rows of a
+// block's slice stay in shared memory for all k steps, and the previous
+// winner's column is folded in at the start of the next step (the
+// deferred update) and once more after step k (the flush).
+#include <cooperative_groups.h>
+
+#include "rules.cuh"
+
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(RT_THREADS)
+    rt_greedy_loop_kernel(const float* __restrict__ mat,
+                          const float* __restrict__ row_in,
+                          const float* __restrict__ mask_in,
+                          float* __restrict__ row_out, int* __restrict__ bests,
+                          float* __restrict__ gains,
+                          float* __restrict__ partials, int B, int N, int C,
+                          int k, int P, int R, RtRule rule) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  float* mask = smem;      // (C,) this block's copy of the candidate mask
+  float* rows = smem + C;  // (R,) state of this block's ground rows
+  __shared__ float sv[32];
+  __shared__ int si[32];
+
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int b = blockIdx.x / P;
+  const int p = blockIdx.x % P;
+  const int r0 = p * R;
+  const int nr = max(0, min(N - r0, R));
+  const float* M = mat + (size_t)b * N * C;
+
+  for (int c = tid; c < C; c += T) mask[c] = mask_in[(size_t)b * C + c];
+  for (int i = tid; i < nr; i += T) rows[i] = row_in[(size_t)b * N + r0 + i];
+  __syncthreads();
+
+  int prev = -1;
+  for (int s = 0; s < k; ++s) {
+    // deferred update: fold the previous winner's column into the rows
+    if (prev >= 0)
+      for (int i = tid; i < nr; i += T)
+        rows[i] = rt_fold(rows[i], M[(size_t)(r0 + i) * C + prev], rule);
+    __syncthreads();
+
+    // per-block gain partials over this block's rows, every column
+    const size_t buf = (size_t)(s & 1) * B * P;
+    float* part = partials + (buf + (size_t)b * P + p) * C;
+    for (int c = tid; c < C; c += T) {
+      const float* col = M + (size_t)r0 * C + c;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < nr; ++i)
+        acc += rt_gain_part(rows[i], col[(size_t)i * C], rule);
+      part[c] = acc;
+    }
+    grid.sync();
+
+    // reduce the P partials in block order, masked first-argmax
+    const float* base = partials + (buf + (size_t)b * P) * C;
+    float bv = -INFINITY;
+    int bi = RT_NO_INDEX;
+    for (int c = tid; c < C; c += T) {
+      float g = 0.f;
+      for (int q = 0; q < P; ++q) g += base[(size_t)q * C + c];
+      rt_argmax_pair(bv, bi, mask[c] > 0.f ? g : -INFINITY, c);
+    }
+    rt_block_argmax(bv, bi, sv, si);
+    const bool accept = rt_finite(bv) && bv > 0.f;
+    const int best = accept ? bi : -1;
+    if (accept && tid == 0) mask[bi] = 0.f;
+    if (p == 0 && tid == 0) {
+      bests[(size_t)b * k + s] = best;
+      gains[(size_t)b * k + s] = bv;
+    }
+    prev = best;
+    __syncthreads();
+  }
+  // flush: fold the final accepted winner
+  for (int i = tid; i < nr; i += T) {
+    float r = rows[i];
+    if (prev >= 0) r = rt_fold(r, M[(size_t)(r0 + i) * C + prev], rule);
+    row_out[(size_t)b * N + r0 + i] = r;
+  }
+}
+
+// Blocks of this kernel one SM holds at `smem_bytes` of dynamic shared
+// memory, and the SM count; returns the cudaError_t.
+extern "C" int rt_greedy_loop_occupancy(int smem_bytes, int* blocks_per_sm,
+                                        int* sms) {
+  cudaError_t e = cudaFuncSetAttribute(
+      rt_greedy_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, rt_greedy_loop_kernel, RT_THREADS, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// partials: (2, B, P, C) f32 scratch. Returns the cudaError_t.
+extern "C" int rt_greedy_loop(const float* mat, const float* row_in,
+                              const float* mask_in, float* row_out, int* bests,
+                              float* gains, float* partials, int B, int N,
+                              int C, int k, int P, int R, int fold, float cap,
+                              float lam, float lam1, void* stream) {
+  if (B == 0) return 0;
+  RtRule rule{fold, cap, lam, lam1};
+  const int smem = (C + R) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      rt_greedy_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&mat,   (void*)&row_in, (void*)&mask_in,
+                  (void*)&row_out, (void*)&bests, (void*)&gains,
+                  (void*)&partials, (void*)&B,    (void*)&N,
+                  (void*)&C,     (void*)&k,      (void*)&P,
+                  (void*)&R,     (void*)&rule};
+  e = cudaLaunchCooperativeKernel((void*)rt_greedy_loop_kernel,
+                                  dim3(B * P), dim3(RT_THREADS), args,
+                                  (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,119 @@
+// One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
+//
+// Shared by the pairwise kernel (pairwise.cu) and the build phase of the
+// resident loop kernel (greedy_loop_resident.cu), so both produce the
+// same entries from the same inputs. 256 threads; each owns a 4x4
+// register micro-tile. The feature axis is walked in slices of 16: both
+// operand slices are staged in shared memory (k-major, rows padded to 68
+// floats so the transposing stores do not pile onto one bank), and for
+// 'dist' threads 0-63 / 64-127 accumulate the squared norms of the
+// tile's ground rows / candidate rows from the same staged slices. The
+// norms accumulate in float64 (each product exact, the sum as good as
+// exact), so a norm is off by one f32 rounding; a sequential f32 sum
+// over D = 12,288 features left the 'dist' entries ~4x less accurate
+// (RMS, against a float64 build) than the plain torch build's on the
+// H100. The norms cost D double FMAs per tile row against the tile's
+// 64*D f32 FMAs per row. Rows, columns and features past N, C, D are
+// masked.
+//
+// 'dot'  : <g, c>
+// 'dist' : sqrt(max(|g|^2 + |c|^2 - 2<g, c>, 0))   (rules.pairwise_block)
+#pragma once
+
+#include "rules.cuh"
+
+#define RT_TILE 64
+#define RT_TK 16
+#define RT_TILE_LD (RT_TILE + 4)
+
+struct RtTileSmem {
+  float a[RT_TK][RT_TILE_LD];  // ground slice, feature-major
+  float b[RT_TK][RT_TILE_LD];  // candidate slice, feature-major
+  float gn[RT_TILE];
+  float cn[RT_TILE];
+};
+
+// G: (N, D) ground rows, Cd: (C, D) candidate rows, out: (N, C), all
+// row-major f32 of ONE greedy. (n0, c0): the tile's corner. Must be
+// called by all 256 threads of the block.
+__device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
+                                              const float* __restrict__ Cd,
+                                              float* __restrict__ out, int N,
+                                              int C, int D, int n0, int c0,
+                                              int mode, RtTileSmem& s) {
+  const int t = threadIdx.x;
+  const int tx = t % 16;
+  const int ty = t / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  double nrm = 0.0;
+
+  for (int k0 = 0; k0 < D; k0 += RT_TK) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      const int idx = t + l * RT_THREADS;  // 0 .. 1023
+      const int r = idx / RT_TK;
+      const int kk = idx % RT_TK;
+      const int gk = k0 + kk;
+      const int gr = n0 + r;
+      const int gc = c0 + r;
+      s.a[kk][r] = (gr < N && gk < D) ? G[(size_t)gr * D + gk] : 0.f;
+      s.b[kk][r] = (gc < C && gk < D) ? Cd[(size_t)gc * D + gk] : 0.f;
+    }
+    __syncthreads();
+    if (mode == RT_MODE_DIST) {
+      if (t < RT_TILE) {
+#pragma unroll
+        for (int kk = 0; kk < RT_TK; ++kk) {
+          const double v = s.a[kk][t];
+          nrm = fma(v, v, nrm);
+        }
+      } else if (t < 2 * RT_TILE) {
+        const int u = t - RT_TILE;
+#pragma unroll
+        for (int kk = 0; kk < RT_TK; ++kk) {
+          const double v = s.b[kk][u];
+          nrm = fma(v, v, nrm);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < RT_TK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&s.a[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&s.b[kk][tx * 4]);
+      const float a[4] = {av.x, av.y, av.z, av.w};
+      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  if (mode == RT_MODE_DIST) {
+    if (t < RT_TILE)
+      s.gn[t] = (float)nrm;
+    else if (t < 2 * RT_TILE)
+      s.cn[t - RT_TILE] = (float)nrm;
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = n0 + ty * 4 + i;
+    if (r >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx * 4 + j;
+      if (c >= C) continue;
+      float v = acc[i][j];
+      if (mode == RT_MODE_DIST)
+        v = sqrtf(fmaxf(s.gn[ty * 4 + i] + s.cn[tx * 4 + j] - 2.f * v, 0.f));
+      out[(size_t)r * C + c] = v;
+    }
+  }
+  __syncthreads();  // the block may reuse `s` for its next tile
+}

@@ -1,0 +1,125 @@
+// Selection algebra of the feature rules, on one f32 entry at a time.
+//
+// The device twin of repro_torch/kernels/rules.py (gain_part, fold_cols,
+// masked_argmax) for the folds 'min' (kmedoid), 'max' (facility),
+// 'satsum' (satcover) and 'sum' (graphcut, mmr). The bitmap rule ('or')
+// has no CUDA path in this slice.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define RT_FOLD_MIN 0
+#define RT_FOLD_MAX 1
+#define RT_FOLD_SATSUM 2
+#define RT_FOLD_SUM 3
+
+#define RT_MODE_DOT 0
+#define RT_MODE_DIST 1
+
+#define RT_THREADS 256
+#define RT_NO_INDEX (1 << 30)
+
+// pad sentinel of the facility/sum rows (rules.BIG)
+#define RT_BIG 3.0e38f
+
+// every library of the port exports its CUDA error strings for the wrappers
+extern "C" const char* rt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// lam1 = 1 - lam, rounded to f32 on the host from the double difference,
+// as PyTorch rounds the scalar of `(1.0 - lam) * sat` in the plain version
+struct RtRule {
+  int fold;
+  float cap;
+  float lam;
+  float lam1;
+};
+
+// part(r, m): one ground row's contribution to a candidate's gain
+__device__ __forceinline__ float rt_gain_part(float r, float m, RtRule rule) {
+  switch (rule.fold) {
+    case RT_FOLD_MIN:
+      return fmaxf(r - m, 0.f);
+    case RT_FOLD_MAX:
+      return fmaxf(m - r, 0.f);
+    case RT_FOLD_SATSUM:
+      return fminf(fmaxf(m, 0.f), rule.cap - r);
+    default: {  // RT_FOLD_SUM: increment of lam*(r ^ BIG) + (1-lam)*h(r ^ cap)
+      // every product rounds on its own (__fmul_rn is never fused into an
+      // FMA): t1^2 - t0^2 cancels, and a fused product would round it
+      // differently from the plain version's separate operations
+      float inc = fmaxf(m, 0.f);
+      float mod = fminf(r + inc, RT_BIG) - fminf(r, RT_BIG);
+      float t0 = fminf(r, rule.cap);
+      float t1 = fminf(r + inc, rule.cap);
+      float sq = __fsub_rn(__fmul_rn(t1, t1), __fmul_rn(t0, t0));
+      float sat = (t1 - t0) - sq / (2.f * rule.cap);
+      return __fadd_rn(__fmul_rn(rule.lam, mod), __fmul_rn(rule.lam1, sat));
+    }
+  }
+}
+
+// the state-row fold: absorb an accepted element's matrix entry
+__device__ __forceinline__ float rt_fold(float r, float m, RtRule rule) {
+  switch (rule.fold) {
+    case RT_FOLD_MIN:
+      return fminf(r, m);
+    case RT_FOLD_MAX:
+      return fmaxf(r, m);
+    case RT_FOLD_SATSUM:
+      return fminf(r + fmaxf(m, 0.f), rule.cap);
+    default:
+      return r + fmaxf(m, 0.f);
+  }
+}
+
+__device__ __forceinline__ bool rt_finite(float v) {
+  return v > -INFINITY && v < INFINITY;
+}
+
+// first-max order: the larger gain wins; on equal gains the smaller column
+__device__ __forceinline__ void rt_argmax_pair(float& v, int& i, float v2,
+                                               int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+// Block-wide first-max reduction of (v, i); every thread gets the result.
+// sv/si hold one entry per warp (32 is enough for any block size).
+__device__ __forceinline__ void rt_block_argmax(float& v, int& i, float* sv,
+                                                int* si) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    float v2 = __shfl_down_sync(0xffffffffu, v, off);
+    int i2 = __shfl_down_sync(0xffffffffu, i, off);
+    rt_argmax_pair(v, i, v2, i2);
+  }
+  if (lane == 0) {
+    sv[warp] = v;
+    si[warp] = i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    v = lane < nw ? sv[lane] : -INFINITY;
+    i = lane < nw ? si[lane] : RT_NO_INDEX;
+    for (int off = 16; off > 0; off >>= 1) {
+      float v2 = __shfl_down_sync(0xffffffffu, v, off);
+      int i2 = __shfl_down_sync(0xffffffffu, i, off);
+      rt_argmax_pair(v, i, v2, i2);
+    }
+    if (lane == 0) {
+      sv[0] = v;
+      si[0] = i;
+    }
+  }
+  __syncthreads();
+  v = sv[0];
+  i = si[0];
+  __syncthreads();
+}

@@ -1,0 +1,248 @@
+"""Whole-greedy loop kernels: wrappers and plain versions (answers
+`src/repro/kernels/greedy_loop.py`).
+
+Two tiers, each ONE launch for every greedy of a level:
+
+  greedy_loop           streaming tier (csrc/greedy_loop.cu): all k steps
+                        over cached (B, N, C) matrices in device memory;
+                        a cooperative launch with P blocks per greedy
+                        and one grid barrier per step.
+  greedy_loop_resident  resident tier (csrc/greedy_loop_resident.cu):
+                        builds each (N, C) matrix into an L2-sized
+                        scratch, then runs all k steps, one block per
+                        node; ``ctl`` (B, 3) int32 = [kq, logical_n,
+                        logical_c], steps ≥ kq freeze.
+
+Outputs follow kernels/ref.py:greedy_loop: final rows (B, N), bests
+(B, k) int64 with −1 for rejected steps, raw gains (B, k) f32. The CUDA
+path takes f32 storage of the feature rules; bf16/int8 caches and the
+bitmap rule raise NotImplementedError there (their plain versions run
+on the CPU).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, counters, ref
+from repro_torch.kernels import rules as R
+from repro_torch.kernels.pairwise import MODES
+from repro_torch.kernels.plans import LOOP_BLOCK_MAX
+from repro_torch.kernels.rules import KernelRule
+
+F32 = torch.float32
+FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
+
+STREAM_COUNTER = counters.counter("greedy_loop")
+RESIDENT_COUNTER = counters.counter("greedy_loop_resident")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def greedy_loop_plain(mat, row, mask, k: int, rule: KernelRule, kq=None):
+    """The streaming loop in plain PyTorch (kernels/ref.py:greedy_loop)."""
+    return ref.greedy_loop(mat, row, mask, k, rule, kq=kq)
+
+
+def resident_matrix(ground, cands, rule: KernelRule, ctl=None,
+                    cache_dtype: str = "float32"):
+    """The matrix a resident greedy runs over: the rule's pairwise build,
+    rounded to the plan's storage dtype inside the logical extents
+    (ctl[..., 1:3]) as the reference's resident kernel does."""
+    mat = ref.pairwise(ground, cands, rule)
+    if rule.is_bitmap or cache_dtype not in ("int8", "bfloat16"):
+        return mat
+    n, c = mat.shape[-2:]
+    if ctl is not None:
+        ln = ctl[..., 1].reshape(ctl.shape[:-1] + (1, 1))
+        lc = ctl[..., 2].reshape(ctl.shape[:-1] + (1, 1))
+        rows = torch.arange(n, device=mat.device).reshape(n, 1)
+        cols = torch.arange(c, device=mat.device).reshape(1, c)
+        mat = torch.where((rows < ln) & (cols < lc), mat,
+                          torch.zeros_like(mat))
+    if cache_dtype == "int8":
+        return R.dequant(*R.quantize_rows(mat))
+    return mat.to(torch.bfloat16).to(F32)
+
+
+def greedy_loop_resident_plain(ground, cands, row, mask, ctl, k: int,
+                               rule: KernelRule,
+                               cache_dtype: str = "float32"):
+    """The resident loop in plain PyTorch: build the matrix, then the
+    streaming oracle with the per-greedy step budget kq = ctl[..., 0]."""
+    mat = resident_matrix(ground, cands, rule, ctl, cache_dtype)
+    return ref.greedy_loop(mat, row, mask, k, rule, kq=ctl[..., 0])
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _stream_lib():
+    lib = build.load("greedy_loop")
+    lib.rt_greedy_loop_occupancy.restype = _I
+    lib.rt_greedy_loop_occupancy.argtypes = [_I, ctypes.POINTER(_I),
+                                             ctypes.POINTER(_I)]
+    lib.rt_greedy_loop.restype = _I
+    lib.rt_greedy_loop.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F, _F, _P]
+    return lib
+
+
+def _resident_lib():
+    lib = build.load("greedy_loop_resident")
+    lib.rt_resident_occupancy.restype = _I
+    lib.rt_resident_occupancy.argtypes = [_I, ctypes.POINTER(_I),
+                                          ctypes.POINTER(_I)]
+    lib.rt_greedy_loop_resident.restype = _I
+    lib.rt_greedy_loop_resident.argtypes = ([_P] * 9 + [_I] * 7
+                                            + [_F, _F, _F, _I, _P])
+    return lib
+
+
+def _co_resident(lib, occupancy, smem: int) -> int:
+    """Blocks the card holds at once at `smem` bytes of dynamic shared
+    memory (raises when the kernel cannot launch at all)."""
+    bps, sms = _I(), _I()
+    build.check(lib, occupancy(smem, ctypes.byref(bps), ctypes.byref(sms)),
+                "occupancy query")
+    return bps.value * sms.value
+
+
+def _check_feature_rule(rule: KernelRule, mat_dtype, what: str) -> None:
+    if rule.is_bitmap or rule.fold not in FOLDS:
+        raise NotImplementedError(
+            f"{what}: the {rule.name!r} rule has no CUDA path yet")
+    if mat_dtype != F32:
+        raise NotImplementedError(
+            f"{what}: the CUDA path takes f32 storage, not {mat_dtype}")
+
+
+def _check(t, shape, dtype, name: str, device) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, not {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def blocks_per_greedy(lib, b: int, n: int, c: int,
+                      block_n: int = LOOP_BLOCK_MAX):
+    """(P, R): blocks per greedy and ground rows per block of the streaming
+    loop. Starts from ⌈n / block_n⌉ blocks and gives each block more
+    rows while the card cannot hold all b·P blocks at once; raises when
+    even one block per greedy does not fit."""
+    p = max(1, -(-n // max(1, block_n)))
+    while True:
+        r = max(1, -(-n // p))
+        cap = _co_resident(lib, lib.rt_greedy_loop_occupancy, 4 * (c + r))
+        if b * p <= cap:
+            return p, r
+        if p == 1:
+            raise RuntimeError(
+                f"streaming loop: {b} greedies × 1 block exceed the {cap} "
+                "blocks the card holds at once")
+        p = max(1, min(p - 1, cap // b))
+
+
+def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
+                block_n: int = LOOP_BLOCK_MAX):
+    """STREAMING tier over cached matrices. mat (B, N, C), row (B, N),
+    mask (B, C) 0/1 f32. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    STREAM_COUNTER.calls += 1
+    if not mat.is_cuda:
+        return greedy_loop_plain(mat, row, mask, k, rule)
+    _check_feature_rule(rule, mat.dtype, "greedy_loop")
+    if mat.dim() != 3:
+        raise ValueError("greedy_loop kernel takes (B, N, C) matrices")
+    b, n, c = mat.shape
+    dev = mat.device
+    _check(mat, (b, n, c), F32, "mat", dev)
+    _check(row, (b, n), F32, "row", dev)
+    _check(mask, (b, c), F32, "mask", dev)
+    row_out = torch.empty((b, n), dtype=F32, device=dev)
+    bests = torch.empty((b, k), dtype=torch.int32, device=dev)
+    gains = torch.empty((b, k), dtype=F32, device=dev)
+    if b == 0:
+        return row_out, bests.long(), gains
+    lib = _stream_lib()
+    p, r = blocks_per_greedy(lib, b, n, c, block_n)
+    partials = torch.empty((2, b, p, c), dtype=F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rt_greedy_loop(
+        mat.data_ptr(), row.data_ptr(), mask.data_ptr(), row_out.data_ptr(),
+        bests.data_ptr(), gains.data_ptr(), partials.data_ptr(),
+        b, n, c, k, p, r, FOLDS[rule.fold], rule.cap, rule.lam,
+        1.0 - rule.lam, stream)
+    build.check(lib, err, "greedy_loop kernel")
+    STREAM_COUNTER.launches += 1
+    return row_out, bests.long(), gains
+
+
+def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
+                         rule: KernelRule, cache_dtype: str = "float32",
+                         scratch=None):
+    """RESIDENT tier: ground (B, N, D), cands (B, C, D), row (B, N),
+    mask (B, C) 0/1 f32, ctl (B, 3) int32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. `scratch`, a
+    (B, N, C) f32 tensor, receives the matrices the loop runs over (for
+    checks; by default the kernel's is allocated by the wrapper)."""
+    RESIDENT_COUNTER.calls += 1
+    if not cands.is_cuda:
+        if scratch is not None:
+            scratch.copy_(resident_matrix(ground, cands, rule, ctl,
+                                          cache_dtype))
+        return greedy_loop_resident_plain(ground, cands, row, mask, ctl, k,
+                                          rule, cache_dtype)
+    _check_feature_rule(rule, cands.dtype, "greedy_loop_resident")
+    if cache_dtype != "float32":
+        raise NotImplementedError(
+            f"greedy_loop_resident: {cache_dtype} storage has no CUDA "
+            "path yet")
+    if ground.dim() != 3 or cands.dim() != 3:
+        raise ValueError("resident kernel takes (B, N, D) and (B, C, D)")
+    b, n, d = ground.shape
+    c = cands.shape[1]
+    dev = cands.device
+    _check(ground, (b, n, d), F32, "ground", dev)
+    _check(cands, (b, c, d), F32, "cands", dev)
+    _check(row, (b, n), F32, "row", dev)
+    _check(mask, (b, c), F32, "mask", dev)
+    _check(ctl, (b, 3), torch.int32, "ctl", dev)
+    row_out = torch.empty((b, n), dtype=F32, device=dev)
+    bests = torch.empty((b, k), dtype=torch.int32, device=dev)
+    gains = torch.empty((b, k), dtype=F32, device=dev)
+    if b == 0:
+        return row_out, bests.long(), gains
+    lib = _resident_lib()
+    cap = _co_resident(lib, lib.rt_resident_occupancy, 4 * (n + c))
+    if cap < 1:
+        raise RuntimeError("resident loop: no block fits an SM")
+    tiles = b * (-(-n // 64)) * (-(-c // 64))
+    grid = max(1, min(max(tiles, b), cap))
+    if scratch is None:
+        scratch = torch.empty((b, n, c), dtype=F32, device=dev)
+    _check(scratch, (b, n, c), F32, "scratch", dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rt_greedy_loop_resident(
+        ground.data_ptr(), cands.data_ptr(), row.data_ptr(), mask.data_ptr(),
+        ctl.data_ptr(), scratch.data_ptr(), row_out.data_ptr(),
+        bests.data_ptr(), gains.data_ptr(), b, n, c, d, k,
+        MODES[rule.pairwise], FOLDS[rule.fold], rule.cap, rule.lam,
+        1.0 - rule.lam, grid, stream)
+    build.check(lib, err, "greedy_loop_resident kernel")
+    RESIDENT_COUNTER.launches += 1
+    return row_out, bests.long(), gains

@@ -1,0 +1,183 @@
+"""How a kernel is held against its plain version (used by the CUDA tests
+and by chip_smoke.py).
+
+Pairwise matrices are held against a float64 build of the same function
+('dist' in squared form, where the square root amplifies rounding near
+zero): the kernel's error from float64 may be at most a small multiple of
+the plain f32 version's own error from float64, in root-mean-square and in
+the largest entry (`compare_pairwise`). An fp32 kernel that sums in
+another order lands near ratio 1; TF32 products or a dropped slice of
+features land far above it, and chip_smoke.py shows on the card that
+they fail the rule.
+
+Loops: selections must be equal step for step. At the first step where
+two greedies differ, the comparison passes only if the two chosen gains
+at that step lie within the stated float tolerance of each other — a
+genuine tie, decided by rounding — and later steps are not compared.
+Where all steps agree, gains and final rows are held to the tolerance.
+The tolerances are derived from f32 rounding, never fitted:
+  * a gain is a sum of N nonnegative parts; summed in another order it
+    moves by ~√N·eps·gain, held to 4·√N·eps·gain (`gain_rtol`);
+  * when the two versions also built their matrices apart, with entry
+    differences ΔM (B, N, C), every feature rule's gain part moves by at
+    most |Δr| + |Δm| (it is 1-Lipschitz in the row r and the entry m).
+    So candidate c's gain moves by Σ_i ΔM[i, c] plus the summed row
+    error, and a row entry by the ΔM of the folded winners — their
+    largest for the min/max folds, their sum for the additive ones.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.rules import KernelRule
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+# a kernel's error from float64 may be at most this multiple of the plain
+# f32 version's: its RMS error (a stable statistic over ~10⁵–10⁷ entries)
+# and its largest entry error (noisier: the worst of many entries)
+PAIRWISE_RMS_RATIO = 1.5
+PAIRWISE_MAX_RATIO = 2.0
+
+
+def sq_dist_bound(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Worst-case per-entry rounding bound of the squared 'dist' expansion
+    of (…, N, D) × (…, C, D) in f32: 4·D·eps·(‖g‖²+‖c‖²+2‖g‖‖c‖)."""
+    gn = (g.double() ** 2).sum(-1).unsqueeze(-1)
+    cn = (c.double() ** 2).sum(-1).unsqueeze(-2)
+    return 4 * g.shape[-1] * EPS32 * (gn + cn + 2 * (gn * cn).sqrt())
+
+
+def exact_matrix(g: torch.Tensor, c: torch.Tensor, mode: str):
+    """The pairwise function in float64: ⟨g, c⟩ for 'dot', the SQUARED
+    distance for 'dist'."""
+    g64, c64 = g.double(), c.double()
+    cross = torch.matmul(g64, c64.transpose(-1, -2))
+    if mode == "dot":
+        return cross
+    gn = (g64 * g64).sum(-1, keepdim=True)
+    cn = (c64 * c64).sum(-1).unsqueeze(-2)
+    return torch.clamp(gn + cn - 2.0 * cross, min=0.0)
+
+
+def matrix_error(mat: torch.Tensor, exact: torch.Tensor, mode: str):
+    """Per-entry |mat − exact| (squared form for 'dist'), float64."""
+    m = mat.double()
+    return ((m * m if mode == "dist" else m) - exact).abs()
+
+
+def pairwise_stats(got, plain, exact, mode: str) -> Dict[str, float]:
+    """Errors of `got` and `plain` from `exact` (exact_matrix) and their
+    ratios. A floor of one f32 rounding of the largest exact entry keeps
+    exact inputs (both errors 0) from dividing by zero."""
+    e_k = matrix_error(got, exact, mode)
+    e_p = matrix_error(plain, exact, mode)
+    floor = EPS32 * float(exact.abs().max()) if exact.numel() else 0.0
+    rms_k = float(e_k.pow(2).mean().sqrt())
+    rms_p = float(e_p.pow(2).mean().sqrt())
+    max_k, max_p = float(e_k.max()), float(e_p.max())
+    return {"rms": rms_k, "plain_rms": rms_p,
+            "rms_ratio": rms_k / max(rms_p, floor),
+            "max": max_k, "plain_max": max_p,
+            "max_ratio": max_k / max(max_p, floor)}
+
+
+def pairwise_holds(stats: Dict[str, float]) -> bool:
+    return (stats["rms_ratio"] <= PAIRWISE_RMS_RATIO
+            and stats["max_ratio"] <= PAIRWISE_MAX_RATIO)
+
+
+def compare_pairwise(got, plain, g, c, mode: str,
+                     what: str = "pairwise") -> Dict[str, float]:
+    """Hold a pairwise kernel's (…, N, C) output against the plain
+    version's on the same features g (…, N, D), c (…, C, D). Returns the
+    stats; raises AssertionError when the kernel's error from float64
+    exceeds the stated multiples of the plain version's."""
+    stats = pairwise_stats(got, plain, exact_matrix(g, c, mode), mode)
+    assert pairwise_holds(stats), (
+        f"{what} {mode}: error from float64 is {stats['rms_ratio']:.3f}× "
+        f"(RMS) / {stats['max_ratio']:.3f}× (max) the plain f32 "
+        f"version's, beyond {PAIRWISE_RMS_RATIO}× / {PAIRWISE_MAX_RATIO}×")
+    return stats
+
+
+def gain_rtol(n_rows: int) -> float:
+    """Relative bound of a reordered f32 sum of n_rows nonnegative parts.
+    Its rounding errors take independent signs, so the sum moves by about
+    0.2·√N·eps·gain (one standard deviation of a sequential sum, the
+    worst order either version uses); 4·√N·eps is some 20 of them, where
+    the worst case N·eps would let a dropped part (gain/N) through."""
+    return 4.0 * max(1, n_rows) ** 0.5 * EPS32
+
+
+def compare_loops(kern, plain, rule: KernelRule,
+                  entry_diff: Optional[torch.Tensor] = None,
+                  what: str = "loop") -> Dict[str, float]:
+    """Hold one loop kernel's (rows (B, N), bests (B, k), gains (B, k))
+    against its plain version's. `entry_diff` (B, N, C) is |M_kernel −
+    M_plain| when the two built their matrices apart; None when both ran
+    over the same matrix. Returns a summary (ties met, the earliest step
+    a tie split a greedy — k when none did — the largest gain and row
+    differences and the largest gain tolerance used); raises
+    AssertionError when a greedy disagrees beyond a genuine tie."""
+    rows_k, bests_k, gains_k = (t.detach().double().cpu() for t in kern)
+    rows_p, bests_p, gains_p = (t.detach().double().cpu() for t in plain)
+    nb, n = rows_p.shape
+    k = bests_p.shape[-1]
+    rt = gain_rtol(n)
+    additive = rule.fold in ("satsum", "sum")
+    dm = None if entry_diff is None else entry_diff.detach().double().cpu()
+    ties, first_tie = 0, k
+    max_gain_err = max_row_err = max_gain_tol = 0.0
+    for b in range(nb):
+        diff = (bests_k[b] != bests_p[b]).nonzero()
+        upto = int(diff[0]) if len(diff) else k
+        steps = upto + (upto < k)
+        # the entry-difference part of each compared step's gain bound
+        atol = torch.zeros(steps, dtype=torch.float64)
+        rowerr = torch.zeros(n, dtype=torch.float64)
+        if dm is not None:
+            colsum = dm[b].sum(0)
+            for t in range(steps):
+                cols = [int(bests_k[b, t]), int(bests_p[b, t])]
+                col = max(float(colsum[j]) if j >= 0 else float(colsum.max())
+                          for j in cols)
+                atol[t] = col + float(rowerr.sum())
+                s = int(bests_p[b, t])
+                if t < upto and s >= 0:
+                    rowerr = (rowerr + dm[b, :, s] if additive
+                              else torch.maximum(rowerr, dm[b, :, s]))
+        gk, gp = gains_k[b, :steps], gains_p[b, :steps]
+        fin = torch.isfinite(gp)
+        assert torch.equal(torch.isfinite(gk), fin), (what, b, gk, gp)
+        err = (gk[fin] - gp[fin]).abs()
+        tol = rt * gp[fin].abs() + atol[fin] + 1e-30
+        assert bool((err <= tol).all()), (
+            f"{what}, greedy {b}: gains differ by up to "
+            f"{float(err.max()):.3e}, beyond {rt:.2e}·|g| + the entry "
+            f"bound (first differing step {upto})")
+        if err.numel():
+            max_gain_err = max(max_gain_err, float(err.max()))
+            max_gain_tol = max(max_gain_tol, float(tol.max()))
+        if upto < k:
+            ties += 1
+            first_tie = min(first_tie, upto)
+            continue
+        fr = torch.isfinite(rows_p[b])
+        rerr = (rows_k[b][fr] - rows_p[b][fr]).abs()
+        # additive folds round once more per accepted winner
+        folds = int((bests_p[b] >= 0).sum()) if additive and dm is not None \
+            else 0
+        row_tol = (4 + folds) * EPS32 * rows_p[b][fr].abs() + rowerr[fr] \
+            + 1e-30
+        assert bool((rerr <= row_tol).all()), \
+            f"{what}, greedy {b}: rows differ by up to {float(rerr.max())}"
+        assert torch.equal(rows_k[b][~fr], rows_p[b][~fr])
+        if rerr.numel():
+            max_row_err = max(max_row_err, float(rerr.max()))
+    return {"ties": ties, "first_tie_step": first_tie,
+            "max_gain_err": max_gain_err, "max_gain_tol": max_gain_tol,
+            "max_row_err": max_row_err}

@@ -1,0 +1,220 @@
+"""Engine planning for one H100 (answers `src/repro/kernels/plans.py`).
+
+`select_engine` turns (rule, shapes, budgets) into the `EnginePlan` a
+greedy invocation runs. The tier names are the reference's; the budget
+math is derived again for Hopper, because the TPU notion of "resident"
+(VMEM holds the whole (N, C) matrix) does not exist on a GPU: a 400×400
+f32 node matrix is 640 KB against 227 KB of shared memory per block.
+
+Tiers, for a batch of ``replicas`` greedies that one launch serves:
+
+  resident   the loop block's state row, mask and argmax scratch fit one
+             block's shared memory, AND the matrices of all `replicas`
+             greedies fit the L2 share (flags.resident_l2_mb, 25 MB).
+             The kernel builds each matrix into a device scratch that
+             stays in L2 and runs all k steps: ONE launch per level.
+  streaming  the (N, C) caches of all replicas fit the device-memory
+             budget (flags.fused_cache_mb, 40 GB) and one loop block's
+             rows + candidate mask fit shared memory. The pairwise
+             kernel writes the caches, the loop kernel re-reads them every
+             step: TWO launches per level.
+  fused      the cache fits but the loop block does not (a candidate
+             mask wider than shared memory): per-step engine (its kernel
+             is not ported yet — CPU only).
+  None       no cache fits in any storage dtype: per-step engine.
+
+At the Tiny-ImageNet configuration (n = 100,000, m = 32, b = 2,
+k = 200) the leaves hold 32 × ≈3,200² × 4 B ≈ 1.3 GB of caches — far
+over the 25 MB L2 share — and go to `streaming`; a level-1 node batch
+holds 16 × 400² × 4 B = 10 MB and goes to `resident`.
+
+The CUDA kernels mask their ragged edges, so shapes are planned
+unpadded (the TPU tile padding of the reference has no counterpart).
+The autotune cache, `shard_plan`, `serve_plan` and `plan_tree` of the
+reference wait for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.kernels.rules import KernelRule, cache_itemsize
+from repro_torch.runtime import flags
+
+ENGINES = ("step", "fused", "mega_stream", "mega_resident")
+
+THREADS = 256                       # threads per block of the loop kernels
+# argmax scratch of a loop block: one (value, index) pair per thread
+REDUCE_BYTES = 8 * THREADS
+# the pairwise tile of the resident build: two 16×68 f32 operand tiles
+# (64 columns + 4 of bank padding) and two 64-entry norm vectors
+# (csrc/pairwise_tile.cuh)
+TILE_BYTES = 4 * (2 * 16 * 68 + 2 * 64)
+LOOP_BLOCK_MAX = 256                # target ground rows per loop block
+LOOP_BLOCK_MIN = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePlan:
+    """The planner's verdict for one (batched) greedy invocation.
+
+    engine        'step' | 'fused' | 'mega_stream' | 'mega_resident'
+    rule          the objective's KernelRule
+    tier          raw fused_plan tier, None when every cache was refused
+    block_n       ground rows per block of the per-step fused kernel
+    loop_block_n  target ground rows per block of the streaming loop
+    dtype         cache storage dtype ('float32'|'bfloat16'|'int8'|'uint32')
+    replicas      greedies served by one launch (the batch dimension)
+    """
+    engine: str
+    rule: KernelRule
+    tier: Optional[str] = None
+    block_n: int = 0
+    loop_block_n: int = 0
+    dtype: str = "float32"
+    replicas: int = 1
+
+    @property
+    def cached(self) -> bool:
+        return self.engine != "step"
+
+
+def bucket_len(size: int, tile: int) -> int:
+    """Next power-of-two multiple of `tile` ≥ size."""
+    target = tile
+    while target < size:
+        target *= 2
+    return target
+
+
+def _smem_budget() -> float:
+    return flags.fused_vmem_mb() * 2 ** 20
+
+
+def fused_block_n() -> int:
+    """Rows per block of the per-step fused kernel; 0 if none fits. Its
+    block keeps only its state rows (in and out) and the argmax scratch
+    in shared memory — gain partials go to device memory — so the shape
+    does not enter."""
+    bn = LOOP_BLOCK_MAX
+    while bn >= LOOP_BLOCK_MIN:
+        if 4 * 2 * bn + REDUCE_BYTES <= _smem_budget():
+            return bn
+        bn //= 2
+    return 0
+
+
+def loop_block_n(c: int) -> int:
+    """Target rows per block of the STREAMING loop kernel over `c`
+    candidates; 0 if none fits. A block keeps its rows' state, its own
+    copy of the (C,) candidate mask and the argmax scratch in shared
+    memory across all k steps; the kernel wrapper may give a block more
+    rows than this when the card cannot hold enough blocks at once."""
+    bn = LOOP_BLOCK_MAX
+    while bn >= LOOP_BLOCK_MIN:
+        if 4 * (c + bn) + REDUCE_BYTES <= _smem_budget():
+            return bn
+        bn //= 2
+    return 0
+
+
+def _resident_need(n: int, c: int, d: Optional[int],
+                   rule: Optional[KernelRule] = None) -> Optional[int]:
+    """Shared-memory bytes of one resident loop block: the node's whole
+    (N,) state row, its (C,) mask, the argmax scratch and the pairwise
+    build tile; None when the shape cannot be resident at all (feature
+    rules without a feature dim)."""
+    if (rule is None or not rule.is_bitmap) and d is None:
+        return None
+    return 4 * (n + c) + REDUCE_BYTES + TILE_BYTES
+
+
+def resident_fits(n: int, c: int, d: Optional[int],
+                  rule: Optional[KernelRule] = None, itemsize: int = 4,
+                  replicas: int = 1) -> bool:
+    """The resident gate: one block's state fits shared memory and all
+    concurrent matrices fit the L2 share."""
+    need = _resident_need(n, c, d, rule=rule)
+    if need is None or need > _smem_budget():
+        return False
+    return (max(1, replicas) * n * c * itemsize
+            <= flags.resident_l2_mb() * 2 ** 20)
+
+
+def fused_plan(n: int, c: int, d: Optional[int] = None,
+               rule: Optional[KernelRule] = None,
+               replicas: int = 1) -> Optional[dict]:
+    """Memory gate for the cached-matrix engines: None when no (n, c)
+    matrix fits the cache budget in any permitted storage dtype, else
+    {'tier', 'block_n', 'loop_block_n', 'dtype'} (see module doc)."""
+    bitmap = rule is not None and rule.is_bitmap
+    reps = max(1, replicas)
+    cache = flags.fused_cache_mb() * 2 ** 20
+    forced = {"f32": "float32", "bf16": "bfloat16",
+              "int8": "int8"}.get(flags.fused_cache_dtype())
+    dtype, itemsize = None, 4
+    if bitmap:
+        if n * c * 4 * reps <= cache:
+            dtype = "uint32"
+    else:
+        for cand in ("float32", "bfloat16", "int8"):
+            if forced is not None and cand != forced:
+                continue
+            size = cache_itemsize(cand)
+            if n * c * size * reps <= cache:
+                dtype, itemsize = cand, size
+                break
+    if dtype is None:
+        return None
+    bn = fused_block_n()
+    if ((bitmap or d is not None)
+            and resident_fits(n, c, d, rule=rule, itemsize=itemsize,
+                              replicas=reps)):
+        return {"tier": "resident", "block_n": bn, "loop_block_n": 0,
+                "dtype": dtype}
+    if bn == 0:
+        return None
+    bn_loop = loop_block_n(c)
+    return {"tier": "streaming" if bn_loop else "fused",
+            "block_n": bn, "loop_block_n": bn_loop, "dtype": dtype}
+
+
+def select_engine(rule: KernelRule, n: int, c: int,
+                  d: Optional[int] = None, *, requested: str = "auto",
+                  sampling: bool = False, constrained: bool = False,
+                  replicas: int = 1) -> EnginePlan:
+    """Resolve the selection engine for one batched greedy invocation.
+
+    n: ground rows (universe WORDS for bitmap rules), c: candidates,
+    d: feature dim (None for bitmap rules), replicas: greedies in the
+    batch (their caches live at once). `requested` is greedy(engine=…):
+
+      auto   megakernel when the tier gate admits it and neither sampling
+             nor a constraint is active; fused when the cache fits and
+             sampling is off; per-step otherwise
+      mega   megakernel, falling back to fused, then step
+      fused  the cached per-step engine; step when the cache busts
+      step   always the recompute-per-step path
+    """
+    if requested not in ("auto", "mega", "fused", "step"):
+        raise ValueError(f"unknown engine {requested!r}; "
+                         "expected 'auto', 'mega', 'fused', or 'step'")
+    step = EnginePlan("step", rule, replicas=replicas)
+    if requested == "step":
+        return step
+    fp = fused_plan(n, c, d=d, rule=rule, replicas=replicas)
+    if fp is None:
+        return step
+    mega_ok = (requested in ("auto", "mega") and not sampling
+               and not constrained and fp["tier"] in ("resident",
+                                                      "streaming"))
+    if mega_ok:
+        engine = ("mega_resident" if fp["tier"] == "resident"
+                  else "mega_stream")
+    elif requested in ("fused", "mega") or not sampling:
+        engine = "fused"
+    else:
+        return step
+    return EnginePlan(engine, rule, tier=fp["tier"], block_n=fp["block_n"],
+                      loop_block_n=fp["loop_block_n"], dtype=fp["dtype"],
+                      replicas=replicas)

@@ -1,0 +1,80 @@
+"""Typed environment knobs of the port (answers `src/repro/runtime/flags.py`).
+
+Only the accessors the single-device selection path reads. The variables
+carry a ``REPRO_TORCH_`` prefix so a process that drives both packages
+(the parity tests) can shrink one package's budgets without touching the
+other's. Accessors re-read the environment on every call, so
+``monkeypatch.setenv`` works.
+
+Defaults are derived for one NVIDIA H100 SXM (80 GB HBM3, 50 MB L2,
+227 KB = 232,448 bytes of shared memory per block), not copied from the
+TPU budgets of the reference:
+
+  REPRO_TORCH_FUSED_CACHE_MB    device memory for ALL cached (N, C)
+                                matrices alive at once (a level's leaf
+                                greedies run as one batch). Default
+                                40,960 MB = half of the 80 GB: the other
+                                half holds the features (4.9 GB at the
+                                100k x 12,288 Tiny-ImageNet shape), the
+                                padded pools (about as much again) and
+                                the allocator's slack.
+  REPRO_TORCH_FUSED_VMEM_MB     shared memory one block of the loop
+                                kernels may hold. Default 227/1024 MB =
+                                232,448 bytes, the Hopper per-block
+                                maximum (opt-in dynamic shared memory).
+  REPRO_TORCH_RESIDENT_L2_MB    L2 share that the matrices of all
+                                concurrent resident greedies may take.
+                                Default 25 MB = half of the 50 MB L2: a
+                                resident node's matrix is built into a
+                                device scratch that should stay in L2
+                                across its k steps, and the other half
+                                is left to the features streaming
+                                through the build.
+  REPRO_TORCH_FUSED_CACHE_DTYPE 'auto' | 'f32' | 'bf16' | 'int8' cache
+                                storage (the CUDA kernels take f32 only
+                                in this slice).
+"""
+from __future__ import annotations
+
+import os
+
+FUSED_CACHE_MB_ENV = "REPRO_TORCH_FUSED_CACHE_MB"
+FUSED_VMEM_MB_ENV = "REPRO_TORCH_FUSED_VMEM_MB"
+RESIDENT_L2_MB_ENV = "REPRO_TORCH_RESIDENT_L2_MB"
+FUSED_CACHE_DTYPE_ENV = "REPRO_TORCH_FUSED_CACHE_DTYPE"
+
+H100_HBM_MB = 80 * 1024
+H100_L2_MB = 50.0
+H100_SMEM_PER_BLOCK = 232_448          # bytes, 227 KB
+
+_FUSED_CACHE_MB_DEFAULT = H100_HBM_MB / 2            # 40,960 MB
+_FUSED_VMEM_MB_DEFAULT = H100_SMEM_PER_BLOCK / 2 ** 20  # 0.2217 MB
+_RESIDENT_L2_MB_DEFAULT = H100_L2_MB / 2             # 25 MB
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def fused_cache_mb() -> float:
+    """Device-memory budget (MB) for all concurrent cached matrices."""
+    return _env_float(FUSED_CACHE_MB_ENV, _FUSED_CACHE_MB_DEFAULT)
+
+
+def fused_vmem_mb() -> float:
+    """Shared-memory budget (MB) of one block of the loop kernels."""
+    return _env_float(FUSED_VMEM_MB_ENV, _FUSED_VMEM_MB_DEFAULT)
+
+
+def resident_l2_mb() -> float:
+    """L2 share (MB) for the matrices of all concurrent resident greedies."""
+    return _env_float(RESIDENT_L2_MB_ENV, _RESIDENT_L2_MB_DEFAULT)
+
+
+def fused_cache_dtype() -> str:
+    """Cache storage dtype preference: 'auto' | 'f32' | 'bf16' | 'int8'."""
+    v = os.environ.get(FUSED_CACHE_DTYPE_ENV, "auto").lower()
+    return v if v in ("auto", "f32", "bf16", "int8") else "auto"
