@@ -6,20 +6,37 @@
 Phases, each printing one JSON line; a failed phase raises and the
 script exits non-zero:
 
-  build      compile the three CUDA kernels (one nvcc per source, in
+  build      compile the five CUDA kernels (one nvcc per source, in
              parallel) and report their register/shared-memory use
   data       draw the Tiny-ImageNet-shaped k-medoid data on the card
              (n × 12,288 f32, the gen_images mixture recipe)
   parity     every kernel against its plain PyTorch version on the card,
-             at the run's own shapes (the first leaf's pool, a level's
-             16 node pools), for every feature rule
-  reference  a small tree through the kernels against the same tree
-             through the plain CPU path
-  run        the full main path: run_tree_dense('kmedoid', …) with
-             k = 200, m = 32, b = 2 (L = 5), per-level wall time and
-             launches, root value and its global re-scoring
-  timing     each kernel at its main-path shape beside its bound, its
-             plain version and a one-call PyTorch yardstick
+             at the runs' own shapes, for every feature rule: pairwise
+             and the loops at the first leaf's pool and a level's 16
+             node pools; then (line `parity_steps`) fused_step at the
+             knapsack run's leaf (32 × 3,125²) and node (32 × 400²)
+             shapes, gains at the stochastic run's leaf shape (32 ×
+             3,125 ground rows × 72 sampled candidates), with a TF32
+             build rejected
+  reference  small trees through the kernels against the same trees
+             through the plain CPU path: run_tree_dense on small-integer
+             facility data; then (line `reference_dispatch`)
+             LevelDispatcher trees with a knapsack (costs in quarters)
+             and with stochastic leaves — equal ids, values and spent
+  run        run_tree_dense('kmedoid', …) with k = 200, m = 32, b = 2
+             (L = 5), per-level wall time and launches, root value and
+             its global re-scoring
+  knapsack   LevelDispatcher over 32 lanes of 3,125 permuted images, a
+             KnapsackSpec of uniform(0.5, 2) costs and budget 100: every
+             stage on the fused engine (pairwise + 200 fused_step
+             launches), spent ≤ budget at the root and every lane
+  stochastic the same lanes without a constraint, sample_leaf = 72 (the
+             paper's ε = 0.01 subset): leaves on the step engine (200
+             gains launches), nodes on the resident loop
+  timing     each kernel at its path's shape beside its bound, its
+             plain version and a one-call PyTorch yardstick (line
+             `timing_steps` for fused_step and gains, with fused_step
+             at the node shape and the step engine's row update)
 
 Then the card's name and power limit (nvidia-smi), the {"kernels": …}
 line, and as the last line {"ok": true, "device": {…}}. The script
@@ -31,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,12 +69,18 @@ REPLACES = {
     "pairwise": "src/repro/kernels/pairwise.py:53",
     "greedy_loop": "src/repro/kernels/greedy_loop.py:131",
     "greedy_loop_resident": "src/repro/kernels/greedy_loop.py:246",
+    "fused_step": "src/repro/kernels/fused_step.py:88",
+    "gains": "src/repro/kernels/pairwise.py:109",
 }
 SOURCES = {
     "pairwise": "src/repro_torch/csrc/pairwise.cu",
     "greedy_loop": "src/repro_torch/csrc/greedy_loop.cu",
     "greedy_loop_resident": "src/repro_torch/csrc/greedy_loop_resident.cu",
+    "fused_step": "src/repro_torch/csrc/fused_step.cu",
+    "gains": "src/repro_torch/csrc/gains.cu",
 }
+# the knapsack run's budget (costs uniform(0.5, 2): ~80 of k = 200 fit)
+BUDGET = 100.0
 
 
 def emit(obj) -> None:
@@ -104,6 +128,31 @@ def parse_args(argv=None):
     p.add_argument("--reps", type=int, default=3,
                    help="timed repetitions per kernel")
     return p.parse_args(argv)
+
+
+def sample_size(pool: int, k: int, eps: float = 0.01) -> int:
+    """Stochastic greedy's subset size ⌈(n/k)·ln(1/ε)⌉ (Mirzasoleiman et
+    al. 2015) for a pool of n elements."""
+    return math.ceil(pool / k * math.log(1.0 / eps))
+
+
+def lane_pools(torch, x, lanes: int, seed: int):
+    """The dispatcher runs' lanes: the images permuted with the seed and
+    cut into `lanes` contiguous pools (shard_lanes) → ids, payloads,
+    valid on the card."""
+    from repro_torch.core.greedyml import shard_lanes
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(
+        x.shape[0]), device=x.device)
+    return shard_lanes(perm, x[perm],
+                       torch.ones(x.shape[0], dtype=torch.bool,
+                                  device=x.device), lanes)
+
+
+def knapsack_costs(n: int, seed: int) -> np.ndarray:
+    """Per-image costs by global id: the recipe of the reference's
+    constraint tests (uniform(0.5, 2.0) from the seed), f32."""
+    return np.random.default_rng(seed).uniform(0.5, 2.0, n).astype(
+        np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +232,130 @@ def _pairwise_parity(torch, P, parity, g, c, discriminate: bool):
         out[mode] = stats
         del plain, exact
     return out
+
+
+def _fused_step_parity(torch, F, parity, R, rules, mat_of, b, n, seed):
+    """fused_step against its plain version over the plain matrices of
+    `b` greedies of `n` elements (mat_of(rule) builds them), a random
+    feasible mask (80% of the candidates) and a random previous winner,
+    for every rule; then a second step from the first step's outputs."""
+    out = {}
+    for name, rule in rules.items():
+        mat, row = mat_of(rule)
+        gen = torch.Generator(device=mat.device).manual_seed(seed)
+        mask = (torch.rand(b, n, generator=gen, device=mat.device)
+                > 0.2).float()
+        prev = torch.randint(0, n, (b,), generator=gen, device=mat.device)
+        kern = F.fused_step(mat, row, mask, prev, rule)
+        plain = F.fused_step_plain(mat, row, mask, prev, rule)
+        res = parity.compare_steps(kern, plain, mat, mask, rule,
+                                   what=f"fused_step {name}")
+        mask2 = mask.scatter(1, plain[1][:, None], 0.0)
+        kern2 = F.fused_step(mat, plain[0], mask2, plain[1], rule)
+        plain2 = F.fused_step_plain(mat, plain[0], mask2, plain[1], rule)
+        res2 = parity.compare_steps(kern2, plain2, mat, mask2, rule,
+                                    what=f"fused_step {name}, step 2")
+        res["max_gain_err"] = max(res["max_gain_err"], res2["max_gain_err"])
+        res["ties"] += res2["ties"]
+        out[name] = res
+        del mat, row
+    return out
+
+
+def _gains_parity(torch, P, parity, R, rules, ground, cands):
+    """gains against its plain version under the float64 ratio rule, on a
+    live state row (five pool elements folded in), every rule; for the
+    path's rule also the plain version with TF32 products, which the
+    rule must reject."""
+    out = {}
+    b, c = cands.shape[:2]
+    valid = torch.ones(ground.shape[:2], dtype=torch.bool,
+                       device=ground.device)
+    cand_valid = torch.ones(b, c, dtype=torch.bool, device=ground.device)
+    cand_valid[:, -1] = False
+    for name, rule in rules.items():
+        row = R.empty_row(ground, valid, rule)
+        for j in range(5):
+            row = R.update_row(ground, row,
+                               ground[:, 97 * j % ground.shape[1]], rule)
+        row = row.contiguous()
+        got = P.gains(ground, row, cands, cand_valid, rule)
+        plain = P.gains_plain(ground, row, cands, cand_valid, rule)
+        exact = parity.exact_gains(ground, row, cands, rule)
+        stats = parity.gains_stats(got, plain, exact)
+        assert parity.pairwise_holds(stats), f"gains {name}: {stats}"
+        fin = torch.isfinite(plain)
+        stats["max_abs_diff"] = float((got[fin] - plain[fin]).abs().max())
+        if rule.fold == "min" and ground.is_cuda:   # TF32 only on the card
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = P.gains_plain(ground, row, cands, cand_valid, rule)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            bad = parity.gains_stats(tf32, plain, exact)
+            assert not parity.pairwise_holds(bad), (
+                f"the gains rule passes a TF32 build: {bad}")
+            stats["tf32_rms_ratio"] = bad["rms_ratio"]
+            stats["tf32_max_ratio"] = bad["max_ratio"]
+        out[name] = stats
+    return out
+
+
+def phase_parity_steps(torch, x, cfg, pools):
+    """The per-step kernels against their plain versions on the card
+    (kernels/parity.py states the rules and their reasons):
+      fused_step at the knapsack run's leaf shape (its 32 lanes of
+                 3,125) and node shape (32 lanes of b·k = 400): the
+                 folded rows equal bit for bit, the chosen gain within
+                 4·√N·eps·|g|, the chosen column equal unless the plain
+                 gains of both choices lie within that bound;
+      gains      at the stochastic run's leaf shape (32 lanes of 3,125
+                 ground rows, 72 sampled candidates each): error from a
+                 float64 build ≤ 1.5× (RMS) / 2× (max) the plain f32
+                 version's; a TF32 build must fail that rule."""
+    from repro_torch.core.greedyml import LaneSampler
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import rules as R
+    rules = {"kmedoid": R.DIST_MIN, "facility": R.DOT_MAX,
+             "satcover": R.sat_sum(2.0), "graphcut": R.graph_cut(0.5),
+             "mmr": R.mmr(0.5, 2.0)}
+    seed = cfg.seed
+    _, pay, valid = pools
+    b, n, d = pay.shape
+    lanes = b
+
+    def leaf_mat(rule):
+        return (P.pairwise_plain(pay, pay, rule.pairwise).contiguous(),
+                R.empty_row(pay, valid, rule).contiguous())
+
+    out = {"fused_step": {"leaf": _fused_step_parity(
+        torch, F, parity, R, rules, leaf_mat, b, n, seed)}}
+    sample = sample_size(n, cfg.k)
+    idx = LaneSampler(seed)(0, lanes, 1, n, sample)[:, 0].to(x.device)
+    cands = torch.gather(pay, 1, idx[..., None].expand(b, sample, d))
+    out["gains"] = _gains_parity(torch, P, parity, R,
+                                 {"kmedoid": R.DIST_MIN,
+                                  "facility": R.DOT_MAX},
+                                 pay, cands.contiguous())
+    del cands
+    bk = cfg.branching * cfg.k
+    nodes = node_pools(torch, x, lanes, bk, seed + 2)
+    nvalid = torch.ones(lanes, bk, dtype=torch.bool, device=x.device)
+
+    def node_mat(rule):
+        return (P.pairwise_plain(nodes, nodes, rule.pairwise).contiguous(),
+                R.empty_row(nodes, nvalid, rule).contiguous())
+
+    out["fused_step"]["node"] = _fused_step_parity(
+        torch, F, parity, R, rules, node_mat, lanes, bk, seed)
+    emit({"phase": "parity_steps", "fused_step_leaf_shape": [b, n, n],
+          "fused_step_node_shape": [lanes, bk, bk],
+          "gains_shape": [b, n, sample, d], **out})
+    return {"fused_step": out["fused_step"]["leaf"]["kmedoid"]
+            ["max_gain_err"],
+            "gains": out["gains"]["kmedoid"]["max_abs_diff"]}
 
 
 def phase_parity(torch, x, cfg, seed):
@@ -284,7 +457,7 @@ def phase_reference(torch):
         gpu = run_tree_dense("facility", xi, 8, AccumulationTree(8, 2),
                              seed=3, device="cuda")
         launched = {n: c["launches"] for n, c in
-                    counters.snapshot().items()}
+                    counters.snapshot().items() if c["launches"]}
         cpu = run_tree_dense("facility", xi, 8, AccumulationTree(8, 2),
                              seed=3, device="cpu")
     finally:
@@ -292,7 +465,8 @@ def phase_reference(torch):
             del os.environ[flags.RESIDENT_L2_MB_ENV]
         else:
             os.environ[flags.RESIDENT_L2_MB_ENV] = old
-    assert all(v > 0 for v in launched.values()), launched
+    assert all(launched.get(n, 0) > 0 for n in
+               ("pairwise", "greedy_loop", "greedy_loop_resident")), launched
     assert np.array_equal(gpu.ids, cpu.ids), (gpu.ids, cpu.ids)
     assert gpu.value == cpu.value and gpu.root_value == cpu.root_value
     assert gpu.per_node_evals == cpu.per_node_evals
@@ -311,6 +485,70 @@ def phase_reference(torch):
                           "value_gpu": gk.value, "value_cpu": ck.value}})
 
 
+def _dispatch_tree(torch, name, data, k, radices, device, **kw):
+    """A LevelDispatcher tree over contiguous lanes of `data` on
+    `device` → the stacked lane state after the last level."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import LevelDispatcher, shard_lanes
+    obj = make_objective(name, device=device)
+    disp = LevelDispatcher(obj, k, radices, **kw)
+    n = data.shape[0]
+    ids, pay, val = shard_lanes(
+        torch.arange(n, device=obj.device),
+        torch.as_tensor(data, device=obj.device),
+        torch.ones(n, dtype=torch.bool, device=obj.device), disp.lanes)
+    sols = disp.leaves(ids, pay, val)
+    for lvl in range(disp.num_levels):
+        sols = disp.level(sols, lvl)
+    return sols
+
+
+def phase_reference_dispatch(torch, devices=("cuda", "cpu")):
+    """LevelDispatcher trees through the kernels against the same trees
+    through the plain CPU path, on small-integer facility data (integer
+    dot products and gain parts: exact on both paths, so ties break
+    alike): a knapsack tree whose costs are quarters (exact f32 sums) —
+    fused engine, pairwise + fused_step kernels — and a stochastic tree
+    whose draws come from CPU generators on both paths — step engine at
+    the leaves (gains kernel), resident loop at the nodes. Ids, values
+    and every lane's spent must be EQUAL."""
+    from repro_torch.core.constraints import KnapsackSpec
+    from repro_torch.kernels import counters
+    rng = np.random.default_rng(6)
+    xi = rng.integers(-3, 4, (4096, 64)).astype(np.float32)
+    costs = rng.integers(2, 9, 4096).astype(np.float32) / 4.0
+    out = {}
+    cases = {"knapsack": dict(budget=6.0),
+             "stochastic": dict(sample_leaf=64, seed=4)}
+    for case, kw in cases.items():
+        runs = {}
+        for dev in devices:
+            spec = (KnapsackSpec(torch.as_tensor(costs, device=dev),
+                                 kw["budget"]) if "budget" in kw else None)
+            extra = {k: v for k, v in kw.items() if k != "budget"}
+            counters.reset()
+            sols = _dispatch_tree(torch, "facility", xi, 8, (2, 2, 2), dev,
+                                  constraint=spec, **extra)
+            launched = {n: c["launches"] for n, c in
+                        counters.snapshot().items() if c["launches"]}
+            spent = (spec.spent(sols.ids, sols.valid).cpu().numpy()
+                     if spec is not None else None)
+            runs[dev] = (sols.map(lambda t: t.cpu()), spent, launched)
+        (g, g_spent, launched), (c, c_spent, _) = (runs[d] for d in devices)
+        assert torch.equal(g.ids, c.ids), (case, g.ids, c.ids)
+        assert torch.equal(g.value, c.value), (case, g.value, c.value)
+        assert torch.equal(g.evals, c.evals), case
+        want = ("fused_step" if case == "knapsack" else "gains")
+        assert launched.get(want, 0) > 0, (case, launched)
+        if g_spent is not None:
+            assert np.array_equal(g_spent, c_spent), (g_spent, c_spent)
+            assert (g_spent <= kw["budget"]).all(), g_spent
+        out[case] = {"ids_equal": True, "root_ids": g.ids[0].tolist(),
+                     "root_value": float(g.value[0]), "launches": launched,
+                     "spent": None if g_spent is None else g_spent.tolist()}
+    emit({"phase": "reference_dispatch", **out})
+
+
 def phase_run(torch, x, cfg):
     from repro_torch.core.simulate import (global_value, partition,
                                            run_tree_dense)
@@ -326,7 +564,8 @@ def phase_run(torch, x, cfg):
     def on_level(lvl):
         torch.cuda.synchronize()
         now = time.perf_counter()
-        snap = {n: c["launches"] for n, c in counters.snapshot().items()}
+        snap = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
         levels.append({"level": lvl, "seconds": now - t_last[0],
                        "launches": snap})
         counters.reset()
@@ -364,6 +603,7 @@ def phase_run(torch, x, cfg):
         else:
             assert engine == "mega_resident", engine
             want["greedy_loop_resident"] = 1
+        want = {n: v for n, v in want.items() if v}
         assert lv["launches"] == want, (lvl, lv["launches"], want)
     assert len(levels) == tree.num_levels + 1
     ids = np.asarray(res.ids)
@@ -385,6 +625,121 @@ def phase_run(torch, x, cfg):
           "root_ids": len(ids), "evals_total": res.evals_total,
           "evals_critical": res.evals_critical,
           "comm_elements": res.comm_elements})
+    return totals
+
+
+def _run_dispatcher(torch, x, cfg, pools, expect, **kw):
+    """One LevelDispatcher tree over the run's lanes, stage by stage:
+    per-stage wall time (host clock around synchronized work), the
+    engine the planner picks there and the launches per kernel, each
+    held to `expect(stage, engine)`. Returns (stage reports, launch
+    totals, the final lane state)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import LevelDispatcher
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.plans import select_engine
+    obj = make_objective("kmedoid", device=x.device)
+    radices = (cfg.branching,) * round(math.log(cfg.num_machines,
+                                                cfg.branching))
+    disp = LevelDispatcher(obj, cfg.k, radices, **kw)
+    ids, pay, valid = pools
+    d = x.shape[1]
+    stages, totals = [], {}
+    sols = None
+    for stage in range(disp.num_levels + 1):
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        if stage == 0:
+            sols = disp.leaves(ids, pay, valid)
+            n, sample = pay.shape[1], disp.sample_leaf
+        else:
+            sols = disp.level(sols, stage - 1)
+            n, sample = cfg.branching * cfg.k, disp.sample_level
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: c["launches"] for k, c in
+                    counters.snapshot().items() if c["launches"]}
+        engine = select_engine(obj.rule, n, n, d,
+                               sampling=0 < sample < n,
+                               constrained=kw.get("constraint") is not None,
+                               replicas=disp.lanes).engine
+        assert launches == expect(stage, engine), (stage, engine, launches)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        stages.append({"stage": stage, "engine": engine, "seconds": secs,
+                       "launches": launches})
+    return stages, totals, sols
+
+
+def _report_root(torch, x, sols, k):
+    """Root ids checked and re-scored on all n images."""
+    from repro_torch.core.simulate import global_value
+    root = sols.map(lambda t: t[0])
+    ids = root.ids[root.valid].cpu().numpy()
+    assert 0 < len(ids) <= k and len(set(ids.tolist())) == len(ids)
+    assert ids.min() >= 0 and ids.max() < x.shape[0]
+    assert np.isfinite(float(root.value))
+    t0 = time.perf_counter()
+    gv = global_value("kmedoid", x, ids)
+    torch.cuda.synchronize()
+    return ids, {"accepted": len(ids), "root_value": float(root.value),
+                 "global_value": gv,
+                 "global_value_seconds": time.perf_counter() - t0,
+                 "evals_root": int(root.evals)}
+
+
+def phase_knapsack(torch, x, cfg, pools):
+    """The constrained path: LevelDispatcher with a KnapsackSpec over the
+    32 lanes. The constraint demotes every stage to the fused engine:
+    one pairwise launch (the cache) + k fused_step launches per stage,
+    plus the replay pairwise at each level."""
+    from repro_torch.core.constraints import KnapsackSpec
+    spec = KnapsackSpec(torch.as_tensor(knapsack_costs(x.shape[0], cfg.seed),
+                                        device=x.device), BUDGET)
+
+    def expect(stage, engine):
+        assert engine == "fused", (stage, engine)
+        return {"pairwise": 1 + (stage > 0), "fused_step": cfg.k}
+
+    t0 = time.perf_counter()
+    stages, totals, sols = _run_dispatcher(torch, x, cfg, pools, expect,
+                                           constraint=spec)
+    wall = time.perf_counter() - t0
+    spent = spec.spent(sols.ids, sols.valid).cpu().numpy()
+    assert (spent <= BUDGET).all(), spent
+    ids, root = _report_root(torch, x, sols, cfg.k)
+    assert len(ids) < cfg.k, "the budget did not bind"
+    assert totals["fused_step"] == (len(stages)) * cfg.k
+    emit({"phase": "knapsack", "lanes": int(sols.ids.shape[0]),
+          "pool": int(pools[1].shape[1]), "k": cfg.k, "budget": BUDGET,
+          "stages": stages, "wall_seconds": wall, **root,
+          "spent_root": float(spent[0]), "spent_lanes": spent.tolist()})
+    return totals
+
+
+def phase_stochastic(torch, x, cfg, pools):
+    """The stochastic path: sample_leaf = ⌈(n_l/k)·ln 100⌉ at the leaves
+    (the per-step engine: one gains launch per step), nodes unsampled on
+    the resident loop (+ the replay pairwise)."""
+    sample = sample_size(pools[1].shape[1], cfg.k)
+
+    def expect(stage, engine):
+        if stage == 0:
+            assert engine == "step", engine
+            return {"gains": cfg.k}
+        assert engine == "mega_resident", (stage, engine)
+        return {"greedy_loop_resident": 1, "pairwise": 1}
+
+    t0 = time.perf_counter()
+    stages, totals, sols = _run_dispatcher(torch, x, cfg, pools, expect,
+                                           sample_leaf=sample, seed=cfg.seed)
+    wall = time.perf_counter() - t0
+    _, root = _report_root(torch, x, sols, cfg.k)
+    emit({"phase": "stochastic", "lanes": int(sols.ids.shape[0]),
+          "pool": int(pools[1].shape[1]), "k": cfg.k,
+          "sample_leaf": sample, "stages": stages, "wall_seconds": wall,
+          **root})
     return totals
 
 
@@ -461,6 +816,79 @@ def phase_timing(torch, x, cfg, seed, reps):
     return out
 
 
+def phase_timing_steps(torch, x, cfg, pools, reps):
+    """The per-step kernels at their paths' shapes: fused_step over the
+    knapsack leaves' caches (32 × 3,125²), gains over the stochastic
+    leaves (32 × 3,125 ground rows × 72 candidates × 12,288), each beside
+    its bound, its plain version and — for gains — torch.cdist over the
+    same pairs. No single PyTorch call folds a column, sums masked gain
+    parts and takes an argmax, so fused_step has no library time."""
+    from repro_torch.core.greedyml import LaneSampler
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import rules as R
+    rule = R.DIST_MIN
+    _, pay, valid = pools
+    b, n, d = pay.shape
+    out = {}
+    mat = P.pairwise(pay, pay, rule.pairwise)
+    row = R.empty_row(pay, valid, rule).contiguous()
+    mask = valid.float().contiguous()
+    prev = torch.zeros(b, dtype=torch.int64, device=x.device)
+    flops = 3.0 * b * n * n
+    nbytes = 4.0 * b * n * n + 4.0 * 2 * b * n + 4.0 * b * n + 16.0 * b
+    bms, by = bound(flops, nbytes)
+    out["fused_step"] = {
+        "shape": [b, n, n],
+        "ms": cuda_ms(torch, lambda: F.fused_step(mat, row, mask, prev, rule),
+                      20 * reps),
+        "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
+            mat, row, mask, prev, rule), reps),
+        "library_ms": None, "bound_ms": bms, "bound_by": by}
+    del mat
+    # the knapsack node shape (reported, not in the kernels line): a
+    # step's caches sit in L2, so launch and host costs dominate
+    bk = cfg.branching * cfg.k
+    nodes = node_pools(torch, x, b, bk, cfg.seed + 3)
+    nmat = P.pairwise(nodes, nodes, rule.pairwise)
+    nrow = R.empty_row(nodes, torch.ones(b, bk, dtype=torch.bool,
+                                         device=x.device), rule).contiguous()
+    nmask = torch.ones(b, bk, device=x.device)
+    out["fused_step_node"] = {
+        "shape": [b, bk, bk],
+        "ms": cuda_ms(torch, lambda: F.fused_step(nmat, nrow, nmask, prev,
+                                                  rule), 20 * reps),
+        "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
+            nmat, nrow, nmask, prev, rule), 20 * reps),
+        "bound_ms": bound(3.0 * b * bk * bk,
+                          4.0 * b * (bk * bk + 3 * bk) + 16.0 * b)[0]}
+    del nodes, nmat
+    c = sample_size(n, cfg.k)
+    idx = LaneSampler(cfg.seed)(0, b, 1, n, c)[:, 0].to(x.device)
+    cands = torch.gather(pay, 1, idx[..., None].expand(b, c, d)).contiguous()
+    cv = torch.ones(b, c, dtype=torch.bool, device=x.device)
+    flops = 2.0 * b * n * c * d + 2.0 * b * (n + c) * d + 4.0 * b * n * c
+    nbytes = 4.0 * (b * n * d + b * c * d + b * n + b * c)
+    bms, by = bound(flops, nbytes)
+    out["gains"] = {
+        "shape": [b, n, c, d],
+        "ms": cuda_ms(torch, lambda: P.gains(pay, row, cands, cv, rule), reps),
+        "plain_ms": cuda_ms(torch, lambda: P.gains_plain(pay, row, cands, cv,
+                                                         rule), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.cdist(
+            pay, cands, compute_mode="use_mm_for_euclid_dist"), reps),
+        "bound_ms": bms, "bound_by": by}
+    # the step engine's other per-step cost (reported): the winner's
+    # direct-difference column folded into the rows, in plain torch
+    out["update_row"] = {
+        "shape": [b, n, d],
+        "ms": cuda_ms(torch, lambda: R.update_row(pay, row, cands[:, 0],
+                                                  rule), reps),
+        "bound_ms": bound(3.0 * b * n * d, 4.0 * (b * n * d + 2 * b * n))[0]}
+    emit({"phase": "timing_steps", **out})
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -489,15 +917,22 @@ def main(argv=None) -> int:
     emit({"phase": "data", "n": args.n, "d": cfg.feature_dim,
           "gigabytes": x.numel() * 4 / 1e9,
           "seconds": time.perf_counter() - t0})
+    pools = lane_pools(torch, x, cfg.num_machines, cfg.seed)
     errs = phase_parity(torch, x, cfg, cfg.seed)
+    errs.update(phase_parity_steps(torch, x, cfg, pools))
     phase_reference(torch)
+    phase_reference_dispatch(torch)
     launches = phase_run(torch, x, cfg)
+    launches["fused_step"] = phase_knapsack(torch, x, cfg, pools)[
+        "fused_step"]
+    launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
     times = phase_timing(torch, x, cfg, cfg.seed, args.reps)
+    times.update(phase_timing_steps(torch, x, cfg, pools, args.reps))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     kernels = []
-    for name in ("pairwise", "greedy_loop", "greedy_loop_resident"):
+    for name in SOURCES:
         assert launches.get(name, 0) > 0, (name, launches)
         t = times[name]
         kernels.append({"name": name, "route": "cuda",

@@ -2,7 +2,8 @@
 
 There are no model weights in this system: the data is the weights. What
 crosses between the packages is numpy: pools (ids, payloads, valid),
-`Solution` fields and `RuleState` rows. `np.asarray` reads the reference's
+`Solution` fields, `RuleState` rows and constraints (categories,
+capacities, costs, budgets). `np.asarray` reads the reference's
 arrays without importing its framework, so a test can hand both packages
 the same state mid-run.
 
@@ -17,6 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import constraints as C
 from repro_torch.core.greedy import Solution
 from repro_torch.core.objective import RuleState
 from repro_torch.runtime.device import DeviceLike, resolve_device
@@ -75,3 +77,24 @@ def state_to_numpy(state: RuleState, bitmap: bool = False
             "row": to_numpy(state.row, np.uint32 if bitmap else None),
             "base": to_numpy(state.base),
             "n_eff": to_numpy(state.n_eff)}
+
+
+def constraint_to_torch(con: Any, device: DeviceLike = None):
+    """A reference constraint — PartitionMatroid, Knapsack, Composite or
+    KnapsackSpec, told apart by class name and read as numpy — → the
+    port's constraint of the same kind and shape on `device`."""
+    kind = type(con).__name__
+    if kind == "Composite":
+        return C.Composite(tuple(constraint_to_torch(p, device)
+                                 for p in con.parts))
+    if kind == "PartitionMatroid":
+        return C.PartitionMatroid(to_torch(con.categories, device),
+                                  to_torch(con.capacities, device))
+    if kind == "Knapsack":
+        return C.Knapsack(to_torch(np.asarray(con.costs, np.float32), device),
+                          to_torch(np.asarray(con.budget, np.float32),
+                                   device))
+    if kind == "KnapsackSpec":
+        return C.KnapsackSpec(to_torch(np.asarray(con.costs, np.float32),
+                                       device), float(con.budget))
+    raise TypeError(f"no port of the constraint {kind!r}")

@@ -6,23 +6,36 @@ at once (the leaves of a level, or its nodes) so the kernels launch once
 for the whole batch; `greedy` is the one-pool entry point.
 
 Engines, resolved once per invocation by `plans.select_engine`:
-  * 'auto'  — megakernel when the tier gate admits it; fused when the
-              cache fits; per-step otherwise
+  * 'auto'  — megakernel when the tier gate admits it and neither a
+              constraint nor sampling is active; fused when the cache
+              fits and sampling is off; per-step otherwise
   * 'mega'  — the whole-greedy loop kernels (2 launches streaming,
-              1 resident)
-  * 'fused' — cached matrix + one fused step per selection
-  * 'step'  — recompute-per-step
-All make identical selections. The fused and per-step engines run on the
-CPU only in this slice (their kernels are not ported; CUDA tensors
-raise). ``constraint=`` and ``sample=`` raise NotImplementedError: the
-constraints module is the next slice.
+              1 resident); fused under a constraint or sampling
+  * 'fused' — cached matrix + one fused_step launch per selection
+  * 'step'  — one gains launch per selection, no cache
+All make identical selections, except on EXACT gain ties under
+sampling, where the step engine keeps the candidate first in sample
+order and the fused engine the lowest pool index (as in the reference).
+
+``constraint=``: a pool-bound constraint of core/constraints.py with the
+batch's leading dimension (B, n) — infeasible candidates are masked each
+step, the state updates on acceptance, all on the device.
+``sample=s`` (0 < s < n): stochastic greedy — each step evaluates a
+uniform s-subset of the pool drawn without replacement
+(`_sample_candidates`); the draws come from ``key`` (a torch.Generator,
+drawn from greedy after greedy) or are handed in whole as ``cand_idx``
+(B, k, s).
+torch's generators do not reproduce JAX's PRNG stream: the reference's
+draws can be passed as ``cand_idx``. The k-step loops make no host sync.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from repro_torch.core.constraints import select_state
 from repro_torch.kernels import plans
 from repro_torch.kernels import rules as R
 
@@ -60,44 +73,66 @@ def _gather_rows(x, idx):
 
 def greedy(objective, ids, payloads, valid, k: int, ground=None,
            ground_valid=None, sample: int = 0, key=None, constraint=None,
-           engine: str = "auto") -> Solution:
+           engine: str = "auto", cand_idx=None) -> Solution:
     """Select ≤ k elements of ONE pool maximizing the objective, on the
     objective's device. ids/payloads/valid: (n, …); ground/ground_valid
-    override the evaluation set (default: the pool itself)."""
+    override the evaluation set (default: the pool itself); constraint:
+    pool-bound, unbatched; cand_idx: (k, sample) draws."""
     def batch(x):
         return None if x is None else _on(objective, x).unsqueeze(0)
 
     sol = greedy_batch(objective, batch(ids), batch(payloads),
                        batch(valid), k, ground=batch(ground),
                        ground_valid=batch(ground_valid), sample=sample,
-                       key=key, constraint=constraint, engine=engine)
+                       key=key, constraint=(None if constraint is None
+                                            else constraint.lift()),
+                       engine=engine, cand_idx=batch(cand_idx))
     return sol.map(lambda x: x[0])
 
 
+def _sample_candidates(generator: Optional[torch.Generator], k: int, n: int,
+                       sample: int) -> torch.Tensor:
+    """(k, sample) stochastic-greedy draws of one pool: each step a
+    uniform `sample`-subset of range(n) WITHOUT replacement (the paper's
+    uniform s-subset), in random order — the `sample` largest of n
+    uniform keys. Drawn on the generator's device (the CPU by default)."""
+    dev = generator.device if generator is not None else "cpu"
+    keys = torch.rand((k, n), generator=generator, device=dev)
+    return keys.topk(sample, dim=-1).indices
+
+
 def greedy_batch(objective, ids, payloads, valid, k: int, ground=None,
-                 ground_valid=None, sample: int = 0, key=None,
-                 constraint=None, engine: str = "auto") -> Solution:
+                 ground_valid=None, sample: int = 0,
+                 key: Optional[torch.Generator] = None, constraint=None,
+                 engine: str = "auto", cand_idx=None) -> Solution:
     """B greedies at once: ids/valid (B, n), payloads (B, n, D|W),
-    ground (B, N, D) / ground_valid (B, N) optional."""
-    if constraint is not None:
-        raise NotImplementedError("constrained greedy waits for the port "
-                                  "of core/constraints.py")
-    if 0 < sample < ids.shape[-1]:
-        raise NotImplementedError("stochastic greedy waits for the port "
-                                  "of core/constraints.py")
-    del key
+    ground (B, N, D) / ground_valid (B, N) optional, constraint with
+    leading dim B, cand_idx (B, k, sample) optional."""
     ids = _on(objective, ids, torch.int64)
     payloads = _on(objective, payloads)
     valid = _on(objective, valid, torch.bool)
+    b, n = ids.shape
     if ground is None:
         ground, ground_valid = payloads, valid
     else:
         ground = _on(objective, ground)
         ground_valid = _on(objective, ground_valid, torch.bool)
+    sampling = 0 < sample < n
+    if sampling:
+        if cand_idx is None:
+            cand_idx = torch.stack([_sample_candidates(key, k, n, sample)
+                                    for _ in range(b)])
+        cand_idx = _on(objective, cand_idx, torch.int64)
+        if tuple(cand_idx.shape) != (b, k, sample):
+            raise ValueError(f"cand_idx: shape {tuple(cand_idx.shape)}, "
+                             f"expected {(b, k, sample)}")
+    else:
+        cand_idx = None
     state = objective.init_state(ground, ground_valid)
     plan = plans.select_engine(
         objective.rule, *objective.plan_dims(state, payloads),
-        requested=engine, replicas=ids.shape[0])
+        requested=engine, sampling=sampling,
+        constrained=constraint is not None, replicas=b)
 
     if plan.engine in ("mega_stream", "mega_resident"):
         mega = objective.megakernel_loop(state, payloads, valid, k,
@@ -109,8 +144,9 @@ def greedy_batch(objective, ids, payloads, valid, k: int, ground=None,
         cache = objective.prepare(state, payloads, valid, plan=plan)
     if cache is not None:
         return _greedy_fused(objective, state, cache, ids, payloads, valid,
-                             k)
-    return _greedy_step(objective, state, ids, payloads, valid, k)
+                             k, constraint, cand_idx)
+    return _greedy_step(objective, state, ids, payloads, valid, k,
+                        constraint, cand_idx)
 
 
 def _emit(ids, payloads, best, accept):
@@ -128,18 +164,39 @@ def _finish(objective, state, steps, evals) -> Solution:
                     evals)
 
 
-def _greedy_step(objective, state, ids, payloads, valid, k) -> Solution:
-    """Recompute-per-step engine: gains of all candidates, first argmax,
-    accept if finite and > 0, fold the winner with the direct-difference
-    column (rules.update_row)."""
+def _accept_constraint(constraint, cstate, best, accept):
+    if constraint is None:
+        return cstate
+    return select_state(accept, constraint.update(cstate, best), cstate)
+
+
+def _greedy_step(objective, state, ids, payloads, valid, k, constraint=None,
+                 cand_idx=None) -> Solution:
+    """Recompute-per-step engine: gains of all candidates (or of the
+    step's sample, first argmax in sample order), accept if finite and
+    > 0, fold the winner with the direct-difference column
+    (rules.update_row)."""
     b, n = ids.shape
     selected = torch.zeros((b, n), dtype=torch.bool, device=ids.device)
     evals = torch.zeros(b, dtype=torch.int64, device=ids.device)
+    cstate = constraint.init_state() if constraint is not None else None
     steps = []
-    for _ in range(k):
+    for s in range(k):
         cand_valid = valid & ~selected
-        g = objective.gains(state, payloads, cand_valid)
-        best, gain = R.masked_argmax(g, torch.ones_like(g))
+        if constraint is not None:
+            cand_valid = cand_valid & constraint.feasible_mask(cstate)
+        if cand_idx is not None:
+            idx = cand_idx[:, s]
+            sub_valid = cand_valid.gather(1, idx)
+            g = objective.gains(state, _gather_rows(payloads, idx),
+                                sub_valid)
+            local, gain = R.masked_argmax(g, torch.ones_like(g))
+            best = idx.gather(1, local[:, None])[:, 0]
+            n_evals = sub_valid.sum(-1)
+        else:
+            g = objective.gains(state, payloads, cand_valid)
+            best, gain = R.masked_argmax(g, torch.ones_like(g))
+            n_evals = cand_valid.sum(-1)
         accept = torch.isfinite(gain) & (gain > 0)
         payload = _gather_rows(payloads, best[:, None])[:, 0]
         new_row = objective.update(state, payload).row
@@ -148,31 +205,46 @@ def _greedy_step(objective, state, ids, payloads, valid, k) -> Solution:
             state, row=torch.where(keep, new_row, state.row))
         selected = selected | (torch.nn.functional.one_hot(best, n).bool()
                                & keep)
-        evals = evals + cand_valid.sum(-1)
+        cstate = _accept_constraint(constraint, cstate, best, accept)
+        evals = evals + n_evals
         steps.append(_emit(ids, payloads, best, accept) + (accept,))
     if not steps:
         return _empty(objective, state, payloads, evals)
     return _finish(objective, state, steps, evals)
 
 
-def _greedy_fused(objective, state, cache, ids, payloads, valid,
-                  k) -> Solution:
+def _greedy_fused(objective, state, cache, ids, payloads, valid, k,
+                  constraint=None, cand_idx=None) -> Solution:
     """Cached-matrix engine: one fused step (deferred winner fold +
-    masked gains + first argmax) per selection, then the final flush."""
+    masked gains + first argmax) per selection, then the final flush.
+    Under sampling the step's mask keeps only its sample (argmax: lowest
+    pool index)."""
     b, n = ids.shape
     selected = torch.zeros((b, n), dtype=torch.bool, device=ids.device)
     evals = torch.zeros(b, dtype=torch.int64, device=ids.device)
     prev = torch.full((b,), -1, dtype=torch.int64, device=ids.device)
+    cstate = constraint.init_state() if constraint is not None else None
     steps = []
-    for _ in range(k):
+    for s in range(k):
         cand_mask = valid & ~selected
-        state, best, gain = objective.fused_step(state, cache, cand_mask,
+        if constraint is not None:
+            cand_mask = cand_mask & constraint.feasible_mask(cstate)
+        if cand_idx is not None:
+            idx = cand_idx[:, s]
+            in_sample = torch.zeros_like(cand_mask).scatter(1, idx, True)
+            step_mask = cand_mask & in_sample
+            n_evals = cand_mask.gather(1, idx).sum(-1)
+        else:
+            step_mask = cand_mask
+            n_evals = cand_mask.sum(-1)
+        state, best, gain = objective.fused_step(state, cache, step_mask,
                                                  prev)
         accept = torch.isfinite(gain) & (gain > 0)
         selected = selected | (torch.nn.functional.one_hot(best, n).bool()
                                & accept.unsqueeze(-1))
+        cstate = _accept_constraint(constraint, cstate, best, accept)
         prev = torch.where(accept, best, torch.full_like(best, -1))
-        evals = evals + cand_mask.sum(-1)
+        evals = evals + n_evals
         steps.append(_emit(ids, payloads, best, accept) + (accept,))
     state = objective.flush_pending(state, cache, prev)
     if not steps:

@@ -8,10 +8,12 @@ once per level, where the reference vmapped one greedy:
   init_state(ground, ground_valid)         → RuleState of EMPTY solutions
   value(state)                             → (B,) f(S) on each eval set
   gains(state, cands, cand_valid)          → (B, C) normalized gains
+                                             (the gains kernel)
   update(state, payload)                   → state after one element each
   plan_dims(state, cands)                  → (n, c, d) for select_engine
   prepare(state, cands, cand_valid[, plan]) → (matrix, EnginePlan) | None
   fused_step(state, cache, cand_mask, prev) → (state, best, gain)
+                                             (the fused_step kernel)
   flush_pending(state, cache, prev)        → state
   megakernel_loop(state, cands, cand_valid, k[, plan])
                                            → (state, bests, gains) | None
@@ -117,9 +119,12 @@ class RuleObjective:
         return (state.ground.shape[-2], cands.shape[-2],
                 state.ground.shape[-1])
 
-    def _plan(self, state, cands, requested: str) -> EnginePlan:
+    def _plan(self, state, cands, requested: str, sampling: bool = False,
+              constrained: bool = False) -> EnginePlan:
         n, c, d = self.plan_dims(state, cands)
         return plans.select_engine(self.rule, n, c, d, requested=requested,
+                                   sampling=sampling,
+                                   constrained=constrained,
                                    replicas=state.row.shape[0])
 
     # -- fused cached-matrix engine ------------------------------------------

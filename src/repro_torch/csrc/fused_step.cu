@@ -1,0 +1,113 @@
+// One fused greedy step over cached matrices, for B greedies in ONE launch.
+//
+// Replaces the Pallas kernel src/repro/kernels/fused_step.py:
+// fused_step_pallas (_kernel, _step_body), the per-step engine over a
+// cache that the constrained and sampled greedies run (the loop kernels
+// evaluate no per-step feasibility mask). Inputs: cached (B, N, C) f32
+// matrices, (B, N) state rows, (B, C) 0/1 f32 masks and (B,) int64
+// previous winners (-1 = none). Outputs: the new rows (B, N), and per
+// greedy the masked first-argmax column (int32) and its raw gain sum
+// (f32) - the semantics of kernels/ref.py:fused_step.
+//
+// What bounds it on the H100: device-memory bytes. A step reads every
+// greedy's whole cache once for ~3 flops per entry: at the knapsack leaf
+// shape of the Tiny-ImageNet configuration (32 leaves x 3,125^2 x 4 B =
+// 1.25 GB, far over the 50 MB L2) that is ~0.37 ms at 3.35 TB/s.
+//
+// What the design does about it: the TPU walked the (N/BN,) row blocks
+// of one greedy in order on one core, carrying the gains in VMEM. Here
+// each greedy spans P = N/R blocks, each holding R ground rows, so one
+// step streams every cache through all SMs at once. A block folds the
+// previous winner's column into its rows (the deferred update) and
+// writes them out, then streams its (R, C) slab with consecutive threads
+// on consecutive columns (coalesced) and writes a (C,) partial to
+// device memory. Blocks run in no order on a GPU, so the last block of a
+// greedy to finish - counted with an atomic int after a __threadfence -
+// sums the P partials of every column in block order (no float atomics:
+// runs repeat bit for bit) and takes the masked first-argmax, keeping
+// the reference's one launch per step without a grid barrier.
+#include "rules.cuh"
+
+__global__ void __launch_bounds__(RT_THREADS)
+    rt_fused_step_kernel(const float* __restrict__ mat,
+                         const float* __restrict__ row_in,
+                         const float* __restrict__ mask,
+                         const long long* __restrict__ prev_in,
+                         float* __restrict__ row_out, int* __restrict__ best,
+                         float* __restrict__ gain,
+                         float* __restrict__ partials,
+                         int* __restrict__ arrivals, int N, int C, int P,
+                         int R, RtRule rule) {
+  extern __shared__ float rows[];  // (R,) this block's new state rows
+  __shared__ float sv[32];
+  __shared__ int si[32];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const size_t b = blockIdx.x / P;
+  const int p = blockIdx.x % P;
+  const int r0 = p * R;
+  const int nr = max(0, min(N - r0, R));
+  const float* M = mat + b * N * C + (size_t)r0 * C;
+  const long long prev = prev_in[b];
+
+  // 1. deferred update: fold the previous winner's column into the rows
+  for (int i = tid; i < nr; i += T) {
+    float r = row_in[b * N + r0 + i];
+    if (prev >= 0) r = rt_fold(r, M[(size_t)i * C + prev], rule);
+    rows[i] = r;
+    row_out[b * N + r0 + i] = r;
+  }
+  __syncthreads();
+
+  // 2. this block's gain partials over its rows, every column
+  float* part = partials + (b * P + p) * C;
+  for (int c = tid; c < C; c += T) {
+    const float* col = M + c;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < nr; ++i)
+      acc += rt_gain_part(rows[i], col[(size_t)i * C], rule);
+    part[c] = acc;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(arrivals + b, 1) == P - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // 3. the greedy's last block: reduce the P partials in block order,
+  //    masked first-argmax
+  const float* base = partials + b * P * C;
+  float bv = -INFINITY;
+  int bi = RT_NO_INDEX;
+  for (int c = tid; c < C; c += T) {
+    float g = 0.f;
+    for (int q = 0; q < P; ++q) g += __ldcg(&base[(size_t)q * C + c]);
+    rt_argmax_pair(bv, bi, mask[b * C + c] > 0.f ? g : -INFINITY, c);
+  }
+  rt_block_argmax(bv, bi, sv, si);
+  if (tid == 0) {
+    best[b] = bi;
+    gain[b] = bv;
+    arrivals[b] = 0;  // ready for the next launch
+  }
+}
+
+// partials: (B, P, C) f32 scratch; arrivals: (B,) int32, zero on entry
+// and left zero; R ground rows per block, P = ceil(N / R). Returns the
+// cudaError_t.
+extern "C" int rt_fused_step(const float* mat, const float* row_in,
+                             const float* mask, const long long* prev,
+                             float* row_out, int* best, float* gain,
+                             float* partials, int* arrivals, int B, int N,
+                             int C, int P, int R, int fold, float cap,
+                             float lam, float lam1, void* stream) {
+  if (B == 0) return 0;
+  RtRule rule{fold, cap, lam, lam1};
+  rt_fused_step_kernel<<<B * P, RT_THREADS, (size_t)R * sizeof(float),
+                         (cudaStream_t)stream>>>(
+      mat, row_in, mask, prev, row_out, best, gain, partials, arrivals, N, C,
+      P, R, rule);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,108 @@
+// Per-step marginal gains without a cache: (B, N, D) ground, (B, N) state
+// rows, (B, C, D) candidates -> (B, C) raw gain sums, f32.
+//
+// Replaces the Pallas kernel src/repro/kernels/pairwise.py:gains_pallas
+// (_gains_kernel), the step engine's gains pass: for every candidate c,
+// sum over ground rows n of part(row_n, M_nc), where M is the rule's
+// pairwise entry ('dist' for kmedoid, 'dot' for the similarity rules)
+// and part the rule's gain part (rules.cuh). Invalid candidates are set
+// to -inf by the wrapper; this kernel only masks its ragged edges.
+//
+// What bounds it on the H100: operations. At the stochastic leaf shape
+// of the Tiny-ImageNet configuration (32 leaves, N = 3,125 ground rows,
+// a 72-candidate sample, D = 12,288) one step is 2*B*N*C*D ~ 1.8e11
+// fp32 flops (~2.6 ms at 67 TFLOP/s; TF32 would keep ~3 digits of a
+// 'dist' expansion that cancels heavily) against ~4.9 GB of ground rows
+// read once (~1.5 ms at 3.35 TB/s).
+//
+// What the design does about it: the TPU grid walked (candidate block,
+// ground block) with the ground block innermost, accumulating into the
+// revisited output block in order. Here every (64 ground rows x 64
+// candidates) tile is its own block - grid (C/64, N/64, B), so even 72
+// candidates spread over the whole card instead of one block per
+// candidate column - built with the pairwise kernel's fp32 tile
+// (pairwise_tile.cuh, float64 norms). The epilogue turns the tile's
+// registers into f32 gain parts against the tile's 64 state-row entries
+// and sums them over the tile's rows in float64 (4 rows per thread, then
+// the 16 row groups), writing one (64,) float64 partial per block. The
+// last block of each (greedy, candidate tile) to finish - counted with
+// an atomic int after a __threadfence - sums the N/64 partials in block
+// order and rounds once to f32, so runs repeat bit for bit (no float
+// atomics) in one launch. The float64 sum costs ~20 adds per thread per
+// tile against its 16*D f32 FMAs; an f32 sum in three sequential stages
+// would add rounding that the plain version's reduction does not.
+#include "pairwise_tile.cuh"
+
+__global__ void __launch_bounds__(RT_THREADS)
+    rt_gains_kernel(const float* __restrict__ ground,
+                    const float* __restrict__ row,
+                    const float* __restrict__ cands,
+                    double* __restrict__ partials,
+                    int* __restrict__ arrivals, float* __restrict__ out,
+                    int N, int C, int D, int mode, RtRule rule) {
+  __shared__ __align__(16) RtTileSmem s;
+  __shared__ float rows[RT_TILE];
+  __shared__ double colsum[16][RT_TILE];
+  __shared__ int is_last;
+  const int t = threadIdx.x;
+  const int tx = t % 16;
+  const int ty = t / 16;
+  const int nblocks = gridDim.y;
+  const size_t b = blockIdx.z;
+  const int n0 = blockIdx.y * RT_TILE;
+  const int c0 = blockIdx.x * RT_TILE;
+
+  if (t < RT_TILE) rows[t] = n0 + t < N ? row[b * N + n0 + t] : 0.f;
+  // rows[] is read only in the epilogue, after rt_tile's barriers
+  rt_tile(ground + b * N * D, cands + b * C * D, N, C, D, n0, c0, mode, s,
+          [&](float (&acc)[4][4]) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int lc = tx * 4 + j;
+              double sum = 0.0;
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int lr = ty * 4 + i;
+                if (n0 + lr < N && c0 + lc < C)
+                  sum += (double)rt_gain_part(
+                      rows[lr], rt_tile_entry(s, acc[i][j], lr, lc, mode),
+                      rule);
+              }
+              colsum[ty][lc] = sum;
+            }
+          });
+  // rt_tile ends with a barrier: every colsum entry is written
+  if (t < RT_TILE && c0 + t < C) {
+    double p = 0.0;
+    for (int g = 0; g < 16; ++g) p += colsum[g][t];
+    partials[(b * nblocks + blockIdx.y) * C + c0 + t] = p;
+  }
+  __threadfence();
+  __syncthreads();
+  int* arrived = arrivals + b * gridDim.x + blockIdx.x;
+  if (t == 0) is_last = atomicAdd(arrived, 1) == nblocks - 1;
+  __syncthreads();
+  if (!is_last) return;
+  if (t < RT_TILE && c0 + t < C) {
+    double g = 0.0;
+    for (int q = 0; q < nblocks; ++q)
+      g += __ldcg(&partials[(b * nblocks + q) * C + c0 + t]);
+    out[b * C + c0 + t] = (float)g;
+  }
+  if (t == 0) *arrived = 0;  // ready for the next launch
+}
+
+// partials: (B, ceil(N/64), C) float64 scratch; arrivals: (B, ceil(C/64))
+// int32, zero on entry and left zero. Returns the cudaError_t.
+extern "C" int rt_gains(const float* ground, const float* row,
+                        const float* cands, double* partials, int* arrivals,
+                        float* out, int B, int N, int C, int D, int mode,
+                        int fold, float cap, float lam, float lam1,
+                        void* stream) {
+  if (B == 0 || N == 0 || C == 0) return 0;
+  RtRule rule{fold, cap, lam, lam1};
+  dim3 grid((C + RT_TILE - 1) / RT_TILE, (N + RT_TILE - 1) / RT_TILE, B);
+  rt_gains_kernel<<<grid, RT_THREADS, 0, (cudaStream_t)stream>>>(
+      ground, row, cands, partials, arrivals, out, N, C, D, mode, rule);
+  return (int)cudaGetLastError();
+}

@@ -1,20 +1,22 @@
 // One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
 //
-// Shared by the pairwise kernel (pairwise.cu) and the build phase of the
-// resident loop kernel (greedy_loop_resident.cu), so both produce the
-// same entries from the same inputs. 256 threads; each owns a 4x4
-// register micro-tile. The feature axis is walked in slices of 16: both
-// operand slices are staged in shared memory (k-major, rows padded to 68
-// floats so the transposing stores do not pile onto one bank), and for
-// 'dist' threads 0-63 / 64-127 accumulate the squared norms of the
-// tile's ground rows / candidate rows from the same staged slices. The
-// norms accumulate in float64 (each product exact, the sum as good as
-// exact), so a norm is off by one f32 rounding; a sequential f32 sum
-// over D = 12,288 features left the 'dist' entries ~4x less accurate
-// (RMS, against a float64 build) than the plain torch build's on the
-// H100. The norms cost D double FMAs per tile row against the tile's
-// 64*D f32 FMAs per row. Rows, columns and features past N, C, D are
-// masked.
+// Shared by the pairwise kernel (pairwise.cu), the build phase of the
+// resident loop kernel (greedy_loop_resident.cu) and the per-step gains
+// kernel (gains.cu), so all produce the same entries from the same
+// inputs: `rt_tile` accumulates a tile and hands its registers to an
+// epilogue; `rt_pairwise_tile` is the epilogue that stores the entries.
+// 256 threads; each owns a 4x4 register micro-tile. The feature axis is
+// walked in slices of 16: both operand slices are staged in shared
+// memory (k-major, rows padded to 68 floats so the transposing stores do
+// not pile onto one bank), and for 'dist' threads 0-63 / 64-127
+// accumulate the squared norms of the tile's ground rows / candidate
+// rows from the same staged slices. The norms accumulate in float64
+// (each product exact, the sum as good as exact), so a norm is off by
+// one f32 rounding; a sequential f32 sum over D = 12,288 features left
+// the 'dist' entries ~4x less accurate (RMS, against a float64 build)
+// than the plain torch build's on the H100. The norms cost D double FMAs
+// per tile row against the tile's 64*D f32 FMAs per row. Rows, columns
+// and features past N, C, D are masked.
 //
 // 'dot'  : <g, c>
 // 'dist' : sqrt(max(|g|^2 + |c|^2 - 2<g, c>, 0))   (rules.pairwise_block)
@@ -33,14 +35,25 @@ struct RtTileSmem {
   float cn[RT_TILE];
 };
 
-// G: (N, D) ground rows, Cd: (C, D) candidate rows, out: (N, C), all
-// row-major f32 of ONE greedy. (n0, c0): the tile's corner. Must be
-// called by all 256 threads of the block.
-__device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
-                                              const float* __restrict__ Cd,
-                                              float* __restrict__ out, int N,
-                                              int C, int D, int n0, int c0,
-                                              int mode, RtTileSmem& s) {
+// The entry of tile row i, tile column j from its accumulated dot product
+// v (after rt_tile has filled s.gn / s.cn for 'dist').
+__device__ __forceinline__ float rt_tile_entry(const RtTileSmem& s, float v,
+                                              int i, int j, int mode) {
+  return mode == RT_MODE_DIST ? sqrtf(fmaxf(s.gn[i] + s.cn[j] - 2.f * v, 0.f))
+                              : v;
+}
+
+// G: (N, D) ground rows, Cd: (C, D) candidate rows, row-major f32 of ONE
+// greedy. (n0, c0): the tile's corner. Thread t owns tile rows
+// 4*(t/16) + i and columns 4*(t%16) + j, i, j < 4, in acc[i][j]; after
+// the accumulation `epi(acc)` runs on every thread (s.gn / s.cn hold the
+// norms for 'dist'). Must be called by all 256 threads of the block.
+template <class Epilogue>
+__device__ __forceinline__ void rt_tile(const float* __restrict__ G,
+                                        const float* __restrict__ Cd, int N,
+                                        int C, int D, int n0, int c0,
+                                        int mode, RtTileSmem& s,
+                                        Epilogue&& epi) {
   const int t = threadIdx.x;
   const int tx = t % 16;
   const int ty = t / 16;
@@ -101,19 +114,30 @@ __device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
       s.cn[t - RT_TILE] = (float)nrm;
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = n0 + ty * 4 + i;
-    if (r >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c >= C) continue;
-      float v = acc[i][j];
-      if (mode == RT_MODE_DIST)
-        v = sqrtf(fmaxf(s.gn[ty * 4 + i] + s.cn[tx * 4 + j] - 2.f * v, 0.f));
-      out[(size_t)r * C + c] = v;
-    }
-  }
+  epi(acc);
   __syncthreads();  // the block may reuse `s` for its next tile
+}
+
+// The stored tile: out is the (N, C) row-major f32 matrix of ONE greedy.
+__device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
+                                              const float* __restrict__ Cd,
+                                              float* __restrict__ out, int N,
+                                              int C, int D, int n0, int c0,
+                                              int mode, RtTileSmem& s) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  rt_tile(G, Cd, N, C, D, n0, c0, mode, s, [&](float (&acc)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = n0 + ty * 4 + i;
+      if (r >= N) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx * 4 + j;
+        if (c >= C) continue;
+        out[(size_t)r * C + c] =
+            rt_tile_entry(s, acc[i][j], ty * 4 + i, tx * 4 + j, mode);
+      }
+    }
+  });
 }

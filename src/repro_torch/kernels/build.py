@@ -21,14 +21,18 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("pairwise", "greedy_loop", "greedy_loop_resident")
+SOURCES = ("pairwise", "greedy_loop", "greedy_loop_resident", "fused_step",
+           "gains")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ARRIVALS: Dict[torch.device, torch.Tensor] = {}
 BUILD_SECONDS: Optional[float] = None     # wall time of this process's build
 
 
@@ -116,3 +120,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.rt_error_string.argtypes = [ctypes.c_int]
         msg = lib.rt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def arrivals(device: torch.device, n: int) -> torch.Tensor:
+    """n int32 arrival counters on `device` for the kernels' last-block-done
+    reductions (fused_step.cu, gains.cu). Zero when handed out: each
+    kernel's last block resets the counters it used, so one buffer per
+    device serves every launch on the stream in turn."""
+    buf = _ARRIVALS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = buf
+    return buf[:n]

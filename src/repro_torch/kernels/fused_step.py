@@ -1,0 +1,89 @@
+"""One fused greedy step over cached matrices: CUDA kernel, wrapper and
+plain version (answers `src/repro/kernels/fused_step.py:fused_step_pallas`).
+
+(B, N, C) cached matrices, (B, N) state rows, (B, C) 0/1 masks and (B,)
+previous winners → (new rows (B, N), best (B,) int64, raw gain (B,) f32):
+fold the previous winner's column into the row (the deferred update),
+sum the rule's gain parts over the rows, take the masked first-argmax.
+One launch serves every greedy of a level. The kernel is
+csrc/fused_step.cu (P row blocks per greedy, partials reduced in block
+order by each greedy's last block to finish); it takes f32 storage of
+the feature rules — bf16/int8 caches and the bitmap rule raise
+NotImplementedError on CUDA tensors (their plain versions run on the
+CPU through kernels/ops.py).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, counters, ref
+from repro_torch.kernels.pairwise import (FOLDS, check_feature_rule,
+                                          check_operand)
+from repro_torch.kernels.plans import FUSED_BLOCK_N
+from repro_torch.kernels.rules import KernelRule
+
+F32 = torch.float32
+
+COUNTER = counters.counter("fused_step")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def fused_step_plain(mat, row, mask, prev, rule: KernelRule):
+    """The plain PyTorch version (kernels/ref.py:fused_step); the CPU
+    path, and the kernel's yardstick of correctness on the card."""
+    return ref.fused_step(mat, row, mask, prev, rule)
+
+
+def _lib():
+    lib = build.load("fused_step")
+    lib.rt_fused_step.restype = _I
+    lib.rt_fused_step.argtypes = [_P] * 9 + [_I] * 6 + [_F, _F, _F, _P]
+    return lib
+
+
+def fused_step(mat, row, mask, prev, rule: KernelRule,
+               block_n: int = FUSED_BLOCK_N):
+    """mat (B, N, C), row (B, N), mask (B, C) 0/1 f32, prev (B,) int.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (f32, contiguous; `block_n` ground rows per block) or raise."""
+    COUNTER.calls += 1
+    if not mat.is_cuda:
+        return fused_step_plain(mat, row, mask, prev, rule)
+    check_feature_rule(rule, mat.dtype, "fused_step")
+    if mat.dim() != 3:
+        raise ValueError("fused_step kernel takes (B, N, C) matrices")
+    b, n, c = mat.shape
+    dev = mat.device
+    prev = torch.as_tensor(prev, device=dev).to(torch.int64).expand(b)
+    prev = prev.contiguous()
+    check_operand(mat, (b, n, c), F32, "mat", dev)
+    check_operand(row, (b, n), F32, "row", dev)
+    check_operand(mask, (b, c), F32, "mask", dev)
+    if c == 0:
+        raise ValueError("fused_step kernel needs at least one candidate")
+    if max(b, n, c) >= 2 ** 31:
+        raise ValueError("fused_step extents must fit int32")
+    r = max(1, int(block_n))
+    p = max(1, -(-n // r))
+    row_out = torch.empty((b, n), dtype=F32, device=dev)
+    best = torch.empty((b,), dtype=torch.int32, device=dev)
+    gain = torch.empty((b,), dtype=F32, device=dev)
+    if b == 0:
+        return row_out, best.long(), gain
+    partials = torch.empty((b, p, c), dtype=F32, device=dev)
+    arrivals = build.arrivals(dev, b)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rt_fused_step(
+        mat.data_ptr(), row.data_ptr(), mask.data_ptr(), prev.data_ptr(),
+        row_out.data_ptr(), best.data_ptr(), gain.data_ptr(),
+        partials.data_ptr(), arrivals.data_ptr(), b, n, c, p, r,
+        FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, stream)
+    build.check(lib, err, "fused_step kernel")
+    COUNTER.launches += 1
+    return row_out, best.long(), gain

@@ -27,12 +27,12 @@ import torch
 
 from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.pairwise import MODES
+from repro_torch.kernels.pairwise import (FOLDS, MODES, check_feature_rule,
+                                          check_operand)
 from repro_torch.kernels.plans import LOOP_BLOCK_MAX
 from repro_torch.kernels.rules import KernelRule
 
 F32 = torch.float32
-FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
 
 STREAM_COUNTER = counters.counter("greedy_loop")
 RESIDENT_COUNTER = counters.counter("greedy_loop_resident")
@@ -117,27 +117,6 @@ def _co_resident(lib, occupancy, smem: int) -> int:
     return bps.value * sms.value
 
 
-def _check_feature_rule(rule: KernelRule, mat_dtype, what: str) -> None:
-    if rule.is_bitmap or rule.fold not in FOLDS:
-        raise NotImplementedError(
-            f"{what}: the {rule.name!r} rule has no CUDA path yet")
-    if mat_dtype != F32:
-        raise NotImplementedError(
-            f"{what}: the CUDA path takes f32 storage, not {mat_dtype}")
-
-
-def _check(t, shape, dtype, name: str, device) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, not {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def blocks_per_greedy(lib, b: int, n: int, c: int,
                       block_n: int = LOOP_BLOCK_MAX):
     """(P, R): blocks per greedy and ground rows per block of the streaming
@@ -165,14 +144,14 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     STREAM_COUNTER.calls += 1
     if not mat.is_cuda:
         return greedy_loop_plain(mat, row, mask, k, rule)
-    _check_feature_rule(rule, mat.dtype, "greedy_loop")
+    check_feature_rule(rule, mat.dtype, "greedy_loop")
     if mat.dim() != 3:
         raise ValueError("greedy_loop kernel takes (B, N, C) matrices")
     b, n, c = mat.shape
     dev = mat.device
-    _check(mat, (b, n, c), F32, "mat", dev)
-    _check(row, (b, n), F32, "row", dev)
-    _check(mask, (b, c), F32, "mask", dev)
+    check_operand(mat, (b, n, c), F32, "mat", dev)
+    check_operand(row, (b, n), F32, "row", dev)
+    check_operand(mask, (b, c), F32, "mask", dev)
     row_out = torch.empty((b, n), dtype=F32, device=dev)
     bests = torch.empty((b, k), dtype=torch.int32, device=dev)
     gains = torch.empty((b, k), dtype=F32, device=dev)
@@ -207,7 +186,7 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
                                           cache_dtype))
         return greedy_loop_resident_plain(ground, cands, row, mask, ctl, k,
                                           rule, cache_dtype)
-    _check_feature_rule(rule, cands.dtype, "greedy_loop_resident")
+    check_feature_rule(rule, cands.dtype, "greedy_loop_resident")
     if cache_dtype != "float32":
         raise NotImplementedError(
             f"greedy_loop_resident: {cache_dtype} storage has no CUDA "
@@ -217,11 +196,11 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
     b, n, d = ground.shape
     c = cands.shape[1]
     dev = cands.device
-    _check(ground, (b, n, d), F32, "ground", dev)
-    _check(cands, (b, c, d), F32, "cands", dev)
-    _check(row, (b, n), F32, "row", dev)
-    _check(mask, (b, c), F32, "mask", dev)
-    _check(ctl, (b, 3), torch.int32, "ctl", dev)
+    check_operand(ground, (b, n, d), F32, "ground", dev)
+    check_operand(cands, (b, c, d), F32, "cands", dev)
+    check_operand(row, (b, n), F32, "row", dev)
+    check_operand(mask, (b, c), F32, "mask", dev)
+    check_operand(ctl, (b, 3), torch.int32, "ctl", dev)
     row_out = torch.empty((b, n), dtype=F32, device=dev)
     bests = torch.empty((b, k), dtype=torch.int32, device=dev)
     gains = torch.empty((b, k), dtype=F32, device=dev)
@@ -235,7 +214,7 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
     grid = max(1, min(max(tiles, b), cap))
     if scratch is None:
         scratch = torch.empty((b, n, c), dtype=F32, device=dev)
-    _check(scratch, (b, n, c), F32, "scratch", dev)
+    check_operand(scratch, (b, n, c), F32, "scratch", dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_greedy_loop_resident(
         ground.data_ptr(), cands.data_ptr(), row.data_ptr(), mask.data_ptr(),

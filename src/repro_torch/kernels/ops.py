@@ -7,13 +7,16 @@ PyTorch path, CUDA tensors launch the hand-written kernel or raise; there
 is no backend switch that could put a plain version on the card.
 
   pairwise_matrix       cached (B, N, C) matrix → kernels/pairwise.py
+  gains                 step engine's gains     → kernels/pairwise.py
+  fused_step            fused engine's step     → kernels/fused_step.py
   greedy_loop           streaming tier          → kernels/greedy_loop.py
   greedy_loop_resident  resident tier           → kernels/greedy_loop.py
   apply_column          final-winner flush      (plain torch, O(N))
   masked_col_reduce     batched replay fold     (plain torch)
-  fused_step, gains     per-step engines: plain on the CPU; their kernels
-                        (`fused_step_pallas`, `gains_pallas`) are not
-                        ported yet, so CUDA tensors raise
+
+On CUDA tensors the kernels take f32 storage of the feature rules; the
+bitmap rule and bf16/int8 storage raise NotImplementedError there (their
+plain versions run on the CPU).
 
 The CUDA kernels mask their ragged edges, so nothing is padded to TPU
 tiles here. Launch counts live in kernels/counters.py.
@@ -26,11 +29,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import fused_step as fused_k
 from repro_torch.kernels import greedy_loop as loop_k
 from repro_torch.kernels import pairwise as pairwise_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.plans import EnginePlan, loop_block_n
+from repro_torch.kernels.plans import EnginePlan, fused_block_n, loop_block_n
 from repro_torch.kernels.rules import KernelRule
 from repro_torch.runtime import flags
 
@@ -67,26 +71,27 @@ def _dequant_mat(mat):
     return mat
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the CUDA kernel is not yet ported; run on the CPU or "
-        "use the megakernel engines")
-
-
 def _cast_row(row, rule: KernelRule):
     return row.to(rule.dtype).contiguous()
 
 
 def gains(ground, row, cands, cand_valid, rule: KernelRule):
     """Per-step marginal gains: RAW part sums (B, C), −inf at invalid
-    candidates. With REPRO_TORCH_FUSED_CACHE_DTYPE=int8 the ground
-    features are seen per-row-quantized, as in the reference."""
-    if cands.is_cuda:
-        raise _not_ported("gains")
-    if (not rule.is_bitmap and ground is not None
-            and flags.fused_cache_dtype() == "int8"):
+    candidates (the gains kernel). With REPRO_TORCH_FUSED_CACHE_DTYPE=int8
+    the ground features are seen per-row-quantized, as in the reference;
+    that variant has no CUDA path yet."""
+    quant = (not rule.is_bitmap and ground is not None
+             and flags.fused_cache_dtype() == "int8")
+    if quant:
+        if cands.is_cuda:
+            raise NotImplementedError(
+                "gains: int8 ground storage has no CUDA path yet")
         ground = R.dequant(*R.quantize_rows(ground.to(F32)))
-    return ref.gains(ground, _cast_row(row, rule), cands, cand_valid, rule)
+    if not rule.is_bitmap:
+        ground = ground.to(F32).contiguous()
+        cands = cands.to(F32).contiguous()
+    return pairwise_k.gains(ground, _cast_row(row, rule), cands, cand_valid,
+                            rule)
 
 
 def pairwise_matrix(ground, cands, rule: KernelRule,
@@ -111,12 +116,16 @@ def pairwise_matrix(ground, cands, rule: KernelRule,
 def fused_step(mat, row, mask, prev, rule: KernelRule,
                plan: Optional[EnginePlan] = None):
     """One fused greedy step over the cached matrix → (new_row (B, N),
-    best (B,), raw gain (B,))."""
-    del plan
-    if mat.is_cuda:
-        raise _not_ported("fused_step")
-    return ref.fused_step(_dequant_mat(mat), _cast_row(row, rule),
-                          mask.to(F32), prev, rule)
+    best (B,), raw gain (B,)) (the fused_step kernel; ``plan`` gives its
+    rows per block)."""
+    if mat.is_cuda and (isinstance(mat, QuantMatrix) or mat.dtype != F32):
+        raise NotImplementedError(
+            f"fused_step: {mat.dtype} storage has no CUDA path yet")
+    bn = (plan.block_n if plan is not None else 0) or fused_block_n()
+    return fused_k.fused_step(_dequant_mat(mat).contiguous(),
+                              _cast_row(row, rule),
+                              mask.to(F32).contiguous(), prev, rule,
+                              block_n=bn)
 
 
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,

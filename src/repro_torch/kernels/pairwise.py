@@ -1,11 +1,17 @@
-"""Batched pairwise matrix: CUDA kernel, wrapper and plain version
-(answers `src/repro/kernels/pairwise.py:pairwise_pallas`).
+"""The two kernels of `src/repro/kernels/pairwise.py`: CUDA kernels,
+wrappers and plain versions. One launch serves every greedy of a level.
 
-(B, N, D) ground × (B, C, D) candidates → (B, N, C) f32, 'dot' ⟨g, c⟩
-or 'dist' √max(‖g‖²+‖c‖²−2⟨g,c⟩, 0). One launch serves every greedy of
-a level. The kernel is csrc/pairwise.cu (fp32 FMA tiles, no TF32, norms
-computed in the kernel, ragged edges masked). The gains kernel of the
-same reference file (`gains_pallas`) is not ported yet.
+  pairwise  (answers `pairwise_pallas`) (B, N, D) ground × (B, C, D)
+            candidates → (B, N, C) f32, 'dot' ⟨g, c⟩ or 'dist'
+            √max(‖g‖²+‖c‖²−2⟨g,c⟩, 0): csrc/pairwise.cu (fp32 FMA
+            tiles, no TF32, norms computed in the kernel, ragged edges
+            masked).
+  gains     (answers `gains_pallas`) the step engine's uncached gains:
+            Σ_n part(row_n, M_nc) per candidate, (B, C) f32, −inf at
+            invalid candidates: csrc/gains.cu (the same tiles with a
+            gain-sum epilogue, the sum over rows in float64). The CUDA
+            path takes the feature rules; the bitmap rule runs its plain
+            version on the CPU only.
 """
 from __future__ import annotations
 
@@ -13,13 +19,40 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, counters
+from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
 
 F32 = torch.float32
 MODES = {"dot": 0, "dist": 1}
 
 COUNTER = counters.counter("pairwise")
+GAINS_COUNTER = counters.counter("gains")
+FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
+
+
+def check_feature_rule(rule: R.KernelRule, mat_dtype, what: str) -> None:
+    """Raise NotImplementedError for what the CUDA kernels do not take:
+    the bitmap rule, and storage other than f32."""
+    if rule.is_bitmap or rule.fold not in FOLDS:
+        raise NotImplementedError(
+            f"{what}: the {rule.name!r} rule has no CUDA path yet")
+    if mat_dtype != F32:
+        raise NotImplementedError(
+            f"{what}: the CUDA path takes f32 storage, not {mat_dtype}")
+
+
+def check_operand(t, shape, dtype, name: str, device) -> None:
+    """Raise ValueError unless a kernel operand has the shape, dtype and
+    device given and is contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, not {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def pairwise_plain(ground, cands, mode: str):
@@ -71,3 +104,57 @@ def pairwise(ground, cands, mode: str):
     build.check(lib, err, "pairwise kernel")
     COUNTER.launches += 1
     return out
+
+
+def gains_plain(ground, row, cands, cand_valid, rule: R.KernelRule):
+    """The plain PyTorch version (kernels/ref.py:gains): raw part sums
+    (B, C), −inf at invalid candidates."""
+    return ref.gains(ground, row, cands, cand_valid, rule)
+
+
+def _gains_lib():
+    lib = build.load("gains")
+    fn = lib.rt_gains
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float] * 3 + [ctypes.c_void_p]
+    return lib
+
+
+def gains(ground, row, cands, cand_valid, rule: R.KernelRule):
+    """ground (B, N, D), row (B, N), cands (B, C, D), cand_valid (B, C)
+    → raw gain sums (B, C) f32, −inf at invalid candidates. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (feature
+    rules, f32, contiguous) or raise."""
+    GAINS_COUNTER.calls += 1
+    if not cands.is_cuda:
+        return gains_plain(ground, row, cands, cand_valid, rule)
+    check_feature_rule(rule, cands.dtype, "gains")
+    if ground.dim() != 3 or cands.dim() != 3:
+        raise ValueError("gains kernel takes (B, N, D) and (B, C, D)")
+    b, n, d = ground.shape
+    c = cands.shape[1]
+    dev = cands.device
+    check_operand(ground, (b, n, d), F32, "ground", dev)
+    check_operand(cands, (b, c, d), F32, "cands", dev)
+    check_operand(row, (b, n), F32, "row", dev)
+    if tuple(cand_valid.shape) != (b, c):
+        raise ValueError(f"cand_valid: shape {tuple(cand_valid.shape)}, "
+                         f"expected {(b, c)}")
+    if max(b, n, c, d) >= 2 ** 31:
+        raise ValueError("gains extents must fit int32")
+    raw = torch.zeros((b, c), dtype=F32, device=dev)
+    if b * n * c > 0:
+        nb, ct = -(-n // 64), -(-c // 64)
+        partials = torch.empty((b, nb, c), dtype=torch.float64, device=dev)
+        arrivals = build.arrivals(dev, b * ct)
+        lib = _gains_lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rt_gains(ground.data_ptr(), row.data_ptr(),
+                           cands.data_ptr(), partials.data_ptr(),
+                           arrivals.data_ptr(), raw.data_ptr(), b, n, c, d,
+                           MODES[rule.pairwise], FOLDS[rule.fold], rule.cap,
+                           rule.lam, 1.0 - rule.lam, stream)
+        build.check(lib, err, "gains kernel")
+        GAINS_COUNTER.launches += 1
+    return torch.where(cand_valid, raw, torch.full_like(raw, float("-inf")))

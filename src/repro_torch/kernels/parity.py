@@ -8,7 +8,14 @@ the plain f32 version's own error from float64, in root-mean-square and in
 the largest entry (`compare_pairwise`). An fp32 kernel that sums in
 another order lands near ratio 1; TF32 products or a dropped slice of
 features land far above it, and chip_smoke.py shows on the card that
-they fail the rule.
+they fail the rule. The per-step gains (`compare_gains`) are held the same
+way: gain sums against a float64 build of matrix, gain parts and sums.
+
+A fused step (`compare_steps`) is fed the plain matrix: the folded rows
+must be equal bit for bit (one f32 min, max or add per entry, the same in
+both), the chosen gain within the reordering bound below, and the chosen
+column equal unless the plain gains of the two choices lie within that
+bound of each other (a tie decided by rounding).
 
 Loops: selections must be equal step for step. At the first step where
 two greedies differ, the comparison passes only if the two chosen gains
@@ -32,9 +39,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.rules import KernelRule
+from repro_torch.kernels.rules import BIG, KernelRule, gain_part
 
 EPS32 = float(np.finfo(np.float32).eps)
+TINY32 = float(np.finfo(np.float32).tiny)
 
 # a kernel's error from float64 may be at most this multiple of the plain
 # f32 version's: its RMS error (a stable statistic over ~10⁵–10⁷ entries)
@@ -71,11 +79,18 @@ def matrix_error(mat: torch.Tensor, exact: torch.Tensor, mode: str):
 
 def pairwise_stats(got, plain, exact, mode: str) -> Dict[str, float]:
     """Errors of `got` and `plain` from `exact` (exact_matrix) and their
-    ratios. A floor of one f32 rounding of the largest exact entry keeps
-    exact inputs (both errors 0) from dividing by zero."""
-    e_k = matrix_error(got, exact, mode)
-    e_p = matrix_error(plain, exact, mode)
-    floor = EPS32 * float(exact.abs().max()) if exact.numel() else 0.0
+    ratios."""
+    return _ratio_stats(matrix_error(got, exact, mode),
+                        matrix_error(plain, exact, mode), exact)
+
+
+def _ratio_stats(e_k, e_p, exact) -> Dict[str, float]:
+    """RMS and largest errors of a kernel (e_k) and its plain version
+    (e_p) and their ratios. A floor of one f32 rounding of the largest
+    exact value (at least the least normal f32) keeps exact inputs (both
+    errors 0) from dividing by zero."""
+    floor = max(EPS32 * float(exact.abs().max()) if exact.numel() else 0.0,
+                TINY32)
     rms_k = float(e_k.pow(2).mean().sqrt())
     rms_p = float(e_p.pow(2).mean().sqrt())
     max_k, max_p = float(e_k.max()), float(e_p.max())
@@ -86,6 +101,7 @@ def pairwise_stats(got, plain, exact, mode: str) -> Dict[str, float]:
 
 
 def pairwise_holds(stats: Dict[str, float]) -> bool:
+    """The float64 ratio rule, for pairwise matrices and per-step gains."""
     return (stats["rms_ratio"] <= PAIRWISE_RMS_RATIO
             and stats["max_ratio"] <= PAIRWISE_MAX_RATIO)
 
@@ -101,6 +117,63 @@ def compare_pairwise(got, plain, g, c, mode: str,
         f"{what} {mode}: error from float64 is {stats['rms_ratio']:.3f}× "
         f"(RMS) / {stats['max_ratio']:.3f}× (max) the plain f32 "
         f"version's, beyond {PAIRWISE_RMS_RATIO}× / {PAIRWISE_MAX_RATIO}×")
+    return stats
+
+
+def _gain_part64(row, m, rule: KernelRule):
+    """rules.gain_part in float64 (feature rules)."""
+    if rule.fold == "min":
+        return torch.clamp(row - m, min=0.0)
+    if rule.fold == "max":
+        return torch.clamp(m - row, min=0.0)
+    if rule.fold == "satsum":
+        return torch.minimum(torch.clamp(m, min=0.0), rule.cap - row)
+    if rule.fold == "sum":
+        inc = torch.clamp(m, min=0.0)
+        mod = torch.clamp(row + inc, max=BIG) - torch.clamp(row, max=BIG)
+        t0 = torch.clamp(row, max=rule.cap)
+        t1 = torch.clamp(row + inc, max=rule.cap)
+        sat = (t1 - t0) - (t1 * t1 - t0 * t0) / (2.0 * rule.cap)
+        return rule.lam * mod + (1.0 - rule.lam) * sat
+    raise KeyError(rule.fold)
+
+
+def exact_gains(ground, row, cands, rule: KernelRule):
+    """Raw gain sums (B, C) in float64 of ground (B, N, D), row (B, N),
+    cands (B, C, D): matrix, gain parts and sums in float64 (one greedy
+    at a time, to bound the temporaries)."""
+    out = []
+    for b in range(ground.shape[0]):
+        m = exact_matrix(ground[b], cands[b], rule.pairwise)
+        if rule.pairwise == "dist":
+            m = m.sqrt()
+        out.append(_gain_part64(row[b].double().unsqueeze(-1), m,
+                                rule).sum(-2))
+    return torch.stack(out)
+
+
+def gains_stats(got, plain, exact) -> Dict[str, float]:
+    """Errors of gain sums `got` and `plain` (B, C), −inf at the same
+    invalid candidates, from `exact` (exact_gains) and their ratios."""
+    fin = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(got), fin), "masks differ"
+    ex = exact.to(got.device)[fin]
+    return _ratio_stats((got[fin].double() - ex).abs(),
+                        (plain[fin].double() - ex).abs(), ex)
+
+
+def compare_gains(got, plain, ground, row, cands, rule: KernelRule,
+                  what: str = "gains") -> Dict[str, float]:
+    """Hold a gains kernel's (B, C) output against the plain version's on
+    the same inputs under the float64 ratio rule. Returns the stats;
+    raises AssertionError when the kernel's error from float64 exceeds
+    the stated multiples of the plain version's."""
+    stats = gains_stats(got, plain, exact_gains(ground, row, cands, rule))
+    assert pairwise_holds(stats), (
+        f"{what} {rule.name}: error from float64 is "
+        f"{stats['rms_ratio']:.3f}× (RMS) / {stats['max_ratio']:.3f}× (max) "
+        f"the plain f32 version's, beyond {PAIRWISE_RMS_RATIO}× / "
+        f"{PAIRWISE_MAX_RATIO}×")
     return stats
 
 
@@ -181,3 +254,39 @@ def compare_loops(kern, plain, rule: KernelRule,
     return {"ties": ties, "first_tie_step": first_tie,
             "max_gain_err": max_gain_err, "max_gain_tol": max_gain_tol,
             "max_row_err": max_row_err}
+
+
+def compare_steps(kern, plain, mat, mask, rule: KernelRule,
+                  what: str = "fused_step") -> Dict[str, float]:
+    """Hold a fused step's (new_row (B, N), best (B,), gain (B,)) against
+    its plain version's over the same matrix mat (B, N, C) and mask
+    (B, C). Returns the largest gain difference, the tolerance it met and
+    the number of greedies whose choices split at a tie; raises
+    AssertionError otherwise."""
+    rows_k, best_k, gain_k = kern
+    rows_p, best_p, gain_p = plain
+    assert torch.equal(rows_k, rows_p), f"{what}: folded rows differ"
+    rt = gain_rtol(mat.shape[-2])
+    gk, gp = gain_k.double().cpu(), gain_p.double().cpu()
+    fin = torch.isfinite(gp)
+    assert torch.equal(torch.isfinite(gk), fin), (what, gk, gp)
+    err = (gk[fin] - gp[fin]).abs()
+    tol = rt * gp[fin].abs() + 1e-30
+    assert bool((err <= tol).all()), (
+        f"{what}: gains differ by up to {float(err.max()):.3e}, beyond "
+        f"{rt:.2e}·|g|")
+    ties = 0
+    split = (best_k != best_p).nonzero().flatten().tolist()
+    if split:
+        raw = torch.sum(gain_part(rows_p.unsqueeze(-1), mat, rule), dim=-2)
+        for b in split:
+            a, c = int(best_k[b]), int(best_p[b])
+            assert bool(mask[b, a] > 0), f"{what}, greedy {b}: masked pick"
+            ga, gc = float(raw[b, a]), float(raw[b, c])
+            assert abs(ga - gc) <= rt * max(abs(ga), abs(gc)), (
+                f"{what}, greedy {b}: picks {a} ({ga}) and {c} ({gc}) "
+                "are no tie")
+            ties += 1
+    return {"max_gain_err": float(err.max()) if err.numel() else 0.0,
+            "max_gain_tol": float(tol.max()) if tol.numel() else 0.0,
+            "ties": ties}

@@ -19,9 +19,14 @@ Tiers, for a batch of ``replicas`` greedies that one launch serves:
              kernel writes the caches, the loop kernel re-reads them every
              step: TWO launches per level.
   fused      the cache fits but the loop block does not (a candidate
-             mask wider than shared memory): per-step engine (its kernel
-             is not ported yet — CPU only).
-  None       no cache fits in any storage dtype: per-step engine.
+             mask wider than shared memory): the fused per-step engine,
+             one fused_step launch per selection.
+  None       no cache fits in any storage dtype: per-step engine (one
+             gains launch per selection).
+
+A constraint demotes the loop tiers to the fused engine, and sampling
+under 'auto' takes the per-step engine (`select_engine`): the loop
+kernels evaluate no per-step feasibility mask or candidate subset.
 
 At the Tiny-ImageNet configuration (n = 100,000, m = 32, b = 2,
 k = 200) the leaves hold 32 × ≈3,200² × 4 B ≈ 1.3 GB of caches — far
@@ -52,6 +57,11 @@ REDUCE_BYTES = 8 * THREADS
 TILE_BYTES = 4 * (2 * 16 * 68 + 2 * 64)
 LOOP_BLOCK_MAX = 256                # target ground rows per loop block
 LOOP_BLOCK_MIN = 8
+# ground rows per block of the per-step fused kernel: at the knapsack
+# leaf shape (32 greedies × 3,125 rows) 32 rows give 98 blocks per greedy,
+# ~3 full waves of 8 blocks on each of the 132 SMs, for 3% more traffic
+# in gain partials than the 1.25 GB of caches a step reads
+FUSED_BLOCK_N = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +106,7 @@ def fused_block_n() -> int:
     block keeps only its state rows (in and out) and the argmax scratch
     in shared memory — gain partials go to device memory — so the shape
     does not enter."""
-    bn = LOOP_BLOCK_MAX
+    bn = FUSED_BLOCK_N
     while bn >= LOOP_BLOCK_MIN:
         if 4 * 2 * bn + REDUCE_BYTES <= _smem_budget():
             return bn

@@ -259,18 +259,30 @@ def matrix_block(g, c, rule: KernelRule):
 # ---------------------------------------------------------------------------
 
 
+# elements of one temporary of the direct difference (1 GiB of f32)
+COL_CHUNK_ELEMS = 2 ** 28
+
+
 def pairwise_col(ground, payload, rule: KernelRule):
     """One candidate's matrix column M[:, c] against the ground set: the
     direct difference for 'dist' (not the expansion — F0). ground
-    (…, N, D), payload (…, D) → (…, N)."""
+    (…, N, D), payload (…, D) → (…, N). The difference is taken over
+    slices of ground rows, each temporary at most COL_CHUNK_ELEMS: whole,
+    it would be as large as the ground set (4.9 GB at the Tiny-ImageNet
+    leaf shape) on every step."""
     if rule.is_bitmap:
         return payload
     g = ground.to(F32)
     p = payload.to(F32)
-    if rule.pairwise == "dist":
-        return torch.sqrt(torch.clamp(
-            torch.sum((g - p.unsqueeze(-2)) ** 2, dim=-1), min=0.0))
-    return torch.matmul(g, p.unsqueeze(-1)).squeeze(-1)
+    if rule.pairwise != "dist":
+        return torch.matmul(g, p.unsqueeze(-1)).squeeze(-1)
+    p = p.unsqueeze(-2)
+    n = g.shape[-2]
+    rows = max(1, COL_CHUNK_ELEMS // max(1, g.numel() // max(1, n)))
+    return torch.cat([
+        torch.sqrt(torch.clamp(torch.sum((g[..., i:i + rows, :] - p) ** 2,
+                                         dim=-1), min=0.0))
+        for i in range(0, max(n, 1), rows)], dim=-1)
 
 
 def update_row(ground, row, payload, rule: KernelRule):

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.data.synthetic import gen_images
 from repro_torch.kernels import counters, ops
+from repro_torch.kernels import fused_step as TF
 from repro_torch.kernels import greedy_loop as TL
 from repro_torch.kernels import pairwise as TP
 from repro_torch.kernels import parity
@@ -100,6 +101,55 @@ def test_cuda_resident_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("shape", [(3, 300, 130, 8), (2, 7, 5, 1)])
+def test_cuda_fused_step_kernel_matches_plain(cuda, name, shape):
+    """Fed the plain matrix: rows equal bit for bit, the gain within the
+    reordering bound, the pick equal except at a rounding tie — over a
+    random mask, for a first step (prev −1) and a later one."""
+    tr = FEATURE_RULES[name]
+    b, n, c, block_n = shape
+    g, cd = _dev_pools(cuda, b, n, c, 24, seed=8)
+    mat = TP.pairwise_plain(g, cd, tr.pairwise).contiguous()
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mask = (torch.rand(b, c, generator=gen, device=cuda) > 0.3).float()
+    for prev in (torch.full((b,), -1, device=cuda),
+                 torch.randint(0, c, (b,), generator=gen, device=cuda)):
+        counters.reset()
+        got = TF.fused_step(mat, row, mask, prev, tr, block_n=block_n)
+        assert counters.snapshot()["fused_step"]["launches"] == 1
+        want = TF.fused_step_plain(mat, row, mask, prev, tr)
+        parity.compare_steps(got, want, mat, mask, tr)
+    # every candidate masked: first index, −inf, as the plain version
+    got = TF.fused_step(mat, row, torch.zeros_like(mask), prev, tr)
+    assert bool((got[1] == 0).all()) and bool(torch.isinf(got[2]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("shape", [(2, 150, 72, 200), (1, 5, 3, 7)])
+def test_cuda_gains_kernel_matches_plain(cuda, name, shape):
+    """Gain sums held to a float64 build under the pairwise ratio rule,
+    −inf at the invalid candidates, on a live state row."""
+    tr = FEATURE_RULES[name]
+    b, n, c, d = shape
+    g, cd = _dev_pools(cuda, b, n, c, d, seed=9)
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr)
+    for j in range(min(3, n)):
+        row = TR.update_row(g, row, g[:, j], tr)
+    row = row.contiguous()
+    cand_valid = torch.arange(c, device=cuda).expand(b, c) % 5 != 1
+    counters.reset()
+    got = TP.gains(g, row, cd, cand_valid, tr)
+    assert counters.snapshot()["gains"]["launches"] == 1
+    want = TP.gains_plain(g, row, cd, cand_valid, tr)
+    parity.compare_gains(got, want, g, row, cd, tr)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     bits = torch.randint(0, 2 ** 31, (1, 8, 4), device=cuda)
     with pytest.raises(NotImplementedError):
@@ -113,6 +163,10 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.greedy_loop(mat, torch.zeros(1, 8, device=cuda),
                         torch.ones(1, 8, device=cuda), 2, TR.DOT_MAX)
     with pytest.raises(NotImplementedError):
-        ops.fused_step(mat.float(), torch.zeros(1, 8, device=cuda),
+        ops.fused_step(mat, torch.zeros(1, 8, device=cuda),
                        torch.ones(1, 8, device=cuda),
                        torch.tensor([-1], device=cuda), TR.DOT_MAX)
+    with pytest.raises(NotImplementedError):
+        ops.gains(None, torch.zeros(1, 4, dtype=torch.int64, device=cuda),
+                  bits, torch.ones(1, 8, dtype=torch.bool, device=cuda),
+                  TR.BITS_OR)

@@ -132,11 +132,22 @@ def test_registry_matches_reference():
 
 
 def test_constraint_and_sampling_are_not_ported_yet():
+    """Constrained and stochastic greedy run on one device (see
+    tests/test_torch_constraints.py); their distributed half — a device
+    mesh, sharded leaves — is not ported yet and raises."""
+    from repro_torch.core.constraints import KnapsackSpec
+    from repro_torch.core.greedyml import LevelDispatcher
+    obj = t_make("facility", device="cpu")
+    spec = KnapsackSpec(torch.ones(30), 4.0)
+    with pytest.raises(NotImplementedError, match="A3"):
+        LevelDispatcher(obj, 3, (2,), mesh=object(), constraint=spec,
+                        sample_leaf=5)
+    with pytest.raises(NotImplementedError, match="A5"):
+        LevelDispatcher(obj, 3, (2,), shard=2, constraint=spec)
     ids, x, valid = _pool(n=30)
-    with pytest.raises(NotImplementedError):
-        _t("facility", "auto", ids, x, valid, 3, constraint=object())
-    with pytest.raises(NotImplementedError):
-        _t("facility", "auto", ids, x, valid, 3, sample=5)
+    sol = _t("facility", "auto", ids, x, valid, 3, sample=5,
+             constraint=spec.bind(torch.as_tensor(ids, dtype=torch.int64)))
+    assert int(sol.valid.sum()) >= 1
 
 
 def test_select_better_and_replay_value_match_reference():

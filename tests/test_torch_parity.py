@@ -2,12 +2,14 @@
 (src/repro_torch/kernels/parity.py), on the CPU: they must pass what
 differs only by f32 rounding and fail what computes something else —
 TF32-rounded products, a dropped slice of features, a gain moved beyond
-its entry bound."""
+its entry bound, a fused step's moved row entry or a pick that is no
+tie."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.data.synthetic import gen_images
+from repro_torch.kernels import fused_step as TF
 from repro_torch.kernels import greedy_loop as TL
 from repro_torch.kernels import pairwise as TP
 from repro_torch.kernels import parity
@@ -118,3 +120,90 @@ def test_loop_rule_without_entry_differences_is_strict():
     with pytest.raises(AssertionError):
         parity.compare_loops((rows, bests, moved), plain, rule)
     assert parity.compare_loops(plain, plain, rule)["ties"] == 0
+
+
+def _gains_inputs(rule, b=2, n=160, c=24, d=1024, seed=5):
+    """Pools, a live state row (three elements folded in) and candidates
+    drawn from the pools."""
+    x = torch.as_tensor(gen_images(b * n, d, classes=5, seed=seed))
+    g = x.reshape(b, n, d)
+    row = TR.empty_row(g, torch.ones(b, n, dtype=torch.bool), rule)
+    for j in (3, 50, 111):
+        row = TR.update_row(g, row, g[:, j], rule)
+    cands = g[:, ::n // c][:, :c].contiguous()
+    cand_valid = torch.arange(c).expand(b, c) % 6 != 2
+    return g, row, cands, cand_valid
+
+
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+def test_gains_rule_passes_a_reordered_f32_build(name):
+    rule = {"kmedoid": TR.DIST_MIN, "facility": TR.DOT_MAX}[name]
+    g, row, cands, cv = _gains_inputs(rule)
+    perm = torch.randperm(g.shape[-1], generator=torch.Generator()
+                          .manual_seed(2))
+    plain = TP.gains_plain(g, row, cands, cv, rule)
+    other = TP.gains_plain(g[..., perm].contiguous(), row,
+                           cands[..., perm].contiguous(), cv, rule)
+    stats = parity.compare_gains(other, plain, g, row, cands, rule)
+    assert stats["rms_ratio"] <= parity.PAIRWISE_RMS_RATIO
+
+
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+def test_gains_rule_rejects_tf32_products(name):
+    """The plain gains with TF32-rounded matrix products (the matrix's
+    inputs rounded to 10 mantissa bits, norms and sums in f32) fail."""
+    rule = {"kmedoid": TR.DIST_MIN, "facility": TR.DOT_MAX}[name]
+    g, row, cands, cv = _gains_inputs(rule)
+    plain = TP.gains_plain(g, row, cands, cv, rule)
+    cross = torch.matmul(_tf32(g), _tf32(cands).transpose(-1, -2))
+    if rule.pairwise == "dist":
+        gn = (g * g).sum(-1, keepdim=True)
+        cn = (cands * cands).sum(-1).unsqueeze(-2)
+        cross = torch.sqrt(torch.clamp(gn + cn - 2 * cross, min=0.0))
+    raw = TR.gain_part(row.unsqueeze(-1), cross, rule).sum(-2)
+    tf32 = torch.where(cv, raw, torch.full_like(raw, float("-inf")))
+    with pytest.raises(AssertionError):
+        parity.compare_gains(tf32, plain, g, row, cands, rule)
+
+
+def test_gains_rule_needs_the_same_invalid_candidates():
+    g, row, cands, cv = _gains_inputs(TR.DOT_MAX)
+    plain = TP.gains_plain(g, row, cands, cv, TR.DOT_MAX)
+    other = plain.clone()
+    other[0, 2] = 1.0                      # an invalid candidate scored
+    with pytest.raises(AssertionError):
+        parity.compare_gains(other, plain, g, row, cands, TR.DOT_MAX)
+
+
+def test_step_rule_holds_rows_gains_and_picks():
+    """A fused step passes against itself; a moved row entry, a gain
+    moved beyond the reordering bound, or a pick that is no tie fail;
+    a pick at an exact tie passes and is counted."""
+    rule = TR.DOT_MAX
+    pools, row, _ = _loop_inputs(rule)
+    mat = TL.resident_matrix(pools, pools, rule)
+    mask = torch.ones(mat.shape[0], mat.shape[-1])
+    prev = torch.tensor([4, -1])
+    plain = TF.fused_step_plain(mat, row, mask, prev, rule)
+    assert parity.compare_steps(plain, plain, mat, mask, rule)["ties"] == 0
+    rows, best, gain = plain
+    bad_rows = rows.clone()
+    bad_rows[0, 7] = torch.nextafter(bad_rows[0, 7], torch.tensor(9.0))
+    with pytest.raises(AssertionError):
+        parity.compare_steps((bad_rows, best, gain), plain, mat, mask, rule)
+    with pytest.raises(AssertionError):
+        parity.compare_steps((rows, best, gain * (1 + 1e-3)), plain, mat,
+                             mask, rule)
+    raw = TR.gain_part(rows.unsqueeze(-1), mat, rule).sum(-2)
+    worst = raw.argmin(-1)
+    with pytest.raises(AssertionError):
+        parity.compare_steps((rows, worst, gain), plain, mat, mask, rule)
+    # an exact duplicate column is an exact tie
+    dup = mat.clone()
+    dup[0, :, 9] = dup[0, :, int(best[0])]
+    twin = TF.fused_step_plain(dup, row, mask, prev, rule)
+    other = twin[1].clone()
+    other[0] = 9 if int(twin[1][0]) != 9 else int(best[0])
+    res = parity.compare_steps((twin[0], other, twin[2]), twin, dup, mask,
+                               rule)
+    assert res["ties"] == 1
