@@ -38,8 +38,40 @@ script exits non-zero:
              `timing_steps` for fused_step and gains, with fused_step
              at the node shape and the step engine's row update)
 
-Then the card's name and power limit (nvidia-smi), the {"kernels": …}
-line, and as the last line {"ok": true, "device": {…}}. The script
+Then the coverage problems, after the k-medoid tensors are freed:
+
+  data_kcover       the KOSARAK k-cover bitmaps (990,002 sets over 41,270
+                    items, gen_kcover + pack_bitmaps on the host, 5.1 GB
+                    of 32-bit words placed on the card)
+  parity_coverage   the four bitmap kernels against their plain versions
+                    at the kcover runs' shapes, equal bit for bit: gains
+                    (32 × 2,227 × 1,290), fused_step (leaf 32 × 30,938 ×
+                    1,290, node 32 × 128 × 1,290), the streaming loop
+                    (the first leaf level), the resident loop (every
+                    level's 16, 8, 4, 2, 1 nodes and the stochastic
+                    run's 32 lanes)
+  kcover_run        run_tree_dense('kcover', …) at KOSARAK, T(32, 2):
+                    1 streaming-loop launch at the leaves, 1 resident
+                    launch per level, 0 pairwise; the leaf cache bytes
+  kcover_knapsack   LevelDispatcher over 32 lanes, KnapsackSpec of
+                    uniform(0.5, 2) costs, budget 40: 64 fused_step
+                    launches a stage, spent ≤ budget everywhere
+  kcover_stochastic the same lanes, sample_leaf 2,227: 64 gains launches
+                    at the leaves, resident nodes
+  kdom_run          run_tree_dense('kdom', …) at the reference's kdom
+                    configuration (65,536 road-graph neighbourhoods),
+                    after the streaming loop at its first leaf level
+                    (8 × 8,355 × 2,048, k = 128) and the resident loop
+                    at its levels' 4, 2, 1 nodes (× 256 × 2,048) are
+                    held bit for bit against their plain versions
+  timing_coverage   each bitmap kernel at its path's shape beside its
+                    bytes bound and its plain version; the resident
+                    loop also at other candidates per block
+
+(`reference_dispatch` also runs small coverage trees, kernel path
+against CPU path.) Then the card's name and power limit (nvidia-smi),
+the {"kernels": …} line (nine kernels), and as the last line
+{"ok": true, "device": {…}}. The script
 needs the repository's src/ beside it and a CUDA device; without either
 it exits non-zero before printing any result. Imports nothing of JAX or
 of the JAX package.
@@ -47,6 +79,7 @@ of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -71,6 +104,14 @@ REPLACES = {
     "greedy_loop_resident": "src/repro/kernels/greedy_loop.py:246",
     "fused_step": "src/repro/kernels/fused_step.py:88",
     "gains": "src/repro/kernels/pairwise.py:109",
+    "gains[coverage]": "src/repro/kernels/pairwise.py:109 (_gains_kernel "
+                       ":81, bitmap branch, grid :130-140)",
+    "fused_step[coverage]": "src/repro/kernels/fused_step.py:88 "
+                            "(_step_body :42, uint32 row)",
+    "greedy_loop[coverage]": "src/repro/kernels/greedy_loop.py:131 "
+                             "(_stream_body :54, uint32 words)",
+    "greedy_loop_resident[coverage]": "src/repro/kernels/greedy_loop.py:246 "
+                                      "(_resident_kernel :187, bits branch)",
 }
 SOURCES = {
     "pairwise": "src/repro_torch/csrc/pairwise.cu",
@@ -78,9 +119,15 @@ SOURCES = {
     "greedy_loop_resident": "src/repro_torch/csrc/greedy_loop_resident.cu",
     "fused_step": "src/repro_torch/csrc/fused_step.cu",
     "gains": "src/repro_torch/csrc/gains.cu",
+    "gains[coverage]": "src/repro_torch/csrc/gains.cu",
+    "fused_step[coverage]": "src/repro_torch/csrc/fused_step.cu",
+    "greedy_loop[coverage]": "src/repro_torch/csrc/greedy_loop.cu",
+    "greedy_loop_resident[coverage]": "src/repro_torch/csrc/greedy_loop.cu",
 }
 # the knapsack run's budget (costs uniform(0.5, 2): ~80 of k = 200 fit)
 BUDGET = 100.0
+# the kcover knapsack run's budget (~32 of k = 64 fit)
+BUDGET_KCOVER = 40.0
 
 
 def emit(obj) -> None:
@@ -137,15 +184,19 @@ def sample_size(pool: int, k: int, eps: float = 0.01) -> int:
 
 
 def lane_pools(torch, x, lanes: int, seed: int):
-    """The dispatcher runs' lanes: the images permuted with the seed and
+    """The dispatcher runs' lanes: the elements permuted with the seed and
     cut into `lanes` contiguous pools (shard_lanes) → ids, payloads,
-    valid on the card."""
+    valid on the card. Where `lanes` does not divide n, the permutation
+    is padded at its end with invalid slots (id −1, zero payload)."""
     from repro_torch.core.greedyml import shard_lanes
-    perm = torch.as_tensor(np.random.default_rng(seed).permutation(
-        x.shape[0]), device=x.device)
-    return shard_lanes(perm, x[perm],
-                       torch.ones(x.shape[0], dtype=torch.bool,
-                                  device=x.device), lanes)
+    n = x.shape[0]
+    n_pad = -(-n // lanes) * lanes
+    perm = np.full(n_pad, -1, np.int64)
+    perm[:n] = np.random.default_rng(seed).permutation(n)
+    perm = torch.as_tensor(perm, device=x.device)
+    pay = x[perm.clamp(min=0)]
+    pay[perm < 0] = 0
+    return shard_lanes(perm, pay, perm >= 0, lanes)
 
 
 def knapsack_costs(n: int, seed: int) -> np.ndarray:
@@ -485,17 +536,18 @@ def phase_reference(torch):
                           "value_gpu": gk.value, "value_cpu": ck.value}})
 
 
-def _dispatch_tree(torch, name, data, k, radices, device, **kw):
+def _dispatch_tree(torch, name, data, k, radices, device, universe=0, **kw):
     """A LevelDispatcher tree over contiguous lanes of `data` on
     `device` → the stacked lane state after the last level."""
     from repro_torch.core.functions import make_objective
     from repro_torch.core.greedyml import LevelDispatcher, shard_lanes
-    obj = make_objective(name, device=device)
+    from repro_torch.kernels.rules import to_words
+    obj = make_objective(name, universe=universe, device=device)
     disp = LevelDispatcher(obj, k, radices, **kw)
     n = data.shape[0]
+    pay = to_words(data) if obj.rule.is_bitmap else torch.as_tensor(data)
     ids, pay, val = shard_lanes(
-        torch.arange(n, device=obj.device),
-        torch.as_tensor(data, device=obj.device),
+        torch.arange(n, device=obj.device), pay.to(obj.device),
         torch.ones(n, dtype=torch.bool, device=obj.device), disp.lanes)
     sols = disp.leaves(ids, pay, val)
     for lvl in range(disp.num_levels):
@@ -511,24 +563,40 @@ def phase_reference_dispatch(torch, devices=("cuda", "cpu")):
     fused engine, pairwise + fused_step kernels — and a stochastic tree
     whose draws come from CPU generators on both paths — step engine at
     the leaves (gains kernel), resident loop at the nodes. Ids, values
-    and every lane's spent must be EQUAL."""
+    and every lane's spent must be EQUAL. Then the same two trees on
+    k-cover bitmaps (integer gains: exact everywhere), and
+    run_tree_dense('kcover', …) with the leaves on the resident tier
+    and, with a 10 KB L2 share, on the streaming tier — all four bitmap
+    kernels against the CPU path."""
     from repro_torch.core.constraints import KnapsackSpec
+    from repro_torch.core.simulate import run_tree_dense
+    from repro_torch.core.tree import AccumulationTree
+    from repro_torch.data.synthetic import gen_kcover, pack_bitmaps
     from repro_torch.kernels import counters
+    from repro_torch.runtime import flags
     rng = np.random.default_rng(6)
     xi = rng.integers(-3, 4, (4096, 64)).astype(np.float32)
     costs = rng.integers(2, 9, 4096).astype(np.float32) / 4.0
+    bits = pack_bitmaps(gen_kcover(4096, 2000, seed=8), 2000)
     out = {}
-    cases = {"knapsack": dict(budget=6.0),
-             "stochastic": dict(sample_leaf=64, seed=4)}
-    for case, kw in cases.items():
+    cases = {"knapsack": ("facility", xi, dict(budget=6.0)),
+             "stochastic": ("facility", xi, dict(sample_leaf=64, seed=4)),
+             "kcover_knapsack": ("kcover", bits, dict(budget=6.0)),
+             "kcover_stochastic": ("kcover", bits,
+                                   dict(sample_leaf=64, seed=4))}
+    wants = {"knapsack": ["fused_step"], "stochastic": ["gains"],
+             "kcover_knapsack": ["fused_step[coverage]"],
+             "kcover_stochastic": ["gains[coverage]",
+                                   "greedy_loop_resident[coverage]"]}
+    for case, (name, data, kw) in cases.items():
         runs = {}
         for dev in devices:
             spec = (KnapsackSpec(torch.as_tensor(costs, device=dev),
                                  kw["budget"]) if "budget" in kw else None)
             extra = {k: v for k, v in kw.items() if k != "budget"}
             counters.reset()
-            sols = _dispatch_tree(torch, "facility", xi, 8, (2, 2, 2), dev,
-                                  constraint=spec, **extra)
+            sols = _dispatch_tree(torch, name, data, 8, (2, 2, 2), dev,
+                                  universe=2000, constraint=spec, **extra)
             launched = {n: c["launches"] for n, c in
                         counters.snapshot().items() if c["launches"]}
             spent = (spec.spent(sols.ids, sols.valid).cpu().numpy()
@@ -538,15 +606,64 @@ def phase_reference_dispatch(torch, devices=("cuda", "cpu")):
         assert torch.equal(g.ids, c.ids), (case, g.ids, c.ids)
         assert torch.equal(g.value, c.value), (case, g.value, c.value)
         assert torch.equal(g.evals, c.evals), case
-        want = ("fused_step" if case == "knapsack" else "gains")
-        assert launched.get(want, 0) > 0, (case, launched)
+        assert all(launched.get(w, 0) > 0 for w in wants[case]), (
+            case, launched)
+        assert launched.get("pairwise", 0) == 0 or name != "kcover"
         if g_spent is not None:
             assert np.array_equal(g_spent, c_spent), (g_spent, c_spent)
             assert (g_spent <= kw["budget"]).all(), g_spent
         out[case] = {"ids_equal": True, "root_ids": g.ids[0].tolist(),
                      "root_value": float(g.value[0]), "launches": launched,
                      "spent": None if g_spent is None else g_spent.tolist()}
+    # run_tree_dense on bitmaps: resident leaves, then streaming leaves
+    old = os.environ.get(flags.RESIDENT_L2_MB_ENV)
+    for tier, l2 in (("resident", None), ("streaming", "0.01")):
+        runs = {}
+        try:
+            if l2 is not None:
+                os.environ[flags.RESIDENT_L2_MB_ENV] = l2
+            for dev in devices:
+                counters.reset()
+                res = run_tree_dense("kcover", bits, 8, AccumulationTree(8, 2),
+                                     seed=3, universe=2000, device=dev)
+                runs[dev] = (res, {n: c["launches"] for n, c in
+                                   counters.snapshot().items()
+                                   if c["launches"]})
+        finally:
+            if old is None:
+                os.environ.pop(flags.RESIDENT_L2_MB_ENV, None)
+            else:
+                os.environ[flags.RESIDENT_L2_MB_ENV] = old
+        (g, launched), (c, _) = (runs[d] for d in devices)
+        want = ["greedy_loop_resident[coverage]"] + (
+            ["greedy_loop[coverage]"] if tier == "streaming" else [])
+        assert all(launched.get(w, 0) > 0 for w in want), (tier, launched)
+        assert "pairwise" not in launched, launched
+        assert np.array_equal(g.ids, c.ids), (tier, g.ids, c.ids)
+        assert g.value == c.value and g.root_value == c.root_value
+        assert g.per_node_evals == c.per_node_evals
+        out[f"kcover_tree_{tier}"] = {"ids_equal": True, "value": g.value,
+                                      "launches": launched}
     emit({"phase": "reference_dispatch", **out})
+
+
+def _level_hook(torch, levels):
+    """on_level callback for run_tree_dense: per-level wall time and
+    launches (counters reset after each level)."""
+    from repro_torch.kernels import counters
+    torch.cuda.synchronize()
+    t_last = [time.perf_counter()]
+
+    def on_level(lvl):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        levels.append({"level": lvl, "seconds": now - t_last[0],
+                       "launches": {n: c["launches"] for n, c in
+                                    counters.snapshot().items()
+                                    if c["launches"]}})
+        counters.reset()
+        t_last[0] = time.perf_counter()
+    return on_level
 
 
 def phase_run(torch, x, cfg):
@@ -558,20 +675,8 @@ def phase_run(torch, x, cfg):
     from repro_torch.kernels.rules import DIST_MIN
     tree = AccumulationTree(cfg.num_machines, cfg.branching)
     levels = []
-    torch.cuda.synchronize()
-    t_last = [time.perf_counter()]
-
-    def on_level(lvl):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        snap = {n: c["launches"] for n, c in counters.snapshot().items()
-                if c["launches"]}
-        levels.append({"level": lvl, "seconds": now - t_last[0],
-                       "launches": snap})
-        counters.reset()
-        t_last[0] = time.perf_counter()
-
     counters.reset()
+    on_level = _level_hook(torch, levels)
     t0 = time.perf_counter()
     res = run_tree_dense("kmedoid", x, cfg.k, tree, seed=cfg.seed,
                          device=x.device, on_level=on_level)
@@ -628,7 +733,8 @@ def phase_run(torch, x, cfg):
     return totals
 
 
-def _run_dispatcher(torch, x, cfg, pools, expect, **kw):
+def _run_dispatcher(torch, x, cfg, pools, expect, objective="kmedoid",
+                    **kw):
     """One LevelDispatcher tree over the run's lanes, stage by stage:
     per-stage wall time (host clock around synchronized work), the
     engine the planner picks there and the launches per kernel, each
@@ -638,12 +744,11 @@ def _run_dispatcher(torch, x, cfg, pools, expect, **kw):
     from repro_torch.core.greedyml import LevelDispatcher
     from repro_torch.kernels import counters
     from repro_torch.kernels.plans import select_engine
-    obj = make_objective("kmedoid", device=x.device)
+    obj = make_objective(objective, universe=cfg.universe, device=x.device)
     radices = (cfg.branching,) * round(math.log(cfg.num_machines,
                                                 cfg.branching))
     disp = LevelDispatcher(obj, cfg.k, radices, **kw)
     ids, pay, valid = pools
-    d = x.shape[1]
     stages, totals = [], {}
     sols = None
     for stage in range(disp.num_levels + 1):
@@ -660,7 +765,9 @@ def _run_dispatcher(torch, x, cfg, pools, expect, **kw):
         secs = time.perf_counter() - t0
         launches = {k: c["launches"] for k, c in
                     counters.snapshot().items() if c["launches"]}
-        engine = select_engine(obj.rule, n, n, d,
+        dims = ((obj.words, n, None) if obj.rule.is_bitmap
+                else (n, n, x.shape[1]))
+        engine = select_engine(obj.rule, *dims,
                                sampling=0 < sample < n,
                                constrained=kw.get("constraint") is not None,
                                replicas=disp.lanes).engine
@@ -672,8 +779,10 @@ def _run_dispatcher(torch, x, cfg, pools, expect, **kw):
     return stages, totals, sols
 
 
-def _report_root(torch, x, sols, k):
-    """Root ids checked and re-scored on all n images."""
+def _report_root(torch, x, sols, k, objective="kmedoid", data=None,
+                 universe=0):
+    """Root ids checked and re-scored on all n elements (`data`: what
+    global_value scores, default x)."""
     from repro_torch.core.simulate import global_value
     root = sols.map(lambda t: t[0])
     ids = root.ids[root.valid].cpu().numpy()
@@ -681,7 +790,8 @@ def _report_root(torch, x, sols, k):
     assert ids.min() >= 0 and ids.max() < x.shape[0]
     assert np.isfinite(float(root.value))
     t0 = time.perf_counter()
-    gv = global_value("kmedoid", x, ids)
+    gv = global_value(objective, x if data is None else data, ids,
+                      universe=universe)
     torch.cuda.synchronize()
     return ids, {"accepted": len(ids), "root_value": float(root.value),
                  "global_value": gv,
@@ -889,6 +999,482 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the coverage problems (the bitmap rule)
+# ---------------------------------------------------------------------------
+
+
+def random_words(torch, shape, seed: int, device):
+    """Sparse random 32-bit words (each bit set with probability 1/8),
+    every 5th word with bit 31 set, as the port's int32 words."""
+    from repro_torch.kernels.rules import to_words
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    for _ in range(2):
+        a &= rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    a.reshape(-1)[::5] |= np.uint32(2 ** 31)
+    return to_words(a).to(device)
+
+
+def phase_data_kcover(torch, cfg, avg_size: float, dev):
+    """The KOSARAK bitmaps: gen_kcover + pack_bitmaps on the host (the
+    reference's recipe, from the seed), then the words placed on the
+    card once as int32 (rules.to_words reinterprets, no host copy)."""
+    from repro_torch.data.synthetic import gen_kcover, pack_bitmaps
+    from repro_torch.kernels.rules import to_words
+    t0 = time.perf_counter()
+    sets = gen_kcover(cfg.n, cfg.universe, seed=cfg.seed, avg_size=avg_size)
+    t_gen = time.perf_counter() - t0
+    sizes = np.fromiter((len(x) for x in sets), np.int64, len(sets))
+    bits = pack_bitmaps(sets, cfg.universe)
+    del sets
+    t_pack = time.perf_counter() - t0 - t_gen
+    words = to_words(bits).to(dev)
+    torch.cuda.synchronize()
+    # the largest item is 41,269: bit 31 of its word holds items ≡ 31 mod 32
+    top = int((words < 0).sum())
+    emit({"phase": "data_kcover", "n": cfg.n, "universe": cfg.universe,
+          "words": int(bits.shape[1]), "avg_size": avg_size,
+          "mean_items": float(sizes.mean()), "max_items": int(sizes.max()),
+          "gigabytes": bits.nbytes / 1e9, "words_with_bit31": top,
+          "gen_seconds": t_gen, "pack_seconds": t_pack,
+          "seconds": time.perf_counter() - t0})
+    return bits, words
+
+
+def phase_parity_coverage(torch, words, cfg, pools):
+    """The four bitmap kernels against their plain versions on the card,
+    at the kcover runs' shapes, by kernels/parity.py's exact rule (rows,
+    bests and raw gains equal bit for bit; gains are integers):
+      gains        32 lanes × 2,227 sampled candidates × W words, a
+                   random live row
+      fused_step   the knapsack leaves (32 lanes × 30,938 × W) and a
+                   node shape (32 × 128 × W), random rows, 80% masks, a
+                   random previous winner, two steps
+      greedy_loop  the first leaf level of run_tree_dense (32 padded
+                   pools), k steps from a random row
+      resident     every level's nodes (16, 8, 4, 2, 1) and the
+                   stochastic run's 32 lanes, of b·k sets each
+    Random rows and node sets hold words with bit 31 set. Returns each
+    kernel's largest measured |kernel − plain| over its checks."""
+    from repro_torch.core.greedyml import LaneSampler
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import rules as R
+    rule = R.BITS_OR
+    dev = words.device
+    w = words.shape[1]
+    k = cfg.k
+    out = {}
+    _, lpay, lvalid = pools
+    b, n, _ = lpay.shape
+    sample = sample_size(n, k)
+    idx = LaneSampler(cfg.seed)(0, b, 1, n, sample)[:, 0].to(dev)
+    cands = torch.gather(lpay, 1, idx[..., None].expand(b, sample, w))
+    row = random_words(torch, (b, w), cfg.seed, dev)
+    cv = torch.gather(lvalid, 1, idx)
+    got = P.gains(None, row, cands, cv, rule)
+    out["gains"] = parity.compare_exact(got, P.gains_plain(
+        None, row, cands, cv, rule), "gains[coverage]")
+    out["gains"]["shape"] = [b, sample, w]
+    del cands, got
+
+    def steps(mat, row, what):
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        c = mat.shape[-1]
+        mask = (torch.rand(b, c, generator=gen, device=dev) > 0.2).float()
+        prev = torch.randint(0, c, (b,), generator=gen, device=dev)
+        plain = F.fused_step_plain(mat, row, mask, prev, rule)
+        res = parity.compare_exact(F.fused_step_bits(mat, row, mask, prev,
+                                                     rule), plain, what)
+        mask2 = mask.scatter(1, plain[1][:, None], 0.0)
+        plain2 = F.fused_step_plain(mat, plain[0], mask2, plain[1], rule)
+        res2 = parity.compare_exact(F.fused_step_bits(
+            mat, plain[0], mask2, plain[1], rule), plain2, what + ", step 2")
+        return {"entries": res["entries"] + res2["entries"],
+                "differing": res["differing"] + res2["differing"],
+                "max_abs_err": max(res["max_abs_err"], res2["max_abs_err"]),
+                "shape": [b, w, c]}
+
+    out["fused_step"] = {"leaf": steps(lpay.transpose(1, 2), row,
+                                       "fused_step[coverage] leaf")}
+    bk = cfg.branching * k
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    pick = torch.randint(0, words.shape[0], (b, bk), generator=gen,
+                         device=dev)
+    nodes = words[pick]
+    nodes[:, ::7] |= random_words(torch, (b, (bk + 6) // 7, w), 3, dev)
+    out["fused_step"]["node"] = steps(nodes.transpose(1, 2), row,
+                                      "fused_step[coverage] node")
+    del nodes
+    out["greedy_loop"] = _leaf_loop_parity(torch, words, cfg)
+    del pick
+    # the resident loop over every level's nodes, and the 32 lanes the
+    # stochastic run's node stages batch
+    out["greedy_loop_resident"] = {
+        str(nn): _resident_coverage_parity(torch, words, nn, bk, k,
+                                           cfg.seed + 10 + nn)
+        for nn in sorted(set(_level_nodes(cfg)) | {b}, reverse=True)}
+    emit({"phase": "parity_coverage", "rule": "exact (bit for bit)", **out})
+    return _max_errs(out)
+
+
+def _level_nodes(cfg) -> list:
+    """The node count of each level above the leaves of cfg's tree."""
+    from repro_torch.core.tree import AccumulationTree
+    tree = AccumulationTree(cfg.num_machines, cfg.branching)
+    return [len(tree.nodes_at_level(lvl))
+            for lvl in range(1, tree.num_levels + 1)]
+
+
+def _max_errs(results) -> dict:
+    """{kernel[coverage]: the largest max_abs_err} over nested results
+    of parity.compare_exact."""
+    def worst(r):
+        if "max_abs_err" in r:
+            return r["max_abs_err"]
+        return max(worst(v) for v in r.values() if isinstance(v, dict))
+    return {f"{name}[coverage]": worst(r) for name, r in results.items()}
+
+
+def _leaf_loop_parity(torch, words, cfg):
+    """The bitmap streaming loop against its plain version over the first
+    leaf level of run_tree_dense (its padded pools, read in place), k
+    steps from a random row with bit-31 words."""
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import rules as R
+    ids, pay, valid = leaf_pools(torch, words, cfg.num_machines, cfg.seed)
+    b, n, w = pay.shape
+    mat = pay.transpose(1, 2)
+    row = random_words(torch, (b, w), cfg.seed + 2, words.device)
+    mask = valid.float()
+    res = parity.compare_exact(
+        L.greedy_loop_bits(mat, row, mask, cfg.k, R.BITS_OR),
+        L.greedy_loop_plain(mat, row, mask, cfg.k, R.BITS_OR),
+        "greedy_loop[coverage]")
+    res["shape"] = [b, w, n, cfg.k]
+    return res
+
+
+def _resident_coverage_parity(torch, words, nodes: int, bk: int, k: int,
+                              seed: int):
+    """The bitmap resident loop against its plain version over `nodes`
+    nodes of bk sets drawn from the data (every 7th set OR'ed with
+    random words holding bit 31), k steps from an empty row; odd nodes
+    freeze at kq = k/2 (ctl), the others run all k steps."""
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import rules as R
+    dev = words.device
+    w = words.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cd = words[torch.randint(0, words.shape[0], (nodes, bk), generator=gen,
+                             device=dev)]
+    cd[:, ::7] |= random_words(torch, (nodes, (bk + 6) // 7, w), seed, dev)
+    row = torch.zeros(nodes, w, dtype=R.WORD_DTYPE, device=dev)
+    mask = torch.ones(nodes, bk, device=dev)
+    ctl = torch.tensor([[k if i % 2 == 0 else k // 2, w, bk]
+                        for i in range(nodes)], dtype=torch.int32,
+                       device=dev)
+    res = parity.compare_exact(
+        L.greedy_loop_resident(None, cd, row, mask, ctl, k, R.BITS_OR),
+        L.greedy_loop_resident_plain(None, cd, row, mask, ctl, k,
+                                     R.BITS_OR),
+        f"greedy_loop_resident[coverage], {nodes} nodes")
+    res["shape"] = [nodes, bk, w, k]
+    return res
+
+
+def _coverage_tree(torch, name, bits, words, cfg, phase: str):
+    """run_tree_dense on bitmaps at a full configuration: the leaves on
+    the streaming loop (1 launch), every level on the resident loop (1
+    launch), no pairwise launch anywhere (a bitmap matrix is a view);
+    the leaf stage's device allocation held to the planner's cache bytes
+    (the pools the cache views, nothing copied)."""
+    from repro_torch.core.simulate import global_value, partition, \
+        run_tree_dense
+    from repro_torch.core.tree import AccumulationTree
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.plans import cache_bytes, select_engine
+    from repro_torch.kernels.rules import BITS_OR
+    from repro_torch.core.simulate import _pools
+    tree = AccumulationTree(cfg.num_machines, cfg.branching)
+    w = words.shape[1]
+    # the host's share of the leaf stage: the random tape and the pools
+    # (a stable argsort of n ids), as run_tree_dense builds them
+    t0 = time.perf_counter()
+    pool_ids, _ = _pools(partition(cfg.n, cfg.num_machines, cfg.seed),
+                         cfg.num_machines)
+    host_pools_s = time.perf_counter() - t0
+    n_leaf = pool_ids.shape[1]
+    leaf_bytes = cache_bytes(w, n_leaf, "uint32", cfg.num_machines)
+    levels = []
+    counters.reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hook = _level_hook(torch, levels)
+    peak = []
+
+    def on_level(lvl):
+        hook(lvl)
+        if lvl == 0:
+            peak.append(torch.cuda.max_memory_allocated() - base)
+
+    t0 = time.perf_counter()
+    res = run_tree_dense(name, words, cfg.k, tree, seed=cfg.seed,
+                         universe=cfg.universe, device=words.device,
+                         on_level=on_level)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = {}
+    for lv in levels:
+        lvl = lv["level"]
+        n_stage = n_leaf if lvl == 0 else cfg.branching * cfg.k
+        reps = (cfg.num_machines if lvl == 0
+                else len(tree.nodes_at_level(lvl)))
+        engine = select_engine(BITS_OR, w, n_stage, replicas=reps).engine
+        lv["engine"] = engine
+        want = ({"greedy_loop[coverage]": 1} if lvl == 0
+                else {"greedy_loop_resident[coverage]": 1})
+        assert engine == ("mega_stream" if lvl == 0 else "mega_resident"), (
+            lvl, engine)
+        assert lv["launches"] == want, (lvl, lv["launches"], want)
+        for k, v in lv["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    assert len(levels) == tree.num_levels + 1
+    ids = np.asarray(res.ids)
+    assert 0 < len(ids) <= cfg.k and len(set(ids.tolist())) == len(ids)
+    assert ids.min() >= 0 and ids.max() < cfg.n
+    # coverage's value does not depend on the ground set: the root's
+    # value IS the coverage of its ids over the whole universe
+    t1 = time.perf_counter()
+    rescored = global_value(name, bits, ids)
+    rescore_s = time.perf_counter() - t1
+    assert rescored == res.value == res.root_value, (
+        rescored, res.value, res.root_value)
+    # the leaf stage allocated the pools (the cache) and small outputs:
+    # no copy of the cache
+    assert leaf_bytes <= peak[0] < 1.05 * leaf_bytes, (peak, leaf_bytes)
+    emit({"phase": phase, "n": cfg.n, "universe": cfg.universe, "words": w,
+          "k": cfg.k, "m": cfg.num_machines, "b": cfg.branching,
+          "leaf_pool": n_leaf, "leaf_cache_bytes_planned": leaf_bytes,
+          "leaf_stage_bytes_allocated": int(peak[0]),
+          "host_pools_seconds": host_pools_s,
+          "levels": levels, "wall_seconds": wall,
+          "root_value": res.root_value, "global_value": res.value,
+          "global_value_recomputed": rescored,
+          "global_value_seconds": rescore_s, "root_ids": len(ids),
+          "evals_total": res.evals_total,
+          "comm_elements": res.comm_elements})
+    return totals
+
+
+def phase_kcover_knapsack(torch, words, cfg, pools):
+    """The constrained coverage path: LevelDispatcher with a KnapsackSpec
+    of uniform(0.5, 2) costs by global id over the 32 lanes, budget 40.
+    Every stage runs the fused engine: k fused_step launches over the
+    candidates' words read in place, no pairwise launch."""
+    from repro_torch.core.constraints import KnapsackSpec
+    spec = KnapsackSpec(torch.as_tensor(knapsack_costs(cfg.n, cfg.seed),
+                                        device=words.device), BUDGET_KCOVER)
+
+    def expect(stage, engine):
+        assert engine == "fused", (stage, engine)
+        return {"fused_step[coverage]": cfg.k}
+
+    t0 = time.perf_counter()
+    stages, totals, sols = _run_dispatcher(
+        torch, words, cfg, pools, expect, objective="kcover",
+        constraint=spec)
+    wall = time.perf_counter() - t0
+    spent = spec.spent(sols.ids, sols.valid).cpu().numpy()
+    assert (spent <= BUDGET_KCOVER).all(), spent
+    ids, root = _report_root(torch, words, sols, cfg.k, "kcover")
+    assert len(ids) < cfg.k, "the budget did not bind"
+    assert totals["fused_step[coverage]"] == len(stages) * cfg.k
+    emit({"phase": "kcover_knapsack", "lanes": int(sols.ids.shape[0]),
+          "pool": int(pools[1].shape[1]), "k": cfg.k,
+          "budget": BUDGET_KCOVER, "stages": stages, "wall_seconds": wall,
+          **root, "spent_root": float(spent[0]),
+          "spent_lanes": spent.tolist()})
+    return totals
+
+
+def phase_kcover_stochastic(torch, words, cfg, pools):
+    """The stochastic coverage path: sample_leaf = ⌈(n_l/k)·ln 100⌉ over
+    the padded lane pools (2,227 at KOSARAK): the leaves on the per-step
+    engine (k gains launches), the nodes unsampled on the resident loop."""
+    from repro_torch.core.greedyml import LaneSampler
+    sample = sample_size(pools[1].shape[1], cfg.k)
+    # the host's share of the leaf stage: the default sampler's draws
+    # (CPU generators, one per lane), apart from the run
+    t0 = time.perf_counter()
+    LaneSampler(cfg.seed)(0, pools[0].shape[0], cfg.k, pools[1].shape[1],
+                          sample)
+    draws_s = time.perf_counter() - t0
+
+    def expect(stage, engine):
+        if stage == 0:
+            assert engine == "step", engine
+            return {"gains[coverage]": cfg.k}
+        assert engine == "mega_resident", (stage, engine)
+        return {"greedy_loop_resident[coverage]": 1}
+
+    t0 = time.perf_counter()
+    stages, totals, sols = _run_dispatcher(
+        torch, words, cfg, pools, expect, objective="kcover",
+        sample_leaf=sample, seed=cfg.seed)
+    wall = time.perf_counter() - t0
+    _, root = _report_root(torch, words, sols, cfg.k, "kcover")
+    emit({"phase": "kcover_stochastic", "lanes": int(sols.ids.shape[0]),
+          "pool": int(pools[1].shape[1]), "k": cfg.k,
+          "sample_leaf": sample, "stages": stages, "wall_seconds": wall,
+          "leaf_draws_seconds": draws_s, **root})
+    return totals
+
+
+def phase_kdom_run(torch, cfg, dev):
+    """run_tree_dense('kdom', …) at the reference's kdom configuration:
+    closed neighbourhoods of the road-like graph, packed over its
+    vertices (W ≫ k: 2,048 words against k = 128)."""
+    from repro_torch.data.synthetic import gen_graph_road, pack_bitmaps
+    from repro_torch.kernels.rules import to_words
+    t0 = time.perf_counter()
+    bits = pack_bitmaps(gen_graph_road(cfg.n, seed=cfg.seed), cfg.universe)
+    words = to_words(bits).to(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "data_kdom", "n": cfg.n, "words": int(bits.shape[1]),
+          "gigabytes": bits.nbytes / 1e9,
+          "seconds": time.perf_counter() - t0})
+    out = {"greedy_loop": _leaf_loop_parity(torch, words, cfg)}
+    bk = cfg.branching * cfg.k
+    out["greedy_loop_resident"] = {
+        str(nn): _resident_coverage_parity(torch, words, nn, bk, cfg.k,
+                                           cfg.seed + 10 + nn)
+        for nn in _level_nodes(cfg)}
+    emit({"phase": "parity_kdom", "rule": "exact (bit for bit)", **out})
+    launches = _coverage_tree(torch, "kdom", bits, words, cfg, "kdom_run")
+    return launches, _max_errs(out)
+
+
+def phase_timing_coverage(torch, words, cfg, pools, reps):
+    """Each bitmap kernel at its path's shape beside its plain version
+    and its bound: bytes over the HBM rate (a popcount pass does a few
+    integer operations per word read, far below the card's integer
+    rate). The streaming loop re-reads its caches every step, less what
+    L2 and shared memory could hold; the resident loop reads its nodes'
+    words once from device memory. No single PyTorch call computes a
+    popcount gain, so there is no library time."""
+    from repro_torch.core.greedyml import LaneSampler
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels.plans import BITS_RESIDENT_BLOCK_C
+    rule = R.BITS_OR
+    dev = words.device
+    w = words.shape[1]
+    k = cfg.k
+    _, lpay, lvalid = pools
+    b, n, _ = lpay.shape
+    out = {}
+    row = random_words(torch, (b, w), cfg.seed, dev)
+    s = sample_size(n, k)
+    idx = LaneSampler(cfg.seed)(0, b, 1, n, s)[:, 0].to(dev)
+    cands = torch.gather(lpay, 1, idx[..., None].expand(b, s, w))
+    cv = torch.ones(b, s, dtype=torch.bool, device=dev)
+    nbytes = 4.0 * (b * s * w + b * w + b * s) + b * s
+    out["gains[coverage]"] = {
+        "shape": [b, s, w],
+        "ms": cuda_ms(torch, lambda: P.gains(None, row, cands, cv, rule),
+                      20 * reps),
+        "plain_ms": cuda_ms(torch, lambda: P.gains_plain(None, row, cands,
+                                                         cv, rule), reps),
+        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes"}
+    del cands
+    mat = lpay.transpose(1, 2)
+    mask = lvalid.float()
+    prev = torch.zeros(b, dtype=torch.int64, device=dev)
+    nbytes = 4.0 * (b * n * w + 3 * b * w + b * n) + 16.0 * b
+    out["fused_step[coverage]"] = {
+        "shape": [b, w, n],
+        "ms": cuda_ms(torch, lambda: F.fused_step_bits(mat, row, mask, prev,
+                                                       rule), 10 * reps),
+        "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
+            mat, row, mask, prev, rule), reps),
+        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes"}
+    del mat, mask
+    # the knapsack node shape (reported, not in the kernels line): 32
+    # lanes of b·k = 128 sets, whose words sit in L2
+    bk = cfg.branching * k
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 5)
+    pick = torch.randint(0, words.shape[0], (b, bk), generator=gen,
+                         device=dev)
+    nmat = words[pick].transpose(1, 2)
+    nmask = torch.ones(b, bk, device=dev)
+    out["fused_step[coverage]_node"] = {
+        "shape": [b, w, bk],
+        "ms": cuda_ms(torch, lambda: F.fused_step_bits(nmat, row, nmask, prev,
+                                                       rule), 20 * reps),
+        "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
+            nmat, row, nmask, prev, rule), 20 * reps),
+        "bound_ms": 4.0 * (b * bk * w + 3 * b * w + b * bk) / PEAK_HBM_BYTES
+        * 1e3}
+    del nmat
+    ids, pay, valid = leaf_pools(torch, words, cfg.num_machines, cfg.seed)
+    mat = pay.transpose(1, 2)
+    bl, nl = pay.shape[:2]
+    lrow = torch.zeros(bl, w, dtype=R.WORD_DTYPE, device=dev)
+    mask = valid.float()
+    cache = 4.0 * bl * nl * w
+    nbytes = (k * cache - (k - 1) * min(cache, on_chip_bytes(torch))
+              + 4.0 * (2 * bl * w + bl * nl) + 8.0 * bl * k)
+    out["greedy_loop[coverage]"] = {
+        "shape": [bl, w, nl, k],
+        "ms": cuda_ms(torch, lambda: L.greedy_loop_bits(mat, lrow, mask, k,
+                                                        rule), reps),
+        "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_plain(
+            mat, lrow, mask, k, rule), 1, warmup=0),
+        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes"}
+    del ids, pay, valid, mat, mask
+    nn = cfg.num_machines // cfg.branching
+    cd = words[pick[:nn]]
+    rrow = torch.zeros(nn, w, dtype=R.WORD_DTYPE, device=dev)
+    rmask = torch.ones(nn, bk, device=dev)
+    ctl = torch.tensor([[k, w, bk]] * nn, dtype=torch.int32, device=dev)
+    nbytes = 4.0 * (nn * bk * w + 2 * nn * w + nn * bk + 3 * nn) \
+        + 8.0 * nn * k
+    out["greedy_loop_resident[coverage]"] = {
+        "shape": [nn, bk, w, k], "block_c": BITS_RESIDENT_BLOCK_C,
+        "ms": cuda_ms(torch, lambda: L.greedy_loop_resident(
+            None, cd, rrow, rmask, ctl, k, rule), 10 * reps),
+        "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_resident_plain(
+            None, cd, rrow, rmask, ctl, k, rule), reps),
+        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes"}
+    # the resident loop's candidates per block (bk = one block a node)
+    # at the level-1 nodes and at the stochastic run's 32 lanes
+    sweep = {}
+    for args in ((cd, rrow, rmask, ctl),
+                 (words[pick], torch.zeros_like(row),
+                  torch.ones(b, bk, device=dev),
+                  torch.tensor([[k, w, bk]] * b, dtype=torch.int32,
+                               device=dev))):
+        sweep[f"{args[0].shape[0]}x{bk}x{w}"] = {
+            str(bc): cuda_ms(torch, lambda: L.greedy_loop_resident_bits(
+                *args, k, rule, block_c=bc), 10 * reps)
+            for bc in (4, 8, 16, 32, bk)}
+    out["greedy_loop_resident[coverage]_block_c"] = sweep
+    emit({"phase": "timing_coverage", **out})
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -901,6 +1487,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.paper_kcover import KOSARAK, KOSARAK_AVG_SIZE
+    from repro_torch.configs.paper_kdom import CONFIG as KDOM
     from repro_torch.configs.paper_kmedoid import TINY_IMAGENET
     from repro_torch.data.synthetic import gen_images_on
     from repro_torch.kernels import counters
@@ -928,6 +1516,27 @@ def main(argv=None) -> int:
     launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
     times = phase_timing(torch, x, cfg, cfg.seed, args.reps)
     times.update(phase_timing_steps(torch, x, cfg, pools, args.reps))
+    # the coverage problems: the k-medoid tensors go first
+    del x, pools
+    gc.collect()
+    torch.cuda.empty_cache()
+    kc = KOSARAK
+    bits, words = phase_data_kcover(torch, kc, KOSARAK_AVG_SIZE, dev)
+    kpools = lane_pools(torch, words, kc.num_machines, kc.seed)
+    errs.update(phase_parity_coverage(torch, words, kc, kpools))
+    launches.update(_coverage_tree(torch, "kcover", bits, words, kc,
+                                   "kcover_run"))
+    launches["fused_step[coverage]"] = phase_kcover_knapsack(
+        torch, words, kc, kpools)["fused_step[coverage]"]
+    launches["gains[coverage]"] = phase_kcover_stochastic(
+        torch, words, kc, kpools)["gains[coverage]"]
+    times.update(phase_timing_coverage(torch, words, kc, kpools, args.reps))
+    del bits, words, kpools
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, kdom_errs = phase_kdom_run(torch, KDOM, dev)
+    for name, err in kdom_errs.items():
+        errs[name] = max(errs[name], err)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -7,8 +7,8 @@ capacities, costs, budgets). `np.asarray` reads the reference's
 arrays without importing its framework, so a test can hand both packages
 the same state mid-run.
 
-Type mapping: uint32 bitmap words ↔ int64 tensors holding the same
-values (the port's word representation, see kernels/rules.py); int32
+Type mapping: uint32 bitmap words ↔ int32 tensors holding the same bit
+patterns (the port's word representation, see kernels/rules.py); int32
 ids/evals ↔ int64; f32 and bool unchanged.
 """
 from __future__ import annotations
@@ -21,22 +21,25 @@ import torch
 from repro_torch.core import constraints as C
 from repro_torch.core.greedy import Solution
 from repro_torch.core.objective import RuleState
+from repro_torch.kernels import rules as R
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
 
 def to_torch(x, device: DeviceLike = None):
-    """numpy-like → tensor on `device`; uint32 words and int32 ids widen
-    to int64; None passes through."""
+    """numpy-like → tensor on `device`; uint32 words become int32 bit
+    patterns, int32 ids widen to int64; None passes through."""
     if x is None:
         return None
     a = np.array(x)                  # a writable copy for torch
-    if a.dtype in (np.uint32, np.int32):
+    if a.dtype == np.uint32:
+        return R.to_words(a).to(resolve_device(device))
+    if a.dtype == np.int32:
         a = a.astype(np.int64)
     return torch.as_tensor(a, device=resolve_device(device))
 
 
 def to_numpy(t, dtype=None):
-    """tensor → numpy, optionally cast (int64 words → np.uint32, …)."""
+    """tensor → numpy, optionally cast (int32 words → np.uint32, …)."""
     if t is None:
         return None
     a = t.detach().cpu().numpy()

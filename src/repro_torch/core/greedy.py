@@ -64,6 +64,15 @@ def _on(objective, x, dtype=None):
     return torch.as_tensor(x, device=objective.device, dtype=dtype)
 
 
+def _payloads_on(objective, x):
+    """Pool payloads on the objective's device; bitmap words as int32
+    (rules.to_words: a no-op for words already narrowed, as
+    run_tree_dense and the dispatcher's lanes hold them)."""
+    if objective.rule.is_bitmap:
+        return R.to_words(x).to(objective.device)
+    return _on(objective, x)
+
+
 def _gather_rows(x, idx):
     """x (B, n, …) rows at idx (B, k) → (B, k, …)."""
     shape = idx.shape + x.shape[2:]
@@ -109,13 +118,13 @@ def greedy_batch(objective, ids, payloads, valid, k: int, ground=None,
     ground (B, N, D) / ground_valid (B, N) optional, constraint with
     leading dim B, cand_idx (B, k, sample) optional."""
     ids = _on(objective, ids, torch.int64)
-    payloads = _on(objective, payloads)
+    payloads = _payloads_on(objective, payloads)
     valid = _on(objective, valid, torch.bool)
     b, n = ids.shape
     if ground is None:
         ground, ground_valid = payloads, valid
     else:
-        ground = _on(objective, ground)
+        ground = _payloads_on(objective, ground)
         ground_valid = _on(objective, ground_valid, torch.bool)
     sampling = 0 < sample < n
     if sampling:

@@ -45,7 +45,7 @@ class RuleState:
     elsewhere); `n_eff` the valid-ground normalizer (1 for bitmaps)."""
     ground: Optional[torch.Tensor]    # (B, N, D) evaluation features
     gvalid: Optional[torch.Tensor]    # (B, N) bool
-    row: torch.Tensor                 # (B, N) f32 | (B, W) int64 words
+    row: torch.Tensor                 # (B, N) f32 | (B, W) int32 words
     base: torch.Tensor                # (B,) f32
     n_eff: torch.Tensor               # (B,) f32
 

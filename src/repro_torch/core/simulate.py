@@ -21,6 +21,7 @@ from repro_torch.core.functions import make_objective
 from repro_torch.core.greedy import greedy, greedy_batch, replay_value, \
     select_better
 from repro_torch.core.tree import AccumulationTree
+from repro_torch.kernels import rules as R
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
 F32 = torch.float32
@@ -68,6 +69,10 @@ def global_value(objective_name: str, data: Any, ids,
     ids = np.asarray(torch.as_tensor(ids).cpu())
     ids = ids[ids >= 0]
     if objective_name in ("kcover", "kdom"):
+        if isinstance(data, torch.Tensor):   # words: fetch the ids' rows only
+            sel = torch.as_tensor(ids, dtype=torch.int64, device=data.device)
+            data = R.to_words(data[sel]).cpu().numpy().view(np.uint32)
+            ids = np.arange(len(ids))
         data = np.asarray(data)
         if data.dtype == np.uint32:
             cov = np.zeros(data.shape[1], np.uint32)
@@ -92,14 +97,15 @@ def global_value(objective_name: str, data: Any, ids,
     raise KeyError(objective_name)
 
 
-def _payload_tensor(payloads, dev) -> torch.Tensor:
-    """(n, …) payloads on `dev`: a tensor stays a tensor, uint32 bitmap
-    words widen to int64 (the port's word representation)."""
+def _payload_tensor(payloads, dev, bitmap: bool) -> torch.Tensor:
+    """(n, …) payloads on `dev`. Bitmap words are narrowed to int32 where
+    they enter (rules.to_words: a numpy uint32 array is reinterpreted,
+    not copied, before its one copy to the device)."""
+    if bitmap:
+        return R.to_words(payloads).to(dev)
     if isinstance(payloads, torch.Tensor):
         return payloads.to(dev)
-    a = np.asarray(payloads)
-    return torch.as_tensor(a.astype(np.int64) if a.dtype == np.uint32
-                           else a, device=dev)
+    return torch.as_tensor(np.asarray(payloads), device=dev)
 
 
 def _pools(assign: np.ndarray, m: int):
@@ -134,7 +140,7 @@ def run_tree_dense(objective_name: str, payloads, k: int,
     node_engine = node_engine or engine
     obj = make_objective(objective_name, universe=universe, device=device)
     dev = obj.device
-    pay_t = _payload_tensor(payloads, dev)
+    pay_t = _payload_tensor(payloads, dev, obj.rule.is_bitmap)
     n = pay_t.shape[0]
     m, b, L = tree.m, tree.b, tree.num_levels
     assign = partition(n, m, seed)
@@ -199,7 +205,7 @@ def run_tree_dense(objective_name: str, payloads, k: int,
     evals_critical = sum(per_node[(lvl, 0)] for lvl in range(L + 1))
     ids_out = final.ids[final.valid].cpu().numpy()
     payload_data = pay_t if objective_name in ("kmedoid", "facility") \
-        else np.asarray(payloads)
+        else payloads
     gval_ = global_value(objective_name, payload_data, ids_out, universe)
     return SimResult(gval_, ids_out, int(sum(per_node.values())),
                      int(evals_critical), per_node, comm, L, m, b,
@@ -211,14 +217,14 @@ def run_greedy_dense(objective_name: str, payloads, k: int, *,
                      device: DeviceLike = None) -> SimResult:
     """Sequential Greedy baseline (one node, whole data)."""
     obj = make_objective(objective_name, universe=universe, device=device)
-    pay_t = _payload_tensor(payloads, obj.device)
+    pay_t = _payload_tensor(payloads, obj.device, obj.rule.is_bitmap)
     n = pay_t.shape[0]
     sol = greedy(obj, torch.arange(n, device=obj.device), pay_t,
                  torch.ones(n, dtype=torch.bool, device=obj.device), k,
                  engine=engine)
     ids_out = sol.ids[sol.valid].cpu().numpy()
     data = pay_t if objective_name in ("kmedoid", "facility") \
-        else np.asarray(payloads)
+        else payloads
     gval = global_value(objective_name, data, ids_out, universe)
     ev = int(sol.evals)
     return SimResult(gval, ids_out, ev, ev, {(0, 0): ev}, 0, 0, 1, 1,

@@ -30,6 +30,34 @@
 // block's slice stay in shared memory for all k steps, and the previous
 // winner's column is folded in at the start of the next step (the
 // deferred update) and once more after step k (the flush).
+//
+// The bitmap rule (coverage) runs rt_greedy_loop_bits, the uint32 branch
+// of _stream_body, over the candidates' words held candidate-major,
+// (B, C, W): the reference's matrix is their transpose, which is never
+// materialized. The cooperative design stays - P blocks per greedy, one
+// grid barrier per step, accept only when the gain is > 0 - but the
+// blocks split a greedy's CANDIDATES, not its ground rows: each block
+// keeps the whole (W,) covered-word row and the mask of its CB
+// candidates in shared memory, gives each candidate to one warp (exact
+// integer popcount sums) and writes its masked first-argmax; after the
+// barrier every block reduces the P pairs (first-max order: exact in any
+// order) and folds the winner's words into its row at once. Bound by
+// bytes: every step re-reads the whole cache, 32 x 30,938 x 1,290 words
+// x 4 B = 5.1 GB at the kcover leaf, so 64 steps are at least ~98 ms at
+// 3.35 TB/s.
+//
+// The same kernel is the bitmap branch of _resident_kernel
+// (greedy_loop_resident_pallas), the accumulation nodes' loop: there the
+// on-chip matrix is the transpose of the node's (C, W) candidate words
+// (R.matrix_block is c.T), so there is nothing to build, and a copy into
+// a scratch would only duplicate words the node's union already holds
+// contiguously. The nodes' words are read in place and sit in L2 after
+// the first step (16 nodes x 128 x 1,290 words x 4 B = 10.6 MB at
+// kcover's level 1, under the 25 MB share the planner admits). ctl
+// (B, 3) int32 = [kq, logical_n, logical_c] is then given, and steps
+// s >= kq freeze (bests -1, gains 0, nothing folded); a frozen greedy's
+// blocks still meet every grid barrier. The streaming tier passes no
+// ctl (kq = k).
 #include <cooperative_groups.h>
 
 #include "rules.cuh"
@@ -148,6 +176,128 @@ extern "C" int rt_greedy_loop(const float* mat, const float* row_in,
                   (void*)&C,     (void*)&k,      (void*)&P,
                   (void*)&R,     (void*)&rule};
   e = cudaLaunchCooperativeKernel((void*)rt_greedy_loop_kernel,
+                                  dim3(B * P), dim3(RT_THREADS), args,
+                                  (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(RT_THREADS)
+    rt_greedy_loop_bits_kernel(const unsigned* __restrict__ cands,
+                               const unsigned* __restrict__ row_in,
+                               const float* __restrict__ mask_in,
+                               const int* __restrict__ ctl,
+                               unsigned* __restrict__ row_out,
+                               int* __restrict__ bests,
+                               float* __restrict__ gains,
+                               float* __restrict__ pval,
+                               int* __restrict__ pidx, int B, int C, int W,
+                               int k, int P, int CB) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ unsigned smem_words[];
+  unsigned* covered = smem_words;  // (W,) the greedy's covered words
+  float* mask = reinterpret_cast<float*>(smem_words + W);  // (CB,) own
+  __shared__ float sv[32];
+  __shared__ int si[32];
+
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int warps = T >> 5;
+  const int b = blockIdx.x / P;
+  const int p = blockIdx.x % P;
+  const int c0 = p * CB;
+  const int nc = max(0, min(C - c0, CB));
+  const unsigned* base = cands + (size_t)b * C * W;
+  const int kq = ctl ? ctl[(size_t)b * 3] : k;
+
+  for (int w = tid; w < W; w += T) covered[w] = row_in[(size_t)b * W + w];
+  for (int i = tid; i < nc; i += T) mask[i] = mask_in[(size_t)b * C + c0 + i];
+  __syncthreads();
+
+  for (int s = 0; s < k; ++s) {
+    if (s >= kq) {  // frozen: nothing more is taken
+      if (p == 0 && tid == 0) {
+        bests[(size_t)b * k + s] = -1;
+        gains[(size_t)b * k + s] = 0.f;
+      }
+      grid.sync();
+      continue;
+    }
+    // this block's candidates, one warp each: masked first-argmax
+    float bv = -INFINITY;
+    int bi = RT_NO_INDEX;
+    for (int i = tid >> 5; i < nc; i += warps) {
+      const int g = rt_warp_bits_gain(base + (size_t)(c0 + i) * W, covered, W);
+      rt_argmax_pair(bv, bi, mask[i] > 0.f ? (float)g : -INFINITY, c0 + i);
+    }
+    rt_block_argmax(bv, bi, sv, si);
+    const size_t slot = ((size_t)(s & 1) * B + b) * P;
+    if (tid == 0) {
+      pval[slot + p] = bv;
+      pidx[slot + p] = bi;
+    }
+    grid.sync();
+
+    // every block: the greedy's winner from the P block winners
+    bv = -INFINITY;
+    bi = RT_NO_INDEX;
+    for (int q = tid; q < P; q += T)
+      rt_argmax_pair(bv, bi, pval[slot + q], pidx[slot + q]);
+    rt_block_argmax(bv, bi, sv, si);
+    const bool accept = rt_finite(bv) && bv > 0.f;
+    if (p == 0 && tid == 0) {
+      bests[(size_t)b * k + s] = accept ? bi : -1;
+      gains[(size_t)b * k + s] = bv;
+    }
+    if (accept) {
+      if (tid == 0 && bi >= c0 && bi < c0 + nc) mask[bi - c0] = 0.f;
+      const unsigned* win = base + (size_t)bi * W;
+      for (int w = tid; w < W; w += T)
+        covered[w] = rt_bits_fold(covered[w], win[w]);
+    }
+    __syncthreads();
+  }
+  if (p == 0)
+    for (int w = tid; w < W; w += T) row_out[(size_t)b * W + w] = covered[w];
+}
+
+extern "C" int rt_greedy_loop_bits_occupancy(int smem_bytes,
+                                             int* blocks_per_sm, int* sms) {
+  cudaError_t e = cudaFuncSetAttribute(
+      rt_greedy_loop_bits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, rt_greedy_loop_bits_kernel, RT_THREADS, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// cands (B, C, W) and rows (B, W) 32-bit words; ctl (B, 3) int32 or
+// null (only kq is read); pval/pidx: (2, B, P) scratch; CB candidates
+// per block, P = ceil(C / CB), all B * P blocks co-resident. Returns the
+// cudaError_t.
+extern "C" int rt_greedy_loop_bits(const unsigned* cands, const unsigned* row_in,
+                                   const float* mask_in, const int* ctl,
+                                   unsigned* row_out,
+                                   int* bests, float* gains, float* pval,
+                                   int* pidx, int B, int C, int W, int k, int P,
+                                   int CB, void* stream) {
+  if (B == 0) return 0;
+  const int smem = (W + CB) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      rt_greedy_loop_bits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&cands,  (void*)&row_in, (void*)&mask_in,
+                  (void*)&ctl,    (void*)&row_out, (void*)&bests,
+                  (void*)&gains,  (void*)&pval,   (void*)&pidx,
+                  (void*)&B,      (void*)&C,      (void*)&W,
+                  (void*)&k,      (void*)&P,      (void*)&CB};
+  e = cudaLaunchCooperativeKernel((void*)rt_greedy_loop_bits_kernel,
                                   dim3(B * P), dim3(RT_THREADS), args,
                                   (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

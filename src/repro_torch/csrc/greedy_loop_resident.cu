@@ -28,6 +28,9 @@
 // the previous winner, one thread per column sums the gain parts over
 // all N rows in row order, block-wide masked first-argmax, accept if the
 // gain is finite and > 0. A final fold flushes the last winner.
+//
+// The bitmap rule (coverage) has nothing to build: its branch of
+// _resident_kernel runs csrc/greedy_loop.cu:rt_greedy_loop_bits with ctl.
 #include <cooperative_groups.h>
 
 #include "pairwise_tile.cuh"

@@ -1,9 +1,12 @@
-// Selection algebra of the feature rules, on one f32 entry at a time.
+// Selection algebra of the kernels: the device twin of
+// repro_torch/kernels/rules.py (gain_part, fold_cols, masked_argmax).
 //
-// The device twin of repro_torch/kernels/rules.py (gain_part, fold_cols,
-// masked_argmax) for the folds 'min' (kmedoid), 'max' (facility),
-// 'satsum' (satcover) and 'sum' (graphcut, mmr). The bitmap rule ('or')
-// has no CUDA path in this slice.
+// Feature rules, on one f32 entry at a time: the folds 'min' (kmedoid),
+// 'max' (facility), 'satsum' (satcover) and 'sum' (graphcut, mmr).
+// The bitmap rule (coverage), on 32-bit words: fold r | m, part
+// popc(m & ~r). Its matrix is the transpose of the candidates' words, so
+// its kernels read candidate-major (C, W) words and give each candidate
+// to one warp (rt_warp_bits_gain); gains are exact integer sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -86,6 +89,34 @@ __device__ __forceinline__ void rt_argmax_pair(float& v, int& i, float v2,
     v = v2;
     i = i2;
   }
+}
+
+// Bitmap rule: the state row's fold and one word's gain part
+__device__ __forceinline__ unsigned rt_bits_fold(unsigned r, unsigned m) {
+  return r | m;
+}
+
+__device__ __forceinline__ int rt_bits_part(unsigned r, unsigned m) {
+  return __popc(m & ~r);
+}
+
+// One warp: candidate `cand`'s gain against the covered words `row`
+// (W words each), the exact integer sum of popc(cand & ~row), returned
+// to every lane. Lanes read consecutive words (coalesced), four loads in
+// flight per lane.
+__device__ __forceinline__ int rt_warp_bits_gain(
+    const unsigned* __restrict__ cand, const unsigned* row, int W) {
+  const int lane = threadIdx.x & 31;
+  int s = 0;
+  int w = lane;
+  for (; w + 96 < W; w += 128) {
+    const unsigned m0 = cand[w], m1 = cand[w + 32], m2 = cand[w + 64],
+                   m3 = cand[w + 96];
+    s += rt_bits_part(row[w], m0) + rt_bits_part(row[w + 32], m1) +
+         rt_bits_part(row[w + 64], m2) + rt_bits_part(row[w + 96], m3);
+  }
+  for (; w < W; w += 32) s += rt_bits_part(row[w], cand[w]);
+  return __reduce_add_sync(0xffffffffu, s);
 }
 
 // Block-wide first-max reduction of (v, i); every thread gets the result.

@@ -1,10 +1,12 @@
 """Deterministic synthetic datasets (answers `src/repro/data/synthetic.py`).
 
-`gen_images`, `gen_kcover` and `pack_bitmaps` are numpy copies of the
-reference's generators: the same seed gives the same arrays. `gen_images_on`
-draws the same mixture-of-Gaussians recipe directly on a torch device
-from a seeded `torch.Generator` — other numbers than numpy's from the
-same seed, but no host-side generation of multi-gigabyte datasets.
+`gen_images`, `gen_kcover`, `gen_graph_road`, `gen_graph_social` and
+`pack_bitmaps` are numpy copies of the reference's generators: the same
+seed gives the same arrays. `gen_images_on` draws the same
+mixture-of-Gaussians recipe directly on a torch device (the card unless
+the caller names another) from a seeded `torch.Generator` — other
+numbers than numpy's from the same seed, but no host-side generation of
+multi-gigabyte datasets.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.device import DeviceLike, resolve_device
 
 
 def pack_bitmaps(sets: List[np.ndarray], universe: int) -> np.ndarray:
@@ -44,6 +48,49 @@ def gen_kcover(n: int, universe: int, seed: int = 0,
     return sets
 
 
+def gen_graph_road(n: int, seed: int = 0) -> List[np.ndarray]:
+    """Near-planar low-degree graph: grid edges + sparse shortcuts
+    (avg degree ≈ 2.4 like road_usa). Returns CLOSED neighborhoods δ(u)."""
+    rng = np.random.default_rng(seed)
+    side = int(np.sqrt(n))
+    adj = [[] for _ in range(n)]
+    for u in range(n):
+        r, c = divmod(u, side)
+        if c + 1 < side and u + 1 < n and rng.random() < 0.62:
+            adj[u].append(u + 1)
+            adj[u + 1].append(u)
+        if r + 1 < side and u + side < n and rng.random() < 0.58:
+            adj[u].append(u + side)
+            adj[u + side].append(u)
+    m_extra = int(0.02 * n)
+    us = rng.integers(0, n, m_extra)
+    vs = rng.integers(0, n, m_extra)
+    for u, v in zip(us, vs):
+        if u != v:
+            adj[u].append(int(v))
+            adj[v].append(int(u))
+    return [np.unique(np.asarray(a + [u], np.int64))
+            for u, a in enumerate(adj)]
+
+
+def gen_graph_social(n: int, seed: int = 0, avg_deg: float = 16.0
+                     ) -> List[np.ndarray]:
+    """Heavy-tail degree graph (Friendster-like regime, scaled down).
+    Returns CLOSED neighborhoods δ(u)."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(1.8, n) + 1, n // 10)
+    deg = (deg * (avg_deg / deg.mean())).astype(np.int64) + 1
+    adj = [[] for _ in range(n)]
+    for u in range(n):
+        tgt = rng.zipf(1.4, deg[u]) % n
+        for v in tgt:
+            if v != u:
+                adj[u].append(int(v))
+                adj[int(v)].append(u)
+    return [np.unique(np.asarray(a + [u], np.int64))
+            for u, a in enumerate(adj)]
+
+
 def gen_images(n: int, d: int, classes: int = 20, seed: int = 0
                ) -> np.ndarray:
     """Mixture-of-Gaussians 'images', paper preprocessing: subtract mean,
@@ -58,11 +105,14 @@ def gen_images(n: int, d: int, classes: int = 20, seed: int = 0
 
 
 def gen_images_on(n: int, d: int, classes: int = 20, seed: int = 0,
-                  device="cpu", chunk: int = 16_384) -> torch.Tensor:
-    """The `gen_images` recipe drawn on `device` (f32, (n, d)): class
-    centers N(0, 1), per-image noise N(0, 0.35²), mean-subtracted and
-    L2-normalized per image. Generated in row chunks so the temporaries
-    stay a fraction of the result."""
+                  device: DeviceLike = None,
+                  chunk: int = 16_384) -> torch.Tensor:
+    """The `gen_images` recipe drawn on `device` (f32, (n, d); default the
+    CUDA device, see runtime/device.py): class centers N(0, 1),
+    per-image noise N(0, 0.35²), mean-subtracted and L2-normalized per
+    image. Generated in row chunks so the temporaries stay a fraction of
+    the result."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     centers = torch.randn((classes, d), generator=gen, device=device)
     lbl = torch.randint(0, classes, (n,), generator=gen, device=device)

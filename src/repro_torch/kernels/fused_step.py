@@ -7,10 +7,13 @@ fold the previous winner's column into the row (the deferred update),
 sum the rule's gain parts over the rows, take the masked first-argmax.
 One launch serves every greedy of a level. The kernel is
 csrc/fused_step.cu (P row blocks per greedy, partials reduced in block
-order by each greedy's last block to finish); it takes f32 storage of
-the feature rules — bf16/int8 caches and the bitmap rule raise
-NotImplementedError on CUDA tensors (their plain versions run on the
-CPU through kernels/ops.py).
+order by each greedy's last block to finish) for f32 storage of the
+feature rules, and csrc/fused_step.cu:rt_fused_step_bits for the bitmap
+rule: its (B, W, C) matrix is the transposed view of the candidates'
+(B, C, W) int32 words, which the kernel reads in place (P blocks of
+`block_c` candidates per greedy, counted as `fused_step[coverage]`).
+bf16/int8 caches raise NotImplementedError on CUDA tensors (their plain
+versions run on the CPU through kernels/ops.py).
 """
 from __future__ import annotations
 
@@ -20,13 +23,14 @@ import torch
 
 from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels.pairwise import (FOLDS, check_feature_rule,
-                                          check_operand)
-from repro_torch.kernels.plans import FUSED_BLOCK_N
-from repro_torch.kernels.rules import KernelRule
+                                          check_operand, check_words)
+from repro_torch.kernels.plans import BITS_BLOCK_C, FUSED_BLOCK_N
+from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
 
 COUNTER = counters.counter("fused_step")
+BITS_COUNTER = counters.counter("fused_step[coverage]")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +47,8 @@ def _lib():
     lib = build.load("fused_step")
     lib.rt_fused_step.restype = _I
     lib.rt_fused_step.argtypes = [_P] * 9 + [_I] * 6 + [_F, _F, _F, _P]
+    lib.rt_fused_step_bits.restype = _I
+    lib.rt_fused_step_bits.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     return lib
 
 
@@ -50,7 +56,10 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
                block_n: int = FUSED_BLOCK_N):
     """mat (B, N, C), row (B, N), mask (B, C) 0/1 f32, prev (B,) int.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (f32, contiguous; `block_n` ground rows per block) or raise."""
+    (f32, contiguous; `block_n` ground rows per block) or raise. The
+    bitmap rule goes to `fused_step_bits`."""
+    if rule.is_bitmap:
+        return fused_step_bits(mat, row, mask, prev, rule)
     COUNTER.calls += 1
     if not mat.is_cuda:
         return fused_step_plain(mat, row, mask, prev, rule)
@@ -86,4 +95,49 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
         FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, stream)
     build.check(lib, err, "fused_step kernel")
     COUNTER.launches += 1
+    return row_out, best.long(), gain
+
+
+def fused_step_bits(mat, row, mask, prev, rule: KernelRule,
+                    block_c: int = BITS_BLOCK_C):
+    """The bitmap rule's step: mat (B, W, C) is the transposed view of
+    contiguous (B, C, W) int32 candidate words (never copied), row (B, W)
+    int32, mask (B, C) 0/1 f32, prev (B,) int. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (`block_c` candidates per
+    block) or raise."""
+    BITS_COUNTER.calls += 1
+    if not mat.is_cuda:
+        return fused_step_plain(mat, row, mask, prev, rule)
+    if mat.dim() != 3:
+        raise ValueError("fused_step kernel takes (B, W, C) matrices")
+    cands = mat.transpose(-1, -2)
+    b, c, w = cands.shape
+    dev = mat.device
+    prev = torch.as_tensor(prev, device=dev).to(torch.int64).expand(b)
+    prev = prev.contiguous()
+    check_operand(cands, (b, c, w), WORD_DTYPE, "candidate words", dev)
+    check_operand(row, (b, w), WORD_DTYPE, "row", dev)
+    check_operand(mask, (b, c), F32, "mask", dev)
+    check_words(w, "fused_step")
+    if c == 0:
+        raise ValueError("fused_step kernel needs at least one candidate")
+    cb = max(1, int(block_c))
+    p = -(-c // cb)
+    row_out = torch.empty((b, w), dtype=WORD_DTYPE, device=dev)
+    best = torch.empty((b,), dtype=torch.int32, device=dev)
+    gain = torch.empty((b,), dtype=F32, device=dev)
+    if b == 0:
+        return row_out, best.long(), gain
+    pval = torch.empty((b, p), dtype=F32, device=dev)
+    pidx = torch.empty((b, p), dtype=torch.int32, device=dev)
+    arrivals = build.arrivals(dev, b)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rt_fused_step_bits(
+        cands.data_ptr(), row.data_ptr(), mask.data_ptr(), prev.data_ptr(),
+        row_out.data_ptr(), best.data_ptr(), gain.data_ptr(),
+        pval.data_ptr(), pidx.data_ptr(), arrivals.data_ptr(), b, c, w, p,
+        cb, stream)
+    build.check(lib, err, "bitmap fused_step kernel")
+    BITS_COUNTER.launches += 1
     return row_out, best.long(), gain

@@ -15,9 +15,15 @@ Two tiers, each ONE launch for every greedy of a level:
 
 Outputs follow kernels/ref.py:greedy_loop: final rows (B, N), bests
 (B, k) int64 with −1 for rejected steps, raw gains (B, k) f32. The CUDA
-path takes f32 storage of the feature rules; bf16/int8 caches and the
-bitmap rule raise NotImplementedError there (their plain versions run
-on the CPU).
+path takes f32 storage of the feature rules and the bitmap rule. Both
+bitmap tiers (`greedy_loop_bits`, `greedy_loop_resident_bits`, counted as
+`greedy_loop[coverage]` / `greedy_loop_resident[coverage]`) launch one
+kernel, csrc/greedy_loop.cu:rt_greedy_loop_bits, over the candidates'
+(B, C, W) int32 words read in place (the reference's matrix is their
+transpose, so the resident tier has nothing to build); they differ in
+their candidates per block and in the resident tier's ``ctl``. bf16/int8
+caches raise NotImplementedError there (their plain versions run on the
+CPU).
 """
 from __future__ import annotations
 
@@ -28,14 +34,17 @@ import torch
 from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
 from repro_torch.kernels.pairwise import (FOLDS, MODES, check_feature_rule,
-                                          check_operand)
-from repro_torch.kernels.plans import LOOP_BLOCK_MAX
-from repro_torch.kernels.rules import KernelRule
+                                          check_operand, check_words)
+from repro_torch.kernels.plans import (BITS_LOOP_BLOCK_C,
+                                       BITS_RESIDENT_BLOCK_C, LOOP_BLOCK_MAX)
+from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
 
 STREAM_COUNTER = counters.counter("greedy_loop")
 RESIDENT_COUNTER = counters.counter("greedy_loop_resident")
+STREAM_BITS_COUNTER = counters.counter("greedy_loop[coverage]")
+RESIDENT_BITS_COUNTER = counters.counter("greedy_loop_resident[coverage]")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,11 +98,14 @@ def greedy_loop_resident_plain(ground, cands, row, mask, ctl, k: int,
 
 def _stream_lib():
     lib = build.load("greedy_loop")
-    lib.rt_greedy_loop_occupancy.restype = _I
-    lib.rt_greedy_loop_occupancy.argtypes = [_I, ctypes.POINTER(_I),
-                                             ctypes.POINTER(_I)]
+    for occupancy in (lib.rt_greedy_loop_occupancy,
+                      lib.rt_greedy_loop_bits_occupancy):
+        occupancy.restype = _I
+        occupancy.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rt_greedy_loop.restype = _I
     lib.rt_greedy_loop.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F, _F, _P]
+    lib.rt_greedy_loop_bits.restype = _I
+    lib.rt_greedy_loop_bits.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     return lib
 
 
@@ -139,8 +151,11 @@ def blocks_per_greedy(lib, b: int, n: int, c: int,
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
                 block_n: int = LOOP_BLOCK_MAX):
     """STREAMING tier over cached matrices. mat (B, N, C), row (B, N),
-    mask (B, C) 0/1 f32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    mask (B, C) 0/1 f32, `block_n` the target ground rows per block. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise. The bitmap rule goes to `greedy_loop_bits`."""
+    if rule.is_bitmap:
+        return greedy_loop_bits(mat, row, mask, k, rule)
     STREAM_COUNTER.calls += 1
     if not mat.is_cuda:
         return greedy_loop_plain(mat, row, mask, k, rule)
@@ -179,6 +194,10 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
     version; CUDA tensors launch the kernel or raise. `scratch`, a
     (B, N, C) f32 tensor, receives the matrices the loop runs over (for
     checks; by default the kernel's is allocated by the wrapper)."""
+    if rule.is_bitmap:
+        if scratch is not None:
+            raise ValueError("the bitmap resident loop builds no matrix")
+        return greedy_loop_resident_bits(cands, row, mask, ctl, k, rule)
     RESIDENT_COUNTER.calls += 1
     if not cands.is_cuda:
         if scratch is not None:
@@ -225,3 +244,91 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
     build.check(lib, err, "greedy_loop_resident kernel")
     RESIDENT_COUNTER.launches += 1
     return row_out, bests.long(), gains
+
+
+def bits_blocks_per_greedy(lib, b: int, c: int, w: int,
+                           block_c: int = BITS_LOOP_BLOCK_C):
+    """(P, CB): blocks per greedy and candidates per block of the bitmap
+    loop. Starts from ⌈c / block_c⌉ blocks and gives each
+    block more candidates while the card cannot hold all b·P blocks at
+    once; raises when even one block per greedy does not fit."""
+    p = max(1, -(-c // max(1, block_c)))
+    while True:
+        cb = max(1, -(-c // p))
+        cap = _co_resident(lib, lib.rt_greedy_loop_bits_occupancy,
+                           4 * (w + cb))
+        if b * p <= cap:
+            return p, cb
+        if p == 1:
+            raise RuntimeError(
+                f"bitmap streaming loop: {b} greedies × 1 block exceed the "
+                f"{cap} blocks the card holds at once")
+        p = max(1, min(p - 1, cap // b))
+
+
+def _loop_bits(cands, row, mask, ctl, k: int, block_c: int, counter,
+               what: str):
+    """Launch csrc/greedy_loop.cu:rt_greedy_loop_bits: cands (B, C, W)
+    int32 words, row (B, W) int32, mask (B, C) 0/1 f32, ctl (B, 3) int32
+    or None (no step budget); counts one launch on `counter`."""
+    b, c, w = cands.shape
+    dev = cands.device
+    check_operand(cands, (b, c, w), WORD_DTYPE, "candidate words", dev)
+    check_operand(row, (b, w), WORD_DTYPE, "row", dev)
+    check_operand(mask, (b, c), F32, "mask", dev)
+    if ctl is not None:
+        check_operand(ctl, (b, 3), torch.int32, "ctl", dev)
+    check_words(w, what)
+    row_out = torch.empty((b, w), dtype=WORD_DTYPE, device=dev)
+    bests = torch.empty((b, k), dtype=torch.int32, device=dev)
+    gains = torch.empty((b, k), dtype=F32, device=dev)
+    if b == 0:
+        return row_out, bests.long(), gains
+    lib = _stream_lib()
+    p, cb = bits_blocks_per_greedy(lib, b, c, w, block_c)
+    pval = torch.empty((2, b, p), dtype=F32, device=dev)
+    pidx = torch.empty((2, b, p), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rt_greedy_loop_bits(
+        cands.data_ptr(), row.data_ptr(), mask.data_ptr(),
+        None if ctl is None else ctl.data_ptr(), row_out.data_ptr(),
+        bests.data_ptr(), gains.data_ptr(), pval.data_ptr(), pidx.data_ptr(),
+        b, c, w, k, p, cb, stream)
+    build.check(lib, err, f"bitmap {what} kernel")
+    counter.launches += 1
+    return row_out, bests.long(), gains
+
+
+def greedy_loop_bits(mat, row, mask, k: int, rule: KernelRule,
+                     block_c: int = BITS_LOOP_BLOCK_C):
+    """The bitmap rule's STREAMING tier: mat (B, W, C) is the transposed
+    view of contiguous (B, C, W) int32 candidate words (never copied),
+    row (B, W) int32, mask (B, C) 0/1 f32, `block_c` the target
+    candidates per block. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    STREAM_BITS_COUNTER.calls += 1
+    if not mat.is_cuda:
+        return greedy_loop_plain(mat, row, mask, k, rule)
+    if mat.dim() != 3:
+        raise ValueError("greedy_loop kernel takes (B, W, C) matrices")
+    return _loop_bits(mat.transpose(-1, -2), row, mask, None, k, block_c,
+                      STREAM_BITS_COUNTER, "greedy_loop")
+
+
+def greedy_loop_resident_bits(cands, row, mask, ctl, k: int,
+                              rule: KernelRule,
+                              block_c: int = BITS_RESIDENT_BLOCK_C):
+    """The bitmap rule's RESIDENT tier: cands (B, C, W) int32 words, read
+    in place (the reference's on-chip matrix is their transpose), row
+    (B, W) int32, mask (B, C) 0/1 f32, ctl (B, 3) int32 (steps ≥ kq
+    freeze), `block_c` the target candidates per block. CPU tensors take
+    the plain version; CUDA tensors launch the streaming loop's bitmap
+    kernel with ctl or raise."""
+    RESIDENT_BITS_COUNTER.calls += 1
+    if not cands.is_cuda:
+        return greedy_loop_resident_plain(None, cands, row, mask, ctl, k,
+                                          rule)
+    if cands.dim() != 3:
+        raise ValueError("bitmap resident kernel takes (B, C, W) words")
+    return _loop_bits(cands, row, mask, ctl, k, block_c,
+                      RESIDENT_BITS_COUNTER, "greedy_loop_resident")

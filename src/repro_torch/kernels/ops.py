@@ -14,9 +14,12 @@ is no backend switch that could put a plain version on the card.
   apply_column          final-winner flush      (plain torch, O(N))
   masked_col_reduce     batched replay fold     (plain torch)
 
-On CUDA tensors the kernels take f32 storage of the feature rules; the
-bitmap rule and bf16/int8 storage raise NotImplementedError there (their
-plain versions run on the CPU).
+On CUDA tensors the kernels take f32 storage of the feature rules and
+the bitmap rule's int32 words; bf16/int8 storage raises
+NotImplementedError there (its plain versions run on the CPU). A bitmap
+"matrix" is the transposed VIEW of the candidates' (B, C, W) words, and
+the bitmap kernels read those words in place: nothing here makes it
+contiguous (at the kcover leaf that would copy 5.1 GB a step).
 
 The CUDA kernels mask their ragged edges, so nothing is padded to TPU
 tiles here. Launch counts live in kernels/counters.py.
@@ -75,9 +78,18 @@ def _cast_row(row, rule: KernelRule):
     return row.to(rule.dtype).contiguous()
 
 
+def _storage_check(mat, what: str) -> None:
+    """bf16/int8 caches have no CUDA path yet: raise on the card."""
+    if mat.is_cuda and (isinstance(mat, QuantMatrix)
+                        or mat.dtype not in (F32, R.WORD_DTYPE)):
+        raise NotImplementedError(
+            f"{what}: {mat.dtype} storage has no CUDA path yet")
+
+
 def gains(ground, row, cands, cand_valid, rule: KernelRule):
     """Per-step marginal gains: RAW part sums (B, C), −inf at invalid
-    candidates (the gains kernel). With REPRO_TORCH_FUSED_CACHE_DTYPE=int8
+    candidates (the gains kernel; bitmap cands are (B, C, W) words and
+    the ground is not read). With REPRO_TORCH_FUSED_CACHE_DTYPE=int8
     the ground features are seen per-row-quantized, as in the reference;
     that variant has no CUDA path yet."""
     quant = (not rule.is_bitmap and ground is not None
@@ -87,7 +99,9 @@ def gains(ground, row, cands, cand_valid, rule: KernelRule):
             raise NotImplementedError(
                 "gains: int8 ground storage has no CUDA path yet")
         ground = R.dequant(*R.quantize_rows(ground.to(F32)))
-    if not rule.is_bitmap:
+    if rule.is_bitmap:
+        cands = cands.contiguous()
+    else:
         ground = ground.to(F32).contiguous()
         cands = cands.to(F32).contiguous()
     return pairwise_k.gains(ground, _cast_row(row, rule), cands, cand_valid,
@@ -116,16 +130,17 @@ def pairwise_matrix(ground, cands, rule: KernelRule,
 def fused_step(mat, row, mask, prev, rule: KernelRule,
                plan: Optional[EnginePlan] = None):
     """One fused greedy step over the cached matrix → (new_row (B, N),
-    best (B,), raw gain (B,)) (the fused_step kernel; ``plan`` gives its
-    rows per block)."""
-    if mat.is_cuda and (isinstance(mat, QuantMatrix) or mat.dtype != F32):
-        raise NotImplementedError(
-            f"fused_step: {mat.dtype} storage has no CUDA path yet")
-    bn = (plan.block_n if plan is not None else 0) or fused_block_n()
-    return fused_k.fused_step(_dequant_mat(mat).contiguous(),
-                              _cast_row(row, rule),
+    best (B,), raw gain (B,)) (the fused_step kernel; ``plan`` gives a
+    feature rule's rows per block)."""
+    _storage_check(mat, "fused_step")
+    blocks = {}
+    if not rule.is_bitmap:      # a bitmap matrix is read in place
+        mat = _dequant_mat(mat).contiguous()
+        blocks["block_n"] = (plan.block_n if plan is not None
+                             else 0) or fused_block_n()
+    return fused_k.fused_step(mat, _cast_row(row, rule),
                               mask.to(F32).contiguous(), prev, rule,
-                              block_n=bn)
+                              **blocks)
 
 
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
@@ -133,16 +148,14 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     """STREAMING tier: all k steps over cached (B, N, C) matrices in one
     launch. Returns (final rows (B, N), bests (B, k) with −1 = rejected,
     raw gains (B, k))."""
-    if mat.is_cuda and (isinstance(mat, QuantMatrix)
-                        or mat.dtype != F32):
-        raise NotImplementedError(
-            f"greedy_loop: {mat.dtype} storage has no CUDA path yet")
-    mat = _dequant_mat(mat)
-    bn = (plan.loop_block_n if plan is not None else 0) or loop_block_n(
-        mat.shape[-1])
-    return loop_k.greedy_loop(mat.contiguous(), _cast_row(row, rule),
-                              mask.to(F32).contiguous(), k, rule,
-                              block_n=bn)
+    _storage_check(mat, "greedy_loop")
+    blocks = {}
+    if not rule.is_bitmap:      # a bitmap matrix is read in place
+        mat = _dequant_mat(mat).contiguous()
+        blocks["block_n"] = (plan.loop_block_n if plan is not None
+                             else 0) or loop_block_n(mat.shape[-1])
+    return loop_k.greedy_loop(mat, _cast_row(row, rule),
+                              mask.to(F32).contiguous(), k, rule, **blocks)
 
 
 def greedy_loop_resident(ground, cands, row, mask, k: int,
@@ -164,7 +177,7 @@ def greedy_loop_resident(ground, cands, row, mask, k: int,
     ctl = torch.stack([col(k if kq is None else kq), col(ln), col(lc)],
                       dim=-1).contiguous()
     g = None if rule.is_bitmap else ground.to(F32).contiguous()
-    cd = cands if rule.is_bitmap else cands.to(F32).contiguous()
+    cd = cands.contiguous() if rule.is_bitmap else cands.to(F32).contiguous()
     return loop_k.greedy_loop_resident(g, cd, _cast_row(row, rule),
                                        mask.to(F32).contiguous(), ctl, k,
                                        rule, cache_dtype=cache_dtype)

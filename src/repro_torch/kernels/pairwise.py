@@ -9,9 +9,10 @@ wrappers and plain versions. One launch serves every greedy of a level.
   gains     (answers `gains_pallas`) the step engine's uncached gains:
             Σ_n part(row_n, M_nc) per candidate, (B, C) f32, −inf at
             invalid candidates: csrc/gains.cu (the same tiles with a
-            gain-sum epilogue, the sum over rows in float64). The CUDA
-            path takes the feature rules; the bitmap rule runs its plain
-            version on the CPU only.
+            gain-sum epilogue, the sum over rows in float64) for the
+            feature rules; for the bitmap rule (cands (B, C, W) and row
+            (B, W) 32-bit words) csrc/gains.cu:rt_gains_bits, exact
+            integer popcount sums, counted as `gains[coverage]`.
 """
 from __future__ import annotations
 
@@ -27,18 +28,30 @@ MODES = {"dot": 0, "dist": 1}
 
 COUNTER = counters.counter("pairwise")
 GAINS_COUNTER = counters.counter("gains")
+GAINS_BITS_COUNTER = counters.counter("gains[coverage]")
 FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
+# a bitmap gain is at most 32·W; f32 holds every integer up to 2²⁴
+MAX_EXACT_WORDS = 2 ** 24 // 32
 
 
 def check_feature_rule(rule: R.KernelRule, mat_dtype, what: str) -> None:
-    """Raise NotImplementedError for what the CUDA kernels do not take:
-    the bitmap rule, and storage other than f32."""
-    if rule.is_bitmap or rule.fold not in FOLDS:
+    """Raise NotImplementedError for what the feature-rule CUDA kernels
+    do not take: a fold they do not know, and storage other than f32."""
+    if rule.fold not in FOLDS:
         raise NotImplementedError(
             f"{what}: the {rule.name!r} rule has no CUDA path yet")
     if mat_dtype != F32:
         raise NotImplementedError(
             f"{what}: the CUDA path takes f32 storage, not {mat_dtype}")
+
+
+def check_words(w: int, what: str) -> None:
+    """Raise ValueError where a bitmap gain (≤ 32·W) would no longer be
+    an exact f32. (A row too wide for one block's shared memory makes
+    the launch itself fail, which the wrapper raises.)"""
+    if w > MAX_EXACT_WORDS:
+        raise ValueError(f"{what}: {w} words per bitmap exceed the "
+                         f"{MAX_EXACT_WORDS} whose gains f32 holds exactly")
 
 
 def check_operand(t, shape, dtype, name: str, device) -> None:
@@ -118,6 +131,10 @@ def _gains_lib():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float] * 3 + [ctypes.c_void_p]
+    fn = lib.rt_gains_bits
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     return lib
 
 
@@ -126,6 +143,8 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule):
     → raw gain sums (B, C) f32, −inf at invalid candidates. CPU tensors
     take the plain version; CUDA tensors launch the kernel (feature
     rules, f32, contiguous) or raise."""
+    if rule.is_bitmap:
+        return _gains_bits(row, cands, cand_valid, rule)
     GAINS_COUNTER.calls += 1
     if not cands.is_cuda:
         return gains_plain(ground, row, cands, cand_valid, rule)
@@ -157,4 +176,32 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule):
                            rule.lam, 1.0 - rule.lam, stream)
         build.check(lib, err, "gains kernel")
         GAINS_COUNTER.launches += 1
+    return torch.where(cand_valid, raw, torch.full_like(raw, float("-inf")))
+
+
+def _gains_bits(row, cands, cand_valid, rule: R.KernelRule):
+    """The bitmap rule's gains: cands (B, C, W) and row (B, W) int32
+    words → raw popcount sums (B, C) f32, −inf at invalid candidates; the
+    ground is not read. CPU tensors take the plain version."""
+    GAINS_BITS_COUNTER.calls += 1
+    if not cands.is_cuda:
+        return gains_plain(None, row, cands, cand_valid, rule)
+    if cands.dim() != 3:
+        raise ValueError("bitmap gains kernel takes (B, C, W) words")
+    b, c, w = cands.shape
+    dev = cands.device
+    check_operand(cands, (b, c, w), R.WORD_DTYPE, "cands", dev)
+    check_operand(row, (b, w), R.WORD_DTYPE, "row", dev)
+    if tuple(cand_valid.shape) != (b, c):
+        raise ValueError(f"cand_valid: shape {tuple(cand_valid.shape)}, "
+                         f"expected {(b, c)}")
+    check_words(w, "gains")
+    raw = torch.zeros((b, c), dtype=F32, device=dev)
+    if b * c > 0:
+        lib = _gains_lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rt_gains_bits(cands.data_ptr(), row.data_ptr(),
+                                raw.data_ptr(), b, c, w, stream)
+        build.check(lib, err, "bitmap gains kernel")
+        GAINS_BITS_COUNTER.launches += 1
     return torch.where(cand_valid, raw, torch.full_like(raw, float("-inf")))

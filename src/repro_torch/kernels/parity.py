@@ -17,6 +17,11 @@ both), the chosen gain within the reordering bound below, and the chosen
 column equal unless the plain gains of the two choices lie within that
 bound of each other (a tie decided by rounding).
 
+Bitmap kernels (`compare_exact`): their gains are integer popcount sums,
+exact in f32 on both sides, and both take the first index among equal
+gains, so every output — rows, bests, raw gains — must be equal bit for
+bit, with no tie allowance (integer gains tie often).
+
 Loops: selections must be equal step for step. At the first step where
 two greedies differ, the comparison passes only if the two chosen gains
 at that step lie within the stated float tolerance of each other — a
@@ -34,6 +39,7 @@ The tolerances are derived from f32 rounding, never fitted:
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -290,3 +296,40 @@ def compare_steps(kern, plain, mat, mask, rule: KernelRule,
     return {"max_gain_err": float(err.max()) if err.numel() else 0.0,
             "max_gain_tol": float(tol.max()) if tol.numel() else 0.0,
             "ties": ties}
+
+
+def compare_exact(kern, plain, what: str = "bitmap kernel"
+                  ) -> Dict[str, float]:
+    """Hold a bitmap kernel's outputs (a tensor or a tuple: rows, bests,
+    gains) against its plain version's: equal shapes and dtypes and equal
+    bit patterns (floats compared as their 32-bit words, so −inf, 0 and
+    −0 are told apart). Returns the entries compared, the entries that
+    differ, the largest |kernel − plain| over the float outputs (0 where
+    the bits agree, inf where only one side is finite) and, for a loop's
+    (B, k) bests, the accepted steps; raises AssertionError when any
+    entry differs."""
+    kern = kern if isinstance(kern, tuple) else (kern,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    assert len(kern) == len(plain), what
+    entries, differing, err = 0, 0, 0.0
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        k, p = k.detach().cpu(), p.detach().cpu()
+        assert k.shape == p.shape and k.dtype == p.dtype, (
+            f"{what}, output {i}: {k.dtype}{tuple(k.shape)} vs "
+            f"{p.dtype}{tuple(p.shape)}")
+        if k.is_floating_point():
+            same = k.view(torch.int32) == p.view(torch.int32)
+            diff = (k.double() - p.double()).abs().nan_to_num(nan=math.inf)
+            diff = torch.where(same, torch.zeros_like(diff), diff)
+            if diff.numel():
+                err = max(err, float(diff.max()))
+        else:
+            same = k == p
+        bad = int((~same).sum())
+        differing += bad
+        entries += k.numel()
+        assert bad == 0, f"{what}, output {i}: {bad} entries differ"
+    out = {"entries": entries, "differing": differing, "max_abs_err": err}
+    if len(plain) == 3 and plain[1].dim() == 2:
+        out["accepted"] = int((plain[1] >= 0).sum())
+    return out

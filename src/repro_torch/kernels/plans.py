@@ -33,6 +33,16 @@ k = 200) the leaves hold 32 × ≈3,200² × 4 B ≈ 1.3 GB of caches — far
 over the 25 MB L2 share — and go to `streaming`; a level-1 node batch
 holds 16 × 400² × 4 B = 10 MB and goes to `resident`.
 
+Bitmap rules plan over W universe words: their "matrix" is the (W, C)
+transpose of the candidates' 32-bit words, 4 B a word as allocated
+(rules.WORD_DTYPE), and their kernels split a greedy by CANDIDATES, each
+block holding the whole (W,) word row. The streaming gate is the
+bitmap loop block's shared memory with one block per greedy (the least
+its wrapper falls back to): the W-word row and the (C,) mask,
+4·(W + C) bytes. At kosarak's shape (W = 1,290) that admits leaves of
+up to ≈56,000 candidates: m = 32 (≈30,938 each) streams, m = 8
+(123,750) falls to the fused engine.
+
 The CUDA kernels mask their ragged edges, so shapes are planned
 unpadded (the TPU tile padding of the reference has no counterpart).
 The autotune cache, `shard_plan`, `serve_plan` and `plan_tree` of the
@@ -62,6 +72,20 @@ LOOP_BLOCK_MIN = 8
 # ~3 full waves of 8 blocks on each of the 132 SMs, for 3% more traffic
 # in gain partials than the 1.25 GB of caches a step reads
 FUSED_BLOCK_N = 32
+# candidates per block of the bitmap kernels (one warp per candidate, 8
+# warps a block), which their wrappers size themselves. fused_step: at
+# the kcover leaf (32 greedies × 30,938) 484 blocks per greedy, each
+# folding and copying the 5 KB word row for 64 candidates' 330 KB. The
+# loops' targets, widened by the wrapper until all blocks fit the card at
+# once: the streaming tier's leaves, and the resident tier's nodes of
+# b·k candidates, split over several blocks each so a level's few nodes
+# spread over the SMs (one grid barrier a step). At kcover's level 1
+# (16 nodes × 128 × 1,290 words, k = 64) on an H100 SXM 700 W, 8 a block
+# took 0.39 ms, 16 0.53 ms and one block a node 2.78 ms (chip_smoke.py,
+# timing_coverage's sweep)
+BITS_BLOCK_C = 64
+BITS_LOOP_BLOCK_C = 256
+BITS_RESIDENT_BLOCK_C = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +96,10 @@ class EnginePlan:
     rule          the objective's KernelRule
     tier          raw fused_plan tier, None when every cache was refused
     block_n       ground rows per block of the per-step fused kernel
+                  (feature rules; 0 for bitmap rules, whose kernels'
+                  wrappers size their candidate blocks: BITS_*_BLOCK_C)
     loop_block_n  target ground rows per block of the streaming loop
+                  (feature rules; 0 for bitmap rules)
     dtype         cache storage dtype ('float32'|'bfloat16'|'int8'|'uint32')
     replicas      greedies served by one launch (the batch dimension)
     """
@@ -131,10 +158,13 @@ def loop_block_n(c: int) -> int:
 def _resident_need(n: int, c: int, d: Optional[int],
                    rule: Optional[KernelRule] = None) -> Optional[int]:
     """Shared-memory bytes of one resident loop block: the node's whole
-    (N,) state row, its (C,) mask, the argmax scratch and the pairwise
-    build tile; None when the shape cannot be resident at all (feature
-    rules without a feature dim)."""
-    if (rule is None or not rule.is_bitmap) and d is None:
+    (N,) state row, its (C,) mask, the argmax scratch and — for feature
+    rules — the pairwise build tile (the bitmap kernel builds nothing);
+    None when the shape cannot be resident at all (feature rules without
+    a feature dim)."""
+    if rule is not None and rule.is_bitmap:
+        return 4 * (n + c) + REDUCE_BYTES
+    if d is None:
         return None
     return 4 * (n + c) + REDUCE_BYTES + TILE_BYTES
 
@@ -151,6 +181,13 @@ def resident_fits(n: int, c: int, d: Optional[int],
             <= flags.resident_l2_mb() * 2 ** 20)
 
 
+def cache_bytes(n: int, c: int, dtype: str, replicas: int = 1) -> int:
+    """Device bytes of `replicas` cached (n, c) matrices stored as
+    `dtype` — for bitmap rules (dtype 'uint32') the candidates' 32-bit
+    words, which the "matrix" views."""
+    return max(1, replicas) * n * c * cache_itemsize(dtype)
+
+
 def fused_plan(n: int, c: int, d: Optional[int] = None,
                rule: Optional[KernelRule] = None,
                replicas: int = 1) -> Optional[dict]:
@@ -164,24 +201,32 @@ def fused_plan(n: int, c: int, d: Optional[int] = None,
               "int8": "int8"}.get(flags.fused_cache_dtype())
     dtype, itemsize = None, 4
     if bitmap:
-        if n * c * 4 * reps <= cache:
+        if cache_bytes(n, c, "uint32", reps) <= cache:
             dtype = "uint32"
     else:
         for cand in ("float32", "bfloat16", "int8"):
             if forced is not None and cand != forced:
                 continue
-            size = cache_itemsize(cand)
-            if n * c * size * reps <= cache:
-                dtype, itemsize = cand, size
+            if cache_bytes(n, c, cand, reps) <= cache:
+                dtype, itemsize = cand, cache_itemsize(cand)
                 break
     if dtype is None:
         return None
-    bn = fused_block_n()
+    bn = 0 if bitmap else fused_block_n()
     if ((bitmap or d is not None)
             and resident_fits(n, c, d, rule=rule, itemsize=itemsize,
                               replicas=reps)):
         return {"tier": "resident", "block_n": bn, "loop_block_n": 0,
                 "dtype": dtype}
+    if bitmap:
+        # the bitmap kernels keep the (W,) word row in shared memory; the
+        # streaming gate counts the whole (C,) mask beside it (one block
+        # a greedy, where the card cannot hold more)
+        if 4 * n + REDUCE_BYTES > _smem_budget():
+            return None
+        loop = 4 * (n + c) + REDUCE_BYTES <= _smem_budget()
+        return {"tier": "streaming" if loop else "fused", "block_n": 0,
+                "loop_block_n": 0, "dtype": dtype}
     if bn == 0:
         return None
     bn_loop = loop_block_n(c)

@@ -16,11 +16,13 @@ Every primitive works on tensors with any leading batch dimensions, so
 the port's batched greedies (one launch for all leaves of a level) use
 them unchanged.
 
-Bitmap words: torch has no unsigned 32-bit arithmetic worth the name on
-the CPU and no popcount, so the port keeps each uint32 word in an int64
-tensor (values 0 … 2³²−1). `bitwise_not` is masked back to 32 bits and
-`popcount` sums a 256-entry byte table over the four bytes. The bitmap
-rule is plain-only in this slice: the CUDA kernels raise on it.
+Bitmap words: torch has no unsigned 32-bit arithmetic worth the name and
+no popcount, so the port keeps each uint32 word as the same bit pattern
+in an int32 tensor (`WORD_DTYPE`): 4 B a word on every device, as the
+planner budgets a bitmap cache and as the CUDA kernels read it.
+`to_words` narrows once, where words enter the port (a numpy uint32
+array is reinterpreted without a copy). `popcount` is the SWAR bit count
+on the low 32 bits, so it also takes words held in int64 (0 … 2³²−1).
 
 Distance formulas (fault F0 of the reference, kept on purpose):
 `pairwise_block` uses the ‖g‖²+‖c‖²−2⟨g,c⟩ expansion, `pairwise_col` the
@@ -31,15 +33,17 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 F32 = torch.float32
+# the port's bitmap word: the bit pattern of a uint32 in an int32
+WORD_DTYPE = torch.int32
 
 # facility/satsum pad sentinel for invalid ground rows (≈ f32 max; keeps
 # the per-element gain part at exactly 0)
 BIG = 3.0e38
 
-_WORD_MASK = 0xFFFFFFFF
 _NEG_INF = float("-inf")
 
 
@@ -56,8 +60,8 @@ class KernelRule:
 
     @property
     def dtype(self) -> torch.dtype:
-        """Torch dtype of the state row: uint32 words live in int64."""
-        return torch.int64 if self.row_dtype == "uint32" else F32
+        """Torch dtype of the state row: uint32 words live in int32."""
+        return WORD_DTYPE if self.row_dtype == "uint32" else F32
 
     @property
     def is_bitmap(self) -> bool:
@@ -106,23 +110,48 @@ def get(name: str) -> KernelRule:
 
 
 # ---------------------------------------------------------------------------
-# 32-bit words in int64
+# 32-bit words in int32
 # ---------------------------------------------------------------------------
 
-_BYTE_POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
-                              dtype=torch.int64)
+
+def to_words(x) -> torch.Tensor:
+    """uint32 bitmap words → an int32 tensor of the same bit patterns (on
+    the input's device; the caller places it). A numpy uint32 array is
+    reinterpreted in place (no copy); int64 words 2³¹ … 2³²−1 wrap to
+    their negative int32 pattern; int32 passes through."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == WORD_DTYPE:
+            return x
+        if x.dtype == torch.uint32:
+            return x.view(WORD_DTYPE)
+        x = x.to(torch.int64)
+        return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(WORD_DTYPE)
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:
+            a = a.copy()
+        return torch.from_numpy(a.view(np.int32))
+    return to_words(torch.as_tensor(a))
 
 
 def popcount(words: torch.Tensor) -> torch.Tensor:
-    """Set bits of each 32-bit word (held in int64) → int64."""
-    table = _BYTE_POPCOUNT.to(words.device)
-    w = words & _WORD_MASK
-    return (table[w & 0xFF] + table[(w >> 8) & 0xFF]
-            + table[(w >> 16) & 0xFF] + table[(w >> 24) & 0xFF])
-
-
-def _not32(words: torch.Tensor) -> torch.Tensor:
-    return torch.bitwise_not(words) & _WORD_MASK
+    """Set bits among the low 32 bits of each word (int32 patterns, or
+    int64 holding 0 … 2³²−1) → the input's dtype. The SWAR count: bit
+    pairs, nibbles, bytes, then the byte sum; every mask clears what an
+    arithmetic shift drags in from above bit 31."""
+    x = words >> 1
+    x &= 0x55555555
+    x = words - x
+    y = x >> 2
+    y &= 0x33333333
+    x &= 0x33333333
+    x += y
+    x += x >> 4
+    x &= 0x0F0F0F0F
+    x += x >> 8
+    x += x >> 16
+    return x & 0x3F
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +177,7 @@ def gain_part(row, m, rule: KernelRule):
         sat = (t1 - t0) - (t1 * t1 - t0 * t0) / (2.0 * rule.cap)
         return rule.lam * mod + (1.0 - rule.lam) * sat
     if rule.fold == "or":
-        return popcount(m & _not32(row)).to(F32)
+        return popcount(m & torch.bitwise_not(row)).to(F32)
     raise KeyError(rule.fold)
 
 
@@ -297,7 +326,7 @@ def empty_row(ground, ground_valid, rule: KernelRule, words: int = 0,
     paper's auxiliary element e0 = 0 (row = ‖x‖); 'bits' rows are
     all-clear words of shape batch + (words,)."""
     if rule.is_bitmap:
-        return torch.zeros(tuple(batch) + (words,), dtype=torch.int64,
+        return torch.zeros(tuple(batch) + (words,), dtype=WORD_DTYPE,
                            device=device)
     pad = torch.tensor(rule.row_pad, dtype=F32, device=ground.device)
     if rule.fold == "min":

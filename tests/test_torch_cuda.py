@@ -4,9 +4,11 @@ False). Imports nothing of JAX, so it runs on a machine with a GPU and no
 JAX:  PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda
 
 Each wrapper must launch its kernel (one counted launch), agree with its
-plain version under kernels/parity.py's stated tolerances, and raise —
-never fall back — on what its kernel does not take.
+plain version under kernels/parity.py's stated tolerances (the bitmap
+rule's kernels bit for bit), and raise — never fall back — on what its
+kernel does not take.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +27,21 @@ FEATURE_RULES = {
     "graphcut": TR.graph_cut(0.5),
     "mmr": TR.mmr(0.3, 2.0),
 }
+
+
+# the kernel-vs-plain tests run every feature rule and the bitmap rule
+KERNEL_RULES = dict(FEATURE_RULES, coverage=TR.BITS_OR)
+
+
+def _words(shape, seed, device):
+    """Sparse random 32-bit words (each bit set with probability 1/8, so
+    integer gains tie often), every 7th word with bit 31 set, as int32."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    for _ in range(2):
+        a &= rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    a.reshape(-1)[::7] |= np.uint32(2 ** 31)
+    return TR.to_words(a).to(device)
 
 
 def _pools(b=3, n=40, c=24, d=32, seed=0):
@@ -62,9 +79,20 @@ def test_cuda_pairwise_kernel_matches_plain(cuda, mode, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("name", sorted(KERNEL_RULES))
 def test_cuda_greedy_loop_kernel_matches_plain(cuda, name):
-    tr = FEATURE_RULES[name]
+    tr = KERNEL_RULES[name]
+    if tr.is_bitmap:      # 3 greedies × 300 candidates × 45 words, exact
+        mat = _words((3, 300, 45), 6, cuda).transpose(-1, -2)
+        row = _words((3, 45), 16, cuda)
+        mask = (torch.arange(300, device=cuda) % 11 != 3).float().expand(
+            3, 300).contiguous()
+        counters.reset()
+        got = TL.greedy_loop_bits(mat, row, mask, 12, tr, block_c=16)
+        assert counters.snapshot()["greedy_loop[coverage]"]["launches"] == 1
+        want = TL.greedy_loop_plain(mat, row, mask, 12, tr)
+        assert parity.compare_exact(got, want)["accepted"] > 0
+        return
     g, cd = _dev_pools(cuda, 3, 300, 90, 32, seed=6)
     mat = TP.pairwise_plain(g, cd, tr.pairwise).contiguous()
     valid = torch.ones(3, 300, dtype=torch.bool, device=cuda)
@@ -78,16 +106,32 @@ def test_cuda_greedy_loop_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("name", sorted(KERNEL_RULES))
 def test_cuda_resident_kernel_matches_plain(cuda, name):
-    tr = FEATURE_RULES[name]
+    tr = KERNEL_RULES[name]
+    ctl = torch.tensor([[10, 100, 100], [4, 100, 100]] * 2,
+                       dtype=torch.int32, device=cuda)
+    if tr.is_bitmap:      # 4 nodes × 100 candidates × 70 words, exact
+        cd = _words((4, 100, 70), 7, cuda)
+        row = torch.zeros(4, 70, dtype=TR.WORD_DTYPE, device=cuda)
+        mask = torch.ones(4, 100, device=cuda)
+        want = TL.greedy_loop_resident_plain(None, cd, row, mask, ctl, 10, tr)
+        counters.reset()
+        got = TL.greedy_loop_resident(None, cd, row, mask, ctl, 10, tr)
+        snap = counters.snapshot()
+        assert snap["greedy_loop_resident[coverage]"]["launches"] == 1
+        assert parity.compare_exact(got, want)["accepted"] > 0
+        # a node over several blocks (the default; 3 candidates a block,
+        # fewer than its warps) and in one block
+        for block_c in (3, 100):
+            parity.compare_exact(TL.greedy_loop_resident_bits(
+                cd, row, mask, ctl, 10, tr, block_c=block_c), want)
+        return
     _, cd = _dev_pools(cuda, 4, 1, 100, 48, seed=7)
     g = cd.clone()
     valid = torch.ones(4, 100, dtype=torch.bool, device=cuda)
     row = TR.empty_row(g, valid, tr).contiguous()
     mask = torch.ones(4, 100, device=cuda)
-    ctl = torch.tensor([[10, 100, 100], [4, 100, 100]] * 2,
-                       dtype=torch.int32, device=cuda)
     built = torch.empty(4, 100, 100, device=cuda)
     counters.reset()
     got = TL.greedy_loop_resident(g, cd, row, mask, ctl, 10, tr,
@@ -101,14 +145,19 @@ def test_cuda_resident_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("name", sorted(KERNEL_RULES))
 @pytest.mark.parametrize("shape", [(3, 300, 130, 8), (2, 7, 5, 1)])
 def test_cuda_fused_step_kernel_matches_plain(cuda, name, shape):
     """Fed the plain matrix: rows equal bit for bit, the gain within the
     reordering bound, the pick equal except at a rounding tie — over a
-    random mask, for a first step (prev −1) and a later one."""
-    tr = FEATURE_RULES[name]
+    random mask, for a first step (prev −1) and a later one. The bitmap
+    rule (n words, c candidates, block_n candidates per block): every
+    output equal bit for bit."""
+    tr = KERNEL_RULES[name]
     b, n, c, block_n = shape
+    if tr.is_bitmap:
+        _fused_step_bits(cuda, tr, b, n, c, block_n)
+        return
     g, cd = _dev_pools(cuda, b, n, c, 24, seed=8)
     mat = TP.pairwise_plain(g, cd, tr.pairwise).contiguous()
     valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
@@ -127,21 +176,49 @@ def test_cuda_fused_step_kernel_matches_plain(cuda, name, shape):
     assert bool((got[1] == 0).all()) and bool(torch.isinf(got[2]).all())
 
 
+def _fused_step_bits(cuda, tr, b, w, c, block_c):
+    mat = _words((b, c, w), 8, cuda).transpose(-1, -2)
+    row = _words((b, w), 18, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mask = (torch.rand(b, c, generator=gen, device=cuda) > 0.3).float()
+    for prev in (torch.full((b,), -1, device=cuda),
+                 torch.randint(0, c, (b,), generator=gen, device=cuda)):
+        counters.reset()
+        got = TF.fused_step_bits(mat, row, mask, prev, tr, block_c=block_c)
+        assert counters.snapshot()["fused_step[coverage]"]["launches"] == 1
+        parity.compare_exact(got, TF.fused_step_plain(mat, row, mask, prev,
+                                                      tr))
+    # every candidate masked: first index, −inf, as the plain version
+    zero = torch.zeros_like(mask)
+    parity.compare_exact(TF.fused_step_bits(mat, row, zero, prev, tr),
+                         TF.fused_step_plain(mat, row, zero, prev, tr))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("name", sorted(KERNEL_RULES))
 @pytest.mark.parametrize("shape", [(2, 150, 72, 200), (1, 5, 3, 7)])
 def test_cuda_gains_kernel_matches_plain(cuda, name, shape):
     """Gain sums held to a float64 build under the pairwise ratio rule,
-    −inf at the invalid candidates, on a live state row."""
-    tr = FEATURE_RULES[name]
+    −inf at the invalid candidates, on a live state row. The bitmap rule
+    (d words, no ground): equal bit for bit."""
+    tr = KERNEL_RULES[name]
     b, n, c, d = shape
+    cand_valid = torch.arange(c, device=cuda).expand(b, c) % 5 != 1
+    if tr.is_bitmap:
+        cd = _words((b, c, d), 9, cuda)
+        row = _words((b, d), 19, cuda)
+        counters.reset()
+        got = TP.gains(None, row, cd, cand_valid, tr)
+        assert counters.snapshot()["gains[coverage]"]["launches"] == 1
+        parity.compare_exact(got, TP.gains_plain(None, row, cd, cand_valid,
+                                                 tr))
+        return
     g, cd = _dev_pools(cuda, b, n, c, d, seed=9)
     valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
     row = TR.empty_row(g, valid, tr)
     for j in range(min(3, n)):
         row = TR.update_row(g, row, g[:, j], tr)
     row = row.contiguous()
-    cand_valid = torch.arange(c, device=cuda).expand(b, c) % 5 != 1
     counters.reset()
     got = TP.gains(g, row, cd, cand_valid, tr)
     assert counters.snapshot()["gains"]["launches"] == 1
@@ -150,14 +227,18 @@ def test_cuda_gains_kernel_matches_plain(cuda, name, shape):
 
 
 @pytest.mark.cuda
-def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
-    bits = torch.randint(0, 2 ** 31, (1, 8, 4), device=cuda)
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
+    """bf16/int8 storage has no CUDA path yet: every wrapper raises on it
+    rather than run a plain version on the card."""
+    feats = torch.rand(1, 8, 4, device=cuda)
     with pytest.raises(NotImplementedError):
-        TL.greedy_loop_resident(None, bits, torch.zeros(1, 4, dtype=torch.int64,
-                                                        device=cuda),
+        TL.greedy_loop_resident(feats, feats, torch.zeros(1, 8, device=cuda),
                                 torch.ones(1, 8, device=cuda),
-                                torch.tensor([[2, 4, 8]], dtype=torch.int32,
-                                             device=cuda), 2, TR.BITS_OR)
+                                torch.tensor([[2, 8, 8]], dtype=torch.int32,
+                                             device=cuda), 2, TR.DOT_MAX,
+                                cache_dtype="bfloat16")
+    with pytest.raises(NotImplementedError):
+        ops.pairwise_matrix(feats, feats, TR.DOT_MAX, dtype="int8")
     mat = torch.rand(1, 8, 8, device=cuda).to(torch.bfloat16)
     with pytest.raises(NotImplementedError):
         ops.greedy_loop(mat, torch.zeros(1, 8, device=cuda),
@@ -166,7 +247,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.fused_step(mat, torch.zeros(1, 8, device=cuda),
                        torch.ones(1, 8, device=cuda),
                        torch.tensor([-1], device=cuda), TR.DOT_MAX)
+    monkeypatch.setenv("REPRO_TORCH_FUSED_CACHE_DTYPE", "int8")
     with pytest.raises(NotImplementedError):
-        ops.gains(None, torch.zeros(1, 4, dtype=torch.int64, device=cuda),
-                  bits, torch.ones(1, 8, dtype=torch.bool, device=cuda),
-                  TR.BITS_OR)
+        ops.gains(feats, torch.zeros(1, 8, device=cuda), feats,
+                  torch.ones(1, 8, dtype=torch.bool, device=cuda),
+                  TR.DOT_MAX)

@@ -207,3 +207,42 @@ def test_step_rule_holds_rows_gains_and_picks():
     res = parity.compare_steps((twin[0], other, twin[2]), twin, dup, mask,
                                rule)
     assert res["ties"] == 1
+
+
+def _bitmap_loop_outputs(seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2 ** 32, (2, 40, 9), dtype=np.uint32)
+    a &= rng.integers(0, 2 ** 32, (2, 40, 9), dtype=np.uint32)
+    a[:, ::3, 0] |= np.uint32(2 ** 31)
+    mat = TR.to_words(a).transpose(-1, -2)
+    row = torch.zeros(2, 9, dtype=TR.WORD_DTYPE)
+    mask = torch.ones(2, 40)
+    mask[1, 5:] = 0.0           # greedy 1 runs out: −inf gains, bests −1
+    return TL.greedy_loop_plain(mat, row, mask, 8, TR.BITS_OR)
+
+
+@pytest.mark.parametrize("fault", ["none", "gain", "inf", "word", "best"])
+def test_exact_rule_measures_and_rejects_any_difference(fault):
+    """compare_exact passes only bit-equal outputs and reports what it
+    measured: 0 error and 0 differing entries when equal; any moved bit
+    of a row word, a best, or a gain (by 1, or −inf for a finite gain)
+    fails it."""
+    plain = _bitmap_loop_outputs()
+    rows, bests, gains = (t.clone() for t in plain)
+    assert bool(torch.isinf(gains[1]).any())
+    if fault == "none":
+        out = parity.compare_exact((rows, bests, gains), plain)
+        assert out["differing"] == 0 and out["max_abs_err"] == 0.0
+        assert out["entries"] == sum(t.numel() for t in plain)
+        assert out["accepted"] == int((plain[1] >= 0).sum()) > 0
+        return
+    if fault == "gain":
+        gains[0, 2] += 1.0
+    elif fault == "inf":
+        gains[0, 1] = -np.inf
+    elif fault == "word":
+        rows[1, 0] ^= torch.tensor(-2 ** 31, dtype=TR.WORD_DTYPE)
+    else:
+        bests[0, 3] = -1
+    with pytest.raises(AssertionError, match="1 entries differ"):
+        parity.compare_exact((rows, bests, gains), plain)
