@@ -6,7 +6,7 @@
 Phases, each printing one JSON line; a failed phase raises and the
 script exits non-zero:
 
-  build      compile the five CUDA kernels (one nvcc per source, in
+  build      compile the five CUDA sources (one nvcc per source, in
              parallel) and report their register/shared-memory use
   data       draw the Tiny-ImageNet-shaped k-medoid data on the card
              (n × 12,288 f32, the gen_images mixture recipe)
@@ -37,6 +37,34 @@ script exits non-zero:
              plain version and a one-call PyTorch yardstick (line
              `timing_steps` for fused_step and gains, with fused_step
              at the node shape and the step engine's row update)
+
+The memory-capped cache tiers (bf16 and int8 cached matrices, the
+planner's storage ladder), between the phases above:
+
+  parity_quant  (after parity_steps) the seven variants at the runs'
+                shapes — leaf level 32 × 3,284², node level 16 × 400²,
+                knapsack leaf 32 × 3,125² and node 32 × 400² — for
+                kmedoid and facility, bit for bit against what runs the
+                same arithmetic: pairwise[bf16] against the f32 kernel
+                rounded, the chunked int8 cache against quantize_rows on
+                the CPU, fused_step and the streaming loop against the
+                f32 kernel on the dequantized cache, the resident
+                scratch against round_resident of its f32 build; and
+                against their plain versions (kernels/parity.py)
+  run_bf16      (after run) run_tree_dense('kmedoid', …) with the bf16
+  run_int8      / int8 rung forced (every level in that storage) and
+                with REPRO_TORCH_FUSED_CACHE_MB = 1,024 / 512 (the
+                planner's pick for the leaves; nodes f32): per level the
+                engine, dtype and each variant's launches, the leaf
+                stage's allocation beyond the pools held to the planned
+                cache bytes (≤ 1.05× + one int8 chunk's f32), the root
+                beside the f32 run's
+  knapsack_bf16 (after knapsack) the knapsack lanes with the rung
+  knapsack_int8 forced: every stage fused, k fused_step[bf16|int8]
+                launches a stage, spent ≤ budget everywhere
+  timing_quant  (after timing_steps) each variant at its path's shape
+                beside its bound (the storage's own bytes), its plain
+                version and, for pairwise[bf16], torch.cdist to bf16
 
 Then the coverage problems, after the k-medoid tensors are freed:
 
@@ -70,7 +98,7 @@ Then the coverage problems, after the k-medoid tensors are freed:
 
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path.) Then the card's name and power limit (nvidia-smi),
-the {"kernels": …} line (nine kernels), and as the last line
+the {"kernels": …} line (sixteen kernels), and as the last line
 {"ok": true, "device": {…}}. The script
 needs the repository's src/ beside it and a CUDA device; without either
 it exits non-zero before printing any result. Imports nothing of JAX or
@@ -79,6 +107,7 @@ of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -112,6 +141,22 @@ REPLACES = {
                              "(_stream_body :54, uint32 words)",
     "greedy_loop_resident[coverage]": "src/repro/kernels/greedy_loop.py:246 "
                                       "(_resident_kernel :187, bits branch)",
+    "pairwise[bf16]": "src/repro/kernels/pairwise.py:53 (_kernel :45, "
+                      "out_dtype bfloat16)",
+    "fused_step[bf16]": "src/repro/kernels/fused_step.py:88 (_kernel :71, "
+                        "bf16 storage)",
+    "fused_step[int8]": "src/repro/kernels/fused_step.py:88 "
+                        "(_kernel_quant :77)",
+    "greedy_loop[bf16]": "src/repro/kernels/greedy_loop.py:131 "
+                         "(_stream_kernel :107, bf16 storage)",
+    "greedy_loop[int8]": "src/repro/kernels/greedy_loop.py:131 "
+                         "(_stream_kernel_quant :116)",
+    "greedy_loop_resident[bf16]": "src/repro/kernels/greedy_loop.py:246 "
+                                  "(_resident_kernel :187, bf16 rounding "
+                                  ":207-208)",
+    "greedy_loop_resident[int8]": "src/repro/kernels/greedy_loop.py:246 "
+                                  "(_resident_kernel :187, int8 rounding "
+                                  ":196-206)",
 }
 SOURCES = {
     "pairwise": "src/repro_torch/csrc/pairwise.cu",
@@ -123,6 +168,15 @@ SOURCES = {
     "fused_step[coverage]": "src/repro_torch/csrc/fused_step.cu",
     "greedy_loop[coverage]": "src/repro_torch/csrc/greedy_loop.cu",
     "greedy_loop_resident[coverage]": "src/repro_torch/csrc/greedy_loop.cu",
+    "pairwise[bf16]": "src/repro_torch/csrc/pairwise.cu",
+    "fused_step[bf16]": "src/repro_torch/csrc/fused_step.cu",
+    "fused_step[int8]": "src/repro_torch/csrc/fused_step.cu",
+    "greedy_loop[bf16]": "src/repro_torch/csrc/greedy_loop.cu",
+    "greedy_loop[int8]": "src/repro_torch/csrc/greedy_loop.cu",
+    "greedy_loop_resident[bf16]":
+        "src/repro_torch/csrc/greedy_loop_resident.cu",
+    "greedy_loop_resident[int8]":
+        "src/repro_torch/csrc/greedy_loop_resident.cu",
 }
 # the knapsack run's budget (costs uniform(0.5, 2): ~80 of k = 200 fit)
 BUDGET = 100.0
@@ -730,7 +784,7 @@ def phase_run(torch, x, cfg):
           "root_ids": len(ids), "evals_total": res.evals_total,
           "evals_critical": res.evals_critical,
           "comm_elements": res.comm_elements})
-    return totals
+    return totals, (ids, res.value, res.root_value)
 
 
 def _run_dispatcher(torch, x, cfg, pools, expect, objective="kmedoid",
@@ -996,6 +1050,476 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
                                                   rule), reps),
         "bound_ms": bound(3.0 * b * n * d, 4.0 * (b * n * d + 2 * b * n))[0]}
     emit({"phase": "timing_steps", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the memory-capped cache tiers: bf16 and int8 cached matrices
+# ---------------------------------------------------------------------------
+
+QUANT = ("bfloat16", "int8")
+TAG = {"float32": "", "bfloat16": "[bf16]", "int8": "[int8]"}
+RUNG = {"bfloat16": "bf16", "int8": "int8"}
+# REPRO_TORCH_FUSED_CACHE_MB under which the planner takes each rung for
+# the Tiny-ImageNet leaves (32 × 3,284²: f32 1.38 GB, bf16 0.69 GB,
+# int8 0.345 GB)
+BUDGET_MB = {"bfloat16": 1024, "int8": 512}
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """The environment variables `kv` set for the duration."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _rung_env(dtype: str) -> dict:
+    return {"REPRO_TORCH_FUSED_CACHE_DTYPE": RUNG[dtype]}
+
+
+def _quant_caches(torch, pay, rule):
+    """The f32 kernel's (B, N, N) cache of `pay` and the bf16 and int8
+    caches ops.pairwise_matrix builds on the card, each held bit for bit
+    (kernels/parity.py): pairwise[bf16] against the f32 output rounded to
+    bf16, the chunked int8 cache against quantize_rows of the whole f32
+    output on the CPU. Returns (f32, {dtype: (matrix, scale)}, checks)."""
+    from repro_torch.kernels import ops, parity
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import rules as R
+    m32 = P.pairwise(pay, pay, rule.pairwise)
+    bf = ops.pairwise_matrix(pay, pay, rule, "bfloat16")
+    checks = {"pairwise[bf16]_vs_f32_rounded": parity.compare_exact(
+        bf, m32.to(torch.bfloat16), "pairwise[bf16] vs the f32 kernel")}
+    q = ops.pairwise_matrix(pay, pay, rule, "int8")
+    checks["int8_cache_vs_cpu_quantize_rows"] = parity.compare_exact(
+        (q.q.cpu(), q.scale.cpu()), R.quantize_rows(m32.cpu()),
+        "the chunked int8 cache vs quantize_rows on the CPU")
+    return m32, {"bfloat16": (bf, None), "int8": (q.q, q.scale)}, checks
+
+
+def _bf16_pairwise_rule(torch, g, mode):
+    """pairwise[bf16] against its plain version (the plain f32 build
+    rounded to bf16) under the float64 ratio rule; returns the stats and
+    the largest |kernel − plain|."""
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import parity
+    got = P.pairwise(g, g, mode, out_dtype=torch.bfloat16).float()
+    plain = P.pairwise_plain(g, g, mode).to(torch.bfloat16).float()
+    stats = parity.pairwise_stats(got, plain,
+                                  parity.exact_matrix(g, g, mode), mode)
+    assert parity.pairwise_holds(stats), f"pairwise[bf16] {mode}: {stats}"
+    stats["max_abs_diff"] = float((got - plain).abs().max())
+    return stats
+
+
+def phase_parity_quant(torch, x, cfg, pools):
+    """The bf16/int8 variants on the card at the runs' own shapes, for
+    kmedoid ('dist') and facility ('dot'), held bit for bit to what runs
+    the same arithmetic and to their plain versions by the rules of
+    kernels/parity.py:
+      leaf level      (32 × 3,284², run_tree_dense's first level)
+                      pairwise[bf16] == the f32 kernel rounded; the
+                      chunked int8 cache == quantize_rows on the CPU;
+                      greedy_loop[bf16|int8] == the f32 kernel over the
+                      dequantized cache; vs plain: pairwise[bf16] by the
+                      float64 rule (first leaf), loops by compare_loops
+      node level      (16 × 400²) the resident loop under each rung: its
+                      scratch == round_resident of the pairwise kernel's
+                      f32 build; vs plain: compare_loops with the
+                      measured entry differences
+      knapsack leaf   (32 × 3,125²) and node (32 × 400²): the caches as
+                      above, fused_step[bf16|int8] == the f32 kernel over
+                      the dequantized cache, two steps; vs plain:
+                      compare_steps
+    Returns each variant's largest measured |kernel − plain|."""
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import rules as R
+    rules = {"kmedoid": R.DIST_MIN, "facility": R.DOT_MAX}
+    errs = {}
+
+    def err(name, value):
+        errs[name] = max(errs.get(name, 0.0), float(value))
+
+    out = {"leaf": {}, "node": {}, "knapsack_leaf": {}, "knapsack_node": {}}
+    _, lpay, lvalid = leaf_pools(torch, x, cfg.num_machines, cfg.seed)
+    b, n, _ = lpay.shape
+    for name, rule in rules.items():
+        res = {"pairwise[bf16]_plain": _bf16_pairwise_rule(
+            torch, lpay[:1].contiguous(), rule.pairwise)}
+        err("pairwise[bf16]", res["pairwise[bf16]_plain"]["max_abs_diff"])
+        m32, caches, checks = _quant_caches(torch, lpay, rule)
+        del m32
+        res.update(checks)
+        row = R.empty_row(lpay, lvalid, rule).contiguous()
+        mask = lvalid.float().contiguous()
+        for dt, (mat, scale) in caches.items():
+            what = f"greedy_loop{TAG[dt]} {name}"
+            got = L.greedy_loop(mat, row, mask, cfg.k, rule, scale=scale)
+            f32 = L.greedy_loop(R.logical(mat, scale).contiguous(), row, mask,
+                                cfg.k, rule)
+            res[f"greedy_loop{TAG[dt]}_vs_f32_kernel"] = parity.compare_exact(
+                got, f32, what + " vs the f32 kernel")
+            del f32
+            cmp = parity.compare_loops(got, L.greedy_loop_plain(
+                mat, row, mask, cfg.k, rule, scale=scale), rule, what=what)
+            cmp["accepted"] = int((got[1] >= 0).sum())
+            res[f"greedy_loop{TAG[dt]}_plain"] = cmp
+            err(f"greedy_loop{TAG[dt]}", cmp["max_gain_err"])
+        out["leaf"][name] = res
+        del caches
+    del lpay, lvalid
+    nodes = cfg.num_machines // cfg.branching
+    bk = cfg.branching * cfg.k
+    cd = node_pools(torch, x, nodes, bk, cfg.seed + 4)
+    vv = torch.ones(nodes, bk, dtype=torch.bool, device=x.device)
+    ctl = torch.tensor([[cfg.k, bk, bk]] * nodes, dtype=torch.int32,
+                       device=x.device)
+    for name, rule in rules.items():
+        row = R.empty_row(cd, vv, rule).contiguous()
+        mask = vv.float().contiguous()
+        built32 = P.pairwise(cd, cd, rule.pairwise)
+        res = {}
+        for dt in QUANT:
+            what = f"greedy_loop_resident{TAG[dt]} {name}"
+            built = torch.empty(nodes, bk, bk, device=x.device)
+            got = L.greedy_loop_resident(cd, cd, row, mask, ctl, cfg.k, rule,
+                                         cache_dtype=dt, scratch=built)
+            res[f"resident{TAG[dt]}_scratch_vs_rounding"] = \
+                parity.compare_exact(built, L.round_resident(built32, dt, ctl),
+                                     what + ": scratch vs round_resident")
+            diff = (built - L.resident_matrix(cd, cd, rule, ctl, dt)).abs()
+            cmp = parity.compare_loops(got, L.greedy_loop_resident_plain(
+                cd, cd, row, mask, ctl, cfg.k, rule, cache_dtype=dt), rule,
+                entry_diff=diff, what=what)
+            cmp["max_entry_diff"] = float(diff.max())
+            res[f"resident{TAG[dt]}_plain"] = cmp
+            err(f"greedy_loop_resident{TAG[dt]}", cmp["max_gain_err"])
+            del built, diff
+        out["node"][name] = res
+    del cd
+    _, kpay, kvalid = pools
+    kn = node_pools(torch, x, kpay.shape[0], bk, cfg.seed + 5)
+    for where, pay, valid in (
+            ("knapsack_leaf", kpay, kvalid),
+            ("knapsack_node", kn, torch.ones(kn.shape[:2], dtype=torch.bool,
+                                             device=x.device))):
+        bb, nn = pay.shape[:2]
+        for name, rule in rules.items():
+            m32, caches, res = _quant_caches(torch, pay, rule)
+            del m32
+            row = R.empty_row(pay, valid, rule).contiguous()
+            gen = torch.Generator(device=x.device).manual_seed(cfg.seed)
+            mask = (torch.rand(bb, nn, generator=gen, device=x.device)
+                    > 0.2).float()
+            prev = torch.randint(0, nn, (bb,), generator=gen,
+                                 device=x.device)
+            for dt, (mat, scale) in caches.items():
+                what = f"fused_step{TAG[dt]} {name} {where}"
+                logical = R.logical(mat, scale).contiguous()
+                r, mk, pv, cmps, sames = row, mask, prev, [], []
+                for _ in range(2):
+                    got = F.fused_step(mat, r, mk, pv, rule, scale=scale)
+                    sames.append(parity.compare_exact(
+                        got, F.fused_step(logical, r, mk, pv, rule),
+                        what + " vs the f32 kernel"))
+                    plain = F.fused_step_plain(mat, r, mk, pv, rule,
+                                               scale=scale)
+                    cmps.append(parity.compare_steps(got, plain, logical, mk,
+                                                     rule, what=what))
+                    r, pv = plain[0], plain[1]
+                    mk = mk.scatter(1, pv[:, None], 0.0)
+                res[f"fused_step{TAG[dt]}_vs_f32_kernel"] = {
+                    "entries": sum(s["entries"] for s in sames),
+                    "differing": sum(s["differing"] for s in sames)}
+                res[f"fused_step{TAG[dt]}_plain"] = {
+                    "max_gain_err": max(c["max_gain_err"] for c in cmps),
+                    "ties": sum(c["ties"] for c in cmps)}
+                err(f"fused_step{TAG[dt]}",
+                    res[f"fused_step{TAG[dt]}_plain"]["max_gain_err"])
+                del logical
+            out[where][name] = res
+            del caches
+    del kn
+    emit({"phase": "parity_quant", "leaf_shape": [b, n, n],
+          "node_shape": [nodes, bk, bk],
+          "knapsack_leaf_shape": list(kpay.shape[:2]) + [kpay.shape[1]],
+          "knapsack_node_shape": [kpay.shape[0], bk, bk], **out})
+    return errs
+
+
+def _variant_launches(totals) -> dict:
+    """The launches of the bf16/int8 variants among a run's totals."""
+    return {k: v for k, v in totals.items() if "[bf16]" in k or "[int8]" in k}
+
+
+def _add(into: dict, more: dict) -> None:
+    for k, v in more.items():
+        into[k] = into.get(k, 0) + v
+
+
+def _quant_tree(torch, x, cfg, env: dict, f32_run):
+    """run_tree_dense('kmedoid', …) under `env` (a forced rung or a
+    cache budget): per level the engine and storage the planner picks
+    there, the launches each variant's counter shows (asserted), the wall
+    time; the leaf stage's device allocation beyond the pools held to
+    the planned cache bytes (≤ 1.05× plus one int8 chunk's f32: no f32
+    copy of a cache anywhere); the root beside the f32 run's."""
+    from repro_torch.core.simulate import partition, run_tree_dense
+    from repro_torch.core.tree import AccumulationTree
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.plans import (cache_bytes, quant_chunk,
+                                           select_engine)
+    from repro_torch.kernels.rules import DIST_MIN
+    tree = AccumulationTree(cfg.num_machines, cfg.branching)
+    m, d = cfg.num_machines, x.shape[1]
+    n_leaf = int(np.bincount(partition(x.shape[0], m, cfg.seed)).max())
+    levels = []
+    with _env(**env):
+        plans = []
+        for lvl in range(tree.num_levels + 1):
+            n = n_leaf if lvl == 0 else cfg.branching * cfg.k
+            reps = m if lvl == 0 else len(tree.nodes_at_level(lvl))
+            plans.append((n, reps, select_engine(DIST_MIN, n, n, d,
+                                                 replicas=reps)))
+        leaf = plans[0][2]
+        planned = cache_bytes(n_leaf, n_leaf, leaf.dtype, m)
+        chunk = (quant_chunk(n_leaf, n_leaf) * n_leaf * n_leaf * 4
+                 if leaf.dtype == "int8" else 0)
+        pool_bytes = m * n_leaf * d * 4
+        counters.reset()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hook = _level_hook(torch, levels)
+        peak = []
+
+        def on_level(lvl):
+            hook(lvl)
+            if lvl == 0:
+                peak.append(torch.cuda.max_memory_allocated() - base)
+
+        t0 = time.perf_counter()
+        res = run_tree_dense("kmedoid", x, cfg.k, tree, seed=cfg.seed,
+                             device=x.device, on_level=on_level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    totals = {}
+    for lv, (n, reps, plan) in zip(levels, plans):
+        tag = TAG[plan.dtype]
+        want = {"pairwise": 1} if lv["level"] > 0 else {}
+        if plan.engine == "mega_stream":
+            build = ("pairwise" if plan.dtype == "int8"
+                     else "pairwise" + tag)
+            want[build] = want.get(build, 0) + (
+                -(-reps // quant_chunk(n, n)) if plan.dtype == "int8" else 1)
+            want["greedy_loop" + tag] = 1
+        else:
+            assert plan.engine == "mega_resident", plan.engine
+            want["greedy_loop_resident" + tag] = 1
+        assert lv["launches"] == want, (lv["level"], lv["launches"], want)
+        lv["engine"], lv["dtype"] = plan.engine, plan.dtype
+        _add(totals, lv["launches"])
+    extra = peak[0] - pool_bytes
+    assert planned <= extra <= 1.05 * planned + chunk, (
+        extra, planned, chunk)
+    ids = np.asarray(res.ids)
+    assert 0 < len(ids) <= cfg.k and len(set(ids.tolist())) == len(ids)
+    assert np.isfinite(res.value) and np.isfinite(res.root_value)
+    f32_ids, f32_value, f32_root = f32_run
+    return {"env": env, "levels": levels, "wall_seconds": wall,
+            "leaf_cache_bytes_planned": planned,
+            "leaf_chunk_f32_bytes": chunk,
+            "leaf_stage_bytes_beyond_pools": int(extra),
+            "root_value": res.root_value, "global_value": res.value,
+            "f32_root_value": f32_root, "f32_global_value": f32_value,
+            "global_value_rel_diff": abs(res.value - f32_value)
+            / abs(f32_value),
+            "root_ids": len(ids),
+            "root_ids_shared_with_f32": len(set(ids.tolist())
+                                            & set(f32_ids.tolist()))}, totals
+
+
+def phase_run_quant(torch, x, cfg, dtype: str, f32_run):
+    """run_tree_dense('kmedoid', …) at the full configuration with the
+    caches stored as `dtype`, the two ways a user reaches that rung: the
+    rung forced (REPRO_TORCH_FUSED_CACHE_DTYPE: leaves streaming and
+    nodes resident, all in `dtype`), and the memory a job has
+    (REPRO_TORCH_FUSED_CACHE_MB = BUDGET_MB[dtype]: the planner picks
+    `dtype` for the leaves and keeps the nodes f32). Returns the
+    variants' launches."""
+    from repro_torch.kernels.plans import select_engine
+    from repro_torch.kernels.rules import DIST_MIN
+    from repro_torch.core.simulate import partition
+    n_leaf = int(np.bincount(partition(x.shape[0], cfg.num_machines,
+                                       cfg.seed)).max())
+    budget = {"REPRO_TORCH_FUSED_CACHE_MB": BUDGET_MB[dtype]}
+    with _env(**budget):
+        leaf = select_engine(DIST_MIN, n_leaf, n_leaf, x.shape[1],
+                             replicas=cfg.num_machines)
+    assert (leaf.engine, leaf.dtype) == ("mega_stream", dtype), leaf
+    forced, totals = _quant_tree(torch, x, cfg, _rung_env(dtype), f32_run)
+    assert all(v["dtype"] == dtype for v in forced["levels"])
+    by_budget, more = _quant_tree(torch, x, cfg, budget, f32_run)
+    assert [v["dtype"] for v in by_budget["levels"]] == (
+        [dtype] + ["float32"] * (len(by_budget["levels"]) - 1))
+    _add(totals, more)
+    emit({"phase": f"run_{RUNG[dtype]}", "n": x.shape[0], "d": x.shape[1],
+          "k": cfg.k, "m": cfg.num_machines, "b": cfg.branching,
+          "forced": forced, "budget": by_budget})
+    return _variant_launches(totals)
+
+
+def phase_knapsack_quant(torch, x, cfg, pools, dtype: str):
+    """The knapsack lanes (budget 100) with the rung forced: every stage
+    fused over a `dtype` cache — its build (one pairwise[bf16] launch, or
+    the int8 chunks' f32 pairwise launches) + k fused_step[`dtype`]
+    launches, plus the replay pairwise at each level — spent ≤ budget at
+    the root and every lane, the constraint binding."""
+    from repro_torch.core.constraints import KnapsackSpec
+    from repro_torch.kernels.plans import quant_chunk
+    spec = KnapsackSpec(torch.as_tensor(knapsack_costs(x.shape[0], cfg.seed),
+                                        device=x.device), BUDGET)
+    tag = TAG[dtype]
+    lanes, n_leaf = pools[1].shape[:2]
+
+    def expect(stage, engine):
+        assert engine == "fused", (stage, engine)
+        n = n_leaf if stage == 0 else cfg.branching * cfg.k
+        want = {"fused_step" + tag: cfg.k}
+        if dtype == "int8":
+            want["pairwise"] = -(-lanes // quant_chunk(n, n)) + (stage > 0)
+        else:
+            want["pairwise" + tag] = 1
+            if stage > 0:
+                want["pairwise"] = 1
+        return want
+
+    t0 = time.perf_counter()
+    with _env(**_rung_env(dtype)):
+        stages, totals, sols = _run_dispatcher(torch, x, cfg, pools, expect,
+                                               constraint=spec)
+    wall = time.perf_counter() - t0
+    spent = spec.spent(sols.ids, sols.valid).cpu().numpy()
+    assert (spent <= BUDGET).all(), spent
+    ids, root = _report_root(torch, x, sols, cfg.k)
+    assert len(ids) < cfg.k, "the budget did not bind"
+    assert totals["fused_step" + tag] == len(stages) * cfg.k
+    emit({"phase": f"knapsack_{RUNG[dtype]}", "lanes": int(lanes),
+          "pool": int(n_leaf), "k": cfg.k, "budget": BUDGET,
+          "stages": stages, "wall_seconds": wall, **root,
+          "spent_root": float(spent[0]), "spent_lanes": spent.tolist()})
+    return _variant_launches(totals)
+
+
+def phase_timing_quant(torch, x, cfg, pools, reps):
+    """Each bf16/int8 variant at its path's shape beside its plain
+    version and its bound, the storage's own bytes: pairwise[bf16] and
+    the streaming loops at the leaf level (32 × 3,284²; the loop re-reads
+    its caches every step less what L2 and shared memory hold),
+    fused_step at the knapsack leaf (32 × 3,125²), the resident loops at
+    a level-1 node batch (16 × 400²). pairwise[bf16] beside
+    torch.cdist(…).to(torch.bfloat16); no single PyTorch call computes
+    the others."""
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import rules as R
+    rule = R.DIST_MIN
+    k = cfg.k
+    out = {}
+    _, pay, valid = leaf_pools(torch, x, cfg.num_machines, cfg.seed)
+    b, n, d = pay.shape
+    bf16 = torch.bfloat16
+    bms, by = bound(2.0 * b * n * n * d + 4.0 * b * n * d + 4.0 * b * n * n,
+                    4.0 * b * 2 * n * d + 2.0 * b * n * n)
+    out["pairwise[bf16]"] = {
+        "shape": [b, n, n, d],
+        "ms": cuda_ms(torch, lambda: P.pairwise(pay, pay, "dist",
+                                                out_dtype=bf16), reps),
+        "plain_ms": cuda_ms(torch, lambda: P.pairwise_plain(
+            pay, pay, "dist").to(bf16), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.cdist(
+            pay, pay, compute_mode="use_mm_for_euclid_dist").to(bf16), reps),
+        "bound_ms": bms, "bound_by": by}
+    row = R.empty_row(pay, valid, rule).contiguous()
+    mask = valid.float().contiguous()
+    for dt in QUANT:
+        mat = ops.pairwise_matrix(pay, pay, rule, dt)
+        mat, scale = (mat.q, mat.scale) if dt == "int8" else (mat, None)
+        # an int8 entry costs one more operation: its rescale
+        ops_entry = 4.0 if dt == "int8" else 3.0
+        cache = (mat.element_size() * b * n * n
+                 + (4.0 * b * n if dt == "int8" else 0.0))
+        nbytes = (k * cache - (k - 1) * min(cache, on_chip_bytes(torch))
+                  + 4.0 * 3 * b * n + 8.0 * b * k)
+        bms, by = bound(ops_entry * k * b * n * n, nbytes)
+        out[f"greedy_loop{TAG[dt]}"] = {
+            "shape": [b, n, n, k], "cache_bytes": cache,
+            "ms": cuda_ms(torch, lambda: L.greedy_loop(
+                mat, row, mask, k, rule, scale=scale), reps),
+            "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_plain(
+                mat, row, mask, k, rule, scale=scale), 1, warmup=0),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+        del mat, scale
+    del pay, valid, row, mask
+    _, kpay, kvalid = pools
+    b, n, _ = kpay.shape
+    row = R.empty_row(kpay, kvalid, rule).contiguous()
+    mask = kvalid.float().contiguous()
+    prev = torch.zeros(b, dtype=torch.int64, device=x.device)
+    for dt in QUANT:
+        mat = ops.pairwise_matrix(kpay, kpay, rule, dt)
+        mat, scale = (mat.q, mat.scale) if dt == "int8" else (mat, None)
+        ops_entry = 4.0 if dt == "int8" else 3.0
+        nbytes = (mat.element_size() * b * n * n
+                  + (4.0 * b * n if dt == "int8" else 0.0)
+                  + 4.0 * 2 * b * n + 4.0 * b * n + 16.0 * b)
+        bms, by = bound(ops_entry * b * n * n, nbytes)
+        out[f"fused_step{TAG[dt]}"] = {
+            "shape": [b, n, n],
+            "ms": cuda_ms(torch, lambda: F.fused_step(
+                mat, row, mask, prev, rule, scale=scale), 20 * reps),
+            "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
+                mat, row, mask, prev, rule, scale=scale), reps),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+        del mat, scale
+    nodes = cfg.num_machines // cfg.branching
+    bk = cfg.branching * k
+    d = x.shape[1]
+    cd = node_pools(torch, x, nodes, bk, cfg.seed + 1)
+    vv = torch.ones(nodes, bk, dtype=torch.bool, device=x.device)
+    nrow = R.empty_row(cd, vv, rule).contiguous()
+    nmask = vv.float().contiguous()
+    ctl = torch.tensor([[k, bk, bk]] * nodes, dtype=torch.int32,
+                       device=x.device)
+    nbytes = 4.0 * nodes * (2 * bk * d + 3 * bk) + 12.0 * nodes * k
+    for dt in QUANT:
+        # the rounding: bf16 one operation an entry; int8 the absmax, the
+        # division, the rounding and the rescale
+        rnd = 1.0 if dt == "bfloat16" else 4.0
+        flops = (2.0 * nodes * bk * bk * d + 4.0 * nodes * bk * d
+                 + rnd * nodes * bk * bk + 3.0 * k * nodes * bk * bk)
+        bms, by = bound(flops, nbytes)
+        out[f"greedy_loop_resident{TAG[dt]}"] = {
+            "shape": [nodes, bk, bk, d, k],
+            "ms": cuda_ms(torch, lambda: L.greedy_loop_resident(
+                cd, cd, nrow, nmask, ctl, k, rule, cache_dtype=dt), reps),
+            "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_resident_plain(
+                cd, cd, nrow, nmask, ctl, k, rule, cache_dtype=dt), reps),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+    emit({"phase": "timing_quant", **out})
     return out
 
 
@@ -1508,14 +2032,20 @@ def main(argv=None) -> int:
     pools = lane_pools(torch, x, cfg.num_machines, cfg.seed)
     errs = phase_parity(torch, x, cfg, cfg.seed)
     errs.update(phase_parity_steps(torch, x, cfg, pools))
+    errs.update(phase_parity_quant(torch, x, cfg, pools))
     phase_reference(torch)
     phase_reference_dispatch(torch)
-    launches = phase_run(torch, x, cfg)
+    launches, f32_run = phase_run(torch, x, cfg)
+    for dtype in QUANT:
+        _add(launches, phase_run_quant(torch, x, cfg, dtype, f32_run))
     launches["fused_step"] = phase_knapsack(torch, x, cfg, pools)[
         "fused_step"]
+    for dtype in QUANT:
+        _add(launches, phase_knapsack_quant(torch, x, cfg, pools, dtype))
     launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
     times = phase_timing(torch, x, cfg, cfg.seed, args.reps)
     times.update(phase_timing_steps(torch, x, cfg, pools, args.reps))
+    times.update(phase_timing_quant(torch, x, cfg, pools, args.reps))
     # the coverage problems: the k-medoid tensors go first
     del x, pools
     gc.collect()

@@ -278,9 +278,11 @@ def _finalize_mega(objective, mega, ids, payloads, valid, k) -> Solution:
     ok = bests >= 0
     safe = torch.clamp(bests, min=0)
     out_ids = torch.where(ok, ids.gather(1, safe), torch.full_like(safe, -1))
+    # rejected steps' payloads zeroed in place: (B, k, D) is 315 MB at the
+    # Tiny-ImageNet leaves, and a where() would hold it three times
     pay = _gather_rows(payloads, safe)
-    keep = ok.reshape(ok.shape + (1,) * (pay.dim() - 2))
-    out_pay = torch.where(keep, pay, torch.zeros_like(pay))
+    out_pay = pay.masked_fill_(~ok.reshape(ok.shape + (1,) * (pay.dim() - 2)),
+                               0)
     total = valid.sum(-1, keepdim=True)
     okl = ok.to(torch.int64)
     accepted_before = torch.cumsum(okl, -1) - okl

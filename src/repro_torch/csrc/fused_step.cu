@@ -3,9 +3,11 @@
 // Replaces the Pallas kernel src/repro/kernels/fused_step.py:
 // fused_step_pallas (_kernel, _step_body), the per-step engine over a
 // cache that the constrained and sampled greedies run (the loop kernels
-// evaluate no per-step feasibility mask). Inputs: cached (B, N, C) f32
-// matrices, (B, N) state rows, (B, C) 0/1 f32 masks and (B,) int64
-// previous winners (-1 = none). Outputs: the new rows (B, N), and per
+// evaluate no per-step feasibility mask). Inputs: cached (B, N, C)
+// matrices stored as f32, bf16 or int8 with (B, N) row scales (the
+// _kernel_quant entry point), (B, N) state rows, (B, C) 0/1 f32 masks
+// and (B,) int64 previous winners (-1 = none). Outputs: the new rows
+// (B, N), and per
 // greedy the masked first-argmax column (int32) and its raw gain sum
 // (f32) - the semantics of kernels/ref.py:fused_step.
 //
@@ -27,6 +29,13 @@
 // runs repeat bit for bit) and takes the masked first-argmax, keeping
 // the reference's one launch per step without a grid barrier.
 //
+// bf16 and int8 storage run the same template over rt_entry (rules.cuh):
+// each entry is widened to the f32 value rules.dequant gives (int8: one
+// __fmul_rn by its row's scale, which a block stages beside its rows in
+// shared memory), then the identical f32 algebra, so a variant equals
+// the f32 kernel run on the dequantized cache bit for bit. A step then
+// reads 2 or 1 bytes an entry: 0.63 or 0.31 GB at the knapsack leaf.
+//
 // The bitmap rule (coverage) runs rt_fused_step_bits, the uint32 branch
 // of _step_body: its matrix is the transpose of the candidates' words,
 // so the kernel takes them candidate-major, (B, C, W), as the greedy
@@ -42,8 +51,10 @@
 // the kcover knapsack leaf, 1.5 ms at 3.35 TB/s.
 #include "rules.cuh"
 
+template <class S>
 __global__ void __launch_bounds__(RT_THREADS)
-    rt_fused_step_kernel(const float* __restrict__ mat,
+    rt_fused_step_kernel(const S* __restrict__ mat,
+                         const float* __restrict__ scale,
                          const float* __restrict__ row_in,
                          const float* __restrict__ mask,
                          const long long* __restrict__ prev_in,
@@ -53,6 +64,7 @@ __global__ void __launch_bounds__(RT_THREADS)
                          int* __restrict__ arrivals, int N, int C, int P,
                          int R, RtRule rule) {
   extern __shared__ float rows[];  // (R,) this block's new state rows
+  float* scl = rows + R;           // (R,) their int8 scales (int8 only)
   __shared__ float sv[32];
   __shared__ int si[32];
   __shared__ int is_last;
@@ -62,13 +74,15 @@ __global__ void __launch_bounds__(RT_THREADS)
   const int p = blockIdx.x % P;
   const int r0 = p * R;
   const int nr = max(0, min(N - r0, R));
-  const float* M = mat + b * N * C + (size_t)r0 * C;
+  const S* M = mat + b * N * C + (size_t)r0 * C;
   const long long prev = prev_in[b];
 
   // 1. deferred update: fold the previous winner's column into the rows
   for (int i = tid; i < nr; i += T) {
+    const float s = rt_scaled<S>() ? scale[b * N + r0 + i] : 1.f;
+    if (rt_scaled<S>()) scl[i] = s;
     float r = row_in[b * N + r0 + i];
-    if (prev >= 0) r = rt_fold(r, M[(size_t)i * C + prev], rule);
+    if (prev >= 0) r = rt_fold(r, rt_entry(M, (size_t)i * C + prev, s), rule);
     rows[i] = r;
     row_out[b * N + r0 + i] = r;
   }
@@ -77,11 +91,13 @@ __global__ void __launch_bounds__(RT_THREADS)
   // 2. this block's gain partials over its rows, every column
   float* part = partials + (b * P + p) * C;
   for (int c = tid; c < C; c += T) {
-    const float* col = M + c;
+    const S* col = M + c;
     float acc = 0.f;
 #pragma unroll 8
     for (int i = 0; i < nr; ++i)
-      acc += rt_gain_part(rows[i], col[(size_t)i * C], rule);
+      acc += rt_gain_part(
+          rows[i],
+          rt_entry(col, (size_t)i * C, rt_scaled<S>() ? scl[i] : 1.f), rule);
     part[c] = acc;
   }
   __threadfence();
@@ -108,22 +124,51 @@ __global__ void __launch_bounds__(RT_THREADS)
   }
 }
 
-// partials: (B, P, C) f32 scratch; arrivals: (B,) int32, zero on entry
-// and left zero; R ground rows per block, P = ceil(N / R). Returns the
-// cudaError_t.
-extern "C" int rt_fused_step(const float* mat, const float* row_in,
-                             const float* mask, const long long* prev,
-                             float* row_out, int* best, float* gain,
-                             float* partials, int* arrivals, int B, int N,
-                             int C, int P, int R, int fold, float cap,
-                             float lam, float lam1, void* stream) {
+template <class S>
+static cudaError_t rt_fused_step_launch(const void* mat, const float* scale,
+                                        const float* row_in,
+                                        const float* mask,
+                                        const long long* prev, float* row_out,
+                                        int* best, float* gain,
+                                        float* partials, int* arrivals, int B,
+                                        int N, int C, int P, int R,
+                                        RtRule rule, cudaStream_t stream) {
+  const size_t smem = (size_t)R * (rt_scaled<S>() ? 2 : 1) * sizeof(float);
+  rt_fused_step_kernel<S><<<B * P, RT_THREADS, smem, stream>>>(
+      (const S*)mat, scale, row_in, mask, prev, row_out, best, gain, partials,
+      arrivals, N, C, P, R, rule);
+  return cudaGetLastError();
+}
+
+// mat: (B, N, C) in `storage` (RT_STORE_F32 | BF16 | INT8); scale: (B, N)
+// f32 row scales for int8, else null. partials: (B, P, C) f32 scratch;
+// arrivals: (B,) int32, zero on entry and left zero; R ground rows per
+// block, P = ceil(N / R). Returns the cudaError_t.
+extern "C" int rt_fused_step(const void* mat, const float* scale,
+                             const float* row_in, const float* mask,
+                             const long long* prev, float* row_out, int* best,
+                             float* gain, float* partials, int* arrivals,
+                             int B, int N, int C, int P, int R, int storage,
+                             int fold, float cap, float lam, float lam1,
+                             void* stream) {
   if (B == 0) return 0;
   RtRule rule{fold, cap, lam, lam1};
-  rt_fused_step_kernel<<<B * P, RT_THREADS, (size_t)R * sizeof(float),
-                         (cudaStream_t)stream>>>(
-      mat, row_in, mask, prev, row_out, best, gain, partials, arrivals, N, C,
-      P, R, rule);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (storage) {
+    case RT_STORE_F32:
+      return (int)rt_fused_step_launch<float>(
+          mat, scale, row_in, mask, prev, row_out, best, gain, partials,
+          arrivals, B, N, C, P, R, rule, st);
+    case RT_STORE_BF16:
+      return (int)rt_fused_step_launch<__nv_bfloat16>(
+          mat, scale, row_in, mask, prev, row_out, best, gain, partials,
+          arrivals, B, N, C, P, R, rule, st);
+    case RT_STORE_INT8:
+      return (int)rt_fused_step_launch<int8_t>(
+          mat, scale, row_in, mask, prev, row_out, best, gain, partials,
+          arrivals, B, N, C, P, R, rule, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 __global__ void __launch_bounds__(RT_THREADS)

@@ -31,6 +31,14 @@
 // winner's column is folded in at the start of the next step (the
 // deferred update) and once more after step k (the flush).
 //
+// bf16 and int8 caches (_stream_kernel_quant) run the same template over
+// rt_entry (rules.cuh): every entry is widened to rules.dequant's f32
+// value (int8: one __fmul_rn by its row's scale, staged in shared memory
+// beside the rows) before the identical f32 algebra, so each variant
+// equals the f32 kernel on the dequantized cache bit for bit. Every step
+// re-reads 0.69 GB (bf16) or 0.345 GB (int8) at the Tiny-ImageNet
+// leaves instead of 1.38 GB.
+//
 // The bitmap rule (coverage) runs rt_greedy_loop_bits, the uint32 branch
 // of _stream_body, over the candidates' words held candidate-major,
 // (B, C, W): the reference's matrix is their transpose, which is never
@@ -64,8 +72,10 @@
 
 namespace cg = cooperative_groups;
 
+template <class S>
 __global__ void __launch_bounds__(RT_THREADS)
-    rt_greedy_loop_kernel(const float* __restrict__ mat,
+    rt_greedy_loop_kernel(const S* __restrict__ mat,
+                          const float* __restrict__ scale,
                           const float* __restrict__ row_in,
                           const float* __restrict__ mask_in,
                           float* __restrict__ row_out, int* __restrict__ bests,
@@ -74,8 +84,9 @@ __global__ void __launch_bounds__(RT_THREADS)
                           int k, int P, int R, RtRule rule) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
-  float* mask = smem;      // (C,) this block's copy of the candidate mask
-  float* rows = smem + C;  // (R,) state of this block's ground rows
+  float* mask = smem;          // (C,) this block's copy of the candidate mask
+  float* rows = smem + C;      // (R,) state of this block's ground rows
+  float* scl = smem + C + R;   // (R,) their int8 scales (int8 only)
   __shared__ float sv[32];
   __shared__ int si[32];
 
@@ -85,10 +96,13 @@ __global__ void __launch_bounds__(RT_THREADS)
   const int p = blockIdx.x % P;
   const int r0 = p * R;
   const int nr = max(0, min(N - r0, R));
-  const float* M = mat + (size_t)b * N * C;
+  const S* M = mat + (size_t)b * N * C;
 
   for (int c = tid; c < C; c += T) mask[c] = mask_in[(size_t)b * C + c];
-  for (int i = tid; i < nr; i += T) rows[i] = row_in[(size_t)b * N + r0 + i];
+  for (int i = tid; i < nr; i += T) {
+    rows[i] = row_in[(size_t)b * N + r0 + i];
+    if (rt_scaled<S>()) scl[i] = scale[(size_t)b * N + r0 + i];
+  }
   __syncthreads();
 
   int prev = -1;
@@ -96,18 +110,24 @@ __global__ void __launch_bounds__(RT_THREADS)
     // deferred update: fold the previous winner's column into the rows
     if (prev >= 0)
       for (int i = tid; i < nr; i += T)
-        rows[i] = rt_fold(rows[i], M[(size_t)(r0 + i) * C + prev], rule);
+        rows[i] = rt_fold(rows[i],
+                          rt_entry(M, (size_t)(r0 + i) * C + prev,
+                                   rt_scaled<S>() ? scl[i] : 1.f),
+                          rule);
     __syncthreads();
 
     // per-block gain partials over this block's rows, every column
     const size_t buf = (size_t)(s & 1) * B * P;
     float* part = partials + (buf + (size_t)b * P + p) * C;
     for (int c = tid; c < C; c += T) {
-      const float* col = M + (size_t)r0 * C + c;
+      const S* col = M + (size_t)r0 * C + c;
       float acc = 0.f;
 #pragma unroll 8
       for (int i = 0; i < nr; ++i)
-        acc += rt_gain_part(rows[i], col[(size_t)i * C], rule);
+        acc += rt_gain_part(
+            rows[i],
+            rt_entry(col, (size_t)i * C, rt_scaled<S>() ? scl[i] : 1.f),
+            rule);
       part[c] = acc;
     }
     grid.sync();
@@ -135,21 +155,39 @@ __global__ void __launch_bounds__(RT_THREADS)
   // flush: fold the final accepted winner
   for (int i = tid; i < nr; i += T) {
     float r = rows[i];
-    if (prev >= 0) r = rt_fold(r, M[(size_t)(r0 + i) * C + prev], rule);
+    if (prev >= 0)
+      r = rt_fold(r,
+                  rt_entry(M, (size_t)(r0 + i) * C + prev,
+                           rt_scaled<S>() ? scl[i] : 1.f),
+                  rule);
     row_out[(size_t)b * N + r0 + i] = r;
   }
 }
 
-// Blocks of this kernel one SM holds at `smem_bytes` of dynamic shared
-// memory, and the SM count; returns the cudaError_t.
-extern "C" int rt_greedy_loop_occupancy(int smem_bytes, int* blocks_per_sm,
-                                        int* sms) {
+// the kernel of a storage code (null for an unknown code)
+static const void* rt_greedy_loop_fn(int storage) {
+  switch (storage) {
+    case RT_STORE_F32:
+      return (const void*)rt_greedy_loop_kernel<float>;
+    case RT_STORE_BF16:
+      return (const void*)rt_greedy_loop_kernel<__nv_bfloat16>;
+    case RT_STORE_INT8:
+      return (const void*)rt_greedy_loop_kernel<int8_t>;
+  }
+  return nullptr;
+}
+
+// Blocks of the `storage` kernel one SM holds at `smem_bytes` of dynamic
+// shared memory, and the SM count; returns the cudaError_t.
+extern "C" int rt_greedy_loop_occupancy(int storage, int smem_bytes,
+                                        int* blocks_per_sm, int* sms) {
+  const void* fn = rt_greedy_loop_fn(storage);
+  if (!fn) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      rt_greedy_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, rt_greedy_loop_kernel, RT_THREADS, smem_bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                    RT_THREADS, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0;
   e = cudaGetDevice(&dev);
@@ -157,26 +195,31 @@ extern "C" int rt_greedy_loop_occupancy(int smem_bytes, int* blocks_per_sm,
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// partials: (2, B, P, C) f32 scratch. Returns the cudaError_t.
-extern "C" int rt_greedy_loop(const float* mat, const float* row_in,
-                              const float* mask_in, float* row_out, int* bests,
-                              float* gains, float* partials, int B, int N,
-                              int C, int k, int P, int R, int fold, float cap,
+// mat: (B, N, C) in `storage` (RT_STORE_F32 | BF16 | INT8); scale: (B, N)
+// f32 row scales for int8, else null; partials: (2, B, P, C) f32
+// scratch. Dynamic shared memory: C + R floats, + R for int8's scales.
+// Returns the cudaError_t.
+extern "C" int rt_greedy_loop(const void* mat, const float* scale,
+                              const float* row_in, const float* mask_in,
+                              float* row_out, int* bests, float* gains,
+                              float* partials, int B, int N, int C, int k,
+                              int P, int R, int storage, int fold, float cap,
                               float lam, float lam1, void* stream) {
   if (B == 0) return 0;
+  const void* fn = rt_greedy_loop_fn(storage);
+  if (!fn) return (int)cudaErrorInvalidValue;
   RtRule rule{fold, cap, lam, lam1};
-  const int smem = (C + R) * (int)sizeof(float);
+  const int smem =
+      (C + R * (storage == RT_STORE_INT8 ? 2 : 1)) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      rt_greedy_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {(void*)&mat,   (void*)&row_in, (void*)&mask_in,
-                  (void*)&row_out, (void*)&bests, (void*)&gains,
-                  (void*)&partials, (void*)&B,    (void*)&N,
-                  (void*)&C,     (void*)&k,      (void*)&P,
-                  (void*)&R,     (void*)&rule};
-  e = cudaLaunchCooperativeKernel((void*)rt_greedy_loop_kernel,
-                                  dim3(B * P), dim3(RT_THREADS), args,
+  void* args[] = {(void*)&mat,     (void*)&scale,  (void*)&row_in,
+                  (void*)&mask_in, (void*)&row_out, (void*)&bests,
+                  (void*)&gains,   (void*)&partials, (void*)&B,
+                  (void*)&N,       (void*)&C,      (void*)&k,
+                  (void*)&P,       (void*)&R,      (void*)&rule};
+  e = cudaLaunchCooperativeKernel(fn, dim3(B * P), dim3(RT_THREADS), args,
                                   (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -7,8 +7,7 @@
 // Inputs: ground (B, N, D) and candidate (B, C, D) features, state rows
 // (B, N), masks (B, C) and ctl (B, 3) int32 = [kq, logical_n, logical_c].
 // Steps s >= kq freeze (bests -1, gains 0), as in the reference; the
-// logical extents only bound the sub-f32 rounding of the reference, and
-// this kernel takes f32 storage only, so it does not read them.
+// logical extents bound the sub-f32 rounding (below).
 //
 // What bounds it on the H100: operations, in the build. At a level-1
 // node of the Tiny-ImageNet configuration (16 nodes, N = C = 400,
@@ -29,6 +28,17 @@
 // all N rows in row order, block-wide masked first-argmax, accept if the
 // gain is finite and > 0. A final fold flushes the last winner.
 //
+// Under a bf16 or int8 cache plan (the rounding branch of
+// _resident_kernel) a rounding phase runs between the two, behind one
+// more grid barrier: each warp takes whole matrix rows, zeroes entries
+// outside the node's logical extents ctl[1], ctl[2], and rounds the rest
+// in place as the HBM-cached tiers store them - bf16 to nearest even and
+// back, int8 by rules.quantize_rows: the row's absmax over its logical
+// columns, scale = absmax / 127 (IEEE division; 1 for a zero row),
+// q = clamp(rint(m / scale), +-127) (rint is half to even, as
+// torch.round), written back as __fmul_rn(q, scale). The scratch stays
+// f32, so phase 2 is unchanged (and the planner counts 4 B an entry).
+//
 // The bitmap rule (coverage) has nothing to build: its branch of
 // _resident_kernel runs csrc/greedy_loop.cu:rt_greedy_loop_bits with ctl.
 #include <cooperative_groups.h>
@@ -37,13 +47,47 @@
 
 namespace cg = cooperative_groups;
 
+// The rounding phase: every warp of the grid takes whole rows of the
+// (B, N, C) scratch and rounds them in place to `storage`'s values.
+__device__ void rt_round_rows(float* __restrict__ mat,
+                              const int* __restrict__ ctl, int B, int N,
+                              int C, int storage) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long rr = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       rr < (long long)B * N; rr += warps) {
+    const int b = (int)(rr / N);
+    const int i = (int)(rr % N);
+    const int lc =
+        i < ctl[(size_t)b * 3 + 1] ? min(C, ctl[(size_t)b * 3 + 2]) : 0;
+    float* row = mat + rr * C;
+    if (storage == RT_STORE_BF16) {
+      for (int c = lane; c < C; c += 32)
+        row[c] = c < lc ? __bfloat162float(__float2bfloat16_rn(row[c])) : 0.f;
+      continue;
+    }
+    float amax = 0.f;
+    for (int c = lane; c < lc; c += 32) amax = fmaxf(amax, fabsf(row[c]));
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+    for (int c = lane; c < C; c += 32) {
+      const float q =
+          c < lc ? fminf(fmaxf(rintf(__fdiv_rn(row[c], scale)), -127.f), 127.f)
+                 : 0.f;
+      // through int: q = -0 (a small negative entry) stores +0, as int8 does
+      row[c] = __fmul_rn((float)(int)q, scale);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(RT_THREADS) rt_greedy_loop_resident_kernel(
     const float* __restrict__ ground, const float* __restrict__ cands,
     const float* __restrict__ row_in, const float* __restrict__ mask_in,
     const int* __restrict__ ctl, float* __restrict__ mat,
     float* __restrict__ row_out, int* __restrict__ bests,
     float* __restrict__ gains, int B, int N, int C, int D, int k, int mode,
-    RtRule rule) {
+    int storage, RtRule rule) {
   cg::grid_group grid = cg::this_grid();
   __shared__ __align__(16) RtTileSmem ts;
   __shared__ float sv[32];
@@ -59,11 +103,17 @@ __global__ void __launch_bounds__(RT_THREADS) rt_greedy_loop_resident_kernel(
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long b = t / (tn * tc);
     const long long rem = t % (tn * tc);
-    rt_pairwise_tile(ground + b * N * D, cands + b * C * D, mat + b * N * C,
+    rt_pairwise_tile<float>(ground + b * N * D, cands + b * C * D,
+                            mat + b * N * C,
                      N, C, D, (int)(rem / tc) * RT_TILE,
                      (int)(rem % tc) * RT_TILE, mode, ts);
   }
   grid.sync();
+
+  if (storage != RT_STORE_F32) {
+    rt_round_rows(mat, ctl, B, N, C, storage);
+    grid.sync();
+  }
 
   // phase 2: one block per node runs the k steps
   const int tid = threadIdx.x;
@@ -125,13 +175,15 @@ extern "C" int rt_resident_occupancy(int smem_bytes, int* blocks_per_sm,
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// mat: (B, N, C) f32 scratch; grid: blocks to launch (all co-resident).
-// Returns the cudaError_t.
+// mat: (B, N, C) f32 scratch; storage: the cache plan's dtype, whose
+// rounding the scratch gets (RT_STORE_F32: none); grid: blocks to launch
+// (all co-resident). Returns the cudaError_t.
 extern "C" int rt_greedy_loop_resident(
     const float* ground, const float* cands, const float* row_in,
     const float* mask_in, const int* ctl, float* mat, float* row_out,
     int* bests, float* gains, int B, int N, int C, int D, int k, int mode,
-    int fold, float cap, float lam, float lam1, int grid, void* stream) {
+    int storage, int fold, float cap, float lam, float lam1, int grid,
+    void* stream) {
   if (B == 0) return 0;
   RtRule rule{fold, cap, lam, lam1};
   const int smem = (N + C) * (int)sizeof(float);
@@ -144,7 +196,7 @@ extern "C" int rt_greedy_loop_resident(
                   (void*)&row_out, (void*)&bests, (void*)&gains,
                   (void*)&B,      (void*)&N,      (void*)&C,
                   (void*)&D,      (void*)&k,      (void*)&mode,
-                  (void*)&rule};
+                  (void*)&storage, (void*)&rule};
   e = cudaLaunchCooperativeKernel((void*)rt_greedy_loop_resident_kernel,
                                   dim3(grid), dim3(RT_THREADS), args,
                                   (size_t)smem, (cudaStream_t)stream);

@@ -118,10 +118,19 @@ __device__ __forceinline__ void rt_tile(const float* __restrict__ G,
   __syncthreads();  // the block may reuse `s` for its next tile
 }
 
-// The stored tile: out is the (N, C) row-major f32 matrix of ONE greedy.
+// An entry as stored: f32 as computed, bf16 rounded to nearest even
+// (as torch.Tensor.to(torch.bfloat16) and XLA's convert round).
+__device__ __forceinline__ void rt_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void rt_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The stored tile: out is the (N, C) row-major matrix of ONE greedy, f32
+// or bf16 (the same entries, another store).
+template <class T>
 __device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
                                               const float* __restrict__ Cd,
-                                              float* __restrict__ out, int N,
+                                              T* __restrict__ out, int N,
                                               int C, int D, int n0, int c0,
                                               int mode, RtTileSmem& s) {
   const int tx = threadIdx.x % 16;
@@ -135,8 +144,8 @@ __device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
       for (int j = 0; j < 4; ++j) {
         const int c = c0 + tx * 4 + j;
         if (c >= C) continue;
-        out[(size_t)r * C + c] =
-            rt_tile_entry(s, acc[i][j], ty * 4 + i, tx * 4 + j, mode);
+        rt_store(out + (size_t)r * C + c,
+                 rt_tile_entry(s, acc[i][j], ty * 4 + i, tx * 4 + j, mode));
       }
     }
   });

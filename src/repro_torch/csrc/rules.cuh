@@ -7,10 +7,19 @@
 // popc(m & ~r). Its matrix is the transpose of the candidates' words, so
 // its kernels read candidate-major (C, W) words and give each candidate
 // to one warp (rt_warp_bits_gain); gains are exact integer sums.
+//
+// A feature rule's cached matrix is stored as f32, bf16 or int8 with a
+// per-row f32 scale (kernels/rules.py:quantize_rows); rt_entry reads one
+// entry of any of them as the f32 value rules.dequant gives, so one
+// kernel template serves the three storages with the same arithmetic.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #define RT_FOLD_MIN 0
 #define RT_FOLD_MAX 1
@@ -63,6 +72,34 @@ __device__ __forceinline__ float rt_gain_part(float r, float m, RtRule rule) {
     }
   }
 }
+
+// Entry i of a cached matrix in its storage, as f32; `s` is the entry's
+// row scale (read for int8 only). bf16 -> f32 is exact. The int8 product
+// is __fmul_rn: nvcc would otherwise contract q*s into an FMA with the
+// sum or difference it feeds (-fmad=true), which rounds otherwise than
+// rules.dequant's one f32 multiply.
+__device__ __forceinline__ float rt_entry(const float* m, size_t i, float) {
+  return m[i];
+}
+__device__ __forceinline__ float rt_entry(const __nv_bfloat16* m, size_t i,
+                                          float) {
+  return __bfloat162float(m[i]);
+}
+__device__ __forceinline__ float rt_entry(const int8_t* m, size_t i,
+                                          float s) {
+  return __fmul_rn((float)m[i], s);
+}
+
+// whether storage T carries a per-row scale
+template <class T>
+__host__ __device__ constexpr bool rt_scaled() {
+  return std::is_same<T, int8_t>::value;
+}
+
+// storage codes of the C entry points (kernels/pairwise.py:STORAGES)
+#define RT_STORE_F32 0
+#define RT_STORE_BF16 1
+#define RT_STORE_INT8 2
 
 // the state-row fold: absorb an accepted element's matrix entry
 __device__ __forceinline__ float rt_fold(float r, float m, RtRule rule) {

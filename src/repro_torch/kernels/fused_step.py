@@ -7,13 +7,16 @@ fold the previous winner's column into the row (the deferred update),
 sum the rule's gain parts over the rows, take the masked first-argmax.
 One launch serves every greedy of a level. The kernel is
 csrc/fused_step.cu (P row blocks per greedy, partials reduced in block
-order by each greedy's last block to finish) for f32 storage of the
-feature rules, and csrc/fused_step.cu:rt_fused_step_bits for the bitmap
-rule: its (B, W, C) matrix is the transposed view of the candidates'
-(B, C, W) int32 words, which the kernel reads in place (P blocks of
-`block_c` candidates per greedy, counted as `fused_step[coverage]`).
-bf16/int8 caches raise NotImplementedError on CUDA tensors (their plain
-versions run on the CPU through kernels/ops.py).
+order by each greedy's last block to finish) for the feature rules'
+caches in their storage — f32, bf16 or int8 with (B, 1, N) row scales
+(`_kernel_quant`), counted as `fused_step`, `fused_step[bf16]`,
+`fused_step[int8]`; each variant widens an entry to the f32 value
+rules.dequant gives and runs the f32 arithmetic, so it equals the f32
+kernel on the dequantized cache bit for bit — and
+csrc/fused_step.cu:rt_fused_step_bits for the bitmap rule: its
+(B, W, C) matrix is the transposed view of the candidates' (B, C, W)
+int32 words, which the kernel reads in place (P blocks of `block_c`
+candidates per greedy, counted as `fused_step[coverage]`).
 """
 from __future__ import annotations
 
@@ -22,14 +25,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, counters, ref
+from repro_torch.kernels import rules as R
 from repro_torch.kernels.pairwise import (FOLDS, check_feature_rule,
-                                          check_operand, check_words)
+                                          check_operand, check_storage,
+                                          check_words, storage_counters)
 from repro_torch.kernels.plans import BITS_BLOCK_C, FUSED_BLOCK_N
 from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
 
-COUNTER = counters.counter("fused_step")
+COUNTERS = storage_counters("fused_step")
 BITS_COUNTER = counters.counter("fused_step[coverage]")
 
 _P = ctypes.c_void_p
@@ -37,40 +42,43 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def fused_step_plain(mat, row, mask, prev, rule: KernelRule):
-    """The plain PyTorch version (kernels/ref.py:fused_step); the CPU
+def fused_step_plain(mat, row, mask, prev, rule: KernelRule, scale=None):
+    """The plain PyTorch version (kernels/ref.py:fused_step) over the
+    cache's f32 values (`scale`: an int8 cache's row scales); the CPU
     path, and the kernel's yardstick of correctness on the card."""
-    return ref.fused_step(mat, row, mask, prev, rule)
+    return ref.fused_step(R.logical(mat, scale), row, mask, prev, rule)
 
 
 def _lib():
     lib = build.load("fused_step")
     lib.rt_fused_step.restype = _I
-    lib.rt_fused_step.argtypes = [_P] * 9 + [_I] * 6 + [_F, _F, _F, _P]
+    lib.rt_fused_step.argtypes = [_P] * 10 + [_I] * 7 + [_F, _F, _F, _P]
     lib.rt_fused_step_bits.restype = _I
     lib.rt_fused_step_bits.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     return lib
 
 
 def fused_step(mat, row, mask, prev, rule: KernelRule,
-               block_n: int = FUSED_BLOCK_N):
-    """mat (B, N, C), row (B, N), mask (B, C) 0/1 f32, prev (B,) int.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (f32, contiguous; `block_n` ground rows per block) or raise. The
-    bitmap rule goes to `fused_step_bits`."""
+               block_n: int = FUSED_BLOCK_N, scale=None):
+    """mat (B, N, C) f32, bf16 or int8 (with `scale`, its (B, 1, N) f32
+    row scales), row (B, N), mask (B, C) 0/1 f32, prev (B,) int. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (contiguous; `block_n` ground rows per block) or raise. The bitmap
+    rule goes to `fused_step_bits`."""
     if rule.is_bitmap:
         return fused_step_bits(mat, row, mask, prev, rule)
-    COUNTER.calls += 1
+    counter = COUNTERS.get(mat.dtype, COUNTERS[F32])
+    counter.calls += 1
     if not mat.is_cuda:
-        return fused_step_plain(mat, row, mask, prev, rule)
-    check_feature_rule(rule, mat.dtype, "fused_step")
+        return fused_step_plain(mat, row, mask, prev, rule, scale)
+    check_feature_rule(rule, "fused_step")
     if mat.dim() != 3:
         raise ValueError("fused_step kernel takes (B, N, C) matrices")
     b, n, c = mat.shape
     dev = mat.device
     prev = torch.as_tensor(prev, device=dev).to(torch.int64).expand(b)
     prev = prev.contiguous()
-    check_operand(mat, (b, n, c), F32, "mat", dev)
+    storage = check_storage(mat, scale, (b, n, c), "fused_step", dev)
     check_operand(row, (b, n), F32, "row", dev)
     check_operand(mask, (b, c), F32, "mask", dev)
     if c == 0:
@@ -89,12 +97,13 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_fused_step(
-        mat.data_ptr(), row.data_ptr(), mask.data_ptr(), prev.data_ptr(),
+        mat.data_ptr(), None if scale is None else scale.data_ptr(),
+        row.data_ptr(), mask.data_ptr(), prev.data_ptr(),
         row_out.data_ptr(), best.data_ptr(), gain.data_ptr(),
-        partials.data_ptr(), arrivals.data_ptr(), b, n, c, p, r,
+        partials.data_ptr(), arrivals.data_ptr(), b, n, c, p, r, storage,
         FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, stream)
     build.check(lib, err, "fused_step kernel")
-    COUNTER.launches += 1
+    counter.launches += 1
     return row_out, best.long(), gain
 
 

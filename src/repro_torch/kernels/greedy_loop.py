@@ -14,16 +14,21 @@ Two tiers, each ONE launch for every greedy of a level:
                         logical_c], steps ≥ kq freeze.
 
 Outputs follow kernels/ref.py:greedy_loop: final rows (B, N), bests
-(B, k) int64 with −1 for rejected steps, raw gains (B, k) f32. The CUDA
-path takes f32 storage of the feature rules and the bitmap rule. Both
+(B, k) int64 with −1 for rejected steps, raw gains (B, k) f32. The
+streaming kernel reads a feature rule's cache in its storage — f32,
+bf16 or int8 with (B, 1, N) row scales (`_stream_kernel_quant`),
+counted as `greedy_loop`, `greedy_loop[bf16]`, `greedy_loop[int8]` —
+widening each entry to rules.dequant's f32 value, so a variant equals
+the f32 kernel on the dequantized cache bit for bit. The resident
+kernel rounds its f32 scratch in place to the plan's storage (bf16, or
+int8 by rules.quantize_rows; `greedy_loop_resident[bf16]`/`[int8]`), as
+`resident_matrix` does. Both
 bitmap tiers (`greedy_loop_bits`, `greedy_loop_resident_bits`, counted as
 `greedy_loop[coverage]` / `greedy_loop_resident[coverage]`) launch one
 kernel, csrc/greedy_loop.cu:rt_greedy_loop_bits, over the candidates'
 (B, C, W) int32 words read in place (the reference's matrix is their
 transpose, so the resident tier has nothing to build); they differ in
-their candidates per block and in the resident tier's ``ctl``. bf16/int8
-caches raise NotImplementedError there (their plain versions run on the
-CPU).
+their candidates per block and in the resident tier's ``ctl``.
 """
 from __future__ import annotations
 
@@ -33,16 +38,18 @@ import torch
 
 from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.pairwise import (FOLDS, MODES, check_feature_rule,
-                                          check_operand, check_words)
+from repro_torch.kernels.pairwise import (DTYPES, FOLDS, INT8, MODES,
+                                          STORAGES, check_feature_rule,
+                                          check_operand, check_storage,
+                                          check_words, storage_counters)
 from repro_torch.kernels.plans import (BITS_LOOP_BLOCK_C,
                                        BITS_RESIDENT_BLOCK_C, LOOP_BLOCK_MAX)
 from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
 
-STREAM_COUNTER = counters.counter("greedy_loop")
-RESIDENT_COUNTER = counters.counter("greedy_loop_resident")
+STREAM_COUNTERS = storage_counters("greedy_loop")
+RESIDENT_COUNTERS = storage_counters("greedy_loop_resident")
 STREAM_BITS_COUNTER = counters.counter("greedy_loop[coverage]")
 RESIDENT_BITS_COUNTER = counters.counter("greedy_loop_resident[coverage]")
 
@@ -56,9 +63,11 @@ _F = ctypes.c_float
 # ---------------------------------------------------------------------------
 
 
-def greedy_loop_plain(mat, row, mask, k: int, rule: KernelRule, kq=None):
-    """The streaming loop in plain PyTorch (kernels/ref.py:greedy_loop)."""
-    return ref.greedy_loop(mat, row, mask, k, rule, kq=kq)
+def greedy_loop_plain(mat, row, mask, k: int, rule: KernelRule, kq=None,
+                      scale=None):
+    """The streaming loop in plain PyTorch (kernels/ref.py:greedy_loop)
+    over the cache's f32 values (`scale`: an int8 cache's row scales)."""
+    return ref.greedy_loop(R.logical(mat, scale), row, mask, k, rule, kq=kq)
 
 
 def resident_matrix(ground, cands, rule: KernelRule, ctl=None,
@@ -67,7 +76,16 @@ def resident_matrix(ground, cands, rule: KernelRule, ctl=None,
     rounded to the plan's storage dtype inside the logical extents
     (ctl[..., 1:3]) as the reference's resident kernel does."""
     mat = ref.pairwise(ground, cands, rule)
-    if rule.is_bitmap or cache_dtype not in ("int8", "bfloat16"):
+    if rule.is_bitmap:
+        return mat
+    return round_resident(mat, cache_dtype, ctl)
+
+
+def round_resident(mat, cache_dtype: str, ctl=None):
+    """An f32 (…, N, C) build rounded as the resident tier rounds it:
+    entries outside the logical extents ctl[..., 1:3] zeroed, the rest
+    stored as `cache_dtype` and read back as f32 (unchanged for f32)."""
+    if cache_dtype not in ("int8", "bfloat16"):
         return mat
     n, c = mat.shape[-2:]
     if ctl is not None:
@@ -98,12 +116,14 @@ def greedy_loop_resident_plain(ground, cands, row, mask, ctl, k: int,
 
 def _stream_lib():
     lib = build.load("greedy_loop")
-    for occupancy in (lib.rt_greedy_loop_occupancy,
-                      lib.rt_greedy_loop_bits_occupancy):
-        occupancy.restype = _I
-        occupancy.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_greedy_loop_occupancy.restype = _I
+    lib.rt_greedy_loop_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I),
+                                             ctypes.POINTER(_I)]
+    lib.rt_greedy_loop_bits_occupancy.restype = _I
+    lib.rt_greedy_loop_bits_occupancy.argtypes = [_I, ctypes.POINTER(_I),
+                                                  ctypes.POINTER(_I)]
     lib.rt_greedy_loop.restype = _I
-    lib.rt_greedy_loop.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F, _F, _P]
+    lib.rt_greedy_loop.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _F, _P]
     lib.rt_greedy_loop_bits.restype = _I
     lib.rt_greedy_loop_bits.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     return lib
@@ -115,30 +135,33 @@ def _resident_lib():
     lib.rt_resident_occupancy.argtypes = [_I, ctypes.POINTER(_I),
                                           ctypes.POINTER(_I)]
     lib.rt_greedy_loop_resident.restype = _I
-    lib.rt_greedy_loop_resident.argtypes = ([_P] * 9 + [_I] * 7
+    lib.rt_greedy_loop_resident.argtypes = ([_P] * 9 + [_I] * 8
                                             + [_F, _F, _F, _I, _P])
     return lib
 
 
-def _co_resident(lib, occupancy, smem: int) -> int:
+def _co_resident(lib, occupancy, smem: int, *lead) -> int:
     """Blocks the card holds at once at `smem` bytes of dynamic shared
-    memory (raises when the kernel cannot launch at all)."""
+    memory (raises when the kernel cannot launch at all); `lead`: the
+    occupancy query's arguments before the bytes."""
     bps, sms = _I(), _I()
-    build.check(lib, occupancy(smem, ctypes.byref(bps), ctypes.byref(sms)),
-                "occupancy query")
+    build.check(lib, occupancy(*lead, smem, ctypes.byref(bps),
+                               ctypes.byref(sms)), "occupancy query")
     return bps.value * sms.value
 
 
 def blocks_per_greedy(lib, b: int, n: int, c: int,
-                      block_n: int = LOOP_BLOCK_MAX):
+                      block_n: int = LOOP_BLOCK_MAX, storage: int = 0):
     """(P, R): blocks per greedy and ground rows per block of the streaming
-    loop. Starts from ⌈n / block_n⌉ blocks and gives each block more
-    rows while the card cannot hold all b·P blocks at once; raises when
-    even one block per greedy does not fit."""
+    loop over a `storage` cache. Starts from ⌈n / block_n⌉ blocks and
+    gives each block more rows while the card cannot hold all b·P blocks
+    at once; raises when even one block per greedy does not fit."""
     p = max(1, -(-n // max(1, block_n)))
+    per_row = 2 if storage == STORAGES[INT8] else 1    # + int8 row scales
     while True:
         r = max(1, -(-n // p))
-        cap = _co_resident(lib, lib.rt_greedy_loop_occupancy, 4 * (c + r))
+        cap = _co_resident(lib, lib.rt_greedy_loop_occupancy,
+                           4 * (c + per_row * r), storage)
         if b * p <= cap:
             return p, r
         if p == 1:
@@ -149,22 +172,24 @@ def blocks_per_greedy(lib, b: int, n: int, c: int,
 
 
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
-                block_n: int = LOOP_BLOCK_MAX):
-    """STREAMING tier over cached matrices. mat (B, N, C), row (B, N),
-    mask (B, C) 0/1 f32, `block_n` the target ground rows per block. CPU
+                block_n: int = LOOP_BLOCK_MAX, scale=None):
+    """STREAMING tier over cached matrices. mat (B, N, C) f32, bf16 or
+    int8 (with `scale`, its (B, 1, N) f32 row scales), row (B, N), mask
+    (B, C) 0/1 f32, `block_n` the target ground rows per block. CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise. The bitmap rule goes to `greedy_loop_bits`."""
     if rule.is_bitmap:
         return greedy_loop_bits(mat, row, mask, k, rule)
-    STREAM_COUNTER.calls += 1
+    counter = STREAM_COUNTERS.get(mat.dtype, STREAM_COUNTERS[F32])
+    counter.calls += 1
     if not mat.is_cuda:
-        return greedy_loop_plain(mat, row, mask, k, rule)
-    check_feature_rule(rule, mat.dtype, "greedy_loop")
+        return greedy_loop_plain(mat, row, mask, k, rule, scale=scale)
+    check_feature_rule(rule, "greedy_loop")
     if mat.dim() != 3:
         raise ValueError("greedy_loop kernel takes (B, N, C) matrices")
     b, n, c = mat.shape
     dev = mat.device
-    check_operand(mat, (b, n, c), F32, "mat", dev)
+    storage = check_storage(mat, scale, (b, n, c), "greedy_loop", dev)
     check_operand(row, (b, n), F32, "row", dev)
     check_operand(mask, (b, c), F32, "mask", dev)
     row_out = torch.empty((b, n), dtype=F32, device=dev)
@@ -173,16 +198,17 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     if b == 0:
         return row_out, bests.long(), gains
     lib = _stream_lib()
-    p, r = blocks_per_greedy(lib, b, n, c, block_n)
+    p, r = blocks_per_greedy(lib, b, n, c, block_n, storage)
     partials = torch.empty((2, b, p, c), dtype=F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_greedy_loop(
-        mat.data_ptr(), row.data_ptr(), mask.data_ptr(), row_out.data_ptr(),
+        mat.data_ptr(), None if scale is None else scale.data_ptr(),
+        row.data_ptr(), mask.data_ptr(), row_out.data_ptr(),
         bests.data_ptr(), gains.data_ptr(), partials.data_ptr(),
-        b, n, c, k, p, r, FOLDS[rule.fold], rule.cap, rule.lam,
+        b, n, c, k, p, r, storage, FOLDS[rule.fold], rule.cap, rule.lam,
         1.0 - rule.lam, stream)
     build.check(lib, err, "greedy_loop kernel")
-    STREAM_COUNTER.launches += 1
+    counter.launches += 1
     return row_out, bests.long(), gains
 
 
@@ -190,26 +216,27 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
                          rule: KernelRule, cache_dtype: str = "float32",
                          scratch=None):
     """RESIDENT tier: ground (B, N, D), cands (B, C, D), row (B, N),
-    mask (B, C) 0/1 f32, ctl (B, 3) int32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise. `scratch`, a
+    mask (B, C) 0/1 f32, ctl (B, 3) int32, `cache_dtype` the plan's
+    storage ('float32' | 'bfloat16' | 'int8'), whose rounding the matrix
+    gets inside the logical extents ctl[:, 1:3]. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise. `scratch`, a
     (B, N, C) f32 tensor, receives the matrices the loop runs over (for
     checks; by default the kernel's is allocated by the wrapper)."""
     if rule.is_bitmap:
         if scratch is not None:
             raise ValueError("the bitmap resident loop builds no matrix")
         return greedy_loop_resident_bits(cands, row, mask, ctl, k, rule)
-    RESIDENT_COUNTER.calls += 1
+    if cache_dtype not in DTYPES:
+        raise ValueError(f"unknown cache dtype {cache_dtype!r}")
+    counter = RESIDENT_COUNTERS[DTYPES[cache_dtype]]
+    counter.calls += 1
     if not cands.is_cuda:
         if scratch is not None:
             scratch.copy_(resident_matrix(ground, cands, rule, ctl,
                                           cache_dtype))
         return greedy_loop_resident_plain(ground, cands, row, mask, ctl, k,
                                           rule, cache_dtype)
-    check_feature_rule(rule, cands.dtype, "greedy_loop_resident")
-    if cache_dtype != "float32":
-        raise NotImplementedError(
-            f"greedy_loop_resident: {cache_dtype} storage has no CUDA "
-            "path yet")
+    check_feature_rule(rule, "greedy_loop_resident")
     if ground.dim() != 3 or cands.dim() != 3:
         raise ValueError("resident kernel takes (B, N, D) and (B, C, D)")
     b, n, d = ground.shape
@@ -239,10 +266,10 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
         ground.data_ptr(), cands.data_ptr(), row.data_ptr(), mask.data_ptr(),
         ctl.data_ptr(), scratch.data_ptr(), row_out.data_ptr(),
         bests.data_ptr(), gains.data_ptr(), b, n, c, d, k,
-        MODES[rule.pairwise], FOLDS[rule.fold], rule.cap, rule.lam,
-        1.0 - rule.lam, grid, stream)
+        MODES[rule.pairwise], STORAGES[DTYPES[cache_dtype]],
+        FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, grid, stream)
     build.check(lib, err, "greedy_loop_resident kernel")
-    RESIDENT_COUNTER.launches += 1
+    counter.launches += 1
     return row_out, bests.long(), gains
 
 

@@ -14,9 +14,13 @@ is no backend switch that could put a plain version on the card.
   apply_column          final-winner flush      (plain torch, O(N))
   masked_col_reduce     batched replay fold     (plain torch)
 
-On CUDA tensors the kernels take f32 storage of the feature rules and
-the bitmap rule's int32 words; bf16/int8 storage raises
-NotImplementedError there (its plain versions run on the CPU). A bitmap
+A feature rule's cache is stored as the plan says (plans.py's storage
+ladder): f32, bf16, or int8 as a `QuantMatrix` of per-row-scaled
+entries. The kernels take each storage as it is — on the card nothing
+here widens a bf16/int8 cache into an f32 copy, which would take the
+memory the ladder stepped down to save — and an int8 cache is built in
+chunks of greedies (`pairwise_matrix`). The int8-quantized GROUND of the
+per-step gains still has no CUDA path and raises there. A bitmap
 "matrix" is the transposed VIEW of the candidates' (B, C, W) words, and
 the bitmap kernels read those words in place: nothing here makes it
 contiguous (at the kcover leaf that would copy 5.1 GB a step).
@@ -37,7 +41,8 @@ from repro_torch.kernels import greedy_loop as loop_k
 from repro_torch.kernels import pairwise as pairwise_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.plans import EnginePlan, fused_block_n, loop_block_n
+from repro_torch.kernels.plans import (EnginePlan, fused_block_n,
+                                       loop_block_n, quant_chunk)
 from repro_torch.kernels.rules import KernelRule
 from repro_torch.runtime import flags
 
@@ -68,22 +73,20 @@ def _dequant_mat(mat):
     """Logical f32 view of a cached matrix (QuantMatrix or bf16 → f32;
     f32 and bitmap words pass through)."""
     if isinstance(mat, QuantMatrix):
-        return R.dequant(mat.q, mat.scale)
-    if mat.dtype == torch.bfloat16:
-        return mat.to(F32)
-    return mat
+        return R.logical(mat.q, mat.scale)
+    return R.logical(mat)
+
+
+def _storage(mat):
+    """(stored matrix, its int8 row scales or None, dtype name)."""
+    if isinstance(mat, QuantMatrix):
+        return mat.q, mat.scale, "int8"
+    return mat, None, ("bfloat16" if mat.dtype == torch.bfloat16
+                       else "float32")
 
 
 def _cast_row(row, rule: KernelRule):
     return row.to(rule.dtype).contiguous()
-
-
-def _storage_check(mat, what: str) -> None:
-    """bf16/int8 caches have no CUDA path yet: raise on the card."""
-    if mat.is_cuda and (isinstance(mat, QuantMatrix)
-                        or mat.dtype not in (F32, R.WORD_DTYPE)):
-        raise NotImplementedError(
-            f"{what}: {mat.dtype} storage has no CUDA path yet")
 
 
 def gains(ground, row, cands, cand_valid, rule: KernelRule):
@@ -110,52 +113,59 @@ def gains(ground, row, cands, cand_valid, rule: KernelRule):
 
 def pairwise_matrix(ground, cands, rule: KernelRule,
                     dtype: str = "float32"):
-    """The cached ground×candidate matrix, (B, N, C). Feature rules run
-    the pairwise kernel (its plain version on the CPU) and store it in
-    ``dtype``; bitmap rules transpose the candidate words — no launch."""
+    """The cached ground×candidate matrix, (B, N, C), stored as ``dtype``.
+    Feature rules run the pairwise kernel (its plain version on the
+    CPU): f32 and bf16 straight from the kernel; int8 in chunks of
+    greedies (plans.quant_chunk), each built in f32 and quantized by
+    rules.quantize_rows in place into its slice of the cache — per-row
+    scales, so the bytes of the one-shot build, with one chunk's f32 as
+    the only transient. Bitmap rules transpose the candidate words — no
+    launch."""
     if rule.is_bitmap:
         return cands.transpose(-1, -2)
-    if cands.is_cuda and dtype != "float32":
-        raise NotImplementedError(
-            f"pairwise_matrix: {dtype} storage has no CUDA path yet")
-    m = pairwise_k.pairwise(ground.to(F32).contiguous(),
-                            cands.to(F32).contiguous(), rule.pairwise)
-    if dtype == "int8":
-        return QuantMatrix(*R.quantize_rows(m))
-    if dtype == "bfloat16":
-        return m.to(torch.bfloat16)
-    return m
+    g = ground.to(F32).contiguous()
+    c = cands.to(F32).contiguous()
+    if dtype != "int8":
+        return pairwise_k.pairwise(g, c, rule.pairwise,
+                                   out_dtype=pairwise_k.DTYPES[dtype])
+    b, n, nc = g.shape[0], g.shape[1], c.shape[1]
+    q = torch.empty((b, n, nc), dtype=torch.int8, device=g.device)
+    scale = torch.empty((b, 1, n), dtype=F32, device=g.device)
+    step = quant_chunk(n, nc)
+    for b0 in range(0, b, step):
+        part = slice(b0, b0 + step)
+        _, scale[part] = R.quantize_rows(
+            pairwise_k.pairwise(g[part], c[part], rule.pairwise),
+            out=q[part])
+    return QuantMatrix(q, scale)
 
 
 def fused_step(mat, row, mask, prev, rule: KernelRule,
                plan: Optional[EnginePlan] = None):
     """One fused greedy step over the cached matrix → (new_row (B, N),
-    best (B,), raw gain (B,)) (the fused_step kernel; ``plan`` gives a
-    feature rule's rows per block)."""
-    _storage_check(mat, "fused_step")
-    blocks = {}
+    best (B,), raw gain (B,)) (the fused_step kernel on the cache as
+    stored; ``plan`` gives a feature rule's rows per block)."""
+    kw = {}
     if not rule.is_bitmap:      # a bitmap matrix is read in place
-        mat = _dequant_mat(mat).contiguous()
-        blocks["block_n"] = (plan.block_n if plan is not None
-                             else 0) or fused_block_n()
+        mat, kw["scale"], dtype = _storage(mat)
+        kw["block_n"] = (plan.block_n if plan is not None
+                         else 0) or fused_block_n(dtype)
     return fused_k.fused_step(mat, _cast_row(row, rule),
-                              mask.to(F32).contiguous(), prev, rule,
-                              **blocks)
+                              mask.to(F32).contiguous(), prev, rule, **kw)
 
 
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
                 plan: Optional[EnginePlan] = None):
     """STREAMING tier: all k steps over cached (B, N, C) matrices in one
-    launch. Returns (final rows (B, N), bests (B, k) with −1 = rejected,
-    raw gains (B, k))."""
-    _storage_check(mat, "greedy_loop")
-    blocks = {}
+    launch, over the caches as stored. Returns (final rows (B, N), bests
+    (B, k) with −1 = rejected, raw gains (B, k))."""
+    kw = {}
     if not rule.is_bitmap:      # a bitmap matrix is read in place
-        mat = _dequant_mat(mat).contiguous()
-        blocks["block_n"] = (plan.loop_block_n if plan is not None
-                             else 0) or loop_block_n(mat.shape[-1])
+        mat, kw["scale"], dtype = _storage(mat)
+        kw["block_n"] = (plan.loop_block_n if plan is not None
+                         else 0) or loop_block_n(mat.shape[-1], dtype)
     return loop_k.greedy_loop(mat, _cast_row(row, rule),
-                              mask.to(F32).contiguous(), k, rule, **blocks)
+                              mask.to(F32).contiguous(), k, rule, **kw)
 
 
 def greedy_loop_resident(ground, cands, row, mask, k: int,
@@ -185,9 +195,15 @@ def greedy_loop_resident(ground, cands, row, mask, k: int,
 
 def apply_column(mat, row, idx, rule: KernelRule):
     """Fold column idx (B,) of each cached matrix into its state row;
-    idx < 0 is a no-op."""
-    col = ref.column(_dequant_mat(mat), idx)[..., :row.shape[-1]]
-    return R.fold_winner(row, col, idx, rule)
+    idx < 0 is a no-op. The column is gathered in its storage and only
+    it is widened: the values of the whole matrix's dequant, without an
+    f32 copy of the cache."""
+    if isinstance(mat, QuantMatrix):
+        col = R.dequant(ref.column(mat.q, idx).unsqueeze(-1),
+                        mat.scale).squeeze(-1)
+    else:
+        col = R.logical(ref.column(mat, idx))
+    return R.fold_winner(row, col[..., :row.shape[-1]], idx, rule)
 
 
 def masked_col_reduce(mat, col_valid, row, rule: KernelRule):

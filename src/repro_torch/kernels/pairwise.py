@@ -2,10 +2,11 @@
 wrappers and plain versions. One launch serves every greedy of a level.
 
   pairwise  (answers `pairwise_pallas`) (B, N, D) ground × (B, C, D)
-            candidates → (B, N, C) f32, 'dot' ⟨g, c⟩ or 'dist'
+            candidates → (B, N, C) f32 or bf16, 'dot' ⟨g, c⟩ or 'dist'
             √max(‖g‖²+‖c‖²−2⟨g,c⟩, 0): csrc/pairwise.cu (fp32 FMA
             tiles, no TF32, norms computed in the kernel, ragged edges
-            masked).
+            masked; the bf16 output rounds each f32 entry to nearest
+            even, counted as `pairwise[bf16]`).
   gains     (answers `gains_pallas`) the step engine's uncached gains:
             Σ_n part(row_n, M_nc) per candidate, (B, C) f32, −inf at
             invalid candidates: csrc/gains.cu (the same tiles with a
@@ -13,6 +14,11 @@ wrappers and plain versions. One launch serves every greedy of a level.
             feature rules; for the bitmap rule (cands (B, C, W) and row
             (B, W) 32-bit words) csrc/gains.cu:rt_gains_bits, exact
             integer popcount sums, counted as `gains[coverage]`.
+
+Also the storage helpers the cached-matrix kernels share: a feature
+rule's cache is f32, bf16 or int8 with (B, 1, N) f32 row scales
+(`STORAGES`, the codes of csrc/rules.cuh), and each storage has a
+launch counter of its own (`storage_counters`).
 """
 from __future__ import annotations
 
@@ -24,9 +30,23 @@ from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
 
 F32 = torch.float32
+BF16 = torch.bfloat16
+INT8 = torch.int8
 MODES = {"dot": 0, "dist": 1}
+# cache storage → the kernels' storage code (RT_STORE_* in rules.cuh)
+STORAGES = {F32: 0, BF16: 1, INT8: 2}
+DTYPES = {"float32": F32, "bfloat16": BF16, "int8": INT8}
+_SUFFIX = {F32: "", BF16: "[bf16]", INT8: "[int8]"}
 
-COUNTER = counters.counter("pairwise")
+
+def storage_counters(name: str) -> dict:
+    """{storage dtype: launch counter}: `name` for f32, `name[bf16]`,
+    `name[int8]`, so a run shows which variant of a kernel ran."""
+    return {dt: counters.counter(name + sfx) for dt, sfx in _SUFFIX.items()}
+
+
+COUNTERS = {F32: counters.counter("pairwise"),
+            BF16: counters.counter("pairwise[bf16]")}
 GAINS_COUNTER = counters.counter("gains")
 GAINS_BITS_COUNTER = counters.counter("gains[coverage]")
 FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
@@ -34,15 +54,12 @@ FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
 MAX_EXACT_WORDS = 2 ** 24 // 32
 
 
-def check_feature_rule(rule: R.KernelRule, mat_dtype, what: str) -> None:
-    """Raise NotImplementedError for what the feature-rule CUDA kernels
-    do not take: a fold they do not know, and storage other than f32."""
+def check_feature_rule(rule: R.KernelRule, what: str) -> None:
+    """Raise NotImplementedError for a fold the feature-rule CUDA kernels
+    do not know."""
     if rule.fold not in FOLDS:
         raise NotImplementedError(
             f"{what}: the {rule.name!r} rule has no CUDA path yet")
-    if mat_dtype != F32:
-        raise NotImplementedError(
-            f"{what}: the CUDA path takes f32 storage, not {mat_dtype}")
 
 
 def check_words(w: int, what: str) -> None:
@@ -68,6 +85,23 @@ def check_operand(t, shape, dtype, name: str, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_storage(mat, scale, shape, what: str, device) -> int:
+    """Check a cached (B, N, C) matrix operand in its storage, and the
+    (B, 1, N) f32 row scales an int8 one needs (and no other may have);
+    returns the storage code."""
+    if mat.dtype not in STORAGES:
+        raise NotImplementedError(f"{what}: the CUDA path takes f32, bf16 "
+                                  f"or int8 storage, not {mat.dtype}")
+    check_operand(mat, shape, mat.dtype, "mat", device)
+    if mat.dtype == INT8:
+        if scale is None:
+            raise ValueError(f"{what}: an int8 cache needs its row scales")
+        check_operand(scale, (shape[0], 1, shape[1]), F32, "scale", device)
+    elif scale is not None:
+        raise ValueError(f"{what}: row scales beside a {mat.dtype} cache")
+    return STORAGES[mat.dtype]
+
+
 def pairwise_plain(ground, cands, mode: str):
     """The plain PyTorch version (the rules' expansion via torch.matmul);
     the CPU path, and the kernel's yardstick of correctness on the card."""
@@ -78,20 +112,24 @@ def _lib():
     lib = build.load("pairwise")
     fn = lib.rt_pairwise
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     return lib
 
 
-def pairwise(ground, cands, mode: str):
-    """ground (B, N, D), cands (B, C, D) → (B, N, C) f32. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (f32, contiguous)
-    or raise."""
+def pairwise(ground, cands, mode: str, out_dtype=F32):
+    """ground (B, N, D), cands (B, C, D) → (B, N, C) in `out_dtype` (f32,
+    or bf16: each f32 entry rounded to nearest even). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (f32 features,
+    contiguous) or raise."""
     if mode not in MODES:
         raise ValueError(f"unknown pairwise mode {mode!r}")
-    COUNTER.calls += 1
+    if out_dtype not in (F32, BF16):
+        raise ValueError(f"pairwise stores f32 or bf16, not {out_dtype}")
+    counter = COUNTERS[out_dtype]
+    counter.calls += 1
     if not ground.is_cuda:
-        return pairwise_plain(ground, cands, mode)
+        return pairwise_plain(ground, cands, mode).to(out_dtype)
     if ground.dim() != 3 or cands.dim() != 3:
         raise ValueError("pairwise kernel takes (B, N, D) and (B, C, D)")
     b, n, d = ground.shape
@@ -107,15 +145,16 @@ def pairwise(ground, cands, mode: str):
     c = cands.shape[1]
     if max(b, n, c, d) >= 2 ** 31:
         raise ValueError("pairwise extents must fit int32")
-    out = torch.empty((b, n, c), dtype=F32, device=ground.device)
+    out = torch.empty((b, n, c), dtype=out_dtype, device=ground.device)
     if b * n * c == 0:
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(ground.device).cuda_stream
     err = lib.rt_pairwise(ground.data_ptr(), cands.data_ptr(),
-                          out.data_ptr(), b, n, c, d, MODES[mode], stream)
+                          out.data_ptr(), b, n, c, d, MODES[mode],
+                          STORAGES[out_dtype], stream)
     build.check(lib, err, "pairwise kernel")
-    COUNTER.launches += 1
+    counter.launches += 1
     return out
 
 
@@ -148,7 +187,7 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule):
     GAINS_COUNTER.calls += 1
     if not cands.is_cuda:
         return gains_plain(ground, row, cands, cand_valid, rule)
-    check_feature_rule(rule, cands.dtype, "gains")
+    check_feature_rule(rule, "gains")
     if ground.dim() != 3 or cands.dim() != 3:
         raise ValueError("gains kernel takes (B, N, D) and (B, C, D)")
     b, n, d = ground.shape

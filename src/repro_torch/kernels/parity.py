@@ -22,6 +22,23 @@ exact in f32 on both sides, and both take the first index among equal
 gains, so every output — rows, bests, raw gains — must be equal bit for
 bit, with no tie allowance (integer gains tie often).
 
+The bf16/int8 cache storage is held bit for bit too (`compare_exact`),
+against what runs the same arithmetic, not against a plain version:
+  * pairwise with bf16 output against the f32 kernel's output rounded to
+    bf16 (torch's .to(torch.bfloat16), nearest even): the same tiles,
+    another store;
+  * an int8 cache built on the card in chunks against rules.quantize_rows
+    of the whole f32 kernel output on the CPU, q and scales: per-row
+    scales do not see the chunks, and both divide in IEEE f32;
+  * fused_step and the streaming loop over a bf16/int8 cache against the
+    f32 kernel over the dequantized cache (rules.logical): each entry is
+    widened to the same f32 value (bf16 exactly, int8 by one f32
+    product) before the same operations in the same order;
+  * the resident loop's scratch under a bf16/int8 plan against
+    greedy_loop.resident_matrix's rounding of the kernel's own f32 build.
+Beside these the variants are held to their plain versions by the rules
+above (float64 ratio, entry bounds, reordering).
+
 Loops: selections must be equal step for step. At the first step where
 two greedies differ, the comparison passes only if the two chosen gains
 at that step lie within the stated float tolerance of each other — a
@@ -300,10 +317,10 @@ def compare_steps(kern, plain, mat, mask, rule: KernelRule,
 
 def compare_exact(kern, plain, what: str = "bitmap kernel"
                   ) -> Dict[str, float]:
-    """Hold a bitmap kernel's outputs (a tensor or a tuple: rows, bests,
-    gains) against its plain version's: equal shapes and dtypes and equal
-    bit patterns (floats compared as their 32-bit words, so −inf, 0 and
-    −0 are told apart). Returns the entries compared, the entries that
+    """Hold a kernel's outputs (a tensor or a tuple: rows, bests, gains)
+    against another's: equal shapes and dtypes and equal bit patterns
+    (floats compared as their 16- or 32-bit words, so −inf, 0 and −0 are
+    told apart). Returns the entries compared, the entries that
     differ, the largest |kernel − plain| over the float outputs (0 where
     the bits agree, inf where only one side is finite) and, for a loop's
     (B, k) bests, the accepted steps; raises AssertionError when any
@@ -318,7 +335,8 @@ def compare_exact(kern, plain, what: str = "bitmap kernel"
             f"{what}, output {i}: {k.dtype}{tuple(k.shape)} vs "
             f"{p.dtype}{tuple(p.shape)}")
         if k.is_floating_point():
-            same = k.view(torch.int32) == p.view(torch.int32)
+            word = {2: torch.int16, 4: torch.int32}[k.element_size()]
+            same = k.view(word) == p.view(word)
             diff = (k.double() - p.double()).abs().nan_to_num(nan=math.inf)
             diff = torch.where(same, torch.zeros_like(diff), diff)
             if diff.numel():

@@ -24,6 +24,18 @@ Tiers, for a batch of ``replicas`` greedies that one launch serves:
   None       no cache fits in any storage dtype: per-step engine (one
              gains launch per selection).
 
+Storage ladder: a feature rule's caches are stored f32, else bf16,
+else int8 with an f32 scale per ground row (rules.quantize_rows), the
+first rung whose bytes (`cache_bytes`) fit flags.fused_cache_mb — or the
+rung REPRO_TORCH_FUSED_CACHE_DTYPE forces. At the Tiny-ImageNet leaves
+(32 × 3,284²) that is 1.38 GB, 0.69 GB or 0.345 GB: a 1,024 MB budget
+picks bf16, 512 MB int8; a node level (16 × 400², 10.2 MB) stays f32.
+The kernels read every rung as it is stored. The resident tier's scratch
+stays f32 whatever the rung (its kernel rounds the entries in place), so
+the L2 gate counts 4 B an entry. An int8 cache is built in chunks of
+greedies (`quant_chunk`): the f32 transient is one chunk, not the f32
+cache the ladder stepped down from.
+
 A constraint demotes the loop tiers to the fused engine, and sampling
 under 'auto' takes the per-step engine (`select_engine`): the loop
 kernels evaluate no per-step feasibility mask or candidate subset.
@@ -83,6 +95,11 @@ FUSED_BLOCK_N = 32
 # (16 nodes × 128 × 1,290 words, k = 64) on an H100 SXM 700 W, 8 a block
 # took 0.39 ms, 16 0.53 ms and one block a node 2.78 ms (chip_smoke.py,
 # timing_coverage's sweep)
+# f32 bytes of one chunk of an int8 cache build: the greedies whose f32
+# matrices fit it are built and quantized at once (at least one). At the
+# Tiny-ImageNet leaves a greedy's matrix is 43 MB, so each chunk is one
+# greedy — still 2,704 tiles, over 20 a SM, for the pairwise kernel
+QUANT_CHUNK_BYTES = 64 * 2 ** 20
 BITS_BLOCK_C = 64
 BITS_LOOP_BLOCK_C = 256
 BITS_RESIDENT_BLOCK_C = 8
@@ -128,28 +145,36 @@ def _smem_budget() -> float:
     return flags.fused_vmem_mb() * 2 ** 20
 
 
-def fused_block_n() -> int:
-    """Rows per block of the per-step fused kernel; 0 if none fits. Its
-    block keeps only its state rows (in and out) and the argmax scratch
-    in shared memory — gain partials go to device memory — so the shape
-    does not enter."""
+def _row_bytes(dtype: str) -> int:
+    """Shared-memory bytes a loop block keeps per ground row besides its
+    state: the row's f32 scale for int8 storage."""
+    return 4 if dtype == "int8" else 0
+
+
+def fused_block_n(dtype: str = "float32") -> int:
+    """Rows per block of the per-step fused kernel over a `dtype` cache;
+    0 if none fits. Its block keeps only its state rows (in and out),
+    their int8 scales and the argmax scratch in shared memory — gain
+    partials go to device memory — so the shape does not enter."""
     bn = FUSED_BLOCK_N
     while bn >= LOOP_BLOCK_MIN:
-        if 4 * 2 * bn + REDUCE_BYTES <= _smem_budget():
+        if (4 * 2 + _row_bytes(dtype)) * bn + REDUCE_BYTES <= _smem_budget():
             return bn
         bn //= 2
     return 0
 
 
-def loop_block_n(c: int) -> int:
+def loop_block_n(c: int, dtype: str = "float32") -> int:
     """Target rows per block of the STREAMING loop kernel over `c`
-    candidates; 0 if none fits. A block keeps its rows' state, its own
-    copy of the (C,) candidate mask and the argmax scratch in shared
-    memory across all k steps; the kernel wrapper may give a block more
-    rows than this when the card cannot hold enough blocks at once."""
+    candidates of a `dtype` cache; 0 if none fits. A block keeps its
+    rows' state (and int8 scales), its own copy of the (C,) candidate
+    mask and the argmax scratch in shared memory across all k steps; the
+    kernel wrapper may give a block more rows than this when the card
+    cannot hold enough blocks at once."""
     bn = LOOP_BLOCK_MAX
     while bn >= LOOP_BLOCK_MIN:
-        if 4 * (c + bn) + REDUCE_BYTES <= _smem_budget():
+        if (4 * (c + bn) + _row_bytes(dtype) * bn + REDUCE_BYTES
+                <= _smem_budget()):
             return bn
         bn //= 2
     return 0
@@ -170,22 +195,31 @@ def _resident_need(n: int, c: int, d: Optional[int],
 
 
 def resident_fits(n: int, c: int, d: Optional[int],
-                  rule: Optional[KernelRule] = None, itemsize: int = 4,
+                  rule: Optional[KernelRule] = None,
                   replicas: int = 1) -> bool:
     """The resident gate: one block's state fits shared memory and all
-    concurrent matrices fit the L2 share."""
+    concurrent matrices fit the L2 share. The resident kernel keeps its
+    matrices in an f32 scratch whatever the cache dtype (a bf16/int8
+    plan rounds the entries in place), so an entry counts 4 B — a
+    bitmap's words 4 B too."""
     need = _resident_need(n, c, d, rule=rule)
     if need is None or need > _smem_budget():
         return False
-    return (max(1, replicas) * n * c * itemsize
-            <= flags.resident_l2_mb() * 2 ** 20)
+    return max(1, replicas) * n * c * 4 <= flags.resident_l2_mb() * 2 ** 20
 
 
 def cache_bytes(n: int, c: int, dtype: str, replicas: int = 1) -> int:
     """Device bytes of `replicas` cached (n, c) matrices stored as
-    `dtype` — for bitmap rules (dtype 'uint32') the candidates' 32-bit
-    words, which the "matrix" views."""
-    return max(1, replicas) * n * c * cache_itemsize(dtype)
+    `dtype`, an int8 matrix with its (n,) f32 row scales — for bitmap
+    rules (dtype 'uint32') the candidates' 32-bit words, which the
+    "matrix" views."""
+    scales = 4 * n if dtype == "int8" else 0
+    return max(1, replicas) * (n * c * cache_itemsize(dtype) + scales)
+
+
+def quant_chunk(n: int, c: int) -> int:
+    """Greedies per chunk of an int8 cache build of (n, c) matrices."""
+    return max(1, QUANT_CHUNK_BYTES // max(1, 4 * n * c))
 
 
 def fused_plan(n: int, c: int, d: Optional[int] = None,
@@ -199,7 +233,7 @@ def fused_plan(n: int, c: int, d: Optional[int] = None,
     cache = flags.fused_cache_mb() * 2 ** 20
     forced = {"f32": "float32", "bf16": "bfloat16",
               "int8": "int8"}.get(flags.fused_cache_dtype())
-    dtype, itemsize = None, 4
+    dtype = None
     if bitmap:
         if cache_bytes(n, c, "uint32", reps) <= cache:
             dtype = "uint32"
@@ -208,14 +242,13 @@ def fused_plan(n: int, c: int, d: Optional[int] = None,
             if forced is not None and cand != forced:
                 continue
             if cache_bytes(n, c, cand, reps) <= cache:
-                dtype, itemsize = cand, cache_itemsize(cand)
+                dtype = cand
                 break
     if dtype is None:
         return None
-    bn = 0 if bitmap else fused_block_n()
+    bn = 0 if bitmap else fused_block_n(dtype)
     if ((bitmap or d is not None)
-            and resident_fits(n, c, d, rule=rule, itemsize=itemsize,
-                              replicas=reps)):
+            and resident_fits(n, c, d, rule=rule, replicas=reps)):
         return {"tier": "resident", "block_n": bn, "loop_block_n": 0,
                 "dtype": dtype}
     if bitmap:
@@ -229,7 +262,7 @@ def fused_plan(n: int, c: int, d: Optional[int] = None,
                 "loop_block_n": 0, "dtype": dtype}
     if bn == 0:
         return None
-    bn_loop = loop_block_n(c)
+    bn_loop = loop_block_n(c, dtype)
     return {"tier": "streaming" if bn_loop else "fused",
             "block_n": bn, "loop_block_n": bn_loop, "dtype": dtype}
 

@@ -240,20 +240,40 @@ def cache_itemsize(dtype: str) -> int:
     return {"float32": 4, "uint32": 4, "bfloat16": 2, "int8": 1}[dtype]
 
 
-def quantize_rows(mat):
+def quantize_rows(mat, out=None):
     """(…, N, C) f32 → (q int8 (…, N, C), scale f32 (…, 1, N)) with a
-    symmetric per-row scale; all-zero rows get scale 1."""
+    symmetric per-row scale; all-zero rows get scale 1.
+
+    Both divisions divide by a tensor: on CUDA tensors PyTorch computes a
+    division by a Python number as a product with its reciprocal, which
+    rounds otherwise than the IEEE division of the CPU, the reference and
+    the resident kernel's rounding phase. With ``out`` (an int8 tensor of
+    the matrix's shape: a chunked cache build's slice) q is written into
+    it and an f32 input is the work buffer, overwritten: the same bits
+    with no transient beyond the input itself."""
     m = mat.to(F32)
-    amax = torch.amax(torch.abs(m), dim=-1, keepdim=True)      # (…, N, 1)
-    scale = torch.where(amax > 0.0, amax / _QMAX,
+    # max |m| without an |m| temporary
+    amax = torch.maximum(m.amax(-1, keepdim=True), -m.amin(-1, keepdim=True))
+    scale = torch.where(amax > 0.0, amax / amax.new_tensor(_QMAX),
                         torch.ones_like(amax))
-    q = torch.clamp(torch.round(m / scale), -_QMAX, _QMAX).to(torch.int8)
+    t = m / scale if out is None else m.div_(scale)
+    t.round_().clamp_(-_QMAX, _QMAX)
+    q = t.to(torch.int8) if out is None else out.copy_(t)
     return q, scale.transpose(-1, -2)
 
 
 def dequant(q, scale):
     """(…, N, C) int8 + (…, 1, N) per-row scale → (…, N, C) f32."""
     return q.to(F32) * scale.transpose(-1, -2)
+
+
+def logical(mat, scale=None):
+    """A cached matrix's f32 values: an int8 `mat` with its (…, 1, N)
+    row scales dequantized, bf16 widened (exactly); f32 matrices and
+    bitmap words pass through."""
+    if scale is not None:
+        return dequant(mat, scale)
+    return mat.to(F32) if mat.dtype == torch.bfloat16 else mat
 
 
 # ---------------------------------------------------------------------------

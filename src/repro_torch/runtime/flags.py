@@ -31,8 +31,14 @@ TPU budgets of the reference:
                                 is left to the features streaming
                                 through the build.
   REPRO_TORCH_FUSED_CACHE_DTYPE 'auto' | 'f32' | 'bf16' | 'int8' cache
-                                storage (the CUDA kernels take f32 only
-                                in this slice).
+                                storage: 'auto' takes the first rung of
+                                f32 → bf16 → int8 whose caches fit
+                                REPRO_TORCH_FUSED_CACHE_MB (plans.py);
+                                the others force one rung. The CUDA
+                                kernels read all three; the int8 rung
+                                also quantizes the per-step gains'
+                                ground features, which has no CUDA path
+                                yet.
 """
 from __future__ import annotations
 

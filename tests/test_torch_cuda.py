@@ -6,14 +6,18 @@ JAX:  PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda
 Each wrapper must launch its kernel (one counted launch), agree with its
 plain version under kernels/parity.py's stated tolerances (the bitmap
 rule's kernels bit for bit), and raise — never fall back — on what its
-kernel does not take.
+kernel does not take. The bf16/int8 cache variants are held bit for bit
+to the f32 kernel on the dequantized cache (pairwise[bf16] to the f32
+output rounded; the chunked int8 build to quantize_rows on the CPU; the
+resident scratch to round_resident of the f32 build), and to their plain
+versions under the same rules as the f32 kernels.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.data.synthetic import gen_images
-from repro_torch.kernels import counters, ops
+from repro_torch.kernels import counters, ops, plans
 from repro_torch.kernels import fused_step as TF
 from repro_torch.kernels import greedy_loop as TL
 from repro_torch.kernels import pairwise as TP
@@ -226,27 +230,136 @@ def test_cuda_gains_kernel_matches_plain(cuda, name, shape):
     parity.compare_gains(got, want, g, row, cd, tr)
 
 
+STORED = ["bfloat16", "int8"]
+
+
+def _stored(mat, dtype):
+    """An f32 (B, N, C) matrix in `dtype` storage → (matrix, scale)."""
+    if dtype == "int8":
+        return TR.quantize_rows(mat)
+    return mat.to(torch.bfloat16), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dot", "dist"])
+@pytest.mark.parametrize("shape", [(2, 130, 70, 96), (1, 7, 5, 3)])
+def test_cuda_pairwise_bf16_kernel(cuda, mode, shape):
+    """The bf16 output is the f32 kernel's output rounded to nearest even,
+    bit for bit, and holds to the plain version (rounded alike) under the
+    float64 ratio rule."""
+    b, n, c, d = shape
+    g, cd = _dev_pools(cuda, b, n, c, d, seed=15)
+    counters.reset()
+    got = TP.pairwise(g, cd, mode, out_dtype=torch.bfloat16)
+    assert counters.snapshot()["pairwise[bf16]"]["launches"] == 1
+    parity.compare_exact(got, TP.pairwise(g, cd, mode).to(torch.bfloat16))
+    want = TP.pairwise_plain(g, cd, mode).to(torch.bfloat16)
+    parity.compare_pairwise(got.float(), want.float(), g, cd, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+def test_cuda_int8_cache_built_in_chunks(cuda, name, monkeypatch):
+    """ops.pairwise_matrix to int8 on the card, two greedies a chunk,
+    equals quantize_rows of the whole f32 kernel output on the CPU (IEEE
+    divisions on both), q and scales bit for bit."""
+    tr = FEATURE_RULES[name]
+    g, cd = _dev_pools(cuda, 5, 70, 45, 24, seed=16)
+    monkeypatch.setattr(plans, "QUANT_CHUNK_BYTES", 2 * 4 * 70 * 45)
+    counters.reset()
+    got = ops.pairwise_matrix(g, cd, tr, dtype="int8")
+    assert counters.snapshot()["pairwise"]["launches"] == 3
+    q, scale = TR.quantize_rows(TP.pairwise(g, cd, tr.pairwise).cpu())
+    parity.compare_exact((got.q, got.scale), (q, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", STORED)
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+def test_cuda_fused_step_quant_kernel(cuda, name, dtype):
+    """fused_step over a bf16/int8 cache: bit for bit the f32 kernel over
+    the dequantized cache, two steps; held to the plain version as the
+    f32 kernel is."""
+    tr = FEATURE_RULES[name]
+    g, cd = _dev_pools(cuda, 3, 300, 130, 24, seed=17)
+    mat, scale = _stored(TP.pairwise_plain(g, cd, tr.pairwise), dtype)
+    logical = TR.logical(mat, scale).contiguous()
+    valid = torch.ones(3, 300, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    mask = (torch.rand(3, 130, generator=gen, device=cuda) > 0.3).float()
+    tag = "[bf16]" if dtype == "bfloat16" else "[int8]"
+    for prev in (torch.full((3,), -1, device=cuda),
+                 torch.randint(0, 130, (3,), generator=gen, device=cuda)):
+        counters.reset()
+        got = TF.fused_step(mat, row, mask, prev, tr, block_n=8, scale=scale)
+        assert counters.snapshot()["fused_step" + tag]["launches"] == 1
+        parity.compare_exact(got, TF.fused_step(logical, row, mask, prev, tr,
+                                                block_n=8))
+        want = TF.fused_step_plain(mat, row, mask, prev, tr, scale=scale)
+        parity.compare_steps(got, want, logical, mask, tr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", STORED)
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+def test_cuda_greedy_loop_quant_kernel(cuda, name, dtype):
+    """The streaming loop over a bf16/int8 cache: bit for bit the f32
+    kernel over the dequantized cache; held to the plain version."""
+    tr = FEATURE_RULES[name]
+    g, cd = _dev_pools(cuda, 3, 300, 90, 32, seed=18)
+    mat, scale = _stored(TP.pairwise_plain(g, cd, tr.pairwise), dtype)
+    valid = torch.ones(3, 300, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    mask = torch.ones(3, 90, device=cuda)
+    counters.reset()
+    got = TL.greedy_loop(mat, row, mask, 12, tr, block_n=64, scale=scale)
+    tag = "[bf16]" if dtype == "bfloat16" else "[int8]"
+    assert counters.snapshot()["greedy_loop" + tag]["launches"] == 1
+    parity.compare_exact(got, TL.greedy_loop(
+        TR.logical(mat, scale).contiguous(), row, mask, 12, tr, block_n=64))
+    parity.compare_loops(got, TL.greedy_loop_plain(mat, row, mask, 12, tr,
+                                                   scale=scale), tr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", STORED)
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+def test_cuda_resident_quant_kernel(cuda, name, dtype):
+    """The resident loop under a bf16/int8 plan, two of its four nodes
+    with logical extents short of the shapes: the scratch it runs over is
+    round_resident of its f32 build (the pairwise kernel's) bit for bit;
+    its outputs hold to the plain version with the measured entry
+    differences."""
+    tr = FEATURE_RULES[name]
+    ctl = torch.tensor([[10, 100, 100], [4, 90, 95], [10, 100, 100],
+                        [6, 97, 80]], dtype=torch.int32, device=cuda)
+    _, cd = _dev_pools(cuda, 4, 1, 100, 48, seed=19)
+    g = cd.clone()
+    valid = torch.ones(4, 100, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    mask = torch.ones(4, 100, device=cuda)
+    built = torch.empty(4, 100, 100, device=cuda)
+    counters.reset()
+    got = TL.greedy_loop_resident(g, cd, row, mask, ctl, 10, tr,
+                                  cache_dtype=dtype, scratch=built)
+    tag = "[bf16]" if dtype == "bfloat16" else "[int8]"
+    assert counters.snapshot()["greedy_loop_resident" + tag]["launches"] == 1
+    parity.compare_exact(built, TL.round_resident(
+        TP.pairwise(g, cd, tr.pairwise), dtype, ctl))
+    want = TL.greedy_loop_resident_plain(g, cd, row, mask, ctl, 10, tr,
+                                         cache_dtype=dtype)
+    parity.compare_loops(got, want, tr, entry_diff=(
+        built - TL.resident_matrix(g, cd, tr, ctl, dtype)).abs())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
-    """bf16/int8 storage has no CUDA path yet: every wrapper raises on it
-    rather than run a plain version on the card."""
+    """What has no CUDA path yet raises rather than run a plain version
+    on the card: the per-step gains over int8-quantized ground features
+    (REPRO_TORCH_FUSED_CACHE_DTYPE=int8). The bf16/int8 caches launch
+    their kernels (the tests above)."""
     feats = torch.rand(1, 8, 4, device=cuda)
-    with pytest.raises(NotImplementedError):
-        TL.greedy_loop_resident(feats, feats, torch.zeros(1, 8, device=cuda),
-                                torch.ones(1, 8, device=cuda),
-                                torch.tensor([[2, 8, 8]], dtype=torch.int32,
-                                             device=cuda), 2, TR.DOT_MAX,
-                                cache_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        ops.pairwise_matrix(feats, feats, TR.DOT_MAX, dtype="int8")
-    mat = torch.rand(1, 8, 8, device=cuda).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        ops.greedy_loop(mat, torch.zeros(1, 8, device=cuda),
-                        torch.ones(1, 8, device=cuda), 2, TR.DOT_MAX)
-    with pytest.raises(NotImplementedError):
-        ops.fused_step(mat, torch.zeros(1, 8, device=cuda),
-                       torch.ones(1, 8, device=cuda),
-                       torch.tensor([-1], device=cuda), TR.DOT_MAX)
     monkeypatch.setenv("REPRO_TORCH_FUSED_CACHE_DTYPE", "int8")
     with pytest.raises(NotImplementedError):
         ops.gains(feats, torch.zeros(1, 8, device=cuda), feats,

@@ -247,13 +247,14 @@ def _reference_round(jd, sol, lvl, aug=None):
                                                  "value", "evals")})
 
 
-def _lockstep(name, data, jd, td, aug=None):
+def _lockstep(name, data, jd, td, aug=None, hold=_hold_greedy):
     """Run both dispatchers stage by stage, both fed the reference's
     stage output. Each round is held piece by piece — the node greedies
     on the gathered unions, the S_prev replay scores, the argmax
     decisions — and the port's `level` must equal its pieces, the
     reference's `level` its own. ``aug`` (A, D): evaluation rows added
-    to every node's ground set. Returns (ties met, the root state)."""
+    to every node's ground set; `hold` holds one lane's greedy
+    (`_hold_greedy`'s signature). Returns (ties met, the root state)."""
     lanes = jd.lanes
     ids = np.arange(N, dtype=np.int32)
     valid = np.ones(N, bool)
@@ -265,7 +266,7 @@ def _lockstep(name, data, jd, td, aug=None):
     want = _np(jd.leaves(*jargs))
     got = _np(td.leaves(*targs))
     pools = np.asarray(jargs[1])
-    ties = sum(_hold_greedy(name, _lane(want, i), _lane(got, i), pools[i],
+    ties = sum(hold(name, _lane(want, i), _lane(got, i), pools[i],
                             np.ones(len(pools[i]), bool), pools[i],
                             np.asarray(jargs[0][i]))
                for i in range(lanes))
@@ -311,7 +312,7 @@ def _lockstep(name, data, jd, td, aug=None):
         t_new = _np(t_new)
         t_score = t_score.numpy()
         for i in range(lanes):
-            split = _hold_greedy(name, _lane(j_new, i), _lane(t_new, i),
+            split = hold(name, _lane(j_new, i), _lane(t_new, i),
                                  grd[i], gval[i], upay[i], uids[i])
             ties += split
             if name == "kcover":

@@ -160,9 +160,10 @@ def _hold_greedies(name, jsol, tsol, ground, gvalid, pools, pool_valid,
     return ties
 
 
-def _lockstep(name, x, k, jtree, seed=0):
+def _lockstep(name, x, k, jtree, seed=0, hold=_hold_greedies):
     """Walk the tree along the reference's decisions, holding the port's
-    greedy_batch / replay_value / select_better at every node."""
+    greedy_batch / replay_value / select_better at every node (each
+    level's greedies by `hold`, `_hold_greedies`' signature)."""
     jobj = j_make(name, backend="ref")
     tobj = t_make(name, device="cpu")
     n = x.shape[0]
@@ -175,7 +176,7 @@ def _lockstep(name, x, k, jtree, seed=0):
     tsol = TG.greedy_batch(tobj, torch.as_tensor(pool_ids),
                            torch.as_tensor(pay), torch.as_tensor(pool_valid),
                            k)
-    ties = _hold_greedies(name, sols, tsol, pay, pool_valid, pay, pool_valid,
+    ties = hold(name, sols, tsol, pay, pool_valid, pay, pool_valid,
                           pool_ids)
     level_ids = list(range(m))
     for lvl in range(1, L + 1):
@@ -197,7 +198,7 @@ def _lockstep(name, x, k, jtree, seed=0):
         tnew = TG.greedy_batch(tobj, torch.as_tensor(u_ids),
                                torch.as_tensor(u_pay), torch.as_tensor(u_val),
                                k)
-        ties += _hold_greedies(name, jnew, tnew, u_pay, u_val, u_pay, u_val,
+        ties += hold(name, jnew, tnew, u_pay, u_val, u_pay, u_val,
                                u_ids)
         prev_rows = np.asarray([level_ids.index(nid) for nid in nodes])
         prev = {f: v[prev_rows] for f, v in sols.items()}
