@@ -6,7 +6,7 @@
 Phases, each printing one JSON line; a failed phase raises and the
 script exits non-zero:
 
-  build      compile the five CUDA sources (one nvcc per source, in
+  build      compile the six CUDA sources (one nvcc per source, in
              parallel) and report their register/shared-memory use
   data       draw the Tiny-ImageNet-shaped k-medoid data on the card
              (n × 12,288 f32, the gen_images mixture recipe)
@@ -96,9 +96,52 @@ Then the coverage problems, after the k-medoid tensors are freed:
                     bytes bound and its plain version; the resident
                     loop also at other candidates per block
 
+Streaming (sieve streaming: one stream-filter launch a batch for all
+levels of all stacked sieves), beside the k-medoid phases:
+
+  parity_stream        (after parity_quant) the stream filter at the
+                       k-medoid stream's shape (72 levels × 16,384
+                       evaluation rows × 256 arrivals × 12,288), three
+                       chained batches fed the plain version's state,
+                       kmedoid and facility, with and without costs:
+                       the slab by the float64 pairwise rule, the
+                       decisions by parity.compare_stream (ties
+                       counted); the int8-ground variant bit for bit
+                       against the f32 kernel on the dequantized
+                       ground; the int8-ground gains at the stochastic
+                       leaf shape, bit for bit and by the float64 rule
+  reference_stream     (after reference_dispatch) small-integer facility
+                       streams, kernel path == CPU path: stream_select,
+                       a SlidingSieve, 4 continuous lanes
+  stochastic_int8      (after stochastic) the stochastic lanes under the
+                       int8 rung: 200 gains[int8] launches at the leaves
+  stream_kmedoid       stream_select('kmedoid') over all 100,000 images
+  stream_kmedoid_int8  against 16,384 of them (k = 200, B = 256: 391
+                       batches, one launch each), f32 and int8 ground;
+                       the value on the evaluation set ≥ (½ − ε) of the
+                       `run` root's there
+  timing_stream        (after timing_quant) the stream filter per batch
+                       (f32, int8) and the int8-ground gains beside
+                       their bounds and plain versions
+
+and after timing_coverage, on the kosarak bitmaps:
+
+  parity_stream_coverage  the bitmap stream filter bit for bit (one
+                          sieve, knapsack, the window's 5 checkpoints,
+                          4 continuous lanes) and the slot update
+  stream_kcover           stream_select over all 990,002 sets, k = 64,
+                          B = 256: 3,868 launches; ≥ (½ − ε) of
+                          kcover_run's root
+  stream_kcover_knapsack  costs uniform(0.5, 2), budget 40: spent ≤ 40
+                          at every level
+  window_kcover           window 262,144, stride 65,536: no expired id
+  continuous_kcover       4 lanes, b = 2, a merge every 256 batches on
+                          the resident bitmap loop; merges never drop
+  timing_stream_coverage  the bitmap stream filter per batch
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path.) Then the card's name and power limit (nvidia-smi),
-the {"kernels": …} line (sixteen kernels), and as the last line
+the {"kernels": …} line (twenty kernels), and as the last line
 {"ok": true, "device": {…}}. The script
 needs the repository's src/ beside it and a CUDA device; without either
 it exits non-zero before printing any result. Imports nothing of JAX or
@@ -157,6 +200,14 @@ REPLACES = {
     "greedy_loop_resident[int8]": "src/repro/kernels/greedy_loop.py:246 "
                                   "(_resident_kernel :187, int8 rounding "
                                   ":196-206)",
+    "stream_filter": "src/repro/kernels/stream_filter.py:138 (_kernel "
+                     ":118, _body :53)",
+    "stream_filter[int8]": "src/repro/kernels/stream_filter.py:138 "
+                           "(_kernel :118, int8 ground :120-125)",
+    "stream_filter[coverage]": "src/repro/kernels/stream_filter.py:138 "
+                               "(_body :53, bits rule)",
+    "gains[int8]": "src/repro/kernels/pairwise.py:109 "
+                   "(_gains_kernel_quant :93)",
 }
 SOURCES = {
     "pairwise": "src/repro_torch/csrc/pairwise.cu",
@@ -177,6 +228,10 @@ SOURCES = {
         "src/repro_torch/csrc/greedy_loop_resident.cu",
     "greedy_loop_resident[int8]":
         "src/repro_torch/csrc/greedy_loop_resident.cu",
+    "stream_filter": "src/repro_torch/csrc/stream_filter.cu",
+    "stream_filter[int8]": "src/repro_torch/csrc/stream_filter.cu",
+    "stream_filter[coverage]": "src/repro_torch/csrc/stream_filter.cu",
+    "gains[int8]": "src/repro_torch/csrc/gains.cu",
 }
 # the knapsack run's budget (costs uniform(0.5, 2): ~80 of k = 200 fit)
 BUDGET = 100.0
@@ -1793,7 +1848,7 @@ def _coverage_tree(torch, name, bits, words, cfg, phase: str):
           "global_value_seconds": rescore_s, "root_ids": len(ids),
           "evals_total": res.evals_total,
           "comm_elements": res.comm_elements})
-    return totals
+    return totals, res.root_value
 
 
 def phase_kcover_knapsack(torch, words, cfg, pools):
@@ -1880,7 +1935,8 @@ def phase_kdom_run(torch, cfg, dev):
                                            cfg.seed + 10 + nn)
         for nn in _level_nodes(cfg)}
     emit({"phase": "parity_kdom", "rule": "exact (bit for bit)", **out})
-    launches = _coverage_tree(torch, "kdom", bits, words, cfg, "kdom_run")
+    launches, _ = _coverage_tree(torch, "kdom", bits, words, cfg,
+                                 "kdom_run")
     return launches, _max_errs(out)
 
 
@@ -1999,6 +2055,747 @@ def phase_timing_coverage(torch, words, cfg, pools, reps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# streaming: the sieve filter (B6) and the int8-ground gains (B2q)
+# ---------------------------------------------------------------------------
+
+# the k-medoid stream's evaluation set: drawn from the stream with the
+# seed, so a level's (N,) f32 row fits one block's shared memory
+STREAM_EVAL = 16_384
+STREAM_EPS = 0.1
+# arrivals a batch: at the k-medoid stream's 16,384 evaluation rows the
+# batch's (N, B) f32 slab is 16.8 MB, within the half of the 50 MB L2
+# that every level block re-reads it from
+STREAM_BATCH = 256
+# the kcover window: the last 262,144 arrivals, a checkpoint every 65,536
+WINDOW, STRIDE = 262_144, 65_536
+CONTINUOUS_LANES, MERGE_EVERY = 4, 256
+
+
+def _stream_state(torch, rule, levels, row0, cost: bool, lanes: int = 1):
+    """Empty canonical stream-filter state (rows, row0, values, counts,
+    expos, m[, spent]) of `lanes` stacked sieves."""
+    dev = row0.device
+    st = (row0.expand(lanes, levels, row0.shape[0]).contiguous(), row0,
+          torch.zeros(lanes, levels, device=dev),
+          torch.zeros(lanes, levels, dtype=torch.int32, device=dev),
+          torch.arange(levels, dtype=torch.int32, device=dev).expand(
+              lanes, levels).contiguous(),
+          torch.zeros(lanes, device=dev))
+    return st + (torch.zeros(lanes, levels, device=dev),) if cost else st
+
+
+def _next_state(out, row0, cost: bool):
+    """The canonical state after a batch, from a filter's outputs."""
+    return (out[0], row0, out[1], out[2], out[4], out[5]) + (
+        (out[7],) if cost else ())
+
+
+def _stream_eval_set(torch, x, seed: int):
+    """STREAM_EVAL images of the stream drawn without replacement with
+    the seed: the fixed evaluation set of the k-medoid stream."""
+    ids = np.sort(np.random.default_rng(seed).choice(
+        x.shape[0], STREAM_EVAL, replace=False))
+    return x[torch.as_tensor(ids, device=x.device)].contiguous()
+
+
+def _stream_batches(torch, data, n_batches: int, b: int, seed: int,
+                    costs=None):
+    """The first `n_batches` arrival batches of data shuffled with the
+    seed: (ids, payloads, valid, costs or None)."""
+    order = torch.as_tensor(np.random.default_rng(seed).permutation(
+        data.shape[0])[:n_batches * b], device=data.device)
+    out = []
+    for i in range(n_batches):
+        ids = order[i * b:(i + 1) * b]
+        out.append((ids, data[ids].contiguous(),
+                    torch.ones(b, dtype=torch.bool, device=data.device),
+                    None if costs is None else costs[ids].contiguous()))
+    return out
+
+
+def phase_parity_stream(torch, x, cfg, pools):
+    """B6 on feature rules at the k-medoid stream's shape (N = 16,384
+    evaluation rows, B = 256 arrivals, L = 72 levels, D = 12,288), three
+    chained batches fed the plain version's state on both sides, for
+    kmedoid and facility, with and without knapsack costs (budget 100):
+    the kernel's slab by the float64 pairwise rule, its decisions by
+    parity.compare_stream (ties counted); the int8-ground variant bit
+    for bit against the f32 kernel on the dequantized ground, and by
+    compare_stream against the plain version there. Then B2q at the
+    stochastic leaf shape (32 × 3,125 ground rows × 72 sampled
+    candidates × 12,288): bit for bit against the f32 gains kernel on
+    the dequantized ground, and the float64 ratio rule against its plain
+    version. The slot update (scatter_slots) at the k-medoid stream's
+    shape, (1, 72, 200, 12,288) f32 payload slots, over the same three
+    batches: bit for bit against the reference's one-hot formula, and
+    every filled slot's payload equal to its id's image. Returns each
+    kernel's largest measured |kernel − plain|, and the filter state and
+    the slots after the three batches for the timing phase."""
+    from repro_torch.core.greedyml import LaneSampler
+    from repro_torch.kernels import ops, parity
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import ref as TRef
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+    from repro_torch.streaming import num_levels
+    k, b = cfg.k, STREAM_BATCH
+    levels = num_levels(k, STREAM_EPS)
+    eps_log = math.log1p(STREAM_EPS)
+    ground = _stream_eval_set(torch, x, cfg.seed)
+    n, d = ground.shape
+    q, scale = ops.quantize_ground(ground)
+    deq = R.dequant(q, scale).contiguous()
+    gscale = scale.reshape(-1).contiguous()
+    costs = torch.as_tensor(knapsack_costs(x.shape[0], cfg.seed),
+                            device=x.device)
+    batches = _stream_batches(torch, x, 4, b, cfg.seed + 1, costs)
+    spare, batches = batches[3], batches[:3]    # the timing phase's batch
+    errs = {"stream_filter": 0.0, "stream_filter[int8]": 0.0}
+    out, timing_state = {}, None
+    for name, rule in (("kmedoid", R.DIST_MIN), ("facility", R.DOT_MAX)):
+        for cost in (False, True):
+            res = {"f32": [], "int8": []}
+            for tag, g_in in (("f32", ground), ("int8", deq)):
+                row0 = R.empty_row(ground[None], torch.ones(
+                    1, n, dtype=torch.bool, device=x.device), rule)[0]
+                st = _stream_state(torch, rule, levels, row0.contiguous(),
+                                   cost)
+                first = (name, cost, tag) == ("kmedoid", False, "f32")
+                if first:
+                    slots = (torch.full((1, levels, k), -1,
+                                        dtype=torch.int64, device=x.device),
+                             torch.zeros(1, levels, k, d, device=x.device))
+                    scatter = {"shape": [1, levels, k, d], "admitted": 0,
+                               "entries": 0, "differing": 0}
+                for bids, pay, valid, c in batches:
+                    arr, bv = pay[None], valid[None]
+                    kw = (dict(costs=c[None], spent=st[6], budget=BUDGET)
+                          if cost else {})
+                    mat_k = torch.empty(1, b, n, device=x.device)
+                    if tag == "f32":
+                        got = TS.stream_filter(ground, arr, *st[:6], bv, k,
+                                               eps_log, rule, scratch=mat_k,
+                                               **kw)
+                    else:
+                        got = TS.stream_filter(q, arr, *st[:6], bv, k,
+                                               eps_log, rule, gscale=gscale,
+                                               scratch=mat_k, **kw)
+                        mat_f = torch.empty_like(mat_k)
+                        f32 = TS.stream_filter(deq, arr, *st[:6], bv, k,
+                                               eps_log, rule, scratch=mat_f,
+                                               **kw)
+                        same = parity.compare_exact(
+                            got + (mat_k,), f32 + (mat_f,),
+                            f"stream_filter[int8] {name}")
+                        del f32, mat_f
+                    plain = TS.stream_filter_plain(g_in, arr, *st[:6], bv, k,
+                                                   eps_log, rule, **kw)
+                    mat_p = TRef.pairwise(g_in, arr, rule)
+                    mstats = parity.compare_pairwise(
+                        mat_k.transpose(1, 2), mat_p, g_in[None], arr,
+                        rule.pairwise, what=f"stream_filter slab {name}")
+                    cmp = parity.compare_stream(
+                        got, plain, mat_k, mat_p,
+                        st[:6] + ((st[6],) if cost else (None,)), bv, k,
+                        eps_log, rule, costs=c[None] if cost else None,
+                        budget=BUDGET if cost else None,
+                        what=f"stream_filter {name} {tag}")
+                    cmp["slab_rms_ratio"] = mstats["rms_ratio"]
+                    if tag == "int8":
+                        cmp["vs_f32_kernel_differing"] = same["differing"]
+                    res[tag].append(cmp)
+                    key = "stream_filter" + ("[int8]" if tag == "int8"
+                                             else "")
+                    errs[key] = max(errs[key], cmp["max_value_err"],
+                                    cmp["max_row_err"], cmp["max_m_err"])
+                    if first:
+                        sargs = (st[3], plain[6], plain[3], bids[None], arr,
+                                 k)
+                        want = TS.scatter_slots_plain(*slots, *sargs)
+                        slots = TS.scatter_slots(*slots, *sargs)
+                        r = parity.compare_exact(slots, want,
+                                                 "scatter_slots kmedoid")
+                        scatter["admitted"] += int(plain[3].sum())
+                        scatter["entries"] += r["entries"]
+                        scatter["differing"] += r["differing"]
+                        scatter["max_abs_err"] = max(
+                            scatter.get("max_abs_err", 0.0),
+                            r["max_abs_err"])
+                        del want
+                    st = _next_state(plain, st[1], cost)
+                    del got, plain, mat_k, mat_p
+                if first:
+                    timing_state = st
+                    filled = slots[0] >= 0
+                    assert bool(filled.any())
+                    assert torch.equal(slots[1][filled],
+                                       x[slots[0][filled]]), \
+                        "scatter_slots: a slot's payload is not its image"
+                    scatter["filled_slots"] = int(filled.sum())
+            out[f"{name}{'_knapsack' if cost else ''}"] = res
+    del q, scale, deq, gscale
+    # B2q at the stochastic leaf shape
+    _, pay, valid = pools
+    lanes, nl, _ = pay.shape
+    gq, gs = ops.quantize_ground(pay)
+    gdeq = R.dequant(gq, gs).contiguous()
+    sample = sample_size(nl, k)
+    idx = LaneSampler(cfg.seed)(0, lanes, 1, nl, sample)[:, 0].to(x.device)
+    cands = torch.gather(pay, 1, idx[..., None].expand(lanes, sample, d))
+    cands = cands.contiguous()
+    cv = torch.ones(lanes, sample, dtype=torch.bool, device=x.device)
+    cv[:, -1] = False
+    b2q = {}
+    for name, rule in (("kmedoid", R.DIST_MIN), ("facility", R.DOT_MAX)):
+        row = R.empty_row(gdeq, valid, rule)
+        for j in range(5):
+            row = R.update_row(gdeq, row, gdeq[:, 97 * j % nl], rule)
+        row = row.contiguous()
+        got = P.gains(gq, row, cands, cv, rule, gscale=gs)
+        same = parity.compare_exact(got, P.gains(gdeq, row, cands, cv, rule),
+                                    f"gains[int8] {name} vs the f32 kernel")
+        plain = P.gains_plain(gq, row, cands, cv, rule, gs)
+        stats = parity.compare_gains(got, plain, gdeq, row, cands, rule,
+                                     what=f"gains[int8] {name}")
+        fin = torch.isfinite(plain)
+        stats["max_abs_diff"] = float((got[fin] - plain[fin]).abs().max())
+        stats["vs_f32_kernel_differing"] = same["differing"]
+        b2q[name] = stats
+    errs["gains[int8]"] = b2q["kmedoid"]["max_abs_diff"]
+    del gq, gs, gdeq, cands
+    emit({"phase": "parity_stream", "shape": [1, levels, n, b, d],
+          "k": k, "batches": len(batches), "budget": BUDGET,
+          **{c: {t: {"ties": sum(r["ties"] + r["window_ties"] for r in v),
+                     "decisions": sum(r["decisions"] for r in v),
+                     "admitted": sum(r["admitted"] for r in v),
+                     "max_value_err": max(r["max_value_err"] for r in v),
+                     "max_row_err": max(r["max_row_err"] for r in v),
+                     "max_m_err": max(r["max_m_err"] for r in v),
+                     "slab_rms_ratio": max(r["slab_rms_ratio"] for r in v)}
+                 for t, v in res.items()} for c, res in out.items()},
+          "scatter_slots": scatter,
+          "gains[int8]": {"shape": [lanes, nl, sample, d], **b2q}})
+    return errs, (ground, timing_state, spare, slots)
+
+
+def phase_reference_stream(torch, devices=("cuda", "cpu")):
+    """Small-integer facility streams through the kernels against the
+    same streams through the plain CPU path: every matrix entry and gain
+    is an exact integer on both, so `stream_select` (4,096 arrivals
+    against 1,024 evaluation rows, k = 16), a `SlidingSieve` (window
+    1,024, stride 256) and a 4-lane `ContinuousSelector` (b = 2, a merge
+    every 4 batches; its merge nodes on the resident loop) must give
+    equal ids and values."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.data.synthetic import Stream
+    from repro_torch.kernels import counters
+    from repro_torch.streaming import (SieveStreamer, SlidingSieve,
+                                       stream_select,
+                                       stream_select_continuous)
+    rng = np.random.default_rng(9)
+    xi = rng.integers(-3, 4, (4096, 64)).astype(np.float32)
+    order = rng.permutation(4096)
+    evals = xi[np.sort(rng.choice(4096, 1024, replace=False))]
+    runs = {}
+    for dev in devices:
+        obj = make_objective("facility", device=dev)
+        data = torch.as_tensor(xi, device=dev)
+        ground = torch.as_tensor(evals, device=dev)
+        st = Stream(data, order, 256)
+        counters.reset()
+        one = stream_select(obj, st, 16, ground=ground)
+        win = SlidingSieve(SieveStreamer(obj, 16, ground=ground), 1024, 256)
+        ws = win.init()
+        for ids, pay, valid in st:
+            ws = win.process_batch(ws, ids, pay, valid)
+        wsol = win.query(ws)
+        cont, info = stream_select_continuous(obj, st, 16, lanes=4,
+                                              branching=2, merge_every=4,
+                                              ground=ground)
+        launched = {n: c["launches"] for n, c in
+                    counters.snapshot().items() if c["launches"]}
+        runs[dev] = ([s.map(lambda t: t.cpu()) for s in (one, wsol, cont)],
+                     info["merges"], launched)
+    (g, g_merges, launched), (c, c_merges, _) = (runs[d] for d in devices)
+    for what, a, b in zip(("stream_select", "window", "continuous"), g, c):
+        assert torch.equal(a.ids, b.ids), (what, a.ids, b.ids)
+        assert torch.equal(a.value, b.value), (what, a.value, b.value)
+    assert g_merges == c_merges, (g_merges, c_merges)
+    assert launched.get("stream_filter", 0) == 3 * 16, launched
+    assert launched.get("greedy_loop_resident", 0) > 0, launched
+    emit({"phase": "reference_stream", "ids_equal": True,
+          "values": [float(s.value) for s in g], "merges": g_merges,
+          "launches": launched})
+
+
+def _stream_run(torch, name, data, cfg, k, ground=None, env=None):
+    """stream_select(`name`) over all of `data` shuffled with the seed,
+    B = 256: wall, arrivals/s, the plan, the launches per variant
+    (asserted: one a batch on the kernel tier); every selected slot's
+    payload is its arrival's row of `data`."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.data.synthetic import Stream
+    from repro_torch.kernels import counters
+    from repro_torch.streaming import SieveStreamer, stream_select
+    b = STREAM_BATCH
+    obj = make_objective(name, universe=cfg.universe, device=data.device)
+    order = np.random.default_rng(cfg.seed).permutation(data.shape[0])
+    n_batches = -(-data.shape[0] // b)
+    with _env(**(env or {})):
+        plan = SieveStreamer(obj, k, STREAM_EPS, ground=ground).plan(b)
+        assert plan["tier"] == "kernel", plan
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = stream_select(obj, Stream(data, order, b), k,
+                            eps=STREAM_EPS, ground=ground)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    tag = {"uint32": "[coverage]", "int8": "[int8]"}.get(plan["dtype"], "")
+    assert launches.get("stream_filter" + tag) == n_batches, (
+        launches, n_batches)
+    assert launches.get("scatter_slots") == n_batches, launches
+    ids = sol.ids[sol.valid].cpu().numpy()
+    assert 0 < len(ids) <= k and len(set(ids.tolist())) == len(ids)
+    assert torch.equal(sol.payloads[sol.valid], data[sol.ids[sol.valid]]), \
+        "a selected slot's payload is not its arrival's"
+    return sol, ids, {"n": int(data.shape[0]), "batch": b,
+                      "batches": n_batches, "k": k, "eps": STREAM_EPS,
+                      "plan": plan, "wall_seconds": wall,
+                      "arrivals_per_second": data.shape[0] / wall,
+                      "launches": launches, "accepted": len(ids),
+                      "best_level_value": float(sol.value)}
+
+
+def phase_stream_kmedoid(torch, x, cfg, ground, root_ids, dtype="float32",
+                         f32_value=None):
+    """stream_select('kmedoid') over all 100,000 images, shuffled with the
+    seed, against the 16,384-image evaluation set: k = 200, ε = 0.1 (L =
+    72), B = 256 (391 batches, one stream_filter launch each). The
+    stream's ids and the `run` tree root's ids scored on the evaluation
+    set (global_value); the stream must reach (½ − ε) of the root's
+    value, which is at most OPT there (both scored by replay_value: the
+    objective's own value on that set). With dtype 'int8' the rung is
+    forced: stream_filter[int8] launches, the value beside `f32_value`,
+    the f32 stream's."""
+    env = _rung_env(dtype) if dtype == "int8" else None
+    _, ids, rep = _stream_run(torch, "kmedoid", x, cfg, cfg.k,
+                              ground=ground, env=env)
+    t0 = time.perf_counter()
+    gv = _value_on(torch, ground, x, ids)
+    root_gv = _value_on(torch, ground, x, root_ids)
+    assert gv >= (0.5 - STREAM_EPS) * root_gv, (gv, root_gv)
+    phase = "stream_kmedoid" + ("_int8" if dtype == "int8" else "")
+    emit({"phase": phase, "eval_set": int(ground.shape[0]),
+          "d": int(x.shape[1]), **rep, "global_value_eval": gv,
+          "root_global_value_eval": root_gv,
+          "ratio_to_root": gv / root_gv,
+          **({} if f32_value is None else {
+              "f32_global_value_eval": f32_value,
+              "rel_diff_to_f32": (gv - f32_value) / f32_value}),
+          "global_value_seconds": time.perf_counter() - t0})
+    return rep["launches"], gv
+
+
+def _value_on(torch, ground, x, ids) -> float:
+    """The k-medoid value of the exemplars x[ids] scored on the
+    evaluation set `ground` (the objective's f32 value, replay_value:
+    every exemplar folded into the empty solution's rows in one pass)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedy import replay_value
+    obj = make_objective("kmedoid", device=ground.device)
+    ex = x[torch.as_tensor(np.asarray(ids), device=x.device)][None]
+    val = replay_value(obj, ex, torch.ones(ex.shape[:2], dtype=torch.bool,
+                                           device=x.device),
+                       ground[None], torch.ones(1, ground.shape[0],
+                                                dtype=torch.bool,
+                                                device=x.device))
+    return float(val[0])
+
+
+def phase_stochastic_int8(torch, x, cfg, pools):
+    """The stochastic lanes (sample_leaf 72) under the forced int8 rung:
+    the leaves on the step engine read their ground int8, quantized once
+    per greedy (k gains[int8] launches, no f32 gains), the nodes on the
+    resident loop's int8 rounding (+ the replay pairwise)."""
+    sample = sample_size(pools[1].shape[1], cfg.k)
+
+    def expect(stage, engine):
+        if stage == 0:
+            assert engine == "step", engine
+            return {"gains[int8]": cfg.k}
+        assert engine == "mega_resident", (stage, engine)
+        return {"greedy_loop_resident[int8]": 1, "pairwise": 1}
+
+    t0 = time.perf_counter()
+    with _env(**_rung_env("int8")):
+        stages, totals, sols = _run_dispatcher(
+            torch, x, cfg, pools, expect, sample_leaf=sample, seed=cfg.seed)
+    wall = time.perf_counter() - t0
+    _, root = _report_root(torch, x, sols, cfg.k)
+    emit({"phase": "stochastic_int8", "lanes": int(sols.ids.shape[0]),
+          "pool": int(pools[1].shape[1]), "k": cfg.k,
+          "sample_leaf": sample, "stages": stages, "wall_seconds": wall,
+          **root})
+    return _variant_launches(totals)
+
+
+def _b6_bound(n, b, d, levels, decisions, admitted, itemsize=4.0):
+    """(bound_ms, bound_by) of one feature stream-filter batch: the slab's
+    2·N·B·D products (+ the norms) and this batch's live decisions'
+    gain parts and folds (3 and 1 operations an entry); the ground
+    (itemsize bytes an entry), the arrivals, the rows in and out."""
+    flops = (2.0 * n * b * d + 4.0 * (n + b) * d + 3.0 * n * b
+             + 3.0 * decisions * n + admitted * n)
+    nbytes = itemsize * n * d + 4.0 * (b * d + 2 * levels * n + b)
+    return bound(flops, nbytes)
+
+
+def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps):
+    """B6 f32 and int8 per batch at the k-medoid stream's shape (a fourth
+    batch against the state three batches in, so the window and the
+    levels are live), the slot update that follows it (scatter_slots
+    into the (1, 72, 200, 12,288) slots three batches in), and B2q at
+    the stochastic leaf shape, each beside its bound (the work this
+    batch's data needs: its live decisions, its admitted rows, counted
+    along the plain version's path), its plain version and nothing a
+    single library call computes."""
+    from repro_torch.core.greedyml import LaneSampler
+    from repro_torch.kernels import ops, parity
+    from repro_torch.kernels import pairwise as P
+    from repro_torch.kernels import ref as TRef
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+    ground, st, (sids, pay, valid, _), slots = stream_inputs
+    rule = R.DIST_MIN
+    k, eps_log = cfg.k, math.log1p(STREAM_EPS)
+    n, d = ground.shape
+    levels, b = st[0].shape[1], pay.shape[0]
+    arr, bv = pay[None], valid[None]
+    plain = TS.stream_filter_plain(ground, arr, *st[:6], bv, k, eps_log,
+                                   rule)
+    mat_k = torch.empty(1, b, n, device=x.device)
+    got = TS.stream_filter(ground, arr, *st[:6], bv, k, eps_log, rule,
+                           scratch=mat_k)
+    cmp = parity.compare_stream(got, plain, mat_k,
+                                TRef.pairwise(ground, arr, rule),
+                                st[:6] + (None,), bv, k, eps_log, rule)
+    q, scale = ops.quantize_ground(ground)
+    gscale = scale.reshape(-1).contiguous()
+    out = {}
+    for tag, g, kw, item in (("", ground, {}, 4.0),
+                             ("[int8]", q, {"gscale": gscale}, 1.0)):
+        bms, by = _b6_bound(n, b, d, levels, cmp["decisions"],
+                            cmp["admitted"], item)
+        out["stream_filter" + tag] = {
+            "shape": [1, levels, n, b, d], "decisions": cmp["decisions"],
+            "admitted": cmp["admitted"],
+            "ms": cuda_ms(torch, lambda: TS.stream_filter(
+                g, arr, *st[:6], bv, k, eps_log, rule, **kw), reps),
+            "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
+                g, arr, *st[:6], bv, k, eps_log, rule,
+                gscale=kw.get("gscale")), 1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+    # the share of the slab, the singletons and the window: the same
+    # call with every arrival invalid, so no level makes a decision
+    none = torch.zeros_like(bv)
+    out["stream_filter"]["no_live_decision_ms"] = cuda_ms(
+        torch, lambda: TS.stream_filter(ground, arr, *st[:6], none, k,
+                                        eps_log, rule), reps)
+    del q, scale, gscale
+    # the slot update after this batch (repeated in place: the same rows
+    # land in the same slots): the admitted rows read once an arrival
+    # and written once a slot, expired levels' slots cleared
+    sargs = (st[3], plain[6], plain[3], sids[None], arr, k)
+    admitted = int(plain[3].sum())
+    arrivals = int(plain[3].any(1).sum())
+    expired = int(plain[6].sum())
+    row_bytes = 4.0 * d + 8.0
+    bms, by = bound(0.0, row_bytes * (arrivals + admitted + expired * k)
+                    + levels * (b + 5.0))
+    out["scatter_slots"] = {
+        "shape": [1, levels, k, d], "admitted": admitted,
+        "expired_levels": expired,
+        "ms": cuda_ms(torch, lambda: TS.scatter_slots(*slots, *sargs), reps),
+        "plain_ms": cuda_ms(torch, lambda: TS.scatter_slots_plain(
+            *slots, *sargs), 3),
+        "library_ms": None, "bound_ms": bms, "bound_by": by}
+    del slots
+    _, lpay, lvalid = pools
+    lanes, nl, _ = lpay.shape
+    gq, gs = ops.quantize_ground(lpay)
+    row = R.empty_row(lpay, lvalid, rule).contiguous()
+    c = sample_size(nl, k)
+    idx = LaneSampler(cfg.seed)(0, lanes, 1, nl, c)[:, 0].to(x.device)
+    cands = torch.gather(lpay, 1, idx[..., None].expand(lanes, c, d))
+    cands = cands.contiguous()
+    cv = torch.ones(lanes, c, dtype=torch.bool, device=x.device)
+    flops = (2.0 * lanes * nl * c * d + 2.0 * lanes * (nl + c) * d
+             + 5.0 * lanes * nl * c)
+    nbytes = (lanes * nl * d + 4.0 * (lanes * nl + lanes * c * d
+                                      + lanes * nl + lanes * c))
+    bms, by = bound(flops, nbytes)
+    out["gains[int8]"] = {
+        "shape": [lanes, nl, c, d],
+        "ms": cuda_ms(torch, lambda: P.gains(gq, row, cands, cv, rule,
+                                             gscale=gs), reps),
+        "f32_kernel_ms": cuda_ms(torch, lambda: P.gains(
+            lpay, row, cands, cv, rule), reps),
+        "plain_ms": cuda_ms(torch, lambda: P.gains_plain(
+            gq, row, cands, cv, rule, gs), reps),
+        "library_ms": None, "bound_ms": bms, "bound_by": by}
+    emit({"phase": "timing_stream", **out})
+    return out
+
+
+def phase_parity_stream_coverage(torch, words, cfg):
+    """B6 on bitmaps at the kcover stream's shape (L = 56 levels, W =
+    1,290 words, B = 256), three chained batches of shuffled sets, with
+    and without knapsack costs (budget 40), then the window's 5 stacked
+    checkpoints (one batch for all) and the continuous mode's 4 lanes
+    (64 arrivals each): every output equal bit for bit to the plain
+    version, and the slot update (scatter_slots) equal to the
+    reference's one-hot formula. Returns the largest |kernel − plain|
+    (0 when every bit agrees)."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+    from repro_torch.streaming import num_levels
+    k, b = cfg.k, STREAM_BATCH
+    levels = num_levels(k, STREAM_EPS)
+    eps_log = math.log1p(STREAM_EPS)
+    w = words.shape[1]
+    row0 = torch.zeros(w, dtype=R.WORD_DTYPE, device=words.device)
+    costs = torch.as_tensor(knapsack_costs(cfg.n, cfg.seed),
+                            device=words.device)
+    batches = _stream_batches(torch, words, 3, b, cfg.seed + 1, costs)
+    out, err = {}, 0.0
+    for case, lanes, split in (("single", 1, 1), ("knapsack", 1, 1),
+                               ("window", 1 + WINDOW // STRIDE, 1),
+                               ("continuous", CONTINUOUS_LANES,
+                                CONTINUOUS_LANES)):
+        cost = case == "knapsack"
+        st = _stream_state(torch, R.BITS_OR, levels, row0, cost, lanes)
+        ids0 = torch.full((lanes, levels, k), -1, dtype=torch.int64,
+                          device=words.device)
+        pay0 = torch.zeros(lanes, levels, k, w, dtype=R.WORD_DTYPE,
+                           device=words.device)
+        res = {"entries": 0, "differing": 0, "admitted": 0}
+        for ids, pay, valid, c in batches:
+            arr = pay.reshape(split, b // split, w)
+            bv = valid.reshape(split, -1)
+            kw = (dict(costs=c[None], spent=st[6], budget=BUDGET_KCOVER)
+                  if cost else {})
+            got = TS.stream_filter(None, arr, *st[:6], bv, k, eps_log,
+                                   R.BITS_OR, **kw)
+            plain = TS.stream_filter_plain(None, arr, *st[:6], bv, k,
+                                           eps_log, R.BITS_OR, **kw)
+            r = parity.compare_exact(got, plain,
+                                     f"stream_filter[coverage] {case}")
+            bids = ids.reshape(split, -1)
+            want = TS.scatter_slots_plain(ids0, pay0, st[3], plain[6],
+                                          plain[3], bids, arr, k)
+            ids0, pay0 = TS.scatter_slots(ids0, pay0, st[3], plain[6],
+                                          plain[3], bids, arr, k)
+            parity.compare_exact((ids0, pay0), want, f"scatter_slots {case}")
+            res["entries"] += r["entries"]
+            res["differing"] += r["differing"]
+            res["admitted"] += int(plain[3].sum())
+            err = max(err, r["max_abs_err"])
+            st = _next_state(plain, row0, cost)
+        res["shape"] = [lanes, levels, w, b // split]
+        out[case] = res
+    emit({"phase": "parity_stream_coverage", "rule": "exact (bit for bit)",
+          **out})
+    return {"stream_filter[coverage]": err}
+
+
+def phase_stream_kcover(torch, words, cfg, root_value):
+    """stream_select('kcover') over all 990,002 sets shuffled with the
+    config seed: k = 64, ε = 0.1 (L = 56), B = 256 (3,868 batches, one
+    stream_filter[coverage] launch each); the value must reach (½ − ε)
+    of kcover_run's root value (for coverage the root value is the
+    global value)."""
+    from repro_torch.core.simulate import global_value
+    sol, ids, rep = _stream_run(torch, "kcover", words, cfg, cfg.k)
+    gv = global_value("kcover", words, ids)
+    assert gv == float(sol.value), (gv, float(sol.value))
+    assert gv >= (0.5 - STREAM_EPS) * root_value, (gv, root_value)
+    emit({"phase": "stream_kcover", "universe": cfg.universe,
+          "words": int(words.shape[1]), **rep, "global_value": gv,
+          "root_value": root_value, "ratio_to_root": gv / root_value})
+    return rep["launches"]
+
+
+def _kcover_stream(torch, words, cfg):
+    from repro_torch.data.synthetic import Stream
+    order = np.random.default_rng(cfg.seed).permutation(words.shape[0])
+    return Stream(words, order, STREAM_BATCH), order
+
+
+def phase_stream_kcover_knapsack(torch, words, cfg):
+    """Knapsack streaming over the same stream: a SieveStreamer with
+    budget 40 and the kcover_knapsack costs (uniform(0.5, 2) by global
+    id) per arrival, one stream_filter[coverage] launch a batch in cost
+    mode; spent ≤ 40 at every level."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.streaming import SieveStreamer
+    obj = make_objective("kcover", universe=cfg.universe,
+                         device=words.device)
+    costs = torch.as_tensor(knapsack_costs(cfg.n, cfg.seed),
+                            device=words.device)
+    stream, _ = _kcover_stream(torch, words, cfg)
+    streamer = SieveStreamer(obj, cfg.k, STREAM_EPS, budget=BUDGET_KCOVER)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = streamer.init()
+    batches = 0
+    for ids, pay, valid in stream:
+        state = streamer.process_batch(state, ids, pay, valid,
+                                       costs=costs[ids])
+        batches += 1
+    sol = streamer.solution(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    assert launches.get("stream_filter[coverage]") == batches, launches
+    spent = state.spent.cpu().numpy()
+    assert (spent <= BUDGET_KCOVER).all(), spent
+    ids = sol.ids[sol.valid].cpu().numpy()
+    sel_cost = float(costs[torch.as_tensor(ids, device=words.device)].sum())
+    assert sel_cost <= BUDGET_KCOVER + 1e-4, sel_cost
+    emit({"phase": "stream_kcover_knapsack", "budget": BUDGET_KCOVER,
+          "batches": batches, "cost_mode_launches": batches,
+          "wall_seconds": wall,
+          "arrivals_per_second": cfg.n / wall, "launches": launches,
+          "accepted": len(ids), "value": float(sol.value),
+          "spent_best_level": sel_cost, "spent_max": float(spent.max())})
+    return launches
+
+
+def phase_window_kcover(torch, words, cfg):
+    """SlidingSieve over the kcover stream: window 262,144, stride 65,536
+    (5 checkpoints, one stream_filter[coverage] launch a batch for all);
+    at every stride boundary the query's ids all arrived within the last
+    262,144 arrivals."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.streaming import SieveStreamer, SlidingSieve
+    obj = make_objective("kcover", universe=cfg.universe,
+                         device=words.device)
+    stream, order = _kcover_stream(torch, words, cfg)
+    pos = np.empty(cfg.n, np.int64)
+    pos[order] = np.arange(cfg.n)
+    win = SlidingSieve(SieveStreamer(obj, cfg.k, STREAM_EPS), WINDOW, STRIDE)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws = win.init()
+    batches, queries, values = 0, 0, []
+    for ids, pay, valid in stream:
+        ws = win.process_batch(ws, ids, pay, valid)
+        batches += 1
+        if ws.seen % STRIDE == 0 or ws.seen >= cfg.n:
+            sol = win.query(ws)
+            got = sol.ids[sol.valid].cpu().numpy()
+            assert (pos[got] >= min(ws.seen, cfg.n) - WINDOW).all(), (
+                ws.seen, pos[got].min())
+            queries += 1
+            values.append(float(sol.value))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    assert launches.get("stream_filter[coverage]") == batches, launches
+    emit({"phase": "window_kcover", "window": WINDOW, "stride": STRIDE,
+          "checkpoints": win.n_ckpt, "batches": batches,
+          "queries_checked": queries, "wall_seconds": wall,
+          "arrivals_per_second": cfg.n / wall, "launches": launches,
+          "query_values": values})
+    return launches
+
+
+def phase_continuous_kcover(torch, words, cfg):
+    """stream_select_continuous over the kcover stream: 4 lanes, b = 2, a
+    merge every 256 batches (15 merges + the tail's), one
+    stream_filter[coverage] launch a batch for all lanes, the merge
+    nodes on the resident bitmap loop; the merged values never
+    decrease."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.streaming import stream_select_continuous
+    obj = make_objective("kcover", universe=cfg.universe,
+                         device=words.device)
+    stream, _ = _kcover_stream(torch, words, cfg)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, info = stream_select_continuous(
+        obj, stream, cfg.k, lanes=CONTINUOUS_LANES, branching=2,
+        merge_every=MERGE_EVERY, eps=STREAM_EPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    assert launches.get("stream_filter[coverage]") == info["batches"]
+    assert launches.get("greedy_loop_resident[coverage]", 0) >= len(
+        info["merges"]), launches
+    merges = info["merges"]
+    assert all(b >= a for a, b in zip(merges, merges[1:])), merges
+    assert info["tier"] == "kernel", info
+    emit({"phase": "continuous_kcover", "lanes": CONTINUOUS_LANES,
+          "branching": 2, "merge_every": MERGE_EVERY, **info,
+          "wall_seconds": wall, "arrivals_per_second": cfg.n / wall,
+          "launches": launches, "value": float(sol.value)})
+    return launches
+
+
+def phase_timing_stream_coverage(torch, words, cfg, reps):
+    """B6 on bitmaps per batch at the kcover stream's shape, from the
+    state three batches in, beside its bound — the bytes it must move
+    (the arrivals' words, the rows in and out) and its integer
+    operations (a popcount pass a live decision), far below the card's
+    integer rate — and its plain version. The kernel walks 256
+    decisions in order per level: latency-bound."""
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+    from repro_torch.streaming import num_levels
+    k, b = cfg.k, STREAM_BATCH
+    levels = num_levels(k, STREAM_EPS)
+    eps_log = math.log1p(STREAM_EPS)
+    w = words.shape[1]
+    row0 = torch.zeros(w, dtype=R.WORD_DTYPE, device=words.device)
+    batches = _stream_batches(torch, words, 4, b, cfg.seed + 2)
+    st = _stream_state(torch, R.BITS_OR, levels, row0, False)
+    for _, pay, valid, _ in batches[:3]:
+        st = _next_state(TS.stream_filter(None, pay[None], *st, valid[None],
+                                          k, eps_log, R.BITS_OR), row0,
+                         False)
+    _, pay, valid, _ = batches[3]
+    arr, bv = pay[None], valid[None]
+    nbytes = 4.0 * (b * w + 2 * levels * w + 2 * levels) + levels * b + b
+    out = {"stream_filter[coverage]": {
+        "shape": [1, levels, w, b],
+        "ms": cuda_ms(torch, lambda: TS.stream_filter(
+            None, arr, *st, bv, k, eps_log, R.BITS_OR), 20 * reps),
+        "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
+            None, arr, *st, bv, k, eps_log, R.BITS_OR), 1),
+        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes",
+        # the singleton pass and the window alone (every arrival invalid)
+        "no_live_decision_ms": cuda_ms(torch, lambda: TS.stream_filter(
+            None, arr, *st, torch.zeros_like(bv), k, eps_log, R.BITS_OR),
+            20 * reps)}}
+    emit({"phase": "timing_stream_coverage", **out})
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -2033,8 +2830,11 @@ def main(argv=None) -> int:
     errs = phase_parity(torch, x, cfg, cfg.seed)
     errs.update(phase_parity_steps(torch, x, cfg, pools))
     errs.update(phase_parity_quant(torch, x, cfg, pools))
+    stream_errs, stream_inputs = phase_parity_stream(torch, x, cfg, pools)
+    errs.update(stream_errs)
     phase_reference(torch)
     phase_reference_dispatch(torch)
+    phase_reference_stream(torch)
     launches, f32_run = phase_run(torch, x, cfg)
     for dtype in QUANT:
         _add(launches, phase_run_quant(torch, x, cfg, dtype, f32_run))
@@ -2043,25 +2843,41 @@ def main(argv=None) -> int:
     for dtype in QUANT:
         _add(launches, phase_knapsack_quant(torch, x, cfg, pools, dtype))
     launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
+    _add(launches, phase_stochastic_int8(torch, x, cfg, pools))
+    stream_launches, stream_value = phase_stream_kmedoid(
+        torch, x, cfg, stream_inputs[0], f32_run[0])
+    _add(launches, stream_launches)
+    _add(launches, phase_stream_kmedoid(torch, x, cfg, stream_inputs[0],
+                                        f32_run[0], "int8", stream_value)[0])
     times = phase_timing(torch, x, cfg, cfg.seed, args.reps)
     times.update(phase_timing_steps(torch, x, cfg, pools, args.reps))
     times.update(phase_timing_quant(torch, x, cfg, pools, args.reps))
+    times.update(phase_timing_stream(torch, x, cfg, pools, stream_inputs,
+                                     args.reps))
     # the coverage problems: the k-medoid tensors go first
-    del x, pools
+    del x, pools, stream_inputs
     gc.collect()
     torch.cuda.empty_cache()
     kc = KOSARAK
     bits, words = phase_data_kcover(torch, kc, KOSARAK_AVG_SIZE, dev)
     kpools = lane_pools(torch, words, kc.num_machines, kc.seed)
     errs.update(phase_parity_coverage(torch, words, kc, kpools))
-    launches.update(_coverage_tree(torch, "kcover", bits, words, kc,
-                                   "kcover_run"))
+    tree_launches, kcover_root = _coverage_tree(torch, "kcover", bits, words,
+                                                kc, "kcover_run")
+    launches.update(tree_launches)
     launches["fused_step[coverage]"] = phase_kcover_knapsack(
         torch, words, kc, kpools)["fused_step[coverage]"]
     launches["gains[coverage]"] = phase_kcover_stochastic(
         torch, words, kc, kpools)["gains[coverage]"]
     times.update(phase_timing_coverage(torch, words, kc, kpools, args.reps))
-    del bits, words, kpools
+    del kpools
+    errs.update(phase_parity_stream_coverage(torch, words, kc))
+    _add(launches, phase_stream_kcover(torch, words, kc, kcover_root))
+    _add(launches, phase_stream_kcover_knapsack(torch, words, kc))
+    _add(launches, phase_window_kcover(torch, words, kc))
+    _add(launches, phase_continuous_kcover(torch, words, kc))
+    times.update(phase_timing_stream_coverage(torch, words, kc, args.reps))
+    del bits, words
     gc.collect()
     torch.cuda.empty_cache()
     _, kdom_errs = phase_kdom_run(torch, KDOM, dev)

@@ -2,8 +2,10 @@
 
 There are no model weights in this system: the data is the weights. What
 crosses between the packages is numpy: pools (ids, payloads, valid),
-`Solution` fields, `RuleState` rows and constraints (categories,
-capacities, costs, budgets). `np.asarray` reads the reference's
+`Solution` fields, `RuleState` rows, constraints (categories,
+capacities, costs, budgets) and streaming state (`SieveState`,
+`WindowState`), so a stream stopped in one package continues in the
+other. `np.asarray` reads the reference's
 arrays without importing its framework, so a test can hand both packages
 the same state mid-run.
 
@@ -23,6 +25,8 @@ from repro_torch.core.greedy import Solution
 from repro_torch.core.objective import RuleState
 from repro_torch.kernels import rules as R
 from repro_torch.runtime.device import DeviceLike, resolve_device
+from repro_torch.streaming.sieve import SieveState
+from repro_torch.streaming.window import WindowState
 
 
 def to_torch(x, device: DeviceLike = None):
@@ -101,3 +105,33 @@ def constraint_to_torch(con: Any, device: DeviceLike = None):
         return C.KnapsackSpec(to_torch(np.asarray(con.costs, np.float32),
                                        device), float(con.budget))
     raise TypeError(f"no port of the constraint {kind!r}")
+
+
+def sieve_state_to_torch(state: Any, device: DeviceLike = None
+                         ) -> SieveState:
+    """A reference `SieveState` (one sieve or stacked) → the port's:
+    rows (uint32 words as int32), counts and exponents int32 (as the
+    stream filter takes them), ids and evals int64, spent f32 or None."""
+    def i32(x):
+        return torch.as_tensor(np.array(x, np.int32),
+                               device=resolve_device(device))
+
+    return SieveState(to_torch(state.rows, device),
+                      to_torch(np.asarray(state.values, np.float32), device),
+                      i32(state.counts), i32(state.expos),
+                      to_torch(np.asarray(state.m_max, np.float32), device),
+                      to_torch(state.ids, device),
+                      to_torch(state.payloads, device),
+                      to_torch(state.evals, device),
+                      None if state.spent is None
+                      else to_torch(np.asarray(state.spent, np.float32),
+                                    device))
+
+
+def window_state_to_torch(wstate: Any, device: DeviceLike = None
+                          ) -> WindowState:
+    """A reference `WindowState` → the port's (stacked checkpoint states
+    on `device`; ages and the arrivals seen on the host)."""
+    return WindowState(sieve_state_to_torch(wstate.states, device),
+                       np.asarray(wstate.ages).astype(np.int64),
+                       int(np.asarray(wstate.seen)))

@@ -184,8 +184,10 @@ def _greedy_step(objective, state, ids, payloads, valid, k, constraint=None,
     """Recompute-per-step engine: gains of all candidates (or of the
     step's sample, first argmax in sample order), accept if finite and
     > 0, fold the winner with the direct-difference column
-    (rules.update_row)."""
+    (rules.update_row). Under a forced int8 rung the ground is quantized
+    once, before the first step (RuleObjective.quantize_ground)."""
     b, n = ids.shape
+    state = objective.quantize_ground(state)
     selected = torch.zeros((b, n), dtype=torch.bool, device=ids.device)
     evals = torch.zeros(b, dtype=torch.int64, device=ids.device)
     cstate = constraint.init_state() if constraint is not None else None

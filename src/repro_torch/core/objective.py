@@ -9,6 +9,10 @@ once per level, where the reference vmapped one greedy:
   value(state)                             → (B,) f(S) on each eval set
   gains(state, cands, cand_valid)          → (B, C) normalized gains
                                              (the gains kernel)
+  quantize_ground(state)                   → state with its ground held
+                                             int8 beside it, once per
+                                             greedy, under a forced int8
+                                             rung (the step engine)
   update(state, payload)                   → state after one element each
   plan_dims(state, cands)                  → (n, c, d) for select_engine
   prepare(state, cands, cand_valid[, plan]) → (matrix, EnginePlan) | None
@@ -33,6 +37,7 @@ from repro_torch.kernels import ops, plans
 from repro_torch.kernels import rules as R
 from repro_torch.kernels.plans import EnginePlan
 from repro_torch.kernels.rules import KernelRule
+from repro_torch.runtime import flags
 from repro_torch.runtime.device import DeviceLike, resolve_device
 
 F32 = torch.float32
@@ -42,12 +47,15 @@ F32 = torch.float32
 class RuleState:
     """Selection state of B greedies. ground/gvalid are None for bitmap
     rules; `base` is the value offset (k-medoid's L({e0}) term, 0
-    elsewhere); `n_eff` the valid-ground normalizer (1 for bitmaps)."""
+    elsewhere); `n_eff` the valid-ground normalizer (1 for bitmaps);
+    `gquant` the ground's int8 storage (q (B, N, D), scale (B, 1, N))
+    when the step engine runs under a forced int8 rung, else None."""
     ground: Optional[torch.Tensor]    # (B, N, D) evaluation features
     gvalid: Optional[torch.Tensor]    # (B, N) bool
     row: torch.Tensor                 # (B, N) f32 | (B, W) int32 words
     base: torch.Tensor                # (B,) f32
     n_eff: torch.Tensor               # (B,) f32
+    gquant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 class RuleObjective:
@@ -98,9 +106,26 @@ class RuleObjective:
 
     # -- per-step engine -----------------------------------------------------
 
+    def quantize_ground(self, state: RuleState) -> RuleState:
+        """Under REPRO_TORCH_FUSED_CACHE_DTYPE=int8 the per-step gains
+        read the ground features per-row-quantized, as in the reference.
+        The quantization is deterministic, so it is done once per greedy
+        and held beside the state (1 byte an entry) instead of on every
+        step (at the stochastic Tiny-ImageNet leaves 4.9 GB of f32 a
+        step); other rungs and bitmap rules leave the state as it is."""
+        if (self.rule.is_bitmap or state.gquant is not None
+                or flags.fused_cache_dtype() != "int8"):
+            return state
+        return dataclasses.replace(state,
+                                   gquant=ops.quantize_ground(state.ground))
+
     def gains(self, state: RuleState, cands, cand_valid):
-        raw = ops.gains(state.ground, state.row, cands, cand_valid,
-                        self.rule)
+        if state.gquant is not None:
+            raw = ops.gains(state.gquant[0], state.row, cands, cand_valid,
+                            self.rule, gscale=state.gquant[1])
+        else:
+            raw = ops.gains(state.ground, state.row, cands, cand_valid,
+                            self.rule)
         return torch.where(torch.isfinite(raw),
                            raw / state.n_eff.unsqueeze(-1), raw)
 

@@ -32,6 +32,16 @@
 // tile against its 16*D f32 FMAs; an f32 sum in three sequential stages
 // would add rounding that the plain version's reduction does not.
 //
+// The int8 ground (_gains_kernel_quant, pairwise.py:93: the step engine
+// under a forced int8 rung) is the same kernel over int8 ground rows and
+// their (B, N) f32 row scales: the tile stages a tile's 64 scales in
+// shared memory and widens each staged entry by __fmul_rn(q, scale)
+// (pairwise_tile.cuh), then runs the same fp32 tile, float64 sums and
+// last-block reduction, so it equals this kernel on the dequantized
+// ground bit for bit. Its bound at the stochastic leaf shape is the f32
+// kernel's, by operations: int8 rows cut the bytes read (1.2 GB instead
+// of 4.9 GB), not the products.
+//
 // The bitmap rule (coverage) runs a kernel of its own, rt_gains_bits: the
 // bitmap branch of _gains_kernel (grid (C/TC, W/TW) there), raw sums of
 // popc(cand[c, w] & ~row[w]) over (B, C, W) candidate words and (B, W)
@@ -44,8 +54,10 @@
 // 32 x 2,227 x 1,290 words x 4 B = 368 MB, 0.11 ms at 3.35 TB/s.
 #include "pairwise_tile.cuh"
 
+template <class TG>
 __global__ void __launch_bounds__(RT_THREADS)
-    rt_gains_kernel(const float* __restrict__ ground,
+    rt_gains_kernel(const TG* __restrict__ ground,
+                    const float* __restrict__ gscale,
                     const float* __restrict__ row,
                     const float* __restrict__ cands,
                     double* __restrict__ partials,
@@ -65,7 +77,8 @@ __global__ void __launch_bounds__(RT_THREADS)
 
   if (t < RT_TILE) rows[t] = n0 + t < N ? row[b * N + n0 + t] : 0.f;
   // rows[] is read only in the epilogue, after rt_tile's barriers
-  rt_tile(ground + b * N * D, cands + b * C * D, N, C, D, n0, c0, mode, s,
+  rt_tile(ground + b * N * D, rt_scaled<TG>() ? gscale + b * N : nullptr,
+          cands + b * C * D, N, C, D, n0, c0, mode, s,
           [&](float (&acc)[4][4]) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -103,18 +116,28 @@ __global__ void __launch_bounds__(RT_THREADS)
   if (t == 0) *arrived = 0;  // ready for the next launch
 }
 
-// partials: (B, ceil(N/64), C) float64 scratch; arrivals: (B, ceil(C/64))
-// int32, zero on entry and left zero. Returns the cudaError_t.
-extern "C" int rt_gains(const float* ground, const float* row,
-                        const float* cands, double* partials, int* arrivals,
-                        float* out, int B, int N, int C, int D, int mode,
-                        int fold, float cap, float lam, float lam1,
-                        void* stream) {
+// ground: (B, N, D) f32 (storage RT_STORE_F32, gscale null) or int8
+// (RT_STORE_INT8, gscale (B, N) f32 row scales); partials: (B,
+// ceil(N/64), C) float64 scratch; arrivals: (B, ceil(C/64)) int32, zero
+// on entry and left zero. Returns the cudaError_t.
+extern "C" int rt_gains(const void* ground, const float* gscale,
+                        const float* row, const float* cands,
+                        double* partials, int* arrivals, float* out, int B,
+                        int N, int C, int D, int mode, int storage, int fold,
+                        float cap, float lam, float lam1, void* stream) {
   if (B == 0 || N == 0 || C == 0) return 0;
   RtRule rule{fold, cap, lam, lam1};
   dim3 grid((C + RT_TILE - 1) / RT_TILE, (N + RT_TILE - 1) / RT_TILE, B);
-  rt_gains_kernel<<<grid, RT_THREADS, 0, (cudaStream_t)stream>>>(
-      ground, row, cands, partials, arrivals, out, N, C, D, mode, rule);
+  if (storage == RT_STORE_INT8)
+    rt_gains_kernel<int8_t><<<grid, RT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)ground, gscale, row, cands, partials, arrivals, out, N,
+        C, D, mode, rule);
+  else if (storage == RT_STORE_F32)
+    rt_gains_kernel<float><<<grid, RT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)ground, gscale, row, cands, partials, arrivals, out, N,
+        C, D, mode, rule);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
 //
 // Shared by the pairwise kernel (pairwise.cu), the build phase of the
-// resident loop kernel (greedy_loop_resident.cu) and the per-step gains
-// kernel (gains.cu), so all produce the same entries from the same
+// resident loop kernel (greedy_loop_resident.cu), the per-step gains
+// kernel (gains.cu) and the build phase of the stream filter
+// (stream_filter.cu), so all produce the same entries from the same
 // inputs: `rt_tile` accumulates a tile and hands its registers to an
 // epilogue; `rt_pairwise_tile` is the epilogue that stores the entries.
 // 256 threads; each owns a 4x4 register micro-tile. The feature axis is
@@ -20,6 +21,24 @@
 //
 // 'dot'  : <g, c>
 // 'dist' : sqrt(max(|g|^2 + |c|^2 - 2<g, c>, 0))   (rules.pairwise_block)
+//
+// FOLD > 0 sums each dot product in two levels: the products of FOLD
+// feature slices (16 features each) accumulate in f32 as above, and each
+// such partial is then added into an outer f32 sum, so no sequential
+// chain is longer than 16·FOLD (+ D / (16·FOLD)) terms. The stream filter
+// builds its (N, B) slab so (FOLD = 16): against a plain torch.matmul
+// that cuBLAS splits along D for its tall-skinny shape (16,384 x 12,288
+// x 256), one f32 chain over D = 12,288 erred 2.4x more (RMS, from a
+// float64 build) than the plain version on the H100. FOLD = 0 (the
+// other kernels) keeps the single chain.
+//
+// The ground rows may be stored int8 with one f32 scale a row (the
+// per-step gains and the stream filter under an int8 rung: rules.
+// quantize_rows of the ground features). The tile stages its 64 rows'
+// scales in shared memory and widens each entry as it is staged, by
+// rt_entry's __fmul_rn(q, scale): the staged slice, and so every product
+// and norm after it, is what the f32 tile reads from the dequantized
+// ground (rules.dequant), bit for bit.
 #pragma once
 
 #include "rules.cuh"
@@ -33,6 +52,7 @@ struct RtTileSmem {
   float b[RT_TK][RT_TILE_LD];  // candidate slice, feature-major
   float gn[RT_TILE];
   float cn[RT_TILE];
+  float gs[RT_TILE];           // int8 ground: the tile rows' scales
 };
 
 // The entry of tile row i, tile column j from its accumulated dot product
@@ -43,13 +63,15 @@ __device__ __forceinline__ float rt_tile_entry(const RtTileSmem& s, float v,
                               : v;
 }
 
-// G: (N, D) ground rows, Cd: (C, D) candidate rows, row-major f32 of ONE
-// greedy. (n0, c0): the tile's corner. Thread t owns tile rows
-// 4*(t/16) + i and columns 4*(t%16) + j, i, j < 4, in acc[i][j]; after
-// the accumulation `epi(acc)` runs on every thread (s.gn / s.cn hold the
-// norms for 'dist'). Must be called by all 256 threads of the block.
-template <class Epilogue>
-__device__ __forceinline__ void rt_tile(const float* __restrict__ G,
+// G: (N, D) ground rows (f32, or int8 with `gscale` (N,) row scales),
+// Cd: (C, D) candidate rows, row-major, of ONE greedy. (n0, c0): the
+// tile's corner. Thread t owns tile rows 4*(t/16) + i and columns
+// 4*(t%16) + j, i, j < 4, in acc[i][j]; after the accumulation `epi(acc)`
+// runs on every thread (s.gn / s.cn hold the norms for 'dist'). Must be
+// called by all 256 threads of the block.
+template <int FOLD = 0, class TG, class Epilogue>
+__device__ __forceinline__ void rt_tile(const TG* __restrict__ G,
+                                        const float* __restrict__ gscale,
                                         const float* __restrict__ Cd, int N,
                                         int C, int D, int n0, int c0,
                                         int mode, RtTileSmem& s,
@@ -57,12 +79,18 @@ __device__ __forceinline__ void rt_tile(const float* __restrict__ G,
   const int t = threadIdx.x;
   const int tx = t % 16;
   const int ty = t / 16;
+  if constexpr (rt_scaled<TG>()) {
+    if (t < RT_TILE) s.gs[t] = n0 + t < N ? gscale[n0 + t] : 0.f;
+    __syncthreads();
+  }
   float acc[4][4];
+  float outer[4][4];  // FOLD > 0: the sum of the folded partials
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = outer[i][j] = 0.f;
   double nrm = 0.0;
+  int slices = 0;
 
   for (int k0 = 0; k0 < D; k0 += RT_TK) {
 #pragma unroll
@@ -73,7 +101,8 @@ __device__ __forceinline__ void rt_tile(const float* __restrict__ G,
       const int gk = k0 + kk;
       const int gr = n0 + r;
       const int gc = c0 + r;
-      s.a[kk][r] = (gr < N && gk < D) ? G[(size_t)gr * D + gk] : 0.f;
+      s.a[kk][r] =
+          (gr < N && gk < D) ? rt_entry(G, (size_t)gr * D + gk, s.gs[r]) : 0.f;
       s.b[kk][r] = (gc < C && gk < D) ? Cd[(size_t)gc * D + gk] : 0.f;
     }
     __syncthreads();
@@ -105,6 +134,24 @@ __device__ __forceinline__ void rt_tile(const float* __restrict__ G,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
+    if constexpr (FOLD > 0) {
+      if (++slices == FOLD) {
+        slices = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            outer[i][j] += acc[i][j];
+            acc[i][j] = 0.f;
+          }
+      }
+    }
+  }
+  if constexpr (FOLD > 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += outer[i][j];
   }
 
   if (mode == RT_MODE_DIST) {
@@ -116,6 +163,16 @@ __device__ __forceinline__ void rt_tile(const float* __restrict__ G,
   }
   epi(acc);
   __syncthreads();  // the block may reuse `s` for its next tile
+}
+
+// The f32 ground's tile (pairwise, the resident build, the f32 gains).
+template <class Epilogue>
+__device__ __forceinline__ void rt_tile(const float* __restrict__ G,
+                                        const float* __restrict__ Cd, int N,
+                                        int C, int D, int n0, int c0,
+                                        int mode, RtTileSmem& s,
+                                        Epilogue&& epi) {
+  rt_tile<0>(G, (const float*)nullptr, Cd, N, C, D, n0, c0, mode, s, epi);
 }
 
 // An entry as stored: f32 as computed, bf16 rounded to nearest even

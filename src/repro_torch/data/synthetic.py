@@ -1,16 +1,22 @@
 """Deterministic synthetic datasets (answers `src/repro/data/synthetic.py`).
 
-`gen_images`, `gen_kcover`, `gen_graph_road`, `gen_graph_social` and
-`pack_bitmaps` are numpy copies of the reference's generators: the same
-seed gives the same arrays. `gen_images_on` draws the same
-mixture-of-Gaussians recipe directly on a torch device (the card unless
-the caller names another) from a seeded `torch.Generator` — other
-numbers than numpy's from the same seed, but no host-side generation of
-multi-gigabyte datasets.
+`gen_images`, `gen_kcover`, `gen_graph_road`, `gen_graph_social`,
+`pack_bitmaps` and `gen_stream` are numpy copies of the reference's
+generators: the same seed gives the same arrays and the same arrival
+orders. `gen_images_on` draws the same mixture-of-Gaussians recipe
+directly on a torch device (the card unless the caller names another)
+from a seeded `torch.Generator` — other numbers than numpy's from the
+same seed, but no host-side generation of multi-gigabyte datasets.
+
+`Stream` differs from the reference's in one respect: it gathers each
+arrival batch by index from the payloads where they lie (a tensor on the
+card stays there), instead of building the whole permuted copy
+`payloads[order]` on the host first (5.1 GB at kosarak's shape).
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Any, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -125,3 +131,128 @@ def gen_images_on(n: int, d: int, classes: int = 20, seed: int = 0,
         out[i:j] = x / torch.clamp(torch.linalg.vector_norm(
             x, dim=1, keepdim=True), min=1e-9)
     return out
+
+
+# ---------------------------------------------------------------------------
+# arrival streams (the streaming subsystem)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Stream:
+    """A deterministic arrival stream over a dataset.
+
+    ``payloads`` is the dataset in ORIGINAL index order — a numpy array
+    or a tensor on any device — and ``order`` the (n,) arrival
+    permutation of element ids. Iterating yields ``(ids, payloads,
+    valid)`` batches of exactly ``batch`` arrivals as tensors on the
+    payloads' device (CPU for numpy payloads; bitmap words as the port's
+    int32 words): ids int64, the batch's payload rows gathered by index,
+    valid bool. The last batch is zero-padded with valid=False. Each
+    iteration replays the same stream."""
+
+    payloads: Any               # (n, …) element payloads, original order
+    order: Any                  # (n,) arrival permutation of element ids
+    batch: int
+    universe: int = 0           # > 0 for coverage streams
+
+    @property
+    def n(self) -> int:
+        return int(self.order.shape[0])
+
+    def _payload_tensor(self) -> torch.Tensor:
+        if (isinstance(self.payloads, np.ndarray)
+                and self.payloads.dtype == np.uint32):
+            from repro_torch.kernels.rules import to_words
+            return to_words(self.payloads)
+        return torch.as_tensor(self.payloads)
+
+    def batches(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]]:
+        pay = self._payload_tensor()
+        dev = pay.device
+        order = torch.as_tensor(np.asarray(self.order) if not isinstance(
+            self.order, torch.Tensor) else self.order).to(dev, torch.int64)
+        for i in range(0, self.n, self.batch):
+            ids = order[i:i + self.batch]
+            rows = pay[ids]
+            nv = ids.shape[0]
+            valid = torch.ones(self.batch, dtype=torch.bool, device=dev)
+            if nv < self.batch:
+                pad = self.batch - nv
+                ids = torch.cat([ids, torch.zeros(pad, dtype=torch.int64,
+                                                  device=dev)])
+                rows = torch.cat([rows, rows.new_zeros((pad,)
+                                                       + rows.shape[1:])])
+                valid[nv:] = False
+            yield ids, rows, valid
+
+    def __iter__(self):
+        return self.batches()
+
+
+# arrivals scored at once by `_singleton_proxy`: the (n, chunk) slab of
+# distances or similarities is its largest temporary
+PROXY_CHUNK = 4096
+
+
+def _singleton_proxy(name: str, payloads: np.ndarray) -> np.ndarray:
+    """Exact raw singleton gains, used to build adversarial orderings:
+    the reference's formulas, evaluated for chunks of PROXY_CHUNK
+    arrivals at a time — an (n, chunk) slab, never the n×n matrix.
+    Within a chunk each arrival's column is summed over the same n rows
+    in the same order as the reference's one-shot sum."""
+    if name in ("kcover", "kdom", "coverage"):
+        return np.unpackbits(payloads.view(np.uint8),
+                             axis=1).sum(axis=1).astype(np.float64)
+    x = payloads.astype(np.float32)
+    n = x.shape[0]
+    out = np.empty(n, np.float32)
+    sq = (x ** 2).sum(1)
+    mind0 = np.linalg.norm(x, axis=1)
+    for j in range(0, n, PROXY_CHUNK):
+        c = x[j:j + PROXY_CHUNK]
+        if name == "kmedoid":
+            d = np.sqrt(np.maximum(sq[:, None] + sq[None, j:j + len(c)]
+                                   - 2.0 * x @ c.T, 0.0))
+            out[j:j + len(c)] = np.maximum(mind0[:, None] - d,
+                                           0.0).sum(axis=0)
+        else:                                             # facility
+            out[j:j + len(c)] = np.maximum(x @ c.T, 0.0).sum(axis=0)
+    return out
+
+
+def gen_stream(name: str, n: int, *, d: int = 64, universe: int = 0,
+               batch: int = 64, order: str = "shuffled", seed: int = 0,
+               clusters: int = 20, avg_size: float = 10.0) -> Stream:
+    """Deterministic arrival stream over the generators above, as the
+    reference builds it (numpy payloads).
+
+    ``name``: 'kcover' (packed bitmaps; needs ``universe``) | 'kmedoid' |
+    'facility' (unit-norm embeddings). ``order``:
+      * 'shuffled'    — uniform random arrival order
+      * 'adversarial' — ascending singleton gain: the most valuable
+                        elements arrive LAST
+      * 'drift'       — cluster-ordered arrivals (each cluster's mass
+                        arrives contiguously)
+    """
+    rng = np.random.default_rng(seed + 101)
+    if name in ("kcover", "kdom", "coverage"):
+        if universe <= 0:
+            raise ValueError("coverage streams need a universe size")
+        sets = gen_kcover(n, universe, seed=seed, avg_size=avg_size)
+        payloads = pack_bitmaps(sets, universe)
+        drift_key = np.asarray([int(s[0]) if len(s) else 0 for s in sets])
+    else:
+        payloads = gen_images(n, d, classes=clusters, seed=seed)
+        centers = gen_images(clusters, d, classes=clusters, seed=seed + 7)
+        drift_key = np.argmax(payloads @ centers.T, axis=1)
+    if order == "shuffled":
+        perm = rng.permutation(n)
+    elif order == "adversarial":
+        perm = np.argsort(_singleton_proxy(name, payloads), kind="stable")
+    elif order == "drift":
+        perm = np.argsort(drift_key, kind="stable")
+    else:
+        raise KeyError(f"unknown stream order {order!r}")
+    return Stream(payloads, perm.astype(np.int64), batch, universe)

@@ -11,6 +11,7 @@ is no backend switch that could put a plain version on the card.
   fused_step            fused engine's step     → kernels/fused_step.py
   greedy_loop           streaming tier          → kernels/greedy_loop.py
   greedy_loop_resident  resident tier           → kernels/greedy_loop.py
+  stream_filter         sieve batch filter      → kernels/stream_filter.py
   apply_column          final-winner flush      (plain torch, O(N))
   masked_col_reduce     batched replay fold     (plain torch)
 
@@ -19,8 +20,10 @@ ladder): f32, bf16, or int8 as a `QuantMatrix` of per-row-scaled
 entries. The kernels take each storage as it is — on the card nothing
 here widens a bf16/int8 cache into an f32 copy, which would take the
 memory the ladder stepped down to save — and an int8 cache is built in
-chunks of greedies (`pairwise_matrix`). The int8-quantized GROUND of the
-per-step gains still has no CUDA path and raises there. A bitmap
+chunks of greedies (`pairwise_matrix`). Under a forced int8 rung the
+per-step gains and the stream filter read their GROUND features int8
+per-row-quantized too (`quantize_ground`, as the reference), each kernel
+widening an entry as it loads it. A bitmap
 "matrix" is the transposed VIEW of the candidates' (B, C, W) words, and
 the bitmap kernels read those words in place: nothing here makes it
 contiguous (at the kcover leaf that would copy 5.1 GB a step).
@@ -41,8 +44,10 @@ from repro_torch.kernels import greedy_loop as loop_k
 from repro_torch.kernels import pairwise as pairwise_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.plans import (EnginePlan, fused_block_n,
-                                       loop_block_n, quant_chunk)
+from repro_torch.kernels import stream_filter as stream_k
+from repro_torch.kernels.plans import (QUANT_CHUNK_BYTES, EnginePlan,
+                                       fused_block_n, loop_block_n,
+                                       quant_chunk, stream_plan)
 from repro_torch.kernels.rules import KernelRule
 from repro_torch.runtime import flags
 
@@ -89,26 +94,42 @@ def _cast_row(row, rule: KernelRule):
     return row.to(rule.dtype).contiguous()
 
 
-def gains(ground, row, cands, cand_valid, rule: KernelRule):
+def quantize_ground(ground):
+    """(…, N, D) f32 ground features → (q int8 (…, N, D), scale f32
+    (…, 1, N)): rules.quantize_rows of every row, taken in chunks of rows
+    whose f32 work buffer is at most QUANT_CHUNK_BYTES (a row's scale
+    sees only its own row, so the chunks give the one-shot bits)."""
+    g = ground.to(F32)
+    d = g.shape[-1]
+    flat = g.reshape(-1, d)
+    q = torch.empty(flat.shape, dtype=torch.int8, device=g.device)
+    scale = torch.empty((flat.shape[0],), dtype=F32, device=g.device)
+    step = max(1, QUANT_CHUNK_BYTES // max(1, 4 * d))
+    for i in range(0, flat.shape[0], step):
+        _, sc = R.quantize_rows(flat[i:i + step].clone(), out=q[i:i + step])
+        scale[i:i + step] = sc.reshape(-1)
+    return (q.reshape(g.shape),
+            scale.reshape(g.shape[:-1]).unsqueeze(-2))
+
+
+def gains(ground, row, cands, cand_valid, rule: KernelRule, gscale=None):
     """Per-step marginal gains: RAW part sums (B, C), −inf at invalid
     candidates (the gains kernel; bitmap cands are (B, C, W) words and
-    the ground is not read). With REPRO_TORCH_FUSED_CACHE_DTYPE=int8
-    the ground features are seen per-row-quantized, as in the reference;
-    that variant has no CUDA path yet."""
-    quant = (not rule.is_bitmap and ground is not None
-             and flags.fused_cache_dtype() == "int8")
-    if quant:
-        if cands.is_cuda:
-            raise NotImplementedError(
-                "gains: int8 ground storage has no CUDA path yet")
-        ground = R.dequant(*R.quantize_rows(ground.to(F32)))
+    the ground is not read). ``gscale`` (B, 1, N): the ground is already
+    int8 (`quantize_ground`; the objective quantizes once per greedy).
+    With REPRO_TORCH_FUSED_CACHE_DTYPE=int8 an f32 ground is quantized
+    here, as in the reference; the kernel reads it as int8."""
+    if (not rule.is_bitmap and gscale is None and ground is not None
+            and flags.fused_cache_dtype() == "int8"):
+        ground, gscale = quantize_ground(ground)
     if rule.is_bitmap:
         cands = cands.contiguous()
     else:
-        ground = ground.to(F32).contiguous()
+        ground = (ground.to(F32) if gscale is None else ground).contiguous()
+        gscale = None if gscale is None else gscale.to(F32).contiguous()
         cands = cands.to(F32).contiguous()
     return pairwise_k.gains(ground, _cast_row(row, rule), cands, cand_valid,
-                            rule)
+                            rule, gscale=gscale)
 
 
 def pairwise_matrix(ground, cands, rule: KernelRule,
@@ -191,6 +212,61 @@ def greedy_loop_resident(ground, cands, row, mask, k: int,
     return loop_k.greedy_loop_resident(g, cd, _cast_row(row, rule),
                                        mask.to(F32).contiguous(), ctl, k,
                                        rule, cache_dtype=cache_dtype)
+
+
+def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
+                  bvalid, k: int, eps_log: float, rule: KernelRule,
+                  costs=None, spent=None, budget=None, gscale=None):
+    """One batch of B arrivals against all L sieve levels — of one sieve,
+    or of G stacked sieves — in ONE launch (the stream-filter kernel;
+    its plain version on the CPU).
+
+    Feature rules: ground (N, D) fixed evaluation set (int8 with
+    ``gscale`` (1, N) or (N,) when already quantized), batch (B, D).
+    Bitmap rules: ground None, batch (B, W) words (N = W). State: rows
+    (L, N), values (L,), counts/expos (L,), m_max (), with a leading
+    (G,) when stacked; batch/bvalid/costs may carry the same leading G
+    (one batch a sieve) or not (the same batch for all). row0 (N,).
+    stream_plan decides the ground's storage: 'int8' stores it
+    per-row-quantized (quantized here unless ``gscale`` is given). A
+    level state too large for a block's shared memory (the plan's
+    'plain' tier) raises on the card. ``costs`` (…, B) / ``spent`` (…, L) /
+    ``budget`` switch admission to the knapsack rule. Returns (rows,
+    values, counts, admits (…, L, B) bool, expos, m_new, expired bool)
+    [+ spent], shaped as the state came."""
+    stacked = rows.dim() == 3
+    n = rows.shape[-1]
+    b = batch.shape[-2]
+    d = None if rule.is_bitmap else ground.shape[-1]
+    plan = stream_plan(n, b, d, rule)
+    if batch.is_cuda and plan["tier"] != "kernel":
+        raise NotImplementedError(
+            f"stream_filter: a level's state over {n} ground rows exceeds "
+            "a block's shared memory; the CUDA kernel keeps it on chip")
+    if not rule.is_bitmap:
+        if plan["dtype"] == "int8" and gscale is None:
+            ground, gscale = quantize_ground(ground)
+        ground = (ground.to(F32) if gscale is None else ground).contiguous()
+        if gscale is not None:
+            gscale = gscale.to(F32).reshape(-1).contiguous()
+
+    def lanes(x, dim, dtype):
+        x = x if x.dim() == dim else x.unsqueeze(0)
+        return x.to(dtype).contiguous()
+
+    st = (lanes(rows, 3, rule.dtype), lanes(values, 2, F32),
+          lanes(counts, 2, torch.int32), lanes(expos, 2, torch.int32),
+          lanes(m_max, 1, F32))
+    arr = lanes(batch, 3, rule.dtype if rule.is_bitmap else F32)
+    bv = lanes(bvalid, 2, torch.bool)
+    cost_kw = {}
+    if costs is not None:
+        cost_kw = dict(costs=lanes(costs, 2, F32), spent=lanes(spent, 2, F32),
+                       budget=float(budget))
+    r0 = _cast_row(row0, rule)
+    out = stream_k.stream_filter(ground, arr, *st[:1], r0, *st[1:], bv, k,
+                                 eps_log, rule, gscale=gscale, **cost_kw)
+    return out if stacked else tuple(x[0] for x in out)
 
 
 def apply_column(mat, row, idx, rule: KernelRule):

@@ -11,7 +11,10 @@ wrappers and plain versions. One launch serves every greedy of a level.
             Σ_n part(row_n, M_nc) per candidate, (B, C) f32, −inf at
             invalid candidates: csrc/gains.cu (the same tiles with a
             gain-sum epilogue, the sum over rows in float64) for the
-            feature rules; for the bitmap rule (cands (B, C, W) and row
+            feature rules; over int8 ground rows with (B, 1, N) f32 row
+            scales (`gscale=`, answers `_gains_kernel_quant`) the same
+            kernel widening each entry as its tile stages it, counted as
+            `gains[int8]`; for the bitmap rule (cands (B, C, W) and row
             (B, W) 32-bit words) csrc/gains.cu:rt_gains_bits, exact
             integer popcount sums, counted as `gains[coverage]`.
 
@@ -47,7 +50,8 @@ def storage_counters(name: str) -> dict:
 
 COUNTERS = {F32: counters.counter("pairwise"),
             BF16: counters.counter("pairwise[bf16]")}
-GAINS_COUNTER = counters.counter("gains")
+GAINS_COUNTERS = {F32: counters.counter("gains"),
+                  INT8: counters.counter("gains[int8]")}
 GAINS_BITS_COUNTER = counters.counter("gains[coverage]")
 FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
 # a bitmap gain is at most 32·W; f32 holds every integer up to 2²⁴
@@ -158,9 +162,13 @@ def pairwise(ground, cands, mode: str, out_dtype=F32):
     return out
 
 
-def gains_plain(ground, row, cands, cand_valid, rule: R.KernelRule):
+def gains_plain(ground, row, cands, cand_valid, rule: R.KernelRule,
+                gscale=None):
     """The plain PyTorch version (kernels/ref.py:gains): raw part sums
-    (B, C), −inf at invalid candidates."""
+    (B, C), −inf at invalid candidates; an int8 ground (with `gscale`)
+    dequantized first (rules.dequant)."""
+    if gscale is not None:
+        ground = R.dequant(ground, gscale)
     return ref.gains(ground, row, cands, cand_valid, rule)
 
 
@@ -168,7 +176,7 @@ def _gains_lib():
     lib = build.load("gains")
     fn = lib.rt_gains
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_float] * 3 + [ctypes.c_void_p]
     fn = lib.rt_gains_bits
     fn.restype = ctypes.c_int
@@ -177,23 +185,31 @@ def _gains_lib():
     return lib
 
 
-def gains(ground, row, cands, cand_valid, rule: R.KernelRule):
+def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
+          gscale=None):
     """ground (B, N, D), row (B, N), cands (B, C, D), cand_valid (B, C)
-    → raw gain sums (B, C) f32, −inf at invalid candidates. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (feature
-    rules, f32, contiguous) or raise."""
+    → raw gain sums (B, C) f32, −inf at invalid candidates. With
+    ``gscale`` (B, 1, N) f32 the ground is int8 per-row-quantized
+    storage (rules.quantize_rows). CPU tensors take the plain version;
+    CUDA tensors launch the kernel (feature rules, f32 candidates,
+    contiguous) or raise."""
     if rule.is_bitmap:
         return _gains_bits(row, cands, cand_valid, rule)
-    GAINS_COUNTER.calls += 1
+    counter = GAINS_COUNTERS[INT8 if gscale is not None else F32]
+    counter.calls += 1
     if not cands.is_cuda:
-        return gains_plain(ground, row, cands, cand_valid, rule)
+        return gains_plain(ground, row, cands, cand_valid, rule, gscale)
     check_feature_rule(rule, "gains")
     if ground.dim() != 3 or cands.dim() != 3:
         raise ValueError("gains kernel takes (B, N, D) and (B, C, D)")
     b, n, d = ground.shape
     c = cands.shape[1]
     dev = cands.device
-    check_operand(ground, (b, n, d), F32, "ground", dev)
+    if gscale is None:
+        check_operand(ground, (b, n, d), F32, "ground", dev)
+    else:
+        check_operand(ground, (b, n, d), INT8, "ground", dev)
+        check_operand(gscale, (b, 1, n), F32, "gscale", dev)
     check_operand(cands, (b, c, d), F32, "cands", dev)
     check_operand(row, (b, n), F32, "row", dev)
     if tuple(cand_valid.shape) != (b, c):
@@ -208,13 +224,15 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule):
         arrivals = build.arrivals(dev, b * ct)
         lib = _gains_lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rt_gains(ground.data_ptr(), row.data_ptr(),
-                           cands.data_ptr(), partials.data_ptr(),
-                           arrivals.data_ptr(), raw.data_ptr(), b, n, c, d,
-                           MODES[rule.pairwise], FOLDS[rule.fold], rule.cap,
-                           rule.lam, 1.0 - rule.lam, stream)
-        build.check(lib, err, "gains kernel")
-        GAINS_COUNTER.launches += 1
+        err = lib.rt_gains(ground.data_ptr(),
+                           None if gscale is None else gscale.data_ptr(),
+                           row.data_ptr(), cands.data_ptr(),
+                           partials.data_ptr(), arrivals.data_ptr(),
+                           raw.data_ptr(), b, n, c, d, MODES[rule.pairwise],
+                           STORAGES[ground.dtype], FOLDS[rule.fold],
+                           rule.cap, rule.lam, 1.0 - rule.lam, stream)
+        build.check(lib, err, counter.name + " kernel")
+        counter.launches += 1
     return torch.where(cand_valid, raw, torch.full_like(raw, float("-inf")))
 
 

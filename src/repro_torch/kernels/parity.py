@@ -39,6 +39,24 @@ against what runs the same arithmetic, not against a plain version:
 Beside these the variants are held to their plain versions by the rules
 above (float64 ratio, entry bounds, reordering).
 
+The stream filter (`compare_stream`, B6 on feature rules) is held over
+one batch fed the same state on both sides: its matrix slab by the
+float64 pairwise rule above; its decisions walked in arrival order along
+the plain version's path, in float64. `admits`, `counts`, `expos` and
+`expired` must be equal, except at a decision whose float64 gain lies
+within the bound below of its threshold (or of 0, the `gain > 0`
+conjunct): that level is not compared further (as `compare_loops`
+stops at a tie). A gain moves by the reordering bound, by its column's
+Σ_n ΔM and by the summed row error; the threshold moves through f(S),
+which carries every earlier admitted gain's bound, and by f32 rounding
+of exp, the halving and the division (4 eps each, widened). A window
+whose exponent ⌈log(m)/eps_log⌉ differs is accepted only when an
+integer lies between the exponents of the two m's bounds (a tie of the
+re-anchor), and that sieve is not compared further. Where all agree,
+rows, values and m are held to the derived bounds, spent bit for bit.
+The bitmap variant is held by `compare_exact`, and the int8-ground one
+bit for bit against the f32 kernel on the dequantized ground.
+
 Loops: selections must be equal step for step. At the first step where
 two greedies differ, the comparison passes only if the two chosen gains
 at that step lie within the stated float tolerance of each other — a
@@ -351,3 +369,146 @@ def compare_exact(kern, plain, what: str = "bitmap kernel"
     if len(plain) == 3 and plain[1].dim() == 2:
         out["accepted"] = int((plain[1] >= 0).sum())
     return out
+
+
+def compare_stream(kern, plain, mat_k, mat_p, state, bvalid, k: int,
+                   eps_log: float, rule: KernelRule, costs=None,
+                   budget=None, what: str = "stream_filter"
+                   ) -> Dict[str, float]:
+    """Hold a feature rule's stream-filter outputs against the plain
+    version's over the same inputs (module doc). kern/plain: (rows (G, L,
+    N), values, counts, admits (G, L, B) bool, expos, m_new (G,),
+    expired[, spent]); mat_k (A, B, N) the kernel's slab, mat_p (A, N, B)
+    the plain matrix; state = (rows, row0, values, counts, expos, m_max,
+    spent or None) as fed to both; bvalid (A, B); costs (A, B) and
+    budget in cost mode. Returns the compared decisions, the ties (level
+    decisions and windows) and the largest errors; raises AssertionError
+    where a difference is no tie."""
+    rows_in, row0, values_in, counts_in, expos_in, m_in, spent_in = state
+    g_n, l_n, n = rows_in.shape
+    a_n, _, b_n = mat_p.shape
+    cost_mode = costs is not None
+    dev = mat_p.device
+    rt = gain_rtol(n)
+    eps32 = float(torch.tensor(eps_log, dtype=torch.float32))
+    additive = rule.fold in ("satsum", "sum")
+    mp = mat_p.double()                                        # (A, N, B)
+    dm = (mat_k.transpose(-1, -2).double() - mp).abs()         # (A, N, B)
+    colsum = dm.sum(-2)                                        # (A, B)
+    lane = torch.arange(g_n, device=dev) if a_n > 1 else torch.zeros(
+        g_n, dtype=torch.int64, device=dev)
+    # m: the max valid singleton, each within its bound
+    single = _gain_part64(row0.double()[None, :, None], mp, rule).sum(-2)
+    s_err = rt * single + colsum
+    valid = bvalid.bool()
+    m_err = torch.where(valid, s_err, torch.zeros_like(s_err)).amax(-1)
+    m_k, m_p = kern[5].double(), plain[5].double()
+    m_tol = m_err[lane] + EPS32 * m_p.abs() + 1e-30
+    assert bool(((m_k - m_p).abs() <= m_tol).all()), (
+        f"{what}: m differs by {float((m_k - m_p).abs().max()):.3e}")
+    # the window: equal, or a tie of the re-anchor's ceil
+    win_ok = (kern[4] == plain[4]).all(-1) & (kern[6] == plain[6]).all(-1)
+    window_ties = 0
+    for g in (~win_ok).nonzero().flatten().tolist():
+        lo = max(float(m_p[g] - m_tol[g]), 1e-30)
+        hi = float(m_p[g] + m_tol[g])
+        x0, x1 = (math.log(lo) / eps32 * (1 - 1e-6),
+                  math.log(hi) / eps32 * (1 + 1e-6))
+        x0, x1 = min(x0, x1), max(x0, x1)
+        assert math.floor(x1) >= math.ceil(x0) or float(m_in[g]) == 0.0, (
+            f"{what}, sieve {g}: the window differs and no integer lies "
+            f"between {x0} and {x1}")
+        window_ties += 1
+    active = win_ok.unsqueeze(-1).expand(g_n, l_n).clone()
+    # walk the plain version's path in float64
+    expired = plain[6]
+    rows64 = torch.where(expired.unsqueeze(-1), row0.double(),
+                         rows_in.double())
+    f64 = torch.where(expired, 0.0, values_in.double())
+    cnt = torch.where(expired, 0, counts_in.to(torch.int64))
+    spent = (torch.where(expired, 0.0, spent_in.double()) if cost_mode
+             else None)
+    vgrid = torch.exp(plain[4].double() * eps32)
+    rowerr = torch.zeros_like(rows64)
+    ferr = torch.zeros_like(f64)
+    ties = decisions = 0
+    adm_k, adm_p = kern[3], plain[3]
+    for b in range(b_n):
+        col = mp[lane, :, b].unsqueeze(1)                      # (G, 1, N)
+        ok = valid[lane, b].unsqueeze(-1) & (cnt < k)
+        c = 1.0
+        if cost_mode:
+            c = costs[lane, b].double().unsqueeze(-1)
+            room = torch.clamp(float(budget) - spent, min=0.0)
+            ok = ok & (c > 0) & (c <= room)
+            rem = torch.clamp(room, min=1e-30)
+        else:
+            rem = torch.clamp(k - cnt, min=1).double()
+        live = ok & active
+        decisions += int(live.sum())
+        g64 = _gain_part64(rows64, col, rule).sum(-1)          # (G, L)
+        thresh = (vgrid * 0.5 - f64) / rem * c
+        gerr = rt * g64 + colsum[lane, b].unsqueeze(-1) + rowerr.sum(-1)
+        tol = (gerr + ferr / rem * c
+               + 4 * EPS32 * (g64.abs() + thresh.abs() + vgrid / rem * c)
+               + 1e-30)
+        pa, ka = adm_p[..., b], adm_k[..., b]
+        differ = (pa != ka) & active
+        tie = differ & (torch.minimum((g64 - thresh).abs(), g64.abs())
+                        <= tol)
+        bad = differ & ~tie
+        assert not bool(bad.any()), (
+            f"{what}: arrival {b} decided apart at {bad.nonzero().tolist()} "
+            "with no tie")
+        ties += int(tie.sum())
+        active &= ~tie
+        take = pa & active
+        upd = take.unsqueeze(-1)
+        new_rows = _fold64(rows64, col, rule)
+        rows64 = torch.where(upd, new_rows, rows64)
+        dcol = dm[lane, :, b].unsqueeze(1)
+        rowerr = torch.where(upd, rowerr + dcol + EPS32 * new_rows.abs()
+                             if additive else torch.maximum(rowerr, dcol),
+                             rowerr)
+        f64 = f64 + torch.where(take, g64, 0.0)
+        ferr = ferr + torch.where(take, gerr, 0.0)
+        cnt = cnt + take.to(torch.int64)
+        if cost_mode:
+            spent = spent + torch.where(take, c, 0.0)
+    # where every decision agreed: counts, rows, values (and spent)
+    act = active
+    assert torch.equal(kern[2][act], plain[2][act]), f"{what}: counts"
+    rk, rp = kern[0][act].double(), plain[0][act].double()
+    fin = torch.isfinite(rp)
+    row_tol = rowerr[act] + 4 * EPS32 * rp.abs() + 1e-30
+    rerr = (rk - rp).abs()
+    assert bool((rerr[fin] <= row_tol[fin]).all()), (
+        f"{what}: rows differ by up to {float(rerr[fin].max()):.3e}")
+    assert torch.equal(rk[~fin], rp[~fin]), f"{what}: non-finite rows"
+    vk, vp = kern[1][act].double(), plain[1][act].double()
+    verr = (vk - vp).abs()
+    v_tol = ferr[act] + 4 * EPS32 * (cnt[act] + 1) * vp.abs() + 1e-30
+    assert bool((verr <= v_tol).all()), (
+        f"{what}: values differ by up to {float(verr.max()):.3e}")
+    if cost_mode:
+        assert torch.equal(kern[7][act], plain[7][act]), f"{what}: spent"
+    return {"decisions": decisions, "ties": ties,
+            "window_ties": window_ties,
+            "admitted": int(plain[3].sum()),
+            "max_m_err": float((m_k - m_p).abs().max()),
+            "max_value_err": float(verr.max()) if verr.numel() else 0.0,
+            "max_row_err": float(rerr[fin].max()) if fin.any() else 0.0,
+            "max_matrix_diff": float(dm.max())}
+
+
+def _fold64(row, col, rule: KernelRule):
+    """rules.fold_cols in float64 (feature rules)."""
+    if rule.fold == "min":
+        return torch.minimum(row, col)
+    if rule.fold == "max":
+        return torch.maximum(row, col)
+    if rule.fold == "satsum":
+        return torch.clamp(row + torch.clamp(col, min=0.0), max=rule.cap)
+    if rule.fold == "sum":
+        return row + torch.clamp(col, min=0.0)
+    raise KeyError(rule.fold)

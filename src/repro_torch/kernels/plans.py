@@ -55,6 +55,14 @@ its wrapper falls back to): the W-word row and the (C,) mask,
 up to ≈56,000 candidates: m = 32 (≈30,938 each) streams, m = 8
 (123,750) falls to the fused engine.
 
+The stream filter (`stream_plan`) has its own gate: each block of its
+kernel keeps one sieve level's state row in shared memory (a feature
+rule's (N,) f32 row beside the build tile; 8 bitmap rows of W words a
+block), so a stream runs the kernel while that fits the H100's 227 KB
+a block (STREAM_SMEM_BYTES). Beyond it the plan says 'plain': the CPU
+runs the plain version as always, and on the card ops.stream_filter
+raises, since the kernel has no tier that keeps the row off-chip yet.
+
 The CUDA kernels mask their ragged edges, so shapes are planned
 unpadded (the TPU tile padding of the reference has no counterpart).
 The autotune cache, `shard_plan`, `serve_plan` and `plan_tree` of the
@@ -73,10 +81,20 @@ ENGINES = ("step", "fused", "mega_stream", "mega_resident")
 THREADS = 256                       # threads per block of the loop kernels
 # argmax scratch of a loop block: one (value, index) pair per thread
 REDUCE_BYTES = 8 * THREADS
-# the pairwise tile of the resident build: two 16×68 f32 operand tiles
-# (64 columns + 4 of bank padding) and two 64-entry norm vectors
-# (csrc/pairwise_tile.cuh)
-TILE_BYTES = 4 * (2 * 16 * 68 + 2 * 64)
+# the pairwise tile of the resident and stream-filter builds: two 16×68
+# f32 operand tiles (64 columns + 4 of bank padding), two 64-entry norm
+# vectors and the 64 row scales of an int8 ground (csrc/pairwise_tile.cuh)
+TILE_BYTES = 4 * (2 * 16 * 68 + 3 * 64)
+# static shared memory of a stream-filter feature block beside its
+# (N,) state row: the build tile, the (16, 64) float64 column sums of the
+# singleton partials, two sets of 8 warp sums in float64, the tile's 64
+# row0 entries and 8 warp maxima (csrc/stream_filter.cu)
+STREAM_STATIC_BYTES = TILE_BYTES + 8 * 16 * 64 + 8 * 2 * 8 + 4 * 64 + 4 * 8
+# sieve levels a bitmap stream-filter block runs (a warp each)
+STREAM_BITS_LEVELS = 8
+# shared memory one stream-filter block may hold: the H100's per-block
+# maximum (opt-in dynamic shared memory)
+STREAM_SMEM_BYTES = flags.H100_SMEM_PER_BLOCK
 LOOP_BLOCK_MAX = 256                # target ground rows per loop block
 LOOP_BLOCK_MIN = 8
 # ground rows per block of the per-step fused kernel: at the knapsack
@@ -306,3 +324,37 @@ def select_engine(rule: KernelRule, n: int, c: int,
     return EnginePlan(engine, rule, tier=fp["tier"], block_n=fp["block_n"],
                       loop_block_n=fp["loop_block_n"], dtype=fp["dtype"],
                       replicas=replicas)
+
+
+def stream_smem_bytes(n: int, b: int, rule: KernelRule) -> int:
+    """Shared memory of one block of the stream-filter kernel: a feature
+    level's (N,) f32 row beside the static tile and reduction scratch;
+    for bitmap rules (n = W words) 8 level rows, row0 and the B
+    singleton gains."""
+    if rule.is_bitmap:
+        return 4 * ((STREAM_BITS_LEVELS + 1) * n + b)
+    return 4 * n + STREAM_STATIC_BYTES
+
+
+def stream_plan(n: int, b: int, d: Optional[int],
+                rule: KernelRule) -> dict:
+    """The stream filter's gate for one batch of b arrivals against
+    levels over n ground rows (universe words for bitmap rules) of d
+    features. Returns {'tier': 'kernel', 'dtype': …} when a block's
+    shared memory holds its level state (`stream_smem_bytes` within
+    STREAM_SMEM_BYTES), else {'tier': 'plain', 'dtype': …}: only the
+    plain sieve filter (ref.stream_sieve) on the CPU takes such a
+    stream; the card has no path for it (ops.stream_filter raises).
+
+    dtype is the ground features' storage: 'uint32' words for bitmap
+    rules; 'int8' (per-row-quantized, the arrivals stay f32) when
+    REPRO_TORCH_FUSED_CACHE_DTYPE forces that rung for a feature rule;
+    else 'float32' ('auto' never quantizes a stream)."""
+    if rule.is_bitmap:
+        dtype = "uint32"
+    else:
+        if d is None:
+            raise ValueError("a feature rule's stream needs its feature dim")
+        dtype = "int8" if flags.fused_cache_dtype() == "int8" else "float32"
+    fits = stream_smem_bytes(n, b, rule) <= STREAM_SMEM_BYTES
+    return {"tier": "kernel" if fits else "plain", "dtype": dtype}

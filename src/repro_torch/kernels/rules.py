@@ -213,6 +213,13 @@ def partial_gains(row, m, rule: KernelRule):
                      keepdim=True)
 
 
+def level_gains(rows, col, rule: KernelRule):
+    """(…, L, N) per-level state rows × (…, 1, N) arrival column →
+    (…, L, 1) raw gains — the level-batched transpose of
+    `partial_gains` (the sieve's admission step)."""
+    return torch.sum(gain_part(rows, col, rule), dim=-1, keepdim=True)
+
+
 def masked_argmax(gains, mask):
     """(…, C) gains + 0/1 mask → (first argmax (…,) int64, max (…,) f32).
 

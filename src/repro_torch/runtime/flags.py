@@ -36,9 +36,9 @@ TPU budgets of the reference:
                                 REPRO_TORCH_FUSED_CACHE_MB (plans.py);
                                 the others force one rung. The CUDA
                                 kernels read all three; the int8 rung
-                                also quantizes the per-step gains'
-                                ground features, which has no CUDA path
-                                yet.
+                                also stores the ground features of the
+                                per-step gains and of the stream filter
+                                per-row-quantized.
 """
 from __future__ import annotations
 

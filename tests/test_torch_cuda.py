@@ -10,8 +10,13 @@ kernel does not take. The bf16/int8 cache variants are held bit for bit
 to the f32 kernel on the dequantized cache (pairwise[bf16] to the f32
 output rounded; the chunked int8 build to quantize_rows on the CPU; the
 resident scratch to round_resident of the f32 build), and to their plain
-versions under the same rules as the f32 kernels.
+versions under the same rules as the f32 kernels. The stream filter is
+held by parity.compare_stream (bitmaps bit for bit), its int8-ground
+variant and the int8-ground gains bit for bit to the f32 kernels on the
+dequantized ground.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +27,9 @@ from repro_torch.kernels import fused_step as TF
 from repro_torch.kernels import greedy_loop as TL
 from repro_torch.kernels import pairwise as TP
 from repro_torch.kernels import parity
+from repro_torch.kernels import ref as TRef
 from repro_torch.kernels import rules as TR
+from repro_torch.kernels import stream_filter as TS
 
 FEATURE_RULES = {
     "kmedoid": TR.DIST_MIN,
@@ -355,13 +362,244 @@ def test_cuda_resident_quant_kernel(cuda, name, dtype):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
-    """What has no CUDA path yet raises rather than run a plain version
-    on the card: the per-step gains over int8-quantized ground features
-    (REPRO_TORCH_FUSED_CACHE_DTYPE=int8). The bf16/int8 caches launch
-    their kernels (the tests above)."""
+    """The per-step gains over int8-quantized ground features
+    (REPRO_TORCH_FUSED_CACHE_DTYPE=int8) launch the int8 gains kernel
+    (they raised before it existed); what still has no CUDA path raises
+    rather than run a plain version on the card: a fold the kernels do
+    not know, a stream over bf16 ground features, and a stream whose
+    level state does not fit a block's shared memory (the plan's plain
+    tier, which only the CPU takes)."""
     feats = torch.rand(1, 8, 4, device=cuda)
+    cv = torch.ones(1, 8, dtype=torch.bool, device=cuda)
     monkeypatch.setenv("REPRO_TORCH_FUSED_CACHE_DTYPE", "int8")
+    counters.reset()
+    ops.gains(feats, torch.zeros(1, 8, device=cuda), feats, cv, TR.DOT_MAX)
+    snap = counters.snapshot()
+    assert snap["gains[int8]"]["launches"] == 1
+    assert snap.get("gains", {"launches": 0})["launches"] == 0
+    odd = TR.KernelRule("odd", "dot", "median", "float32", 0.0)
     with pytest.raises(NotImplementedError):
-        ops.gains(feats, torch.zeros(1, 8, device=cuda), feats,
-                  torch.ones(1, 8, dtype=torch.bool, device=cuda),
-                  TR.DOT_MAX)
+        TP.gains(feats, torch.zeros(1, 8, device=cuda), feats, cv, odd)
+    st = _stream_state(cuda, TR.DOT_MAX, 1, 8, 8)
+    with pytest.raises(NotImplementedError):
+        TS.stream_filter(feats[0].to(torch.bfloat16), feats[:, :3], *st,
+                         cv[:, :3], 2, EPS_LOG, TR.DOT_MAX)
+    monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", 64)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        ops.stream_filter(feats[0], feats[0, :3], *st,
+                          cv[0, :3], 2, EPS_LOG, TR.DOT_MAX)
+
+
+# ---------------------------------------------------------------------------
+# the stream filter (B6) and the int8-ground gains (B2q)
+# ---------------------------------------------------------------------------
+
+EPS_LOG = math.log1p(0.1)
+
+
+def _stream_state(cuda, tr, g, l, n, row0=None, cost=False):
+    """Empty stacked sieve state (rows, row0, values, counts, expos, m
+    [, spent]) for the kernel wrapper's canonical shapes."""
+    if row0 is None:
+        row0 = (torch.zeros(n, dtype=TR.WORD_DTYPE, device=cuda)
+                if tr.is_bitmap else torch.zeros(n, device=cuda))
+    st = (row0.expand(g, l, n).contiguous(), row0,
+          torch.zeros(g, l, device=cuda),
+          torch.zeros(g, l, dtype=torch.int32, device=cuda),
+          torch.arange(l, dtype=torch.int32, device=cuda).expand(
+              g, l).contiguous(),
+          torch.zeros(g, device=cuda))
+    return st + (torch.zeros(g, l, device=cuda),) if cost else st
+
+
+def _stream_batches(cuda, a, b, d, n_batches, seed, words=False):
+    """Arrival batches (A, B, d) growing in scale (the window slides),
+    ~85% valid, with costs uniform(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_batches):
+        if words:
+            x = _words((a, b, d), seed + i, cuda)
+        else:
+            x = torch.as_tensor((0.5 + i) * rng.normal(size=(a, b, d))
+                                .astype(np.float32), device=cuda)
+        valid = torch.as_tensor(rng.random((a, b)) > 0.15, device=cuda)
+        costs = torch.as_tensor(rng.uniform(0.5, 2.0, (a, b)).astype(
+            np.float32), device=cuda)
+        out.append((x, valid, costs))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("lanes", [(1, 1), (3, 1), (2, 2)])
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+def test_cuda_stream_filter_matches_plain(cuda, name, lanes, cost):
+    """B6 over feature rules, three chained batches fed the plain
+    version's state on both sides: the slab by the float64 pairwise
+    rule, the decisions by parity.compare_stream; one launch a batch for
+    all G sieves (A = 1: shared arrivals, A = G: one batch a sieve)."""
+    tr = FEATURE_RULES[name]
+    g, a = lanes
+    n, b, d, k = 150, 70, 40, 5
+    l = 32
+    ground = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(n, d)).astype(np.float32), device=cuda)
+    valid_g = torch.ones(1, n, dtype=torch.bool, device=cuda)
+    row0 = TR.empty_row(ground[None], valid_g, tr)[0].contiguous()
+    st = _stream_state(cuda, tr, g, l, n, row0, cost)
+    ties = 0
+    for x, valid, costs in _stream_batches(cuda, a, b, d, 3, 2):
+        kw = dict(costs=costs, spent=st[6], budget=6.0) if cost else {}
+        mat_k = torch.empty(a, b, n, device=cuda)
+        counters.reset()
+        got = TS.stream_filter(ground, x, *st[:6], valid, k, EPS_LOG, tr,
+                               scratch=mat_k, **kw)
+        assert counters.snapshot()["stream_filter"]["launches"] == 1
+        want = TS.stream_filter_plain(ground, x, *st[:6], valid, k,
+                                      EPS_LOG, tr, **kw)
+        mat_p = TRef.pairwise(ground, x, tr)
+        parity.compare_pairwise(mat_k.transpose(1, 2), mat_p,
+                                ground.expand(a, n, d), x, tr.pairwise)
+        res = parity.compare_stream(
+            got, want, mat_k, mat_p, st[:6] + ((st[6],) if cost else
+                                               (None,)),
+            valid, k, EPS_LOG, tr, costs=costs if cost else None,
+            budget=6.0 if cost else None)
+        ties += res["ties"] + res["window_ties"]
+        st = tuple(want[i] for i in (0,)) + (row0,) + tuple(
+            want[i] for i in (1, 2, 4, 5)) + ((want[7],) if cost else ())
+    assert int(st[3].sum()) > 0 or ties
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+def test_cuda_stream_filter_int8_ground(cuda, name, cost):
+    """B6 over an int8 ground: every output and the slab equal bit for
+    bit to the f32 kernel on the dequantized ground."""
+    tr = FEATURE_RULES[name]
+    n, b, d, k, l, g = 130, 70, 40, 5, 32, 2
+    ground = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(n, d)).astype(np.float32), device=cuda)
+    q, scale = ops.quantize_ground(ground)
+    deq = TR.dequant(q, scale).contiguous()
+    row0 = TR.empty_row(ground[None], torch.ones(1, n, dtype=torch.bool,
+                                                 device=cuda), tr)[0]
+    st = _stream_state(cuda, tr, g, l, n, row0.contiguous(), cost)
+    for x, valid, costs in _stream_batches(cuda, 1, b, d, 3, 4):
+        kw = dict(costs=costs, spent=st[6], budget=6.0) if cost else {}
+        mq, mf = (torch.empty(1, b, n, device=cuda) for _ in range(2))
+        counters.reset()
+        got = TS.stream_filter(q, x, *st[:6], valid, k, EPS_LOG, tr,
+                               gscale=scale.reshape(-1), scratch=mq, **kw)
+        assert counters.snapshot()["stream_filter[int8]"]["launches"] == 1
+        f32 = TS.stream_filter(deq, x, *st[:6], valid, k, EPS_LOG, tr,
+                               scratch=mf, **kw)
+        parity.compare_exact(got + (mq,), f32 + (mf,),
+                             "stream_filter[int8] vs the f32 kernel")
+        st = (f32[0], st[1], f32[1], f32[2], f32[4], f32[5]) + (
+            (f32[7],) if cost else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("lanes", [(1, 1), (5, 1), (4, 4)])
+def test_cuda_stream_filter_bits_matches_plain(cuda, lanes, cost):
+    """B6 over bitmaps: every output equal bit for bit to the plain
+    version, chained over three batches, one launch a batch."""
+    tr = TR.BITS_OR
+    g, a = lanes
+    w, b, k, l = 45, 64, 6, 24
+    st = _stream_state(cuda, tr, g, l, w, cost=cost)
+    for x, valid, costs in _stream_batches(cuda, a, b, w, 3, 7, words=True):
+        kw = dict(costs=costs, spent=st[6], budget=5.0) if cost else {}
+        counters.reset()
+        got = TS.stream_filter(None, x, *st[:6], valid, k, EPS_LOG, tr, **kw)
+        assert counters.snapshot()["stream_filter[coverage]"][
+            "launches"] == 1
+        want = TS.stream_filter_plain(None, x, *st[:6], valid, k, EPS_LOG,
+                                      tr, **kw)
+        parity.compare_exact(got, want, "stream_filter[coverage]")
+        st = (want[0], st[1], want[1], want[2], want[4], want[5]) + (
+            (want[7],) if cost else ())
+    assert int(st[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [1, 3])
+def test_cuda_scatter_slots_matches_plain(cuda, a):
+    """The slot update writes what the reference's one-hot formula
+    gives, in place."""
+    g, l, b, k, d = 3, 8, 20, 4, 9
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.randint(0, 99, (g, l, k), generator=gen, device=cuda)
+    pay = torch.rand(g, l, k, d, generator=gen, device=cuda)
+    counts = torch.randint(0, k + 1, (g, l), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    expired = torch.rand(g, l, generator=gen, device=cuda) < 0.3
+    admits = torch.rand(g, l, b, generator=gen, device=cuda) < 0.1
+    # never more admits than free slots, as the kernel guarantees
+    free = torch.where(expired, k, k - counts).unsqueeze(-1)
+    admits &= torch.cumsum(admits.int(), -1) <= free
+    bids = torch.randint(0, 99, (a, b), generator=gen, device=cuda)
+    bpay = torch.rand(a, b, d, generator=gen, device=cuda)
+    want = TS.scatter_slots_plain(ids, pay, counts, expired, admits, bids,
+                                  bpay, k)
+    counters.reset()
+    got = TS.scatter_slots(ids.clone(), pay.clone(), counts, expired,
+                           admits, bids, bpay, k)
+    assert counters.snapshot()["scatter_slots"]["launches"] == 1
+    parity.compare_exact(got, want, "scatter_slots")
+
+
+@pytest.mark.cuda
+def test_cuda_window_is_one_launch_per_batch(cuda):
+    """A sliding window of 5 checkpoints over a coverage stream: one
+    stream-filter launch a batch for all checkpoints and levels; its
+    query equals the CPU path's."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.data.synthetic import gen_stream
+    from repro_torch.streaming import SieveStreamer, SlidingSieve
+    st = gen_stream("kcover", 256, universe=384, batch=16, seed=2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        obj = make_objective("kcover", universe=384, device=dev)
+        win = SlidingSieve(SieveStreamer(obj, 6), 64, 16)
+        ws = win.init()
+        counters.reset()
+        for ids, pay, valid in st:
+            ws = win.process_batch(ws, ids, pay, valid)
+        snap = counters.snapshot()["stream_filter[coverage]"]
+        out[dev] = win.query(ws).map(lambda t: t.cpu())
+        if dev == "cuda":
+            assert snap["launches"] == 256 // 16 == snap["calls"]
+    assert torch.equal(out["cuda"].ids, out["cpu"].ids)
+    assert torch.equal(out["cuda"].value, out["cpu"].value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("shape", [(2, 150, 72, 200), (1, 5, 3, 7)])
+def test_cuda_gains_int8_ground(cuda, name, shape):
+    """B2q: the gains kernel over an int8 ground equals the f32 kernel on
+    the dequantized ground bit for bit, and holds to the plain version
+    by the float64 ratio rule."""
+    tr = FEATURE_RULES[name]
+    b, n, c, d = shape
+    g, cd = _dev_pools(cuda, b, n, c, d, seed=11)
+    q, scale = ops.quantize_ground(g)
+    deq = TR.dequant(q, scale).contiguous()
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(deq, valid, tr)
+    for j in range(min(3, n)):
+        row = TR.update_row(deq, row, deq[:, j], tr)
+    row = row.contiguous()
+    cv = torch.arange(c, device=cuda).expand(b, c) % 5 != 1
+    counters.reset()
+    got = TP.gains(q, row, cd, cv, tr, gscale=scale)
+    assert counters.snapshot()["gains[int8]"]["launches"] == 1
+    parity.compare_exact(got, TP.gains(deq, row, cd, cv, tr),
+                         "gains[int8] vs the f32 kernel")
+    parity.compare_gains(got, TP.gains_plain(q, row, cd, cv, tr, scale),
+                         deq, row, cd, tr)

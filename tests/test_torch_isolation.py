@@ -7,8 +7,10 @@ copies of what it took from the reference.
     raises instead of running on the CPU;
   * chip_smoke.py without a card — or alone in a directory — exits
     non-zero and prints no result;
-  * the numpy data generators, the tree structure and the configs are
-    identical to the reference's.
+  * the numpy data generators (arrival streams included), the tree
+    structure and the configs are identical to the reference's;
+  * the streaming package imports no JAX and streams on the card unless
+    asked for the CPU.
 """
 import os
 import re
@@ -157,6 +159,53 @@ def test_configs_match_reference():
     assert (full.n, full.feature_dim) == (100_000, 64 * 64 * 3)
     assert (full.k, full.num_machines, full.branching) == (j.k, j.num_machines,
                                                            j.branching)
+
+
+def test_streaming_modules_stand_alone():
+    """The streaming package (sieve, window, driver) imports neither jax
+    nor the reference in a fresh interpreter, and its sources name
+    neither."""
+    mods = [PORT / "streaming" / f"{m}.py"
+            for m in ("__init__", "sieve", "window", "driver")]
+    assert all(p.exists() for p in mods)
+    code = ("import sys\n"
+            "import repro_torch.streaming, repro_torch.streaming.sieve\n"
+            "import repro_torch.streaming.window\n"
+            "import repro_torch.streaming.driver\n"
+            "bad = [n for n in sys.modules\n"
+            "       if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
+    for path in mods:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_streaming_without_device_raises_on_a_machine_without_cuda():
+    _no_cuda()
+    from repro_torch.core.functions import make_objective
+    from repro_torch.streaming import stream_select
+    st = TSyn.gen_stream("kcover", 64, universe=128, batch=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_select(make_objective("kcover", universe=128), st, 4)
+    sol = stream_select(make_objective("kcover", universe=128,
+                                       device="cpu"), st, 4)
+    assert sol.ids.device.type == "cpu" and int(sol.valid.sum()) > 0
+
+
+@pytest.mark.parametrize("order", ["shuffled", "adversarial", "drift"])
+def test_stream_generator_is_an_identical_copy(order):
+    for name in ("kcover", "facility"):
+        t = TSyn.gen_stream(name, 80, d=8, universe=200, batch=16,
+                            order=order, seed=2)
+        j = JSyn.gen_stream(name, 80, d=8, universe=200, batch=16,
+                            order=order, seed=2)
+        np.testing.assert_array_equal(t.order, j.order)
+        np.testing.assert_array_equal(t.payloads, j.payloads)
 
 
 def test_convert_round_trips_words_and_ids():
