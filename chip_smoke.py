@@ -13,7 +13,9 @@ script exits non-zero:
   parity     every kernel against its plain PyTorch version on the card,
              at the runs' own shapes, for every feature rule: pairwise
              and the loops at the first leaf's pool and a level's 16
-             node pools; then (line `parity_steps`) fused_step at the
+             node pools (there pairwise == the resident kernel's build
+             bit for bit, and pairwise[bf16] by the float64 rule);
+             then (line `parity_steps`) fused_step at the
              knapsack run's leaf (32 × 3,125²) and node (32 × 400²)
              shapes, gains at the stochastic run's leaf shape (32 ×
              3,125 ground rows × 72 sampled candidates), with a TF32
@@ -110,19 +112,30 @@ levels of all stacked sieves), beside the k-medoid phases:
                        against the f32 kernel on the dequantized
                        ground; the int8-ground gains at the stochastic
                        leaf shape, bit for bit and by the float64 rule
+  parity_stream_global the stream filter's global-memory tier (a level's
+                       row in device memory): kmedoid against all
+                       100,000 images (72 × 100,000 × 256 × 12,288),
+                       three chained batches by the float64 slab rule
+                       and parity.compare_stream; bitmaps at 8,192 words
+                       (262,144 items), three batches bit for bit
   reference_stream     (after reference_dispatch) small-integer facility
                        streams, kernel path == CPU path: stream_select,
                        a SlidingSieve, 4 continuous lanes
   stochastic_int8      (after stochastic) the stochastic lanes under the
                        int8 rung: 200 gains[int8] launches at the leaves
   stream_kmedoid       stream_select('kmedoid') over all 100,000 images
-  stream_kmedoid_int8  against 16,384 of them (k = 200, B = 256: 391
-                       batches, one launch each), f32 and int8 ground;
-                       the value on the evaluation set ≥ (½ − ε) of the
-                       `run` root's there
+                       against all 100,000 (the global tier), k = 200,
+                       B = 256: 391 batches, one stream_filter and one
+                       scatter_slots launch each
+  stream_kmedoid_int8  the same stream, int8 ground, against 16,384 of
+                       the images (the shared-memory tier); each value
+                       on its evaluation set ≥ (½ − ε) of the `run`
+                       root's there
   timing_stream        (after timing_quant) the stream filter per batch
-                       (f32, int8) and the int8-ground gains beside
-                       their bounds and plain versions
+                       (f32, int8 at 16,384 rows; the global tier at
+                       100,000 rows and at 8,192 bitmap words) and the
+                       int8-ground gains beside their bounds and plain
+                       versions
 
 and after timing_coverage, on the kosarak bitmaps:
 
@@ -274,6 +287,18 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def smi_under_load(torch, fn, calls: int) -> str:
+    """The card's SM clock and power draw (nvidia-smi) read while `calls`
+    enqueued calls of fn run."""
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    return out
 
 
 def parse_args(argv=None):
@@ -533,9 +558,13 @@ def phase_parity(torch, x, cfg, seed):
                  rows within 4·eps·|r|. The streaming loop is fed the
                  plain matrix. The resident loop builds its own, which
                  the phase reads back: it must equal the pairwise
-                 kernel's bit for bit, and its entry differences ΔM from
+                 kernel's bit for bit (the pairwise kernel's 128×128
+                 tile computes each entry as the resident build's
+                 64×64 tile does), and its entry differences ΔM from
                  the plain matrix widen each compared gain by its
-                 column's Σ_i ΔM[i, c] plus the summed row error."""
+                 column's Σ_i ΔM[i, c] plus the summed row error.
+      pairwise[bf16] at the node shape by the float64 rule (the leaf
+                 shape's check is parity_quant's)."""
     from repro_torch.kernels import greedy_loop as L
     from repro_torch.kernels import pairwise as P
     from repro_torch.kernels import parity
@@ -568,6 +597,10 @@ def phase_parity(torch, x, cfg, seed):
     cd = node_pools(torch, x, nodes, bk, seed)
     out["pairwise"]["node"] = _pairwise_parity(torch, P, parity, cd, cd,
                                                discriminate=False)
+    out["pairwise[bf16]"] = {"node": {
+        mode: _bf16_pairwise_rule(torch, cd, mode)
+        for mode in ("dot", "dist")}}
+    equal_builds = 0
     for name, rule in rules.items():
         vv = torch.ones(nodes, bk, dtype=torch.bool, device=x.device)
         row = R.empty_row(cd, vv, rule).contiguous()
@@ -579,6 +612,7 @@ def phase_parity(torch, x, cfg, seed):
                                       scratch=built)
         assert torch.equal(built, P.pairwise(cd, cd, rule.pairwise)), \
             f"resident {name}: its build is not the pairwise kernel's"
+        equal_builds += 1
         plain = L.greedy_loop_resident_plain(cd, cd, row, mask, ctl, cfg.k,
                                              rule)
         diff = (built - L.resident_matrix(cd, cd, rule)).abs()
@@ -588,7 +622,10 @@ def phase_parity(torch, x, cfg, seed):
         out["greedy_loop_resident"][name] = res
         del built, diff
     emit({"phase": "parity", "leaf_shape": [1, n_leaf, n_leaf, x.shape[1]],
-          "node_shape": [nodes, bk, bk, x.shape[1]], **out})
+          "node_shape": [nodes, bk, bk, x.shape[1]],
+          "pairwise_equals_resident_build": {"rules": equal_builds,
+                                             "bit_for_bit": True},
+          **out})
     return {"pairwise": out["pairwise"]["leaf"]["dist"]["max_abs_diff"],
             "greedy_loop": out["greedy_loop"]["kmedoid"]["max_gain_err"],
             "greedy_loop_resident":
@@ -980,7 +1017,10 @@ def phase_timing(torch, x, cfg, seed, reps):
                             reps),
         "library_ms": cuda_ms(torch, lambda: torch.cdist(
             pay, pay, compute_mode="use_mm_for_euclid_dist"), reps),
-        "bound_ms": bms, "bound_by": by}
+        "bound_ms": bms, "bound_by": by,
+        # whether the fp32 pipes run at the clock of the 67 TFLOP/s peak
+        "clock_and_power_under_load": smi_under_load(
+            torch, lambda: P.pairwise(pay, pay, "dist"), 5)}
     # the 'dot' mode of the similarity rules at the same shape, beside
     # one batched torch.matmul (reported, not in the kernels line: the
     # main path's mode is 'dist')
@@ -2059,9 +2099,14 @@ def phase_timing_coverage(torch, words, cfg, pools, reps):
 # streaming: the sieve filter (B6) and the int8-ground gains (B2q)
 # ---------------------------------------------------------------------------
 
-# the k-medoid stream's evaluation set: drawn from the stream with the
-# seed, so a level's (N,) f32 row fits one block's shared memory
+# the evaluation set of the int8 k-medoid stream and of the stream
+# filter's parity and timing at the shared-memory tier: drawn from the
+# stream with the seed, so a level's (N,) f32 row fits one block's shared
+# memory (the f32 stream evaluates against all n images, the global tier)
 STREAM_EVAL = 16_384
+# the bitmap global tier's parity shape: 8,192 words (262,144 items), W
+# beyond the ~6,400 whose 8 level rows fit a block's shared memory
+GLOBAL_WORDS = 8_192
 STREAM_EPS = 0.1
 # arrivals a batch: at the k-medoid stream's 16,384 evaluation rows the
 # batch's (N, B) f32 slab is 16.8 MB, within the half of the 50 MB L2
@@ -2279,6 +2324,100 @@ def phase_parity_stream(torch, x, cfg, pools):
     return errs, (ground, timing_state, spare, slots)
 
 
+def phase_parity_stream_global(torch, x, cfg, k_bits: int):
+    """B6's global-memory tier at the shapes that need it. Feature rules:
+    the f32 k-medoid stream against all n images (72 levels × 100,000
+    evaluation rows × 256 arrivals × 12,288: a level's row is 400 KB,
+    beyond a block's shared memory), three chained batches fed the plain
+    version's state, the slab by the float64 pairwise rule and the
+    decisions by parity.compare_stream. Bitmaps: GLOBAL_WORDS = 8,192
+    words (262,144 items, random sparse sets), k = `k_bits`, three
+    chained batches, every output bit for bit against the plain
+    version. Returns each variant's largest measured |kernel − plain|
+    and, for timing_stream, both states three batches in with a fourth
+    batch each."""
+    from repro_torch.kernels import counters, parity, plans
+    from repro_torch.kernels import ref as TRef
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+    from repro_torch.streaming import num_levels
+    k, b = cfg.k, STREAM_BATCH
+    eps_log = math.log1p(STREAM_EPS)
+    rule = R.DIST_MIN
+    levels = num_levels(k, STREAM_EPS)
+    n, d = x.shape
+    dev = x.device
+    assert plans.stream_tier(n, b, rule) == "global"
+    row0 = R.empty_row(x[None], torch.ones(1, n, dtype=torch.bool,
+                                           device=dev), rule)[0].contiguous()
+    st = _stream_state(torch, rule, levels, row0, False)
+    batches = _stream_batches(torch, x, 4, b, cfg.seed + 1)
+    res, errs = [], {"stream_filter": 0.0, "stream_filter[coverage]": 0.0}
+    counters.reset()
+    for _, pay, valid, _ in batches[:3]:
+        arr, bv = pay[None], valid[None]
+        mat_k = torch.empty(1, b, n, device=dev)
+        got = TS.stream_filter(x, arr, *st[:6], bv, k, eps_log, rule,
+                               scratch=mat_k)
+        plain = TS.stream_filter_plain(x, arr, *st[:6], bv, k, eps_log,
+                                       rule)
+        mat_p = TRef.pairwise(x, arr, rule)
+        mstats = parity.compare_pairwise(
+            mat_k.transpose(1, 2), mat_p, x[None], arr, rule.pairwise,
+            what="stream_filter slab, global tier")
+        cmp = parity.compare_stream(got, plain, mat_k, mat_p,
+                                    st[:6] + (None,), bv, k, eps_log, rule,
+                                    what="stream_filter, global tier")
+        cmp["slab_rms_ratio"] = mstats["rms_ratio"]
+        res.append(cmp)
+        errs["stream_filter"] = max(errs["stream_filter"],
+                                    cmp["max_value_err"], cmp["max_row_err"],
+                                    cmp["max_m_err"])
+        st = _next_state(plain, row0, False)
+        del got, plain, mat_k, mat_p
+    assert counters.snapshot()["stream_filter"]["launches"] == 3
+    # bitmaps beyond 8 level rows a block
+    w, brule = GLOBAL_WORDS, R.BITS_OR
+    blevels = num_levels(k_bits, STREAM_EPS)
+    assert plans.stream_tier(w, b, brule) == "global"
+    words = random_words(torch, (4 * b, w), cfg.seed + 5, dev)
+    brow0 = torch.zeros(w, dtype=R.WORD_DTYPE, device=dev)
+    bst = _stream_state(torch, brule, blevels, brow0, False)
+    ball = torch.ones(1, b, dtype=torch.bool, device=dev)
+    bits = {"entries": 0, "differing": 0, "admitted": 0}
+    counters.reset()
+    for i in range(3):
+        arr = words[i * b:(i + 1) * b][None]
+        got = TS.stream_filter(None, arr, *bst, ball, k_bits, eps_log, brule)
+        plain = TS.stream_filter_plain(None, arr, *bst, ball, k_bits,
+                                       eps_log, brule)
+        r = parity.compare_exact(got, plain,
+                                 "stream_filter[coverage], global tier")
+        bits["entries"] += r["entries"]
+        bits["differing"] += r["differing"]
+        bits["admitted"] += int(plain[3].sum())
+        errs["stream_filter[coverage]"] = max(
+            errs["stream_filter[coverage]"], r["max_abs_err"])
+        bst = _next_state(plain, brow0, False)
+    assert counters.snapshot()["stream_filter[coverage]"]["launches"] == 3
+    assert bits["admitted"] > 0
+    emit({"phase": "parity_stream_global", "tier": "global",
+          "kmedoid": {"shape": [1, levels, n, b, d], "k": k,
+                      "batches": len(res),
+                      "ties": sum(r["ties"] + r["window_ties"] for r in res),
+                      "decisions": sum(r["decisions"] for r in res),
+                      "admitted": sum(r["admitted"] for r in res),
+                      "max_value_err": max(r["max_value_err"] for r in res),
+                      "max_row_err": max(r["max_row_err"] for r in res),
+                      "max_m_err": max(r["max_m_err"] for r in res),
+                      "slab_rms_ratio": max(r["slab_rms_ratio"]
+                                            for r in res)},
+          "coverage": {"shape": [1, blevels, w, b], "k": k_bits,
+                       "batches": 3, "rule": "exact (bit for bit)",
+                       **bits}})
+    return errs, ((st, batches[3]), (bst, words[3 * b:][None], k_bits))
+
+
 def phase_reference_stream(torch, devices=("cuda", "cpu")):
     """Small-integer facility streams through the kernels against the
     same streams through the plain CPU path: every matrix entry and gain
@@ -2329,11 +2468,13 @@ def phase_reference_stream(torch, devices=("cuda", "cpu")):
           "launches": launched})
 
 
-def _stream_run(torch, name, data, cfg, k, ground=None, env=None):
+def _stream_run(torch, name, data, cfg, k, ground=None, env=None,
+                tier="kernel"):
     """stream_select(`name`) over all of `data` shuffled with the seed,
-    B = 256: wall, arrivals/s, the plan, the launches per variant
-    (asserted: one a batch on the kernel tier); every selected slot's
-    payload is its arrival's row of `data`."""
+    B = 256: wall, arrivals/s, the plan (asserted on `tier`), the
+    launches per variant (asserted: one stream filter and one slot update
+    a batch); every selected slot's payload is its arrival's row of
+    `data`."""
     from repro_torch.core.functions import make_objective
     from repro_torch.data.synthetic import Stream
     from repro_torch.kernels import counters
@@ -2344,7 +2485,7 @@ def _stream_run(torch, name, data, cfg, k, ground=None, env=None):
     n_batches = -(-data.shape[0] // b)
     with _env(**(env or {})):
         plan = SieveStreamer(obj, k, STREAM_EPS, ground=ground).plan(b)
-        assert plan["tier"] == "kernel", plan
+        assert plan["tier"] == tier, plan
         counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2371,33 +2512,39 @@ def _stream_run(torch, name, data, cfg, k, ground=None, env=None):
 
 
 def phase_stream_kmedoid(torch, x, cfg, ground, root_ids, dtype="float32",
-                         f32_value=None):
+                         f32_ratio=None):
     """stream_select('kmedoid') over all 100,000 images, shuffled with the
-    seed, against the 16,384-image evaluation set: k = 200, ε = 0.1 (L =
-    72), B = 256 (391 batches, one stream_filter launch each). The
-    stream's ids and the `run` tree root's ids scored on the evaluation
-    set (global_value); the stream must reach (½ − ε) of the root's
-    value, which is at most OPT there (both scored by replay_value: the
-    objective's own value on that set). With dtype 'int8' the rung is
-    forced: stream_filter[int8] launches, the value beside `f32_value`,
-    the f32 stream's."""
-    env = _rung_env(dtype) if dtype == "int8" else None
+    seed: k = 200, ε = 0.1 (L = 72), B = 256 (391 batches, one
+    stream_filter and one scatter_slots launch each). f32 evaluates
+    against the whole stream (`ground` is x itself, the reference
+    launcher's choice): the plan's 'global' tier, a level's 400 KB row
+    in device memory. With dtype 'int8' the rung is forced against the
+    16,384-image evaluation set (`ground`), on the shared-memory tier:
+    stream_filter[int8] launches. The stream's ids and the `run` tree
+    root's ids scored on the evaluation set (replay_value: the
+    objective's own value on that set); the stream must reach (½ − ε)
+    of the root's value, which is at most OPT there. The int8 run
+    reports its ratio to the root beside `f32_ratio`, the f32 stream's
+    on its own set."""
+    int8 = dtype == "int8"
     _, ids, rep = _stream_run(torch, "kmedoid", x, cfg, cfg.k,
-                              ground=ground, env=env)
+                              ground=ground,
+                              env=_rung_env(dtype) if int8 else None,
+                              tier="kernel" if int8 else "global")
     t0 = time.perf_counter()
     gv = _value_on(torch, ground, x, ids)
     root_gv = _value_on(torch, ground, x, root_ids)
     assert gv >= (0.5 - STREAM_EPS) * root_gv, (gv, root_gv)
-    phase = "stream_kmedoid" + ("_int8" if dtype == "int8" else "")
-    emit({"phase": phase, "eval_set": int(ground.shape[0]),
+    emit({"phase": "stream_kmedoid" + ("_int8" if int8 else ""),
+          "eval_set": int(ground.shape[0]),
+          "eval_set_is_the_stream": ground is x,
           "d": int(x.shape[1]), **rep, "global_value_eval": gv,
           "root_global_value_eval": root_gv,
           "ratio_to_root": gv / root_gv,
-          **({} if f32_value is None else {
-              "f32_global_value_eval": f32_value,
-              "rel_diff_to_f32": (gv - f32_value) / f32_value}),
+          **({} if f32_ratio is None else {
+              "f32_ratio_to_root_whole_stream": f32_ratio}),
           "global_value_seconds": time.perf_counter() - t0})
-    return rep["launches"], gv
+    return rep["launches"], gv / root_gv
 
 
 def _value_on(torch, ground, x, ids) -> float:
@@ -2454,15 +2601,19 @@ def _b6_bound(n, b, d, levels, decisions, admitted, itemsize=4.0):
     return bound(flops, nbytes)
 
 
-def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps):
-    """B6 f32 and int8 per batch at the k-medoid stream's shape (a fourth
-    batch against the state three batches in, so the window and the
-    levels are live), the slot update that follows it (scatter_slots
-    into the (1, 72, 200, 12,288) slots three batches in), and B2q at
-    the stochastic leaf shape, each beside its bound (the work this
-    batch's data needs: its live decisions, its admitted rows, counted
-    along the plain version's path), its plain version and nothing a
-    single library call computes."""
+def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps,
+                        global_inputs):
+    """B6 f32 and int8 per batch at the shared-memory tier's shape (16,384
+    evaluation rows; a fourth batch against the state three batches in,
+    so the window and the levels are live), the slot update that follows
+    it (scatter_slots into the (1, 72, 200, 12,288) slots three batches
+    in), and B2q at the stochastic leaf shape; then the global-memory
+    tier: B6 f32 at the whole-stream shape (100,000 evaluation rows) and
+    on bitmaps at 8,192 words, from parity_stream_global's states. Each
+    beside its bound (the work this batch's data needs: its live
+    decisions, its admitted rows, counted along the plain version's
+    path), its plain version and nothing a single library call
+    computes."""
     from repro_torch.core.greedyml import LaneSampler
     from repro_torch.kernels import ops, parity
     from repro_torch.kernels import pairwise as P
@@ -2547,7 +2698,58 @@ def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps):
         "plain_ms": cuda_ms(torch, lambda: P.gains_plain(
             gq, row, cands, cv, rule, gs), reps),
         "library_ms": None, "bound_ms": bms, "bound_by": by}
+    del gq, gs, row, cands
+    out.update(_timing_stream_global(torch, x, cfg, global_inputs, reps))
     emit({"phase": "timing_stream", **out})
+    return out
+
+
+def _timing_stream_global(torch, x, cfg, global_inputs, reps):
+    """The global-memory tier's rows of timing_stream: B6 f32 per batch
+    against all n evaluation rows (and with every arrival invalid: the
+    slab, singletons and window alone), and on bitmaps at 8,192 words."""
+    from repro_torch.kernels import parity, plans
+    from repro_torch.kernels import ref as TRef
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+    (st, (_, pay, valid, _)), (bst, barr, k_bits) = global_inputs
+    rule, k, eps_log = R.DIST_MIN, cfg.k, math.log1p(STREAM_EPS)
+    n, d = x.shape
+    levels, b = st[0].shape[1], pay.shape[0]
+    assert plans.stream_tier(n, b, rule) == "global"
+    arr, bv = pay[None], valid[None]
+    plain = TS.stream_filter_plain(x, arr, *st[:6], bv, k, eps_log, rule)
+    mat_k = torch.empty(1, b, n, device=x.device)
+    got = TS.stream_filter(x, arr, *st[:6], bv, k, eps_log, rule,
+                           scratch=mat_k)
+    cmp = parity.compare_stream(got, plain, mat_k,
+                                TRef.pairwise(x, arr, rule),
+                                st[:6] + (None,), bv, k, eps_log, rule,
+                                what="stream_filter, global tier")
+    del got, plain, mat_k
+    bms, by = _b6_bound(n, b, d, levels, cmp["decisions"], cmp["admitted"])
+    out = {"stream_filter_global": {
+        "tier": "global", "shape": [1, levels, n, b, d],
+        "decisions": cmp["decisions"], "admitted": cmp["admitted"],
+        "ms": cuda_ms(torch, lambda: TS.stream_filter(
+            x, arr, *st[:6], bv, k, eps_log, rule), reps),
+        "no_live_decision_ms": cuda_ms(torch, lambda: TS.stream_filter(
+            x, arr, *st[:6], torch.zeros_like(bv), k, eps_log, rule), reps),
+        "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
+            x, arr, *st[:6], bv, k, eps_log, rule), 1),
+        "library_ms": None, "bound_ms": bms, "bound_by": by}}
+    blevels, w = bst[0].shape[1], barr.shape[2]
+    assert plans.stream_tier(w, b, R.BITS_OR) == "global"
+    ball = torch.ones(1, b, dtype=torch.bool, device=x.device)
+    nbytes = 4.0 * (b * w + 2 * blevels * w + 2 * blevels) + blevels * b + b
+    out["stream_filter[coverage]_global"] = {
+        "tier": "global", "shape": [1, blevels, w, b],
+        "ms": cuda_ms(torch, lambda: TS.stream_filter(
+            None, barr, *bst, ball, k_bits, eps_log, R.BITS_OR), 20 * reps),
+        "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
+            None, barr, *bst, ball, k_bits, eps_log, R.BITS_OR), 1),
+        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes"}
     return out
 
 
@@ -2832,6 +3034,8 @@ def main(argv=None) -> int:
     errs.update(phase_parity_quant(torch, x, cfg, pools))
     stream_errs, stream_inputs = phase_parity_stream(torch, x, cfg, pools)
     errs.update(stream_errs)
+    global_errs, global_inputs = phase_parity_stream_global(torch, x, cfg,
+                                                            KOSARAK.k)
     phase_reference(torch)
     phase_reference_dispatch(torch)
     phase_reference_stream(torch)
@@ -2844,18 +3048,18 @@ def main(argv=None) -> int:
         _add(launches, phase_knapsack_quant(torch, x, cfg, pools, dtype))
     launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
     _add(launches, phase_stochastic_int8(torch, x, cfg, pools))
-    stream_launches, stream_value = phase_stream_kmedoid(
-        torch, x, cfg, stream_inputs[0], f32_run[0])
+    stream_launches, stream_ratio = phase_stream_kmedoid(
+        torch, x, cfg, x, f32_run[0])
     _add(launches, stream_launches)
     _add(launches, phase_stream_kmedoid(torch, x, cfg, stream_inputs[0],
-                                        f32_run[0], "int8", stream_value)[0])
+                                        f32_run[0], "int8", stream_ratio)[0])
     times = phase_timing(torch, x, cfg, cfg.seed, args.reps)
     times.update(phase_timing_steps(torch, x, cfg, pools, args.reps))
     times.update(phase_timing_quant(torch, x, cfg, pools, args.reps))
     times.update(phase_timing_stream(torch, x, cfg, pools, stream_inputs,
-                                     args.reps))
+                                     args.reps, global_inputs))
     # the coverage problems: the k-medoid tensors go first
-    del x, pools, stream_inputs
+    del x, pools, stream_inputs, global_inputs
     gc.collect()
     torch.cuda.empty_cache()
     kc = KOSARAK
@@ -2881,7 +3085,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _, kdom_errs = phase_kdom_run(torch, KDOM, dev)
-    for name, err in kdom_errs.items():
+    for name, err in [*kdom_errs.items(), *global_errs.items()]:
         errs[name] = max(errs[name], err)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

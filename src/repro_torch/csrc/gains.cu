@@ -20,7 +20,7 @@
 // revisited output block in order. Here every (64 ground rows x 64
 // candidates) tile is its own block - grid (C/64, N/64, B), so even 72
 // candidates spread over the whole card instead of one block per
-// candidate column - built with the pairwise kernel's fp32 tile
+// candidate column - built with the resident build's 64x64 fp32 tile
 // (pairwise_tile.cuh, float64 norms). The epilogue turns the tile's
 // registers into f32 gain parts against the tile's 64 state-row entries
 // and sums them over the tile's rows in float64 (4 rows per thread, then

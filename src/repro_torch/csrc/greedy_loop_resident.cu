@@ -18,8 +18,9 @@
 // a 400x400 f32 matrix (640 KB) does not fit one block's 227 KB of
 // shared memory. So the launch is cooperative and has two phases. Phase
 // 1 spreads the B*(N/64)*(C/64) matrix tiles over every block on the
-// card (the same fp32 tile code as the pairwise kernel, so the entries
-// are the pairwise kernel's) and writes them to a wrapper-allocated
+// card (pairwise_tile.cuh's fp32 tile; the pairwise kernel computes
+// every entry with the same arithmetic, so the entries are the pairwise
+// kernel's bit for bit) and writes them to a wrapper-allocated
 // scratch of B*N*C floats, which the planner admits only when it fits
 // the L2 share (10 MB at level 1). One grid barrier later, phase 2 gives
 // each node one block that keeps the node's whole state row and mask in

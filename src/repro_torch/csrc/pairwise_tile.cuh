@@ -1,11 +1,15 @@
 // One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
 //
-// Shared by the pairwise kernel (pairwise.cu), the build phase of the
-// resident loop kernel (greedy_loop_resident.cu), the per-step gains
-// kernel (gains.cu) and the build phase of the stream filter
-// (stream_filter.cu), so all produce the same entries from the same
-// inputs: `rt_tile` accumulates a tile and hands its registers to an
-// epilogue; `rt_pairwise_tile` is the epilogue that stores the entries.
+// Shared by the build phase of the resident loop kernel
+// (greedy_loop_resident.cu), the per-step gains kernel (gains.cu) and the
+// build phase of the stream filter (stream_filter.cu): `rt_tile`
+// accumulates a tile and hands its registers to an epilogue;
+// `rt_pairwise_tile` is the epilogue that stores the entries (the
+// resident build). The pairwise kernel (pairwise.cu) has a larger tile
+// of its own, built for the H100's fp32 pipes, with the same arithmetic
+// per entry: one f32 fmaf chain over ascending features, the float64
+// norms below and `rt_entry_value`, so its entries equal this tile's
+// bit for bit.
 // 256 threads; each owns a 4x4 register micro-tile. The feature axis is
 // walked in slices of 16: both operand slices are staged in shared
 // memory (k-major, rows padded to 68 floats so the transposing stores do
@@ -55,12 +59,20 @@ struct RtTileSmem {
   float gs[RT_TILE];           // int8 ground: the tile rows' scales
 };
 
+// A matrix entry from its accumulated dot product v and, for 'dist', the
+// f32 squared norms of its ground row (gn) and candidate row (cn). 2*v is
+// exact, so whether nvcc contracts the subtraction into an FMA does not
+// change the result.
+__device__ __forceinline__ float rt_entry_value(float gn, float cn, float v,
+                                                int mode) {
+  return mode == RT_MODE_DIST ? sqrtf(fmaxf(gn + cn - 2.f * v, 0.f)) : v;
+}
+
 // The entry of tile row i, tile column j from its accumulated dot product
 // v (after rt_tile has filled s.gn / s.cn for 'dist').
 __device__ __forceinline__ float rt_tile_entry(const RtTileSmem& s, float v,
                                               int i, int j, int mode) {
-  return mode == RT_MODE_DIST ? sqrtf(fmaxf(s.gn[i] + s.cn[j] - 2.f * v, 0.f))
-                              : v;
+  return rt_entry_value(s.gn[i], s.cn[j], v, mode);
 }
 
 // G: (N, D) ground rows (f32, or int8 with `gscale` (N,) row scales),

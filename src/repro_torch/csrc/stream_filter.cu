@@ -36,7 +36,7 @@
 // the same entries, so the row needs no further barrier. The matrix is
 // shared by all levels, so the launch is cooperative, in two phases:
 // phase 1 spreads the (N/64) x (B/64) tiles of every arrival set over
-// all blocks of the card with the pairwise kernel's fp32 tile
+// all blocks of the card with the resident build's 64x64 fp32 tile
 // (pairwise_tile.cuh, float64 norms; its dot products summed in two
 // levels of f32, 256 features a partial, as the plain version's cuBLAS
 // product splits its long sums), stores the slab arrival-major
@@ -48,13 +48,29 @@
 // widened as the tile stages them (rt_entry), so that variant equals
 // this kernel on the dequantized ground bit for bit.
 //
+// The global-memory tier. A level's row lives in shared memory only
+// while it fits a block beside the build's static scratch (N up to ~54,000
+// f32 rows; plans.stream_smem_bytes is the gate). Beyond it (the reference
+// launcher's whole-stream evaluation set: N = 100,000, a 400 KB row) the
+// same kernel, instantiated with GROWS, keeps each level's row in its own
+// row of the output state (G, L, N) in device memory: the block copies the
+// row in, and each thread reads (through L2, __ldcg) and writes only the
+// entries it owns, as on chip, so no barrier is added and the outputs
+// equal the shared-memory tier's bit for bit. It launches with no dynamic
+// shared memory, so more blocks share an SM during the build. The slab
+// (A, B, N) no longer fits L2 there (102 MB a batch at N = 100,000); it
+// is still the wrapper's torch.empty scratch.
+//
 // Bitmaps need no build and no grid barrier: the arrivals' words are
 // read in place; a block takes 8 levels of one sieve, its 8 warps first
 // count every arrival's singleton gain (popcounts against row0, exact),
 // then each warp walks the arrivals for its level with the level's
 // words in shared memory (5 KB at kosarak's W = 1,290): gains are exact
 // integer popcount sums (rt_warp_bits_gain), so kernel and plain version
-// agree bit for bit.
+// agree bit for bit. Their global-memory tier (beyond 8 level rows, row0
+// and the B gains in a block: W above ~6,400 words at B = 256) keeps each
+// warp's level words in its row of the output state and reads row0 in
+// place; only the B singleton gains stay in shared memory.
 //
 // Rounding. The window exponent ceil(log(m) / eps_log) and the grid value
 // exp(expo * eps_log) use logf/expf (built without --use_fast_math, as the
@@ -159,7 +175,12 @@ struct RtStreamArgs {
   RtRule rule;
 };
 
-template <class TG, bool COST>
+// GROWS: the global-memory tier. A level block keeps its state row in
+// its own row of rows_out (device memory, read through L2 by __ldcg)
+// instead of dynamic shared memory; each entry is still read and written
+// only by the thread that owns it, so the arithmetic, its order and the
+// barriers are the shared-memory tier's, and the outputs equal bit for bit.
+template <class TG, bool COST, bool GROWS>
 __global__ void __launch_bounds__(RT_THREADS)
     rt_stream_filter_kernel(const TG* __restrict__ ground,
                             const float* __restrict__ gscale,
@@ -170,7 +191,7 @@ __global__ void __launch_bounds__(RT_THREADS)
   __shared__ double wsum[2][RT_WARPS];
   __shared__ float r0[RT_TILE];
   __shared__ float smax[RT_WARPS];
-  extern __shared__ float rows[];  // (N,) the level's state row
+  extern __shared__ float srow[];  // (N,) the level's state row (!GROWS)
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -244,6 +265,13 @@ __global__ void __launch_bounds__(RT_THREADS)
                                     m_new, p.eps_log);
     const size_t gl = (size_t)g * L + l;
     const float* rin = an.expired ? p.row0 : p.rows_in + gl * N;
+    float* rows = GROWS ? p.rows_out + gl * N : srow;
+    auto row_at = [&](int n) -> float {
+      if constexpr (GROWS)
+        return __ldcg(rows + n);
+      else
+        return rows[n];
+    };
     for (int n = t; n < N; n += blockDim.x) rows[n] = rin[n];
     float f = an.expired ? 0.f : p.values_in[gl];
     int c = an.expired ? 0 : p.counts_in[gl];
@@ -267,7 +295,7 @@ __global__ void __launch_bounds__(RT_THREADS)
         const float* col = M + (size_t)b * N;
         double acc = 0.0;
         for (int n = t; n < N; n += blockDim.x)
-          acc += (double)rt_gain_part(rows[n], __ldcg(&col[n]), p.rule);
+          acc += (double)rt_gain_part(row_at(n), __ldcg(&col[n]), p.rule);
         for (int off = 16; off > 0; off >>= 1)
           acc += __shfl_down_sync(0xffffffffu, acc, off);
         if (lane == 0) wsum[buf][warp] = acc;
@@ -279,7 +307,7 @@ __global__ void __launch_bounds__(RT_THREADS)
         admit = rt_sieve_admit<COST>(gain, an.vgrid, f, c, p.k, cost, room);
         if (admit) {
           for (int n = t; n < N; n += blockDim.x)
-            rows[n] = rt_fold(rows[n], __ldcg(&col[n]), p.rule);
+            rows[n] = rt_fold(row_at(n), __ldcg(&col[n]), p.rule);
           f = __fadd_rn(f, gain);
           c += 1;
           if constexpr (COST) spent = __fadd_rn(spent, cost);
@@ -287,7 +315,9 @@ __global__ void __launch_bounds__(RT_THREADS)
       }
       if (t == 0) p.admits[gl * B + b] = admit;
     }
-    for (int n = t; n < N; n += blockDim.x) p.rows_out[gl * N + n] = rows[n];
+    if constexpr (!GROWS)
+      for (int n = t; n < N; n += blockDim.x)
+        p.rows_out[gl * N + n] = rows[n];
     if (t == 0) {
       p.values_out[gl] = f;
       p.counts_out[gl] = c;
@@ -301,27 +331,36 @@ __global__ void __launch_bounds__(RT_THREADS)
 }
 
 template <class TG, bool COST>
-static void* rt_stream_kernel_ptr() {
-  return (void*)rt_stream_filter_kernel<TG, COST>;
+static void* rt_stream_kernel_ptr(int global_rows) {
+  return global_rows ? (void*)rt_stream_filter_kernel<TG, COST, true>
+                     : (void*)rt_stream_filter_kernel<TG, COST, false>;
 }
 
-static void* rt_stream_kernel_for(int storage, int cost_mode) {
+static void* rt_stream_kernel_for(int storage, int cost_mode,
+                                  int global_rows) {
   if (storage == RT_STORE_INT8)
-    return cost_mode ? rt_stream_kernel_ptr<int8_t, true>()
-                     : rt_stream_kernel_ptr<int8_t, false>();
+    return cost_mode ? rt_stream_kernel_ptr<int8_t, true>(global_rows)
+                     : rt_stream_kernel_ptr<int8_t, false>(global_rows);
   if (storage == RT_STORE_F32)
-    return cost_mode ? rt_stream_kernel_ptr<float, true>()
-                     : rt_stream_kernel_ptr<float, false>();
+    return cost_mode ? rt_stream_kernel_ptr<float, true>(global_rows)
+                     : rt_stream_kernel_ptr<float, false>(global_rows);
   return nullptr;
 }
 
-// Blocks of the (storage, cost_mode) kernel an SM holds at `smem_bytes`
-// of dynamic shared memory, and the SM count.
+// The dynamic shared memory of a feature block: the level's (N,) row on
+// the shared-memory tier, none on the global tier.
+static int rt_stream_smem(int N, int global_rows) {
+  return global_rows ? 0 : N * (int)sizeof(float);
+}
+
+// Blocks of the (storage, cost_mode, tier) kernel an SM holds with its
+// dynamic shared memory for N rows, and the SM count.
 extern "C" int rt_stream_filter_occupancy(int storage, int cost_mode,
-                                          int smem_bytes, int* blocks_per_sm,
-                                          int* sms) {
-  void* fn = rt_stream_kernel_for(storage, cost_mode);
+                                          int global_rows, int N,
+                                          int* blocks_per_sm, int* sms) {
+  void* fn = rt_stream_kernel_for(storage, cost_mode, global_rows);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = rt_stream_smem(N, global_rows);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -340,8 +379,9 @@ extern "C" int rt_stream_filter_occupancy(int storage, int cost_mode,
 // int32, m (G,); arrivals (A, B, D) with A = 1 (shared by all sieves)
 // or A = G; bvalid (A, B) 0/1 bytes; costs (A, B) and spent (G, L) in
 // cost mode (null otherwise). mat (A, B, N) f32 and partials (A,
-// ceil(N/64), B) float64 scratch. grid: blocks to launch, all
-// co-resident. Returns the cudaError_t.
+// ceil(N/64), B) float64 scratch. global_rows: the global-memory tier
+// (the level rows live in rows_out, which may be rows_in itself). grid:
+// blocks to launch, all co-resident. Returns the cudaError_t.
 extern "C" int rt_stream_filter(
     const void* ground, const float* gscale, const float* arrivals,
     const float* row0, const float* rows_in, const float* values_in,
@@ -352,9 +392,9 @@ extern "C" int rt_stream_filter(
     unsigned char* expired, float* spent_out, int G, int L, int N, int B,
     int A, int D, int k, int mode, int storage, int fold, float cap,
     float lam, float lam1, float eps_log, int cost_mode, float budget,
-    int grid, void* stream) {
+    int global_rows, int grid, void* stream) {
   if (G == 0 || L == 0) return 0;
-  void* fn = rt_stream_kernel_for(storage, cost_mode);
+  void* fn = rt_stream_kernel_for(storage, cost_mode, global_rows);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   RtStreamArgs p{arrivals, row0,    rows_in,   values_in,  counts_in,
                  expos_in, m_in,    bvalid,    costs,      spent_in,
@@ -363,7 +403,7 @@ extern "C" int rt_stream_filter(
                  G,        L,       N,         B,          A,
                  D,        k,       mode,      eps_log,    budget,
                  RtRule{fold, cap, lam, lam1}};
-  const int smem = N * (int)sizeof(float);
+  const int smem = rt_stream_smem(N, global_rows);
   cudaError_t e =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
@@ -404,8 +444,10 @@ struct RtStreamBitsArgs {
 
 // grid (ceil(L / 8), G): block (x, g) runs levels 8x .. 8x + 7 of sieve
 // g, a warp each. Dynamic shared memory: 8 level rows and row0 (W words
-// each) and the B singleton gains.
-template <bool COST>
+// each) and the B singleton gains; on the global-memory tier (GROWS) the
+// B gains only: each warp keeps its level's words in its row of rows_out
+// (every word read and written by one lane) and row0 is read in place.
+template <bool COST, bool GROWS>
 __global__ void __launch_bounds__(RT_THREADS)
     rt_stream_filter_bits_kernel(RtStreamBitsArgs p) {
   extern __shared__ unsigned sbits[];
@@ -417,7 +459,16 @@ __global__ void __launch_bounds__(RT_THREADS)
   unsigned* r0 = sbits;                                  // (W,)
   float* single = (float*)(sbits + W);                   // (B,)
   unsigned* row = sbits + W + B + (size_t)warp * W;      // (W,)
-  for (int w = threadIdx.x; w < W; w += blockDim.x) r0[w] = p.row0[w];
+  // The shared-memory tier's statements are kept as they were before the
+  // global tier existed: with the pointers chosen by GROWS elsewhere, nvcc
+  // scheduled the decision loop's loads worse (1.08 against 0.73 ms a
+  // kosarak batch on an H100 SXM, chip_smoke.py's timing_stream_coverage).
+  if constexpr (GROWS) {
+    r0 = const_cast<unsigned*>(p.row0);
+    single = (float*)sbits;
+  } else {
+    for (int w = threadIdx.x; w < W; w += blockDim.x) r0[w] = p.row0[w];
+  }
   __syncthreads();
   const unsigned* arr = p.arrivals + (size_t)a * B * W;
   for (int b = warp; b < B; b += RT_WARPS) {
@@ -435,6 +486,7 @@ __global__ void __launch_bounds__(RT_THREADS)
                                   m_new, p.eps_log);
   const size_t gl = (size_t)g * L + l;
   const unsigned* rin = an.expired ? r0 : p.rows_in + gl * W;
+  if constexpr (GROWS) row = p.rows_out + gl * W;
   for (int w = lane; w < W; w += 32) row[w] = rin[w];
   __syncwarp();
   float f = an.expired ? 0.f : p.values_in[gl];
@@ -465,8 +517,10 @@ __global__ void __launch_bounds__(RT_THREADS)
     }
     if (lane == 0) p.admits[gl * B + b] = admit;
   }
-  __syncwarp();
-  for (int w = lane; w < W; w += 32) p.rows_out[gl * W + w] = row[w];
+  if constexpr (!GROWS) {
+    __syncwarp();
+    for (int w = lane; w < W; w += 32) p.rows_out[gl * W + w] = row[w];
+  }
   if (lane == 0) {
     p.values_out[gl] = f;
     p.counts_out[gl] = c;
@@ -478,8 +532,8 @@ __global__ void __launch_bounds__(RT_THREADS)
 }
 
 // Bitmap state: rows (G, L, W) words, arrivals (A, B, W) words read in
-// place (A = 1 or G), the rest as rt_stream_filter. Returns the
-// cudaError_t.
+// place (A = 1 or G), the rest as rt_stream_filter (global_rows: the
+// global-memory tier). Returns the cudaError_t.
 extern "C" int rt_stream_filter_bits(
     const unsigned* arrivals, const unsigned* row0, const unsigned* rows_in,
     const float* values_in, const int* counts_in, const int* expos_in,
@@ -487,7 +541,8 @@ extern "C" int rt_stream_filter_bits(
     const float* spent_in, unsigned* rows_out, float* values_out,
     int* counts_out, unsigned char* admits, int* expos_out, float* m_out,
     unsigned char* expired, float* spent_out, int G, int L, int W, int B,
-    int A, int k, float eps_log, int cost_mode, float budget, void* stream) {
+    int A, int k, float eps_log, int cost_mode, float budget,
+    int global_rows, void* stream) {
   if (G == 0 || L == 0) return 0;
   RtStreamBitsArgs p{arrivals,  row0,       rows_in,  values_in, counts_in,
                      expos_in,  m_in,       bvalid,   costs,     spent_in,
@@ -495,19 +550,23 @@ extern "C" int rt_stream_filter_bits(
                      m_out,     expired,    spent_out, G,        L,
                      W,         B,          A,        k,         eps_log,
                      budget};
-  const int smem = (int)sizeof(unsigned) * ((RT_WARPS + 1) * W + B);
-  void* fn = cost_mode ? (void*)rt_stream_filter_bits_kernel<true>
-                       : (void*)rt_stream_filter_bits_kernel<false>;
+  const int smem =
+      (int)sizeof(unsigned) * (global_rows ? B : (RT_WARPS + 1) * W + B);
+  void* fn;
+  if (global_rows)
+    fn = cost_mode ? (void*)rt_stream_filter_bits_kernel<true, true>
+                   : (void*)rt_stream_filter_bits_kernel<false, true>;
+  else
+    fn = cost_mode ? (void*)rt_stream_filter_bits_kernel<true, false>
+                   : (void*)rt_stream_filter_bits_kernel<false, false>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + RT_WARPS - 1) / RT_WARPS, G);
-  if (cost_mode)
-    rt_stream_filter_bits_kernel<true>
-        <<<grid, RT_THREADS, (size_t)smem, (cudaStream_t)stream>>>(p);
-  else
-    rt_stream_filter_bits_kernel<false>
-        <<<grid, RT_THREADS, (size_t)smem, (cudaStream_t)stream>>>(p);
+  void* args[] = {(void*)&p};
+  e = cudaLaunchKernel(fn, grid, dim3(RT_THREADS), args, (size_t)smem,
+                       (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -228,21 +228,18 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
     (G,) when stacked; batch/bvalid/costs may carry the same leading G
     (one batch a sieve) or not (the same batch for all). row0 (N,).
     stream_plan decides the ground's storage: 'int8' stores it
-    per-row-quantized (quantized here unless ``gscale`` is given). A
-    level state too large for a block's shared memory (the plan's
-    'plain' tier) raises on the card. ``costs`` (…, B) / ``spent`` (…, L) /
-    ``budget`` switch admission to the knapsack rule. Returns (rows,
-    values, counts, admits (…, L, B) bool, expos, m_new, expired bool)
-    [+ spent], shaped as the state came."""
+    per-row-quantized (quantized here unless ``gscale`` is given). On
+    the card a level state too large for a block's shared memory runs
+    the kernel's global-memory tier (the plan's 'global'); only what no
+    kernel takes (bf16 ground, an unknown fold) raises. ``costs`` (…,
+    B) / ``spent`` (…, L) / ``budget`` switch admission to the knapsack
+    rule. Returns (rows, values, counts, admits (…, L, B) bool, expos,
+    m_new, expired bool) [+ spent], shaped as the state came."""
     stacked = rows.dim() == 3
     n = rows.shape[-1]
     b = batch.shape[-2]
     d = None if rule.is_bitmap else ground.shape[-1]
     plan = stream_plan(n, b, d, rule)
-    if batch.is_cuda and plan["tier"] != "kernel":
-        raise NotImplementedError(
-            f"stream_filter: a level's state over {n} ground rows exceeds "
-            "a block's shared memory; the CUDA kernel keeps it on chip")
     if not rule.is_bitmap:
         if plan["dtype"] == "int8" and gscale is None:
             ground, gscale = quantize_ground(ground)

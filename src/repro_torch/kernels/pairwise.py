@@ -3,10 +3,12 @@ wrappers and plain versions. One launch serves every greedy of a level.
 
   pairwise  (answers `pairwise_pallas`) (B, N, D) ground × (B, C, D)
             candidates → (B, N, C) f32 or bf16, 'dot' ⟨g, c⟩ or 'dist'
-            √max(‖g‖²+‖c‖²−2⟨g,c⟩, 0): csrc/pairwise.cu (fp32 FMA
-            tiles, no TF32, norms computed in the kernel, ragged edges
-            masked; the bf16 output rounds each f32 entry to nearest
-            even, counted as `pairwise[bf16]`).
+            √max(‖g‖²+‖c‖²−2⟨g,c⟩, 0): csrc/pairwise.cu (128×128 fp32
+            FMA tiles, no TF32; for 'dist' a float64 norm pass first,
+            into a scratch the wrapper allocates; ragged edges masked;
+            entries equal to the resident build's bit for bit; the bf16
+            output rounds each f32 entry to nearest even, counted as
+            `pairwise[bf16]`).
   gains     (answers `gains_pallas`) the step engine's uncached gains:
             Σ_n part(row_n, M_nc) per candidate, (B, C) f32, −inf at
             invalid candidates: csrc/gains.cu (the same tiles with a
@@ -116,7 +118,7 @@ def _lib():
     lib = build.load("pairwise")
     fn = lib.rt_pairwise
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     return lib
 
@@ -152,11 +154,15 @@ def pairwise(ground, cands, mode: str, out_dtype=F32):
     out = torch.empty((b, n, c), dtype=out_dtype, device=ground.device)
     if b * n * c == 0:
         return out
+    # 'dist': the rows' f32 squared norms, ground's then the candidates'
+    norms = (torch.empty(b * (n + c), dtype=F32, device=ground.device)
+             if mode == "dist" else None)
     lib = _lib()
     stream = torch.cuda.current_stream(ground.device).cuda_stream
     err = lib.rt_pairwise(ground.data_ptr(), cands.data_ptr(),
-                          out.data_ptr(), b, n, c, d, MODES[mode],
-                          STORAGES[out_dtype], stream)
+                          out.data_ptr(),
+                          None if norms is None else norms.data_ptr(), b, n,
+                          c, d, MODES[mode], STORAGES[out_dtype], stream)
     build.check(lib, err, "pairwise kernel")
     counter.launches += 1
     return out

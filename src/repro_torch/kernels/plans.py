@@ -58,10 +58,11 @@ up to ≈56,000 candidates: m = 32 (≈30,938 each) streams, m = 8
 The stream filter (`stream_plan`) has its own gate: each block of its
 kernel keeps one sieve level's state row in shared memory (a feature
 rule's (N,) f32 row beside the build tile; 8 bitmap rows of W words a
-block), so a stream runs the kernel while that fits the H100's 227 KB
-a block (STREAM_SMEM_BYTES). Beyond it the plan says 'plain': the CPU
-runs the plain version as always, and on the card ops.stream_filter
-raises, since the kernel has no tier that keeps the row off-chip yet.
+block) while that fits the H100's 227 KB a block (STREAM_SMEM_BYTES):
+the 'kernel' tier. Beyond it the plan says 'global': the same kernel
+keeps each level's row in device memory (a feature rule's N beyond
+~54,000 rows, a bitmap's W beyond ~6,400 words at B = 256). The CPU
+runs the plain version at any size ('plain').
 
 The CUDA kernels mask their ragged edges, so shapes are planned
 unpadded (the TPU tile padding of the reference has no counterpart).
@@ -116,7 +117,8 @@ FUSED_BLOCK_N = 32
 # f32 bytes of one chunk of an int8 cache build: the greedies whose f32
 # matrices fit it are built and quantized at once (at least one). At the
 # Tiny-ImageNet leaves a greedy's matrix is 43 MB, so each chunk is one
-# greedy — still 2,704 tiles, over 20 a SM, for the pairwise kernel
+# greedy — still 676 tiles of 128×128, over 5 a SM, for the pairwise
+# kernel
 QUANT_CHUNK_BYTES = 64 * 2 ** 20
 BITS_BLOCK_C = 64
 BITS_LOOP_BLOCK_C = 256
@@ -336,15 +338,26 @@ def stream_smem_bytes(n: int, b: int, rule: KernelRule) -> int:
     return 4 * n + STREAM_STATIC_BYTES
 
 
+def stream_tier(n: int, b: int, rule: KernelRule) -> str:
+    """The stream-filter kernel's tier for b arrivals against levels over
+    n ground rows (universe words for bitmap rules): 'kernel' while a
+    block's shared memory holds a level's state (`stream_smem_bytes`
+    within STREAM_SMEM_BYTES, read at call time), else 'global' (the
+    level rows live in device memory)."""
+    fits = stream_smem_bytes(n, b, rule) <= STREAM_SMEM_BYTES
+    return "kernel" if fits else "global"
+
+
 def stream_plan(n: int, b: int, d: Optional[int],
                 rule: KernelRule) -> dict:
     """The stream filter's gate for one batch of b arrivals against
     levels over n ground rows (universe words for bitmap rules) of d
-    features. Returns {'tier': 'kernel', 'dtype': …} when a block's
-    shared memory holds its level state (`stream_smem_bytes` within
-    STREAM_SMEM_BYTES), else {'tier': 'plain', 'dtype': …}: only the
-    plain sieve filter (ref.stream_sieve) on the CPU takes such a
-    stream; the card has no path for it (ops.stream_filter raises).
+    features: {'tier': 'kernel' | 'global', 'dtype': …} (`stream_tier`).
+    Both tiers are the CUDA kernel on the card, for any n; a CUDA tensor
+    never runs a plain version. The third tier, 'plain', is the CPU's:
+    CPU tensors run the plain sieve filter (ref.stream_sieve) at any
+    size, whatever the plan says. As in the reference, 'kernel' means
+    the on-chip kernel and any other tier means not.
 
     dtype is the ground features' storage: 'uint32' words for bitmap
     rules; 'int8' (per-row-quantized, the arrivals stay f32) when
@@ -356,5 +369,4 @@ def stream_plan(n: int, b: int, d: Optional[int],
         if d is None:
             raise ValueError("a feature rule's stream needs its feature dim")
         dtype = "int8" if flags.fused_cache_dtype() == "int8" else "float32"
-    fits = stream_smem_bytes(n, b, rule) <= STREAM_SMEM_BYTES
-    return {"tier": "kernel" if fits else "plain", "dtype": dtype}
+    return {"tier": stream_tier(n, b, rule), "dtype": dtype}

@@ -10,11 +10,15 @@ one launch — csrc/stream_filter.cu, its wrapper and its plain version.
                        `stream_filter[int8]`; bitmap arrivals (A, B, W)
                        words read in place, no ground:
                        rt_stream_filter_bits, `stream_filter[coverage]`.
-                       Each with or without the knapsack cost mode.
+                       Each with or without the knapsack cost mode, and
+                       on either tier of plans.stream_tier: 'kernel'
+                       (a level's row in a block's shared memory) or
+                       'global' (in its row of the output state in
+                       device memory; the same kernel, the same bits).
   stream_filter_plain  the plain PyTorch version (kernels/ref.py:
                        stream_sieve over ref.pairwise's matrix): the CPU
-                       path, the planner's plain tier, and the kernel's
-                       yardstick on the card.
+                       path at any size (the 'plain' tier), and the
+                       kernel's yardstick on the card.
   scatter_slots        the sieve's solution slots after a batch
                        (streaming/sieve.py:_scatter_slots): expired
                        levels cleared, admitted arrivals written in
@@ -44,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, counters, ref
+from repro_torch.kernels import build, counters, plans, ref
 from repro_torch.kernels import rules as R
 from repro_torch.kernels.pairwise import (FOLDS, MODES, STORAGES,
                                           check_feature_rule, check_operand,
@@ -85,15 +89,14 @@ def stream_filter_plain(ground, batch, rows, row0, values, counts, expos,
 def _lib():
     lib = build.load("stream_filter")
     lib.rt_stream_filter_occupancy.restype = _I
-    lib.rt_stream_filter_occupancy.argtypes = [_I, _I, _I,
-                                               ctypes.POINTER(_I),
-                                               ctypes.POINTER(_I)]
+    lib.rt_stream_filter_occupancy.argtypes = [_I] * 4 + [
+        ctypes.POINTER(_I)] * 2
     lib.rt_stream_filter.restype = _I
     lib.rt_stream_filter.argtypes = ([_P] * 22 + [_I] * 10 + [_F] * 4
-                                     + [_I, _F, _I, _P])
+                                     + [_I, _F, _I, _I, _P])
     lib.rt_stream_filter_bits.restype = _I
     lib.rt_stream_filter_bits.argtypes = ([_P] * 18 + [_I] * 6
-                                          + [_F, _I, _F, _P])
+                                          + [_F, _I, _F, _I, _P])
     lib.rt_scatter_slots.restype = _I
     lib.rt_scatter_slots.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     return lib
@@ -121,9 +124,11 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
                   scratch=None):
     """One arrival batch against every level of G sieves (canonical
     shapes, module doc). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise. ``scratch`` (A, B, N) f32, for
-    feature rules on the card, receives the matrix slab the kernel built
-    (for checks; by default the wrapper allocates it)."""
+    tensors launch the kernel, on the tier plans.stream_tier gives
+    (shared-memory or global-memory level rows), or raise. ``scratch``
+    (A, B, N) f32, for feature rules on the card, receives the matrix
+    slab the kernel built (for checks; by default the wrapper allocates
+    it)."""
     counter = COUNTERS["uint32" if rule.is_bitmap else (
         "int8" if ground.dtype == torch.int8 else "float32")]
     counter.calls += 1
@@ -164,6 +169,7 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
     spent_out = torch.empty_like(spent) if cost_mode else None
     eps32 = float(torch.tensor(eps_log, dtype=F32))  # the f32 both use
     bud = float(budget) if cost_mode else 0.0
+    global_rows = int(plans.stream_tier(n, b, rule) == "global")
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     state = [_ptr(values), _ptr(counts), _ptr(expos), _ptr(m_max),
@@ -178,7 +184,8 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
         check_words(n, "stream_filter")
         err = lib.rt_stream_filter_bits(
             batch.data_ptr(), row0.data_ptr(), rows.data_ptr(), *state,
-            *outs, g, l, n, b, a, k, eps32, int(cost_mode), bud, stream)
+            *outs, g, l, n, b, a, k, eps32, int(cost_mode), bud,
+            global_rows, stream)
         build.check(lib, err, "stream_filter[coverage] kernel")
     else:
         check_feature_rule(rule, "stream_filter")
@@ -200,9 +207,8 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
         tn = -(-n // 64)
         partials = torch.empty((a, tn, b), dtype=torch.float64, device=dev)
         bps, sms = _I(), _I()
-        smem = 4 * n
         build.check(lib, lib.rt_stream_filter_occupancy(
-            storage, int(cost_mode), smem, ctypes.byref(bps),
+            storage, int(cost_mode), global_rows, n, ctypes.byref(bps),
             ctypes.byref(sms)), "stream_filter occupancy query")
         cap = bps.value * sms.value
         if cap < 1:
@@ -214,8 +220,8 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
             row0.data_ptr(), rows.data_ptr(), *state, scratch.data_ptr(),
             partials.data_ptr(), *outs, g, l, n, b, a, d, k,
             MODES[rule.pairwise], storage, FOLDS[rule.fold], rule.cap,
-            rule.lam, 1.0 - rule.lam, eps32, int(cost_mode), bud, grid,
-            stream)
+            rule.lam, 1.0 - rule.lam, eps32, int(cost_mode), bud,
+            global_rows, grid, stream)
         what = "stream_filter[int8]" if gscale is not None else \
             "stream_filter"
         build.check(lib, err, what + " kernel")

@@ -177,7 +177,8 @@ def stream_select_continuous(objective, stream: Iterable, k: int, *,
     simulation of the mesh): a loop over `ContinuousSelector`. Returns
     the final merged Solution and an info dict with the merged-value
     trajectory (``merges``), the batch count and the tree, and the
-    stream filter's tier. ``supervisor`` is not ported (ROADMAP item
+    stream filter's tier ('kernel' or 'global', plans.stream_tier).
+    ``supervisor`` is not ported (ROADMAP item
     7)."""
     sel = ContinuousSelector(objective, k, lanes=lanes,
                              branching=branching, merge_every=merge_every,

@@ -117,9 +117,10 @@ class SieveStreamer:
     # -- planning ------------------------------------------------------------
 
     def plan(self, batch: int) -> dict:
-        """stream_plan for a batch of `batch` arrivals: the kernel tier
-        (or 'plain', which only the CPU takes), and the ground's
-        storage."""
+        """stream_plan for a batch of `batch` arrivals: the tier ('kernel'
+        while a level's state fits a block's shared memory, else
+        'global'; CPU tensors run the plain version on either), and the
+        ground's storage."""
         d = None if self.rule.is_bitmap else self.ground.shape[1]
         return stream_plan(self.row0.shape[0], batch, d, self.rule)
 

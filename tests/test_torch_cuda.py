@@ -90,6 +90,47 @@ def test_cuda_pairwise_kernel_matches_plain(cuda, mode, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dot", "dist"])
+@pytest.mark.parametrize("shape", [(2, 130, 257, 50), (1, 1, 129, 3),
+                                   (2, 257, 130, 96)])
+def test_cuda_pairwise_tile_edges(cuda, mode, shape, out_dtype):
+    """The 128×128 tile at shapes straddling it: ragged rows and columns,
+    and D not a multiple of 4 (the kernel's scalar loads), both stores,
+    under the float64 ratio rule against the plain version."""
+    b, n, c, d = shape
+    g, cd = _dev_pools(cuda, b, n, c, d, seed=21)
+    counters.reset()
+    got = TP.pairwise(g, cd, mode, out_dtype=out_dtype)
+    name = "pairwise" if out_dtype == torch.float32 else "pairwise[bf16]"
+    assert counters.snapshot()[name]["launches"] == 1
+    want = TP.pairwise_plain(g, cd, mode).to(out_dtype)
+    parity.compare_pairwise(got.float(), want.float(), g, cd, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dot", "dist"])
+def test_cuda_pairwise_equals_the_resident_build(cuda, mode):
+    """Every entry of the pairwise kernel is the resident kernel's build
+    (pairwise_tile.cuh's tile) bit for bit, at a shape straddling both
+    tiles with scalar loads; one tensor passed as both operands (its
+    norms computed once) gives the bits of two equal tensors."""
+    b, n, c, d = 2, 130, 257, 50
+    g, cd = _dev_pools(cuda, b, n, c, d, seed=22)
+    tr = TR.DIST_MIN if mode == "dist" else TR.DOT_MAX
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    ctl = torch.tensor([[4, n, c]] * b, dtype=torch.int32, device=cuda)
+    built = torch.empty(b, n, c, device=cuda)
+    TL.greedy_loop_resident(g, cd, row, torch.ones(b, c, device=cuda), ctl,
+                            4, tr, scratch=built)
+    assert torch.equal(TP.pairwise(g, cd, mode), built)
+    sq = cd[:, :n].contiguous()
+    assert torch.equal(TP.pairwise(sq, sq, mode),
+                       TP.pairwise(sq, sq.clone(), mode))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(KERNEL_RULES))
 def test_cuda_greedy_loop_kernel_matches_plain(cuda, name):
     tr = KERNEL_RULES[name]
@@ -366,9 +407,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     (REPRO_TORCH_FUSED_CACHE_DTYPE=int8) launch the int8 gains kernel
     (they raised before it existed); what still has no CUDA path raises
     rather than run a plain version on the card: a fold the kernels do
-    not know, a stream over bf16 ground features, and a stream whose
-    level state does not fit a block's shared memory (the plan's plain
-    tier, which only the CPU takes)."""
+    not know and a stream over bf16 ground features. A stream whose
+    level state does not fit a block's shared memory runs the kernel's
+    global-memory tier (one launch), equal to the shared-memory tier."""
     feats = torch.rand(1, 8, 4, device=cuda)
     cv = torch.ones(1, 8, dtype=torch.bool, device=cuda)
     monkeypatch.setenv("REPRO_TORCH_FUSED_CACHE_DTYPE", "int8")
@@ -384,10 +425,14 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     with pytest.raises(NotImplementedError):
         TS.stream_filter(feats[0].to(torch.bfloat16), feats[:, :3], *st,
                          cv[:, :3], 2, EPS_LOG, TR.DOT_MAX)
+    args = (feats[0], feats[0, :3], *st, cv[0, :3], 2, EPS_LOG, TR.DOT_MAX)
+    want = ops.stream_filter(*args)
     monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", 64)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        ops.stream_filter(feats[0], feats[0, :3], *st,
-                          cv[0, :3], 2, EPS_LOG, TR.DOT_MAX)
+    counters.reset()
+    got = ops.stream_filter(*args)
+    # the forced int8 rung quantizes the stream's ground too
+    assert counters.snapshot()["stream_filter[int8]"]["launches"] == 1
+    parity.compare_exact(got, want, "stream_filter, global tier")
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +515,63 @@ def test_cuda_stream_filter_matches_plain(cuda, name, lanes, cost):
         st = tuple(want[i] for i in (0,)) + (row0,) + tuple(
             want[i] for i in (1, 2, 4, 5)) + ((want[7],) if cost else ())
     assert int(st[3].sum()) > 0 or ties
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("lanes", [(1, 1), (3, 1), (2, 2)])
+@pytest.mark.parametrize("variant", ["kmedoid", "facility", "kmedoid[int8]",
+                                     "coverage"])
+def test_cuda_stream_filter_global_tier(cuda, variant, lanes, cost,
+                                        monkeypatch):
+    """The global-memory tier (forced by squeezing STREAM_SMEM_BYTES)
+    equals the shared-memory tier bit for bit, every output and the
+    slab, over three chained batches: f32 and int8 ground, bitmaps, one
+    sieve and several, with and without costs; one launch a call."""
+    g, a = lanes
+    bits = variant == "coverage"
+    tr = KERNEL_RULES[variant.split("[")[0]]
+    if bits:
+        n, b, d, k, l = 45, 64, 45, 6, 24
+        ground, gkw, st = None, {}, _stream_state(cuda, tr, g, l, n,
+                                                  cost=cost)
+    else:
+        n, b, d, k, l = 150, 70, 40, 5, 32
+        ground = torch.as_tensor(np.random.default_rng(8).normal(
+            size=(n, d)).astype(np.float32), device=cuda)
+        row0 = TR.empty_row(ground[None], torch.ones(
+            1, n, dtype=torch.bool, device=cuda), tr)[0].contiguous()
+        st = _stream_state(cuda, tr, g, l, n, row0, cost)
+        gkw = {}
+        if variant.endswith("[int8]"):
+            ground, scale = ops.quantize_ground(ground)
+            gkw = {"gscale": scale.reshape(-1)}
+    tag = "stream_filter" + ("[coverage]" if bits else (
+        "[int8]" if gkw else ""))
+    for x, valid, costs in _stream_batches(cuda, a, b, d, 3, 9, words=bits):
+        kw = dict(costs=costs, spent=st[6], budget=6.0) if cost else {}
+        kw.update(gkw)
+        slabs = [] if bits else [torch.empty(a, b, n, device=cuda)
+                                 for _ in range(2)]
+        outs = []
+        counters.reset()
+        for tier, smem in (("kernel", plans.STREAM_SMEM_BYTES), ("global",
+                                                                 64)):
+            monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", smem)
+            assert plans.stream_tier(n, b, tr) == tier
+            if not bits:
+                kw["scratch"] = slabs[len(outs)]
+            outs.append(TS.stream_filter(ground, x, *st[:6], valid, k,
+                                         EPS_LOG, tr, **kw))
+            monkeypatch.undo()
+        assert counters.snapshot()[tag]["launches"] == 2
+        shared, glob = outs
+        parity.compare_exact(glob + tuple(slabs[1:]),
+                             shared + tuple(slabs[:1]),
+                             f"{tag}, global vs shared-memory tier")
+        st = (shared[0], st[1], shared[1], shared[2], shared[4],
+              shared[5]) + ((shared[7],) if cost else ())
+    assert int(st[3].sum()) > 0
 
 
 @pytest.mark.cuda

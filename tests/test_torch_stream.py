@@ -345,8 +345,9 @@ def test_singleton_proxy_chunks_match_one_shot(monkeypatch):
 def test_stream_plan_gate(monkeypatch):
     """The kernel at the chip's two shapes (the k-medoid stream: 16,384
     evaluation rows of 12,288 features; kosarak: 1,290 words), int8
-    under the forced rung, the plain tier beyond a block's shared
-    memory (the H100's 227 KB)."""
+    under the forced rung, the global-memory tier beyond a block's
+    shared memory (the H100's 227 KB): the reference launcher's
+    whole-stream evaluation set of 100,000 images among them."""
     assert plans.STREAM_SMEM_BYTES == 232_448
     assert plans.stream_plan(16_384, 256, 12_288, TR.DIST_MIN) == {
         "tier": "kernel", "dtype": "float32"}
@@ -357,18 +358,23 @@ def test_stream_plan_gate(monkeypatch):
         "tier": "kernel", "dtype": "int8"}
     assert plans.stream_plan(1_290, 256, None, TR.BITS_OR)["dtype"] == \
         "uint32"
-    assert plans.stream_plan(60_000, 256, 64, TR.DOT_MAX)["tier"] == "plain"
+    assert plans.stream_plan(60_000, 256, 64, TR.DOT_MAX)["tier"] == \
+        "global"
     assert plans.stream_plan(7_000, 256, None, TR.BITS_OR)["tier"] == \
-        "plain"
+        "global"
+    monkeypatch.delenv(flags.FUSED_CACHE_DTYPE_ENV)
+    assert plans.stream_plan(100_000, 256, 12_288, TR.DIST_MIN) == {
+        "tier": "global", "dtype": "float32"}
     monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", 50_000)
     assert plans.stream_plan(16_384, 256, 12_288, TR.DIST_MIN)["tier"] == \
-        "plain"
+        "global"
 
 
 def test_plain_tier_gives_the_kernel_tier_selections(monkeypatch):
-    """A stream squeezed onto the plain tier selects as on the kernel
-    tier (on the CPU both are the plain version; the tier is reported;
-    on the card the plain tier raises, tests/test_torch_cuda.py)."""
+    """A stream squeezed onto the global-memory tier selects as on the
+    kernel tier (on the CPU both run the plain version; the tier is
+    reported; on the card the two tiers agree bit for bit,
+    tests/test_torch_cuda.py)."""
     js, ts = _streams("facility", n=128, batch=32)
     obj = t_make("facility", device="cpu")
     full, info = stream_select_continuous(obj, ts, K, lanes=1,
@@ -379,8 +385,48 @@ def test_plain_tier_gives_the_kernel_tier_selections(monkeypatch):
     squeezed, info = stream_select_continuous(obj, ts, K, lanes=1,
                                               merge_every=2,
                                               ground=_t(ts.payloads))
-    assert info["tier"] == "plain"
+    assert info["tier"] == "global"
     assert torch.equal(full.ids, squeezed.ids)
+
+
+@pytest.mark.parametrize("name", ["kmedoid", "facility", "kcover"])
+def test_cpu_runs_the_plain_filter_at_any_size(name):
+    """States far beyond a block's shared memory (100,000 f32 evaluation
+    rows; 8,192 bitmap words) plan 'global'; on the CPU ops.stream_filter
+    still runs the plain version on them (a call, no launch), equal to
+    the reference's oracle path."""
+    jr, tr = RULES[name]
+    ground, row0, batches, _, l = _filter_inputs(
+        name, seed=6, n=100_000, d=4, b=16, l=8, words=8_192)
+    n, b = row0.shape[0], batches[0][0].shape[0]
+    d = None if ground is None else ground.shape[1]
+    assert plans.stream_plan(n, b, d, tr)["tier"] == "global"
+    x, valid = batches[0]
+    k = 3
+    state = (np.tile(row0[None], (l, 1)), row0, np.zeros(l, np.float32),
+             np.zeros(l, np.int32), np.arange(l, dtype=np.int32),
+             np.float32(0.0))
+    want = JOps.stream_filter(
+        None if ground is None else jnp.asarray(ground), jnp.asarray(x),
+        *(jnp.asarray(v) for v in state), jnp.asarray(valid), k, EPS_LOG,
+        jr, backend="ref")
+    counters.reset()
+    got = ops.stream_filter(
+        None if ground is None else _t(ground), convert.to_torch(x, "cpu"),
+        *(convert.to_torch(v, "cpu") for v in state[:2]),
+        *(_t(v) for v in state[2:]), _t(valid), k, EPS_LOG, tr)
+    tag = "stream_filter[coverage]" if name == "kcover" else "stream_filter"
+    assert counters.snapshot()[tag] == {"calls": 1, "launches": 0}
+    want = [_np(r) for r in want]
+    got = [r.numpy() for r in got]
+    assert int(want[2].sum()) > 0
+    for i in (2, 3, 4, 6):
+        np.testing.assert_array_equal(want[i].astype(np.int64),
+                                      got[i].astype(np.int64))
+    rows = got[0].view(np.uint32) if name == "kcover" else got[0]
+    np.testing.assert_allclose(want[0], rows, rtol=1e-4, atol=1e-4)
+    for i in (1, 5):
+        np.testing.assert_allclose(want[i], got[i], rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
