@@ -112,30 +112,38 @@ levels of all stacked sieves), beside the k-medoid phases:
                        against the f32 kernel on the dequantized
                        ground; the int8-ground gains at the stochastic
                        leaf shape, bit for bit and by the float64 rule
-  parity_stream_global the stream filter's global-memory tier (a level's
-                       row in device memory): kmedoid against all
-                       100,000 images (72 × 100,000 × 256 × 12,288),
-                       three chained batches by the float64 slab rule
-                       and parity.compare_stream; bitmaps at 8,192 words
-                       (262,144 items), three batches bit for bit
+  parity_stream_global the stream filter beyond one block's shared
+                       memory: kmedoid against all 100,000 images (72 ×
+                       100,000 × 256 × 12,288, a level's row over a
+                       cluster of 8 blocks), three chained batches by
+                       the float64 slab rule and parity.compare_stream,
+                       and the device-memory tier (forced) bit for bit
+                       equal to it; bitmaps at 8,192 words (262,144
+                       items), three batches bit for bit on both tiers
   reference_stream     (after reference_dispatch) small-integer facility
                        streams, kernel path == CPU path: stream_select,
                        a SlidingSieve, 4 continuous lanes
   stochastic_int8      (after stochastic) the stochastic lanes under the
                        int8 rung: 200 gains[int8] launches at the leaves
   stream_kmedoid       stream_select('kmedoid') over all 100,000 images
-                       against all 100,000 (the global tier), k = 200,
-                       B = 256: 391 batches, one stream_filter and one
-                       scatter_slots launch each
+                       against all 100,000 (a cluster of 8 a level), k =
+                       200, B = 256: 391 batches, one stream_filter and
+                       one scatter_slots launch each; the summary's
+                       digest (value, a hash of the sorted ids); then
+                       (line `stream_idle`) the device's busy share and
+                       the host's gap a batch over 20 traced batches
   stream_kmedoid_int8  the same stream, int8 ground, against 16,384 of
                        the images (the shared-memory tier); each value
                        on its evaluation set ≥ (½ − ε) of the `run`
                        root's there
   timing_stream        (after timing_quant) the stream filter per batch
-                       (f32, int8 at 16,384 rows; the global tier at
-                       100,000 rows and at 8,192 bitmap words) and the
-                       int8-ground gains beside their bounds and plain
-                       versions
+                       (f32, int8 at 16,384 rows; f32 at 100,000 rows;
+                       bitmaps at 8,192 words) and the int8-ground gains
+                       beside their bounds and plain versions; each
+                       filter row with its slab / decision split
+                       (torch.profiler), CUDA launches a batch, admitted
+                       count, and the feature rows' time on the
+                       device-memory tier (forced)
 
 and after timing_coverage, on the kosarak bitmaps:
 
@@ -144,16 +152,19 @@ and after timing_coverage, on the kosarak bitmaps:
                           4 continuous lanes) and the slot update
   stream_kcover           stream_select over all 990,002 sets, k = 64,
                           B = 256: 3,868 launches; ≥ (½ − ε) of
-                          kcover_run's root
+                          kcover_run's root; then its `stream_idle`
   stream_kcover_knapsack  costs uniform(0.5, 2), budget 40: spent ≤ 40
                           at every level
   window_kcover           window 262,144, stride 65,536: no expired id
   continuous_kcover       4 lanes, b = 2, a merge every 256 batches on
-                          the resident bitmap loop; merges never drop
-  timing_stream_coverage  the bitmap stream filter per batch
+                          the resident bitmap loop; merges never drop;
+                          then the same stream traced: its device time
+                          and busy share
+  timing_stream_coverage  the bitmap stream filter per batch (split,
+                          launches, admitted, both tiers)
 
 (`reference_dispatch` also runs small coverage trees, kernel path
-against CPU path.) Then the card's name and power limit (nvidia-smi),
+against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
 {"ok": true, "device": {…}}. The script
 needs the repository's src/ beside it and a CUDA device; without either
@@ -2100,12 +2111,12 @@ def phase_timing_coverage(torch, words, cfg, pools, reps):
 # ---------------------------------------------------------------------------
 
 # the evaluation set of the int8 k-medoid stream and of the stream
-# filter's parity and timing at the shared-memory tier: drawn from the
-# stream with the seed, so a level's (N,) f32 row fits one block's shared
-# memory (the f32 stream evaluates against all n images, the global tier)
+# filter's parity and timing at 16,384 rows: drawn from the stream with
+# the seed (the f32 stream evaluates against all n images), a second row
+# length for the decisions (2,048 entries a block against 12,500)
 STREAM_EVAL = 16_384
-# the bitmap global tier's parity shape: 8,192 words (262,144 items), W
-# beyond the ~6,400 whose 8 level rows fit a block's shared memory
+# the wider bitmap parity shape: 8,192 words (262,144 items), held on
+# both tiers (the device-memory tier forced)
 GLOBAL_WORDS = 8_192
 STREAM_EPS = 0.1
 # arrivals a batch: at the k-medoid stream's 16,384 evaluation rows the
@@ -2134,6 +2145,76 @@ def _next_state(out, row0, cost: bool):
     """The canonical state after a batch, from a filter's outputs."""
     return (out[0], row0, out[1], out[2], out[4], out[5]) + (
         (out[7],) if cost else ())
+
+
+@contextlib.contextmanager
+def _device_memory_tier():
+    """The stream filter's device-memory tier (rows off chip), forced by
+    squeezing plans.STREAM_SMEM_BYTES for the duration, as the CUDA
+    tests do."""
+    from repro_torch.kernels import plans
+    old = plans.STREAM_SMEM_BYTES
+    plans.STREAM_SMEM_BYTES = 64
+    try:
+        yield
+    finally:
+        plans.STREAM_SMEM_BYTES = old
+
+
+def _cuda_events(torch, prof):
+    """(kernel name, launches recorded, device µs) of each CUDA entry of a
+    torch.profiler trace's key_averages."""
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        yield e.key.split("(")[0], e.count, us
+
+
+def _kernel_split(torch, fn, calls: int = 10) -> dict:
+    """Device time by CUDA kernel over `calls` calls of fn, from
+    torch.profiler's key_averages: each kernel's mean ms a launch and the
+    launches the trace recorded (it may miss a launch of the first call),
+    and the CUDA launches of a call (all recorded launches over `calls`);
+    "not measured" when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for name, count, us in _cuda_events(torch, prof):
+        for short in ("rt_row_norms", "rt_stream_slab", "rt_stream_singles",
+                      "rt_stream_decide", "rt_stream_bits_prep",
+                      "rt_stream_bits_level"):
+            if short in name:
+                name = short
+        k = kernels.setdefault(name, {"launches_recorded": 0, "us": 0.0})
+        k["launches_recorded"] += count
+        k["us"] += us
+    if not kernels or sum(k["us"] for k in kernels.values()) <= 0:
+        return {"kernel_split": "not measured", "cuda_launches_per_call":
+                "not measured"}
+    launches = sum(k["launches_recorded"] for k in kernels.values())
+    for k in kernels.values():
+        k["ms_per_launch"] = k.pop("us") / 1e3 / max(k["launches_recorded"],
+                                                     1)
+    return {"kernel_split": kernels, "calls": calls,
+            "cuda_launches_per_call": launches / calls}
+
+
+def _digest(ids, value) -> dict:
+    """A stream summary's value and a hash of its sorted ids: two trees
+    run in one call give equal digests when their streams agree."""
+    import hashlib
+    srt = np.sort(np.asarray(ids, np.int64).reshape(-1))
+    return {"value": float(value), "ids": int(srt.size),
+            "ids_sha1": hashlib.sha1(srt.tobytes()).hexdigest()[:16]}
 
 
 def _stream_eval_set(torch, x, seed: int):
@@ -2325,17 +2406,18 @@ def phase_parity_stream(torch, x, cfg, pools):
 
 
 def phase_parity_stream_global(torch, x, cfg, k_bits: int):
-    """B6's global-memory tier at the shapes that need it. Feature rules:
+    """B6 at the shapes beyond one block's shared memory. Feature rules:
     the f32 k-medoid stream against all n images (72 levels × 100,000
-    evaluation rows × 256 arrivals × 12,288: a level's row is 400 KB,
-    beyond a block's shared memory), three chained batches fed the plain
-    version's state, the slab by the float64 pairwise rule and the
-    decisions by parity.compare_stream. Bitmaps: GLOBAL_WORDS = 8,192
-    words (262,144 items, random sparse sets), k = `k_bits`, three
-    chained batches, every output bit for bit against the plain
-    version. Returns each variant's largest measured |kernel − plain|
-    and, for timing_stream, both states three batches in with a fourth
-    batch each."""
+    evaluation rows × 256 arrivals × 12,288: a level's 400 KB row over a
+    cluster of 8 blocks), three chained batches fed the plain version's
+    state, the slab by the float64 pairwise rule and the decisions by
+    parity.compare_stream; the device-memory tier (forced) equal to it
+    bit for bit. Bitmaps: GLOBAL_WORDS = 8,192 words (262,144 items,
+    random sparse sets), k = `k_bits`, three chained batches, every
+    output bit for bit against the plain version on the shared-memory
+    tier and on the device-memory tier (forced). Returns each variant's
+    largest measured |kernel − plain| and, for timing_stream, both
+    states three batches in with a fourth batch each."""
     from repro_torch.kernels import counters, parity, plans
     from repro_torch.kernels import ref as TRef
     from repro_torch.kernels import rules as R
@@ -2347,27 +2429,37 @@ def phase_parity_stream_global(torch, x, cfg, k_bits: int):
     levels = num_levels(k, STREAM_EPS)
     n, d = x.shape
     dev = x.device
-    assert plans.stream_tier(n, b, rule) == "global"
+    assert plans.stream_tier(n, b, rule) == "kernel"
     row0 = R.empty_row(x[None], torch.ones(1, n, dtype=torch.bool,
                                            device=dev), rule)[0].contiguous()
+    gnorm = TS.ground_norms(x)
     st = _stream_state(torch, rule, levels, row0, False)
     batches = _stream_batches(torch, x, 4, b, cfg.seed + 1)
     res, errs = [], {"stream_filter": 0.0, "stream_filter[coverage]": 0.0}
+    tiers = {"entries": 0, "differing": 0}
     counters.reset()
     for _, pay, valid, _ in batches[:3]:
         arr, bv = pay[None], valid[None]
         mat_k = torch.empty(1, b, n, device=dev)
         got = TS.stream_filter(x, arr, *st[:6], bv, k, eps_log, rule,
-                               scratch=mat_k)
+                               scratch=mat_k, gnorm=gnorm)
+        with _device_memory_tier():
+            glob = TS.stream_filter(x, arr, *st[:6], bv, k, eps_log, rule,
+                                    gnorm=gnorm)
+        r = parity.compare_exact(glob, got, "stream_filter, device-memory "
+                                 "tier vs a cluster of 8")
+        tiers["entries"] += r["entries"]
+        tiers["differing"] += r["differing"]
+        del glob
         plain = TS.stream_filter_plain(x, arr, *st[:6], bv, k, eps_log,
                                        rule)
         mat_p = TRef.pairwise(x, arr, rule)
         mstats = parity.compare_pairwise(
             mat_k.transpose(1, 2), mat_p, x[None], arr, rule.pairwise,
-            what="stream_filter slab, global tier")
+            what="stream_filter slab, 100,000 rows")
         cmp = parity.compare_stream(got, plain, mat_k, mat_p,
                                     st[:6] + (None,), bv, k, eps_log, rule,
-                                    what="stream_filter, global tier")
+                                    what="stream_filter, 100,000 rows")
         cmp["slab_rms_ratio"] = mstats["rms_ratio"]
         res.append(cmp)
         errs["stream_filter"] = max(errs["stream_filter"],
@@ -2375,11 +2467,11 @@ def phase_parity_stream_global(torch, x, cfg, k_bits: int):
                                     cmp["max_m_err"])
         st = _next_state(plain, row0, False)
         del got, plain, mat_k, mat_p
-    assert counters.snapshot()["stream_filter"]["launches"] == 3
-    # bitmaps beyond 8 level rows a block
+    assert counters.snapshot()["stream_filter"]["launches"] == 6
+    # bitmaps at 8,192 words, on both tiers
     w, brule = GLOBAL_WORDS, R.BITS_OR
     blevels = num_levels(k_bits, STREAM_EPS)
-    assert plans.stream_tier(w, b, brule) == "global"
+    assert plans.stream_tier(w, b, brule) == "kernel"
     words = random_words(torch, (4 * b, w), cfg.seed + 5, dev)
     brow0 = torch.zeros(w, dtype=R.WORD_DTYPE, device=dev)
     bst = _stream_state(torch, brule, blevels, brow0, False)
@@ -2388,21 +2480,27 @@ def phase_parity_stream_global(torch, x, cfg, k_bits: int):
     counters.reset()
     for i in range(3):
         arr = words[i * b:(i + 1) * b][None]
-        got = TS.stream_filter(None, arr, *bst, ball, k_bits, eps_log, brule)
         plain = TS.stream_filter_plain(None, arr, *bst, ball, k_bits,
                                        eps_log, brule)
-        r = parity.compare_exact(got, plain,
-                                 "stream_filter[coverage], global tier")
-        bits["entries"] += r["entries"]
-        bits["differing"] += r["differing"]
+        for tier in ("kernel", "global"):
+            with (_device_memory_tier() if tier == "global"
+                  else contextlib.nullcontext()):
+                assert plans.stream_tier(w, b, brule) == tier
+                got = TS.stream_filter(None, arr, *bst, ball, k_bits,
+                                       eps_log, brule)
+            r = parity.compare_exact(got, plain, "stream_filter[coverage], "
+                                     f"8,192 words, tier {tier}")
+            bits["entries"] += r["entries"]
+            bits["differing"] += r["differing"]
+            errs["stream_filter[coverage]"] = max(
+                errs["stream_filter[coverage]"], r["max_abs_err"])
         bits["admitted"] += int(plain[3].sum())
-        errs["stream_filter[coverage]"] = max(
-            errs["stream_filter[coverage]"], r["max_abs_err"])
         bst = _next_state(plain, brow0, False)
-    assert counters.snapshot()["stream_filter[coverage]"]["launches"] == 3
+    assert counters.snapshot()["stream_filter[coverage]"]["launches"] == 6
     assert bits["admitted"] > 0
-    emit({"phase": "parity_stream_global", "tier": "global",
+    emit({"phase": "parity_stream_global",
           "kmedoid": {"shape": [1, levels, n, b, d], "k": k,
+                      "tier": "kernel",
                       "batches": len(res),
                       "ties": sum(r["ties"] + r["window_ties"] for r in res),
                       "decisions": sum(r["decisions"] for r in res),
@@ -2411,11 +2509,14 @@ def phase_parity_stream_global(torch, x, cfg, k_bits: int):
                       "max_row_err": max(r["max_row_err"] for r in res),
                       "max_m_err": max(r["max_m_err"] for r in res),
                       "slab_rms_ratio": max(r["slab_rms_ratio"]
-                                            for r in res)},
+                                            for r in res),
+                      "device_memory_tier_vs_cluster": {
+                          **tiers, "rule": "exact (bit for bit)"}},
           "coverage": {"shape": [1, blevels, w, b], "k": k_bits,
-                       "batches": 3, "rule": "exact (bit for bit)",
-                       **bits}})
-    return errs, ((st, batches[3]), (bst, words[3 * b:][None], k_bits))
+                       "batches": 3, "tiers": ["kernel", "global"],
+                       "rule": "exact (bit for bit)", **bits}})
+    return errs, ((st, batches[3], gnorm),
+                  (bst, words[3 * b:][None], k_bits))
 
 
 def phase_reference_stream(torch, devices=("cuda", "cpu")):
@@ -2472,9 +2573,9 @@ def _stream_run(torch, name, data, cfg, k, ground=None, env=None,
                 tier="kernel"):
     """stream_select(`name`) over all of `data` shuffled with the seed,
     B = 256: wall, arrivals/s, the plan (asserted on `tier`), the
-    launches per variant (asserted: one stream filter and one slot update
-    a batch); every selected slot's payload is its arrival's row of
-    `data`."""
+    launches per variant (asserted: one
+    stream filter and one slot update a batch), the summary's digest;
+    every selected slot's payload is its arrival's row of `data`."""
     from repro_torch.core.functions import make_objective
     from repro_torch.data.synthetic import Stream
     from repro_torch.kernels import counters
@@ -2508,7 +2609,8 @@ def _stream_run(torch, name, data, cfg, k, ground=None, env=None,
                       "plan": plan, "wall_seconds": wall,
                       "arrivals_per_second": data.shape[0] / wall,
                       "launches": launches, "accepted": len(ids),
-                      "best_level_value": float(sol.value)}
+                      "best_level_value": float(sol.value),
+                      "digest": _digest(ids, sol.value)}
 
 
 def phase_stream_kmedoid(torch, x, cfg, ground, root_ids, dtype="float32",
@@ -2517,9 +2619,9 @@ def phase_stream_kmedoid(torch, x, cfg, ground, root_ids, dtype="float32",
     seed: k = 200, ε = 0.1 (L = 72), B = 256 (391 batches, one
     stream_filter and one scatter_slots launch each). f32 evaluates
     against the whole stream (`ground` is x itself, the reference
-    launcher's choice): the plan's 'global' tier, a level's 400 KB row
-    in device memory. With dtype 'int8' the rung is forced against the
-    16,384-image evaluation set (`ground`), on the shared-memory tier:
+    launcher's choice): a level's 400 KB row over a cluster of 8 blocks'
+    shared memory. With dtype 'int8' the rung is forced against the
+    16,384-image evaluation set (`ground`), 8 blocks a level:
     stream_filter[int8] launches. The stream's ids and the `run` tree
     root's ids scored on the evaluation set (replay_value: the
     objective's own value on that set); the stream must reach (½ − ε)
@@ -2529,8 +2631,7 @@ def phase_stream_kmedoid(torch, x, cfg, ground, root_ids, dtype="float32",
     int8 = dtype == "int8"
     _, ids, rep = _stream_run(torch, "kmedoid", x, cfg, cfg.k,
                               ground=ground,
-                              env=_rung_env(dtype) if int8 else None,
-                              tier="kernel" if int8 else "global")
+                              env=_rung_env(dtype) if int8 else None)
     t0 = time.perf_counter()
     gv = _value_on(torch, ground, x, ids)
     root_gv = _value_on(torch, ground, x, root_ids)
@@ -2601,19 +2702,28 @@ def _b6_bound(n, b, d, levels, decisions, admitted, itemsize=4.0):
     return bound(flops, nbytes)
 
 
+def _feature_split(torch, run, slab, reps) -> dict:
+    """A feature stream-filter batch's time split: the slab launch timed
+    alone (CUDA events; with the arrivals' norm pass) and the device time
+    of each of the batch's kernels (torch.profiler), with the CUDA
+    launches a batch."""
+    return {"slab_ms": cuda_ms(torch, slab, reps), **_kernel_split(torch, run)}
+
+
 def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps,
                         global_inputs):
-    """B6 f32 and int8 per batch at the shared-memory tier's shape (16,384
-    evaluation rows; a fourth batch against the state three batches in,
-    so the window and the levels are live), the slot update that follows
-    it (scatter_slots into the (1, 72, 200, 12,288) slots three batches
-    in), and B2q at the stochastic leaf shape; then the global-memory
-    tier: B6 f32 at the whole-stream shape (100,000 evaluation rows) and
-    on bitmaps at 8,192 words, from parity_stream_global's states. Each
-    beside its bound (the work this batch's data needs: its live
-    decisions, its admitted rows, counted along the plain version's
-    path), its plain version and nothing a single library call
-    computes."""
+    """B6 f32 and int8 per batch at the 16,384-row evaluation set (a
+    fourth batch against the state three batches in, so the window and
+    the levels are live), the slot update that follows it (scatter_slots
+    into the (1, 72, 200, 12,288) slots three batches in), and B2q at the
+    stochastic leaf shape; then B6 f32 at the whole-stream shape (100,000
+    evaluation rows) and on bitmaps at 8,192 words, from
+    parity_stream_global's states. Each beside its bound (the work this
+    batch's data needs: its live decisions, its admitted rows, counted
+    along the plain version's path), its plain version and nothing a
+    single library call computes; the feature rows with their slab /
+    decision split, launches a batch and the device-memory tier's time.
+    The ground's norms are computed once, as the streamer does."""
     from repro_torch.core.greedyml import LaneSampler
     from repro_torch.kernels import ops, parity
     from repro_torch.kernels import pairwise as P
@@ -2637,25 +2747,44 @@ def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps,
     q, scale = ops.quantize_ground(ground)
     gscale = scale.reshape(-1).contiguous()
     out = {}
-    for tag, g, kw, item in (("", ground, {}, 4.0),
-                             ("[int8]", q, {"gscale": gscale}, 1.0)):
+    f32_gnorm = TS.ground_norms(ground)
+    for tag, g, kw, item in (
+            ("", ground, {"gnorm": f32_gnorm}, 4.0),
+            ("[int8]", q, {"gscale": gscale,
+                           "gnorm": TS.ground_norms(q, gscale)}, 1.0)):
         bms, by = _b6_bound(n, b, d, levels, cmp["decisions"],
                             cmp["admitted"], item)
+
+        def run(g=g, kw=kw):
+            return TS.stream_filter(g, arr, *st[:6], bv, k, eps_log, rule,
+                                    **kw)
+
+        def slab(g=g, kw=kw):
+            return TS.stream_slab(g, arr, st[1], rule, **kw)
+
         out["stream_filter" + tag] = {
             "shape": [1, levels, n, b, d], "decisions": cmp["decisions"],
             "admitted": cmp["admitted"],
-            "ms": cuda_ms(torch, lambda: TS.stream_filter(
-                g, arr, *st[:6], bv, k, eps_log, rule, **kw), reps),
-            "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
-                g, arr, *st[:6], bv, k, eps_log, rule,
-                gscale=kw.get("gscale")), 1),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
-    # the share of the slab, the singletons and the window: the same
-    # call with every arrival invalid, so no level makes a decision
+            "ms": cuda_ms(torch, run, reps),
+            "plain_ms": cuda_ms(
+                torch, lambda g=g, kw=kw: TS.stream_filter_plain(
+                    g, arr, *st[:6], bv, k, eps_log, rule,
+                    gscale=kw.get("gscale")), 1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            **_feature_split(torch, run, slab, reps)}
+    f32 = out["stream_filter"]
+    # the slab, the singletons and the window alone: the same call with
+    # every arrival invalid, so no level makes a decision
     none = torch.zeros_like(bv)
-    out["stream_filter"]["no_live_decision_ms"] = cuda_ms(
+    f32["no_live_decision_ms"] = cuda_ms(
         torch, lambda: TS.stream_filter(ground, arr, *st[:6], none, k,
-                                        eps_log, rule), reps)
+                                        eps_log, rule, gnorm=f32_gnorm),
+        reps)
+    with _device_memory_tier():
+        f32["device_memory_tier_ms"] = cuda_ms(
+            torch, lambda: TS.stream_filter(ground, arr, *st[:6], bv, k,
+                                            eps_log, rule, gnorm=f32_gnorm),
+            reps)
     del q, scale, gscale
     # the slot update after this batch (repeated in place: the same rows
     # land in the same slots): the admitted rows read once an arrival
@@ -2704,52 +2833,85 @@ def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps,
     return out
 
 
+def _bits_row(torch, arr, st, bv, k, eps_log, levels, w, b, admitted, reps):
+    """A bitmap stream-filter batch's timing row: ms on the planned tier
+    and on the device-memory tier (forced), the singleton pass and the
+    window alone (every arrival invalid), the kernels' split and
+    launches a batch, beside the bytes bound and the plain version."""
+    from repro_torch.kernels import plans
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels import stream_filter as TS
+
+    def run(valid=bv):
+        return TS.stream_filter(None, arr, *st, valid, k, eps_log, R.BITS_OR)
+
+    nbytes = 4.0 * (b * w + 2 * levels * w + 2 * levels) + levels * b + b
+    row = {"tier": plans.stream_tier(w, b, R.BITS_OR),
+           "shape": [1, levels, w, b], "admitted": admitted,
+           "ms": cuda_ms(torch, run, 20 * reps),
+           "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
+               None, arr, *st, bv, k, eps_log, R.BITS_OR), 1),
+           "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+           "bound_by": "bytes",
+           "no_live_decision_ms": cuda_ms(
+               torch, lambda: run(torch.zeros_like(bv)), 20 * reps)}
+    with _device_memory_tier():
+        row["device_memory_tier_ms"] = cuda_ms(torch, run, 20 * reps)
+    row.update(_kernel_split(torch, run))
+    return row
+
+
 def _timing_stream_global(torch, x, cfg, global_inputs, reps):
-    """The global-memory tier's rows of timing_stream: B6 f32 per batch
-    against all n evaluation rows (and with every arrival invalid: the
-    slab, singletons and window alone), and on bitmaps at 8,192 words."""
+    """timing_stream's rows beyond one block's shared memory: B6 f32 per
+    batch against all n evaluation rows (a level's row over a cluster of
+    8; and with every arrival invalid: the slab, singletons and window
+    alone), and on bitmaps at 8,192 words."""
     from repro_torch.kernels import parity, plans
     from repro_torch.kernels import ref as TRef
     from repro_torch.kernels import rules as R
     from repro_torch.kernels import stream_filter as TS
-    (st, (_, pay, valid, _)), (bst, barr, k_bits) = global_inputs
+    (st, (_, pay, valid, _), gnorm), (bst, barr, k_bits) = global_inputs
     rule, k, eps_log = R.DIST_MIN, cfg.k, math.log1p(STREAM_EPS)
     n, d = x.shape
     levels, b = st[0].shape[1], pay.shape[0]
-    assert plans.stream_tier(n, b, rule) == "global"
     arr, bv = pay[None], valid[None]
     plain = TS.stream_filter_plain(x, arr, *st[:6], bv, k, eps_log, rule)
     mat_k = torch.empty(1, b, n, device=x.device)
     got = TS.stream_filter(x, arr, *st[:6], bv, k, eps_log, rule,
-                           scratch=mat_k)
+                           scratch=mat_k, gnorm=gnorm)
     cmp = parity.compare_stream(got, plain, mat_k,
                                 TRef.pairwise(x, arr, rule),
                                 st[:6] + (None,), bv, k, eps_log, rule,
-                                what="stream_filter, global tier")
+                                what="stream_filter, 100,000 rows")
     del got, plain, mat_k
     bms, by = _b6_bound(n, b, d, levels, cmp["decisions"], cmp["admitted"])
-    out = {"stream_filter_global": {
-        "tier": "global", "shape": [1, levels, n, b, d],
+
+    def run(valid=bv):
+        return TS.stream_filter(x, arr, *st[:6], valid, k, eps_log, rule,
+                                gnorm=gnorm)
+
+    out = {"stream_filter_100000": {
+        "tier": plans.stream_tier(n, b, rule),
+        "shape": [1, levels, n, b, d],
         "decisions": cmp["decisions"], "admitted": cmp["admitted"],
-        "ms": cuda_ms(torch, lambda: TS.stream_filter(
-            x, arr, *st[:6], bv, k, eps_log, rule), reps),
-        "no_live_decision_ms": cuda_ms(torch, lambda: TS.stream_filter(
-            x, arr, *st[:6], torch.zeros_like(bv), k, eps_log, rule), reps),
+        "ms": cuda_ms(torch, run, reps),
+        "no_live_decision_ms": cuda_ms(
+            torch, lambda: run(torch.zeros_like(bv)), reps),
         "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
             x, arr, *st[:6], bv, k, eps_log, rule), 1),
-        "library_ms": None, "bound_ms": bms, "bound_by": by}}
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+        **_feature_split(torch, run, lambda: TS.stream_slab(
+            x, arr, st[1], rule, gnorm=gnorm), reps)}}
+    with _device_memory_tier():
+        out["stream_filter_100000"]["device_memory_tier_ms"] = cuda_ms(
+            torch, run, reps)
     blevels, w = bst[0].shape[1], barr.shape[2]
-    assert plans.stream_tier(w, b, R.BITS_OR) == "global"
     ball = torch.ones(1, b, dtype=torch.bool, device=x.device)
-    nbytes = 4.0 * (b * w + 2 * blevels * w + 2 * blevels) + blevels * b + b
-    out["stream_filter[coverage]_global"] = {
-        "tier": "global", "shape": [1, blevels, w, b],
-        "ms": cuda_ms(torch, lambda: TS.stream_filter(
-            None, barr, *bst, ball, k_bits, eps_log, R.BITS_OR), 20 * reps),
-        "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
-            None, barr, *bst, ball, k_bits, eps_log, R.BITS_OR), 1),
-        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
-        "bound_by": "bytes"}
+    bplain = TS.stream_filter_plain(None, barr, *bst, ball, k_bits, eps_log,
+                                    R.BITS_OR)
+    out["stream_filter[coverage]_8192"] = _bits_row(
+        torch, barr, bst, ball, k_bits, eps_log, blevels, w, b,
+        int(bplain[3].sum()), reps)
     return out
 
 
@@ -2877,7 +3039,8 @@ def phase_stream_kcover_knapsack(torch, words, cfg):
           "wall_seconds": wall,
           "arrivals_per_second": cfg.n / wall, "launches": launches,
           "accepted": len(ids), "value": float(sol.value),
-          "spent_best_level": sel_cost, "spent_max": float(spent.max())})
+          "spent_best_level": sel_cost, "spent_max": float(spent.max()),
+          "digest": _digest(ids, sol.value)})
     return launches
 
 
@@ -2895,6 +3058,7 @@ def phase_window_kcover(torch, words, cfg):
     pos = np.empty(cfg.n, np.int64)
     pos[order] = np.arange(cfg.n)
     win = SlidingSieve(SieveStreamer(obj, cfg.k, STREAM_EPS), WINDOW, STRIDE)
+    last = None
     counters.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2910,6 +3074,7 @@ def phase_window_kcover(torch, words, cfg):
                 ws.seen, pos[got].min())
             queries += 1
             values.append(float(sol.value))
+            last = _digest(got, sol.value)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: c["launches"] for n, c in counters.snapshot().items()
@@ -2919,7 +3084,7 @@ def phase_window_kcover(torch, words, cfg):
           "checkpoints": win.n_ckpt, "batches": batches,
           "queries_checked": queries, "wall_seconds": wall,
           "arrivals_per_second": cfg.n / wall, "launches": launches,
-          "query_values": values})
+          "query_values": values, "digest": last})
     return launches
 
 
@@ -2928,19 +3093,25 @@ def phase_continuous_kcover(torch, words, cfg):
     merge every 256 batches (15 merges + the tail's), one
     stream_filter[coverage] launch a batch for all lanes, the merge
     nodes on the resident bitmap loop; the merged values never
-    decrease."""
+    decrease. Then the same stream again under torch.profiler: its
+    device time, and that over the untraced wall (the busy share)."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.functions import make_objective
     from repro_torch.kernels import counters
     from repro_torch.streaming import stream_select_continuous
     obj = make_objective("kcover", universe=cfg.universe,
                          device=words.device)
     stream, _ = _kcover_stream(torch, words, cfg)
+
+    def run():
+        return stream_select_continuous(
+            obj, stream, cfg.k, lanes=CONTINUOUS_LANES, branching=2,
+            merge_every=MERGE_EVERY, eps=STREAM_EPS)
+
     counters.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sol, info = stream_select_continuous(
-        obj, stream, cfg.k, lanes=CONTINUOUS_LANES, branching=2,
-        merge_every=MERGE_EVERY, eps=STREAM_EPS)
+    sol, info = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: c["launches"] for n, c in counters.snapshot().items()
@@ -2951,10 +3122,20 @@ def phase_continuous_kcover(torch, words, cfg):
     merges = info["merges"]
     assert all(b >= a for a, b in zip(merges, merges[1:])), merges
     assert info["tier"] == "kernel", info
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_ms = sum(us for _, _, us in _cuda_events(torch, prof)) / 1e3
+    seen = device_ms > 0
     emit({"phase": "continuous_kcover", "lanes": CONTINUOUS_LANES,
           "branching": 2, "merge_every": MERGE_EVERY, **info,
           "wall_seconds": wall, "arrivals_per_second": cfg.n / wall,
-          "launches": launches, "value": float(sol.value)})
+          "device_ms": device_ms if seen else "not measured",
+          "busy_share": device_ms / (wall * 1e3) if seen else
+          "not measured",
+          "launches": launches, "value": float(sol.value),
+          "digest": _digest(sol.ids[sol.valid].cpu().numpy(), sol.value)})
     return launches
 
 
@@ -2962,9 +3143,9 @@ def phase_timing_stream_coverage(torch, words, cfg, reps):
     """B6 on bitmaps per batch at the kcover stream's shape, from the
     state three batches in, beside its bound — the bytes it must move
     (the arrivals' words, the rows in and out) and its integer
-    operations (a popcount pass a live decision), far below the card's
-    integer rate — and its plain version. The kernel walks 256
-    decisions in order per level: latency-bound."""
+    operations (a popcount pass a live arrival and admission), far below
+    the card's integer rate — and its plain version; its admitted count,
+    its kernels' split, and the device-memory tier's time (forced)."""
     from repro_torch.kernels import rules as R
     from repro_torch.kernels import stream_filter as TS
     from repro_torch.streaming import num_levels
@@ -2981,21 +3162,61 @@ def phase_timing_stream_coverage(torch, words, cfg, reps):
                          False)
     _, pay, valid, _ = batches[3]
     arr, bv = pay[None], valid[None]
-    nbytes = 4.0 * (b * w + 2 * levels * w + 2 * levels) + levels * b + b
-    out = {"stream_filter[coverage]": {
-        "shape": [1, levels, w, b],
-        "ms": cuda_ms(torch, lambda: TS.stream_filter(
-            None, arr, *st, bv, k, eps_log, R.BITS_OR), 20 * reps),
-        "plain_ms": cuda_ms(torch, lambda: TS.stream_filter_plain(
-            None, arr, *st, bv, k, eps_log, R.BITS_OR), 1),
-        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
-        "bound_by": "bytes",
-        # the singleton pass and the window alone (every arrival invalid)
-        "no_live_decision_ms": cuda_ms(torch, lambda: TS.stream_filter(
-            None, arr, *st, torch.zeros_like(bv), k, eps_log, R.BITS_OR),
-            20 * reps)}}
+    plain = TS.stream_filter_plain(None, arr, *st, bv, k, eps_log, R.BITS_OR)
+    out = {"stream_filter[coverage]": _bits_row(
+        torch, arr, st, bv, k, eps_log, levels, w, b, int(plain[3].sum()),
+        reps)}
     emit({"phase": "timing_stream_coverage", **out})
     return out
+
+
+def phase_stream_idle(torch, name, data, cfg, k, ground=None,
+                      warm: int = 5, batches: int = 20):
+    """The device's busy share in stream_select's loop: after `warm`
+    batches, `batches` batches traced with torch.profiler (the device
+    time of every kernel), then the next `batches` untraced on the host
+    clock (ending in a synchronize; the trace's own host cost left out):
+    the busy share is the traced device time a batch over the untraced
+    wall a batch, the rest the host's gap."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.functions import make_objective
+    from repro_torch.data.synthetic import Stream
+    from repro_torch.streaming import SieveStreamer
+    obj = make_objective(name, universe=cfg.universe, device=data.device)
+    order = np.random.default_rng(cfg.seed).permutation(data.shape[0])
+    it = iter(Stream(data, order, STREAM_BATCH))
+    streamer = SieveStreamer(obj, k, STREAM_EPS, ground=ground)
+    state = None
+    for _ in range(warm):
+        ids, pay, valid = next(it)
+        if state is None:
+            state = streamer.init(pay)
+        state = streamer.process_batch(state, ids, pay, valid)
+    traced = [next(it) for _ in range(batches)]
+    timed = [next(it) for _ in range(batches)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ids, pay, valid in traced:
+            state = streamer.process_batch(state, ids, pay, valid)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, pay, valid in timed:
+        state = streamer.process_batch(state, ids, pay, valid)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / batches
+    busy, kernels = 0.0, {}
+    for kernel, count, us in _cuda_events(torch, prof):
+        busy += us / 1e3 / batches
+        kernels[kernel[:48]] = {"launches_per_batch": count / batches,
+                                "ms_per_batch": us / 1e3 / batches}
+    seen = bool(kernels) and busy > 0
+    emit({"phase": "stream_idle", "stream": name, "batches": batches,
+          "wall_ms_per_batch": wall,
+          "device_busy_ms_per_batch": busy if seen else "not measured",
+          "busy_share": busy / wall if seen else "not measured",
+          "host_gap_ms_per_batch": wall - busy if seen else "not measured",
+          "kernel_split": kernels})
 
 
 def main(argv=None) -> int:
@@ -3019,7 +3240,6 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = TINY_IMAGENET
     dev = torch.device("cuda")
-
     phase_build()
     t0 = time.perf_counter()
     x = gen_images_on(args.n, cfg.feature_dim, classes=20, seed=args.seed,
@@ -3051,6 +3271,7 @@ def main(argv=None) -> int:
     stream_launches, stream_ratio = phase_stream_kmedoid(
         torch, x, cfg, x, f32_run[0])
     _add(launches, stream_launches)
+    phase_stream_idle(torch, "kmedoid", x, cfg, cfg.k, ground=x)
     _add(launches, phase_stream_kmedoid(torch, x, cfg, stream_inputs[0],
                                         f32_run[0], "int8", stream_ratio)[0])
     times = phase_timing(torch, x, cfg, cfg.seed, args.reps)
@@ -3077,6 +3298,7 @@ def main(argv=None) -> int:
     del kpools
     errs.update(phase_parity_stream_coverage(torch, words, kc))
     _add(launches, phase_stream_kcover(torch, words, kc, kcover_root))
+    phase_stream_idle(torch, "kcover", words, kc, kc.k)
     _add(launches, phase_stream_kcover_knapsack(torch, words, kc))
     _add(launches, phase_window_kcover(torch, words, kc))
     _add(launches, phase_continuous_kcover(torch, words, kc))

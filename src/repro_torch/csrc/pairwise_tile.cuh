@@ -1,15 +1,15 @@
 // One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
 //
 // Shared by the build phase of the resident loop kernel
-// (greedy_loop_resident.cu), the per-step gains kernel (gains.cu) and the
-// build phase of the stream filter (stream_filter.cu): `rt_tile`
-// accumulates a tile and hands its registers to an epilogue;
+// (greedy_loop_resident.cu) and the per-step gains kernel (gains.cu):
+// `rt_tile` accumulates a tile and hands its registers to an epilogue;
 // `rt_pairwise_tile` is the epilogue that stores the entries (the
-// resident build). The pairwise kernel (pairwise.cu) has a larger tile
-// of its own, built for the H100's fp32 pipes, with the same arithmetic
-// per entry: one f32 fmaf chain over ascending features, the float64
-// norms below and `rt_entry_value`, so its entries equal this tile's
-// bit for bit.
+// resident build). The pairwise kernel and the stream filter's slab run
+// the larger tile of tile128.cuh, built for the H100's fp32 pipes, with
+// the same arithmetic per entry: one f32 fmaf chain over ascending
+// features, the same float64 norms and `rt_entry_value`, so their
+// entries equal this tile's bit for bit (stream_filter.cu keeps a 64x64
+// build of its slab, rt_stream_slab64_kernel, as the check's yardstick).
 // 256 threads; each owns a 4x4 register micro-tile. The feature axis is
 // walked in slices of 16: both operand slices are staged in shared
 // memory (k-major, rows padded to 68 floats so the transposing stores do
@@ -30,7 +30,8 @@
 // feature slices (16 features each) accumulate in f32 as above, and each
 // such partial is then added into an outer f32 sum, so no sequential
 // chain is longer than 16·FOLD (+ D / (16·FOLD)) terms. The stream filter
-// builds its (N, B) slab so (FOLD = 16): against a plain torch.matmul
+// builds its (N, B) slab so (here FOLD = 16, its yardstick; tile128.cuh's
+// FOLD = 32 slices of 8 gives the same sums): against a plain torch.matmul
 // that cuBLAS splits along D for its tall-skinny shape (16,384 x 12,288
 // x 256), one f32 chain over D = 12,288 erred 2.4x more (RMS, from a
 // float64 build) than the plain version on the H100. FOLD = 0 (the

@@ -214,12 +214,30 @@ def greedy_loop_resident(ground, cands, row, mask, k: int,
                                        rule, cache_dtype=cache_dtype)
 
 
+def stream_ground(ground, dtype: str, rule: KernelRule):
+    """A feature stream's evaluation set as the stream filter stores it
+    (stream_plan's dtype: 'int8' per-row-quantized, else f32) → (ground,
+    gscale (N,) or None, gnorm (N,) or None). gnorm: the stored rows'
+    norms for a 'dist' rule on the card (stream_filter.ground_norms),
+    which the slab reads every batch; None elsewhere. One call per
+    evaluation set and storage (SieveStreamer keeps what it returns)."""
+    gscale = None
+    if dtype == "int8":
+        ground, gscale = quantize_ground(ground)
+        gscale = gscale.to(F32).reshape(-1).contiguous()
+    ground = (ground.to(F32) if gscale is None else ground).contiguous()
+    gnorm = (stream_k.ground_norms(ground, gscale)
+             if ground.is_cuda and rule.pairwise == "dist" else None)
+    return ground, gscale, gnorm
+
+
 def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
                   bvalid, k: int, eps_log: float, rule: KernelRule,
-                  costs=None, spent=None, budget=None, gscale=None):
+                  costs=None, spent=None, budget=None, gscale=None,
+                  gnorm=None):
     """One batch of B arrivals against all L sieve levels — of one sieve,
-    or of G stacked sieves — in ONE launch (the stream-filter kernel;
-    its plain version on the CPU).
+    or of G stacked sieves — in ONE dispatch (the stream-filter kernels;
+    their plain version on the CPU).
 
     Feature rules: ground (N, D) fixed evaluation set (int8 with
     ``gscale`` (1, N) or (N,) when already quantized), batch (B, D).
@@ -231,10 +249,14 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
     per-row-quantized (quantized here unless ``gscale`` is given). On
     the card a level state too large for a block's shared memory runs
     the kernel's global-memory tier (the plan's 'global'); only what no
-    kernel takes (bf16 ground, an unknown fold) raises. ``costs`` (…,
-    B) / ``spent`` (…, L) / ``budget`` switch admission to the knapsack
-    rule. Returns (rows, values, counts, admits (…, L, B) bool, expos,
-    m_new, expired bool) [+ spent], shaped as the state came."""
+    kernel takes (bf16 ground, an unknown fold) raises. ``gnorm`` (N,):
+    the stored ground's norms for a 'dist' rule on the card, given with
+    the ground as `stream_ground` stores it (computed per call when not
+    given; a ``gnorm`` beside a ground this call would quantize raises).
+    ``costs`` (…, B) / ``spent`` (…, L) / ``budget`` switch admission to
+    the knapsack rule. Returns (rows, values, counts, admits (…, L, B)
+    bool, expos, m_new, expired bool) [+ spent], shaped as the state
+    came."""
     stacked = rows.dim() == 3
     n = rows.shape[-1]
     b = batch.shape[-2]
@@ -242,6 +264,10 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
     plan = stream_plan(n, b, d, rule)
     if not rule.is_bitmap:
         if plan["dtype"] == "int8" and gscale is None:
+            if gnorm is not None:
+                raise ValueError("stream_filter: gnorm goes with the stored "
+                                 "ground (int8 here: pass its gscale, as "
+                                 "stream_ground returns them)")
             ground, gscale = quantize_ground(ground)
         ground = (ground.to(F32) if gscale is None else ground).contiguous()
         if gscale is not None:
@@ -262,7 +288,8 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
                        budget=float(budget))
     r0 = _cast_row(row0, rule)
     out = stream_k.stream_filter(ground, arr, *st[:1], r0, *st[1:], bv, k,
-                                 eps_log, rule, gscale=gscale, **cost_kw)
+                                 eps_log, rule, gscale=gscale, gnorm=gnorm,
+                                 **cost_kw)
     return out if stacked else tuple(x[0] for x in out)
 
 

@@ -55,14 +55,16 @@ its wrapper falls back to): the W-word row and the (C,) mask,
 up to ≈56,000 candidates: m = 32 (≈30,938 each) streams, m = 8
 (123,750) falls to the fused engine.
 
-The stream filter (`stream_plan`) has its own gate: each block of its
-kernel keeps one sieve level's state row in shared memory (a feature
-rule's (N,) f32 row beside the build tile; 8 bitmap rows of W words a
-block) while that fits the H100's 227 KB a block (STREAM_SMEM_BYTES):
-the 'kernel' tier. Beyond it the plan says 'global': the same kernel
-keeps each level's row in device memory (a feature rule's N beyond
-~54,000 rows, a bitmap's W beyond ~6,400 words at B = 256). The CPU
-runs the plain version at any size ('plain').
+The stream filter (`stream_plan`) has its own gate. A feature level's
+(N,) f32 row is cut into STREAM_CHUNKS = 8 chunks, and its decisions
+run on a thread-block cluster of 8 blocks, each keeping one chunk in
+its shared memory, at every N (8 blocks a level decided fastest at
+every row count measured, from 2,048 to 100,000). A bitmap level's W
+words sit in one block's shared memory. While a block's share fits the
+H100's 227 KB a block (STREAM_SMEM_BYTES: N up to ~454,000 f32 rows, W
+up to ~57,000 words) the tier is 'kernel'; beyond it the plan says
+'global': the same kernels keep each level's row in device memory. The
+CPU runs the plain version at any size ('plain').
 
 The CUDA kernels mask their ragged edges, so shapes are planned
 unpadded (the TPU tile padding of the reference has no counterpart).
@@ -82,17 +84,30 @@ ENGINES = ("step", "fused", "mega_stream", "mega_resident")
 THREADS = 256                       # threads per block of the loop kernels
 # argmax scratch of a loop block: one (value, index) pair per thread
 REDUCE_BYTES = 8 * THREADS
-# the pairwise tile of the resident and stream-filter builds: two 16×68
-# f32 operand tiles (64 columns + 4 of bank padding), two 64-entry norm
+# the pairwise tile of the resident build and the gains: two 16×68 f32
+# operand tiles (64 columns + 4 of bank padding), two 64-entry norm
 # vectors and the 64 row scales of an int8 ground (csrc/pairwise_tile.cuh)
 TILE_BYTES = 4 * (2 * 16 * 68 + 3 * 64)
-# static shared memory of a stream-filter feature block beside its
-# (N,) state row: the build tile, the (16, 64) float64 column sums of the
-# singleton partials, two sets of 8 warp sums in float64, the tile's 64
-# row0 entries and 8 warp maxima (csrc/stream_filter.cu)
-STREAM_STATIC_BYTES = TILE_BYTES + 8 * 16 * 64 + 8 * 2 * 8 + 4 * 64 + 4 * 8
-# sieve levels a bitmap stream-filter block runs (a warp each)
-STREAM_BITS_LEVELS = 8
+# the chunks of a feature sieve level's row that the stream filter's
+# decisions sum a gain over (in chunk order), a block of a portable
+# thread-block cluster each (csrc/stream_filter.cu). A decision is
+# latency-bound, so a level decides fastest on all 8: at 72 levels × 256
+# arrivals × 12,288 features on an H100 SXM 700 W a batch took 4.48 /
+# 3.11 / 2.71 / 2.50 ms on 1 / 2 / 4 / 8 blocks a level at 2,048 rows,
+# 3.95 / 2.92 / 2.64 / 2.57 at 8,192, 5.39 / 3.96 / 3.47 / 3.34 at
+# 16,384 (PERF.md §6: the cluster-size sweep)
+STREAM_CHUNKS = 8
+# arrivals a feature decision window evaluates at once
+# (csrc/stream_filter.cu: RT_WINDOW)
+STREAM_WINDOW = 8
+# static shared memory of a feature decision block beside its chunk of
+# the row: (window, 8 warps) float64 warp sums, two sets of (window,)
+# chunk sums and 8 warp maxima
+STREAM_STATIC_BYTES = 8 * STREAM_WINDOW * 8 + 8 * 2 * STREAM_WINDOW + 4 * 8
+# static shared memory of a bitmap level block beside its B gains, B
+# admission flags and W words: 8 warp maxima and the admission's index,
+# rounded up to the dynamic memory's 16-byte alignment
+STREAM_BITS_STATIC_BYTES = 48
 # shared memory one stream-filter block may hold: the H100's per-block
 # maximum (opt-in dynamic shared memory)
 STREAM_SMEM_BYTES = flags.H100_SMEM_PER_BLOCK
@@ -328,22 +343,28 @@ def select_engine(rule: KernelRule, n: int, c: int,
                       replicas=replicas)
 
 
+def stream_chunk(n: int) -> int:
+    """Entries of each of the STREAM_CHUNKS chunks of a feature level's
+    row: ceil(n / 8) rounded up to a multiple of 4 (16-byte loads)."""
+    return -(-(-(-n // STREAM_CHUNKS)) // 4) * 4
+
+
 def stream_smem_bytes(n: int, b: int, rule: KernelRule) -> int:
-    """Shared memory of one block of the stream-filter kernel: a feature
-    level's (N,) f32 row beside the static tile and reduction scratch;
-    for bitmap rules (n = W words) 8 level rows, row0 and the B
-    singleton gains."""
+    """Shared memory of one stream-filter block: a feature level's
+    chunk of its row (`stream_chunk` f32 entries, one of the cluster's 8)
+    beside the static reduction scratch; for bitmap rules (n = W words)
+    the level's words, the B gains and the B admission flags."""
     if rule.is_bitmap:
-        return 4 * ((STREAM_BITS_LEVELS + 1) * n + b)
-    return 4 * n + STREAM_STATIC_BYTES
+        return 4 * (n + b + -(-b // 4)) + STREAM_BITS_STATIC_BYTES
+    return 4 * stream_chunk(n) + STREAM_STATIC_BYTES
 
 
 def stream_tier(n: int, b: int, rule: KernelRule) -> str:
     """The stream-filter kernel's tier for b arrivals against levels over
-    n ground rows (universe words for bitmap rules): 'kernel' while a
-    block's shared memory holds a level's state (`stream_smem_bytes`
-    within STREAM_SMEM_BYTES, read at call time), else 'global' (the
-    level rows live in device memory)."""
+    n ground rows (universe words for bitmap rules): 'kernel' while
+    shared memory holds a level's state (`stream_smem_bytes` within
+    STREAM_SMEM_BYTES, read at call time), else 'global' (the level rows
+    live in device memory)."""
     fits = stream_smem_bytes(n, b, rule) <= STREAM_SMEM_BYTES
     return "kernel" if fits else "global"
 

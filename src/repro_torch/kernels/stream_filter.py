@@ -1,20 +1,37 @@
 """The kernel of `src/repro/kernels/stream_filter.py` (stream_filter_pallas):
 one batch of B arrivals against all L levels of G stacked sieves, in
-one launch — csrc/stream_filter.cu, its wrapper and its plain version.
+one dispatch — csrc/stream_filter.cu, its wrappers and its plain
+version.
 
   stream_filter        f32 ground (N, D), arrivals (A, B, D):
                        csrc/stream_filter.cu:rt_stream_filter, counted
                        as `stream_filter`; int8 ground with (N,) row
-                       scales, the same kernel widening each entry as
-                       its tile stages it, counted as
+                       scales, the same kernels widening each entry as
+                       the tile stages it, counted as
                        `stream_filter[int8]`; bitmap arrivals (A, B, W)
-                       words read in place, no ground:
-                       rt_stream_filter_bits, `stream_filter[coverage]`.
-                       Each with or without the knapsack cost mode, and
-                       on either tier of plans.stream_tier: 'kernel'
-                       (a level's row in a block's shared memory) or
-                       'global' (in its row of the output state in
-                       device memory; the same kernel, the same bits).
+                       words, no ground: rt_stream_filter_bits,
+                       `stream_filter[coverage]`. Each with or without
+                       the knapsack cost mode, and on either tier of
+                       plans.stream_tier: 'kernel' (a feature level's row
+                       in the shared memory of a thread-block cluster of
+                       8 blocks, a chunk a block; a bitmap level's
+                       words in one block's) or 'global' (in its row of
+                       the output state in device memory; the same bits).
+                       One counted dispatch a batch (the reference's
+                       count): four CUDA launches for feature rules
+                       (arrival norms, slab, singleton gains, decisions),
+                       two for bitmaps (singletons and word lists,
+                       levels).
+  ground_norms         the ground's float64 norms ('dist' rules), which
+                       the slab reads: computed once per evaluation set
+                       and storage by ops.stream_ground (SieveStreamer
+                       keeps them) and passed as ``gnorm``; a call
+                       without them computes them.
+  stream_slab          the feature slab alone, (A, B, N) and its
+                       singleton partials, as rt_stream_filter builds it,
+                       or with ``reference=True`` the 64x64-tile build it
+                       must equal bit for bit (a check's and a timing's
+                       entry point, on the card only).
   stream_filter_plain  the plain PyTorch version (kernels/ref.py:
                        stream_sieve over ref.pairwise's matrix): the CPU
                        path at any size (the 'plain' tier), and the
@@ -43,6 +60,7 @@ counts, admits (G, L, B) bool, expos, m_new (G,), expired (G, L) bool)
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -86,16 +104,20 @@ def stream_filter_plain(ground, batch, rows, row0, values, counts, expos,
     return res + (out[7],) if costs is not None else res
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The library with its entry points typed (once a process: the
+    stream calls it every batch)."""
     lib = build.load("stream_filter")
-    lib.rt_stream_filter_occupancy.restype = _I
-    lib.rt_stream_filter_occupancy.argtypes = [_I] * 4 + [
-        ctypes.POINTER(_I)] * 2
+    lib.rt_stream_norms.restype = _I
+    lib.rt_stream_norms.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I, _P]
+    lib.rt_stream_slab.restype = _I
+    lib.rt_stream_slab.argtypes = [_P] * 8 + [_I] * 7 + [_F] * 3 + [_I, _P]
     lib.rt_stream_filter.restype = _I
-    lib.rt_stream_filter.argtypes = ([_P] * 22 + [_I] * 10 + [_F] * 4
-                                     + [_I, _F, _I, _I, _P])
+    lib.rt_stream_filter.argtypes = ([_P] * 25 + [_I] * 10 + [_F] * 4
+                                     + [_I, _F, _I, _P])
     lib.rt_stream_filter_bits.restype = _I
-    lib.rt_stream_filter_bits.argtypes = ([_P] * 18 + [_I] * 6
+    lib.rt_stream_filter_bits.argtypes = ([_P] * 22 + [_I] * 6
                                           + [_F, _I, _F, _I, _P])
     lib.rt_scatter_slots.restype = _I
     lib.rt_scatter_slots.argtypes = [_P] * 7 + [_I] * 6 + [_P]
@@ -104,6 +126,94 @@ def _lib():
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ground_norms(ground, gscale=None):
+    """(N,) f32 squared norms of the ground rows ((N, D) f32, or int8 with
+    its (N,) row scales: the dequantized rows), each one float64
+    fma(v, v, ·) chain in ascending feature order cast once to f32, as
+    the slab reads them. On the card one launch (part of the stream
+    filter's work, not counted on its own); CPU tensors get the plain
+    float64 sum (the plain version needs no norms)."""
+    if not ground.is_cuda:
+        g = R.dequant(ground, gscale.reshape(1, -1)) if gscale is not None \
+            else ground
+        return g.double().square().sum(-1).to(F32)
+    dev = ground.device
+    n, d = ground.shape
+    storage = STORAGES.get(ground.dtype)
+    if storage is None or ground.dtype not in (F32, torch.int8):
+        raise NotImplementedError("ground_norms: f32 or int8 ground")
+    check_operand(ground, (n, d), ground.dtype, "ground", dev)
+    if (gscale is None) != (ground.dtype != torch.int8):
+        raise ValueError("int8 ground goes with its (N,) row scales")
+    if gscale is not None:
+        check_operand(gscale, (n,), F32, "gscale", dev)
+    out = torch.empty(n, dtype=F32, device=dev)
+    lib = _lib()
+    build.check(lib, lib.rt_stream_norms(
+        ground.data_ptr(), _ptr(gscale), out.data_ptr(), n, d, storage,
+        _stream(dev)), "stream_filter ground norms")
+    return out
+
+
+def _check_ground(ground, gscale, gnorm, rule, n, d, dev):
+    """The feature ground's checks → (storage code, gnorm or None)."""
+    storage = STORAGES[ground.dtype] if ground.dtype in (
+        F32, torch.int8) else None
+    if storage is None:
+        raise NotImplementedError("stream_filter: the CUDA path takes "
+                                  "f32 or int8 ground features")
+    check_operand(ground, (n, d), ground.dtype, "ground", dev)
+    if (gscale is None) != (ground.dtype != torch.int8):
+        raise ValueError("int8 ground goes with its (N,) row scales")
+    if gscale is not None:
+        check_operand(gscale, (n,), F32, "gscale", dev)
+    if rule.pairwise != "dist":
+        return storage, None
+    if gnorm is None:
+        gnorm = ground_norms(ground, gscale)
+    check_operand(gnorm, (n,), F32, "gnorm", dev)
+    return storage, gnorm
+
+
+def stream_slab(ground, batch, row0, rule: R.KernelRule, gscale=None,
+                gnorm=None, reference: bool = False):
+    """The feature slab of one batch on the card, alone: (mat (A, B, N)
+    f32, partials (A, ceil(N/64), B) float64 singleton partials) as
+    stream_filter builds them (the 128x128 tile, its norms from
+    ``gnorm`` or computed), or, with ``reference``, as the 64x64 tile
+    with its inline norms builds them: the yardstick the slab equals bit
+    for bit. A check's and a timing's entry point: no counter, CUDA
+    tensors only."""
+    if not batch.is_cuda:
+        raise ValueError("stream_slab runs on the card only")
+    check_feature_rule(rule, "stream_slab")
+    dev = batch.device
+    a, b, d = batch.shape
+    n = ground.shape[0]
+    check_operand(batch, (a, b, d), F32, "arrivals", dev)
+    check_operand(row0, (n,), F32, "row0", dev)
+    storage, gnorm = _check_ground(ground, gscale, gnorm, rule, n, d, dev)
+    if reference:
+        gnorm = None                    # the 64x64 tile sums its own norms
+    mat = torch.empty((a, b, n), dtype=F32, device=dev)
+    partials = torch.empty((a, -(-n // 64), b), dtype=torch.float64,
+                           device=dev)
+    anorm = (torch.empty(a * b, dtype=F32, device=dev)
+             if gnorm is not None else None)
+    lib = _lib()
+    build.check(lib, lib.rt_stream_slab(
+        ground.data_ptr(), _ptr(gscale), _ptr(gnorm), batch.data_ptr(),
+        _ptr(anorm), row0.data_ptr(), mat.data_ptr(), partials.data_ptr(),
+        n, b, a, d, MODES[rule.pairwise], storage, FOLDS[rule.fold],
+        rule.cap, rule.lam, 1.0 - rule.lam, int(reference), _stream(dev)),
+        "stream_filter slab" + (" (64x64 reference)" if reference else ""))
+    return mat, partials
 
 
 def _check_state(rows, values, counts, expos, m_max, row_dtype, dev):
@@ -121,14 +231,16 @@ def _check_state(rows, values, counts, expos, m_max, row_dtype, dev):
 def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
                   bvalid, k: int, eps_log: float, rule: R.KernelRule,
                   gscale=None, costs=None, spent=None, budget=None,
-                  scratch=None):
+                  scratch=None, gnorm=None):
     """One arrival batch against every level of G sieves (canonical
     shapes, module doc). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, on the tier plans.stream_tier gives
-    (shared-memory or global-memory level rows), or raise. ``scratch``
-    (A, B, N) f32, for feature rules on the card, receives the matrix
-    slab the kernel built (for checks; by default the wrapper allocates
-    it)."""
+    tensors launch the kernels, on the tier plans.stream_tier gives, or
+    raise. ``scratch`` (A, B, N)
+    f32, for feature rules on the card, receives the matrix slab the
+    kernel built (for checks; by default the wrapper allocates it).
+    ``gnorm`` (N,): the ground's norms for a 'dist' rule
+    (`ground_norms`, computed here when not given; the plain version
+    needs none)."""
     counter = COUNTERS["uint32" if rule.is_bitmap else (
         "int8" if ground.dtype == torch.int8 else "float32")]
     counter.calls += 1
@@ -171,7 +283,7 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
     bud = float(budget) if cost_mode else 0.0
     global_rows = int(plans.stream_tier(n, b, rule) == "global")
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     state = [_ptr(values), _ptr(counts), _ptr(expos), _ptr(m_max),
              _ptr(bvalid), _ptr(costs), _ptr(spent)]
     outs = [_ptr(rows_out), _ptr(values_out), _ptr(counts_out),
@@ -182,46 +294,34 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
             raise ValueError("the bitmap stream filter builds no matrix")
         check_operand(batch, (a, b, n), R.WORD_DTYPE, "arrivals", dev)
         check_words(n, "stream_filter")
+        lists = torch.empty((2, a, b, n), dtype=I32, device=dev)
+        lcnt = torch.empty((a, b), dtype=I32, device=dev)
+        single = torch.empty((a, b), dtype=F32, device=dev)
         err = lib.rt_stream_filter_bits(
             batch.data_ptr(), row0.data_ptr(), rows.data_ptr(), *state,
-            *outs, g, l, n, b, a, k, eps32, int(cost_mode), bud,
-            global_rows, stream)
+            lists[0].data_ptr(), lists[1].data_ptr(), lcnt.data_ptr(),
+            single.data_ptr(), *outs, g, l, n, b, a, k, eps32,
+            int(cost_mode), bud, global_rows, stream)
         build.check(lib, err, "stream_filter[coverage] kernel")
     else:
         check_feature_rule(rule, "stream_filter")
         d = batch.shape[2]
         check_operand(batch, (a, b, d), F32, "arrivals", dev)
-        storage = STORAGES[ground.dtype] if ground.dtype in (
-            F32, torch.int8) else None
-        if storage is None:
-            raise NotImplementedError("stream_filter: the CUDA path takes "
-                                      "f32 or int8 ground features")
-        check_operand(ground, (n, d), ground.dtype, "ground", dev)
-        if (gscale is None) != (ground.dtype != torch.int8):
-            raise ValueError("int8 ground goes with its (N,) row scales")
-        if gscale is not None:
-            check_operand(gscale, (n,), F32, "gscale", dev)
+        storage, gnorm = _check_ground(ground, gscale, gnorm, rule, n, d,
+                                       dev)
         if scratch is None:
             scratch = torch.empty((a, b, n), dtype=F32, device=dev)
         check_operand(scratch, (a, b, n), F32, "scratch", dev)
-        tn = -(-n // 64)
-        partials = torch.empty((a, tn, b), dtype=torch.float64, device=dev)
-        bps, sms = _I(), _I()
-        build.check(lib, lib.rt_stream_filter_occupancy(
-            storage, int(cost_mode), global_rows, n, ctypes.byref(bps),
-            ctypes.byref(sms)), "stream_filter occupancy query")
-        cap = bps.value * sms.value
-        if cap < 1:
-            raise RuntimeError("stream_filter: no block fits an SM")
-        tiles = a * tn * (-(-b // 64))
-        grid = max(1, min(max(tiles, g * l), cap))
+        partials = torch.empty((a, -(-n // 64), b), dtype=torch.float64,
+                               device=dev)
+        small = torch.empty(2 * a * b, dtype=F32, device=dev)
         err = lib.rt_stream_filter(
-            ground.data_ptr(), _ptr(gscale), batch.data_ptr(),
+            ground.data_ptr(), _ptr(gscale), _ptr(gnorm), batch.data_ptr(),
             row0.data_ptr(), rows.data_ptr(), *state, scratch.data_ptr(),
-            partials.data_ptr(), *outs, g, l, n, b, a, d, k,
-            MODES[rule.pairwise], storage, FOLDS[rule.fold], rule.cap,
-            rule.lam, 1.0 - rule.lam, eps32, int(cost_mode), bud,
-            global_rows, grid, stream)
+            partials.data_ptr(), small.data_ptr(), small[a * b:].data_ptr(),
+            *outs, g, l, n, b, a, d, k, MODES[rule.pairwise], storage,
+            FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, eps32,
+            int(cost_mode), bud, global_rows, stream)
         what = "stream_filter[int8]" if gscale is not None else \
             "stream_filter"
         build.check(lib, err, what + " kernel")

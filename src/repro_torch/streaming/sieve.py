@@ -93,7 +93,7 @@ class SieveStreamer:
         self.eps_log = math.log1p(float(eps))
         self.budget = float(budget)
         self.levels = num_levels(k, eps)
-        self._gquant = None
+        self._stored = {}
         if self.rule.is_bitmap:
             self.ground = None
             self.row0 = R.empty_row(None, None, self.rule,
@@ -125,13 +125,16 @@ class SieveStreamer:
         return stream_plan(self.row0.shape[0], batch, d, self.rule)
 
     def _ground(self, plan: dict):
-        """The ground features as the plan stores them (int8 quantized
-        once per streamer) → (ground, gscale or None)."""
-        if self.rule.is_bitmap or plan["dtype"] != "int8":
-            return self.ground, None
-        if self._gquant is None:
-            self._gquant = ops.quantize_ground(self.ground)
-        return self._gquant
+        """The ground features as the plan stores them, with their norms
+        for a 'dist' rule on the card (ops.stream_ground, once per
+        streamer and storage) → (ground, gscale, gnorm); Nones for
+        bitmap rules."""
+        if self.rule.is_bitmap:
+            return None, None, None
+        if plan["dtype"] not in self._stored:
+            self._stored[plan["dtype"]] = ops.stream_ground(
+                self.ground, plan["dtype"], self.rule)
+        return self._stored[plan["dtype"]]
 
     # -- state construction --------------------------------------------------
 
@@ -195,14 +198,15 @@ class SieveStreamer:
         stacked = state.rows.dim() == 3
         st = state if stacked else state.map(lambda x: x.unsqueeze(0))
         plan = self.plan(b)
-        ground, gscale = self._ground(plan)
+        ground, gscale, gnorm = self._ground(plan)
         out = ops.stream_filter(
             ground, pay if self.rule.is_bitmap else pay.to(F32), st.rows,
             self.row0, st.values, st.counts, st.expos, st.m_max, valid,
             self.k, self.eps_log, self.rule,
             costs=costs if cost_mode else None,
             spent=st.spent if cost_mode else None,
-            budget=self.budget if cost_mode else None, gscale=gscale)
+            budget=self.budget if cost_mode else None, gscale=gscale,
+            gnorm=gnorm)
         rows, values, counts, admits, expos, m_new, expired = out[:7]
         new_ids, new_pay = stream_k.scatter_slots(
             st.ids, st.payloads, st.counts, expired, admits, ids,

@@ -30,6 +30,7 @@ from repro_torch.kernels import parity
 from repro_torch.kernels import ref as TRef
 from repro_torch.kernels import rules as TR
 from repro_torch.kernels import stream_filter as TS
+from repro_torch.runtime import flags
 
 FEATURE_RULES = {
     "kmedoid": TR.DIST_MIN,
@@ -605,6 +606,42 @@ def test_cuda_stream_filter_int8_ground(cuda, name, cost):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+def test_cuda_stream_ground_norms_go_with_the_stored_ground(cuda, name,
+                                                            monkeypatch):
+    """Under the int8 rung an f32 ground goes through ops.stream_ground:
+    its norms are the int8 rows' (ground_norms of the stored ground), the
+    filter given the triple equals, bit for bit, the filter quantizing
+    the f32 ground itself, and the f32 rows' norms beside that f32
+    ground raise instead of reaching the slab."""
+    monkeypatch.setenv(flags.FUSED_CACHE_DTYPE_ENV, "int8")
+    tr = FEATURE_RULES[name]
+    n, b, d, k, l, g = 130, 70, 40, 5, 32, 2
+    ground = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(n, d)).astype(np.float32), device=cuda)
+    stored, gscale, gnorm = ops.stream_ground(ground, "int8", tr)
+    assert stored.dtype == torch.int8
+    if tr.pairwise == "dist":
+        assert torch.equal(gnorm, TS.ground_norms(stored, gscale))
+    else:
+        assert gnorm is None
+    row0 = TR.empty_row(ground[None], torch.ones(1, n, dtype=torch.bool,
+                                                 device=cuda), tr)[0]
+    st = _stream_state(cuda, tr, g, l, n, row0.contiguous())
+    for x, valid, _ in _stream_batches(cuda, 1, b, d, 3, 6):
+        want = ops.stream_filter(ground, x, *st[:6], valid, k, EPS_LOG, tr)
+        got = ops.stream_filter(stored, x, *st[:6], valid, k, EPS_LOG, tr,
+                                gscale=gscale, gnorm=gnorm)
+        parity.compare_exact(got, want, "stream_ground's triple vs the "
+                             "filter's own quantizing")
+        with pytest.raises(ValueError, match="gnorm"):
+            ops.stream_filter(ground, x, *st[:6], valid, k, EPS_LOG, tr,
+                              gnorm=TS.ground_norms(ground))
+        st = (want[0], st[1], want[1], want[2], want[4], want[5])
+    assert int(st[3].sum()) > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cost", [False, True])
 @pytest.mark.parametrize("lanes", [(1, 1), (5, 1), (4, 4)])
 def test_cuda_stream_filter_bits_matches_plain(cuda, lanes, cost):
@@ -626,6 +663,159 @@ def test_cuda_stream_filter_bits_matches_plain(cuda, lanes, cost):
         st = (want[0], st[1], want[1], want[2], want[4], want[5]) + (
             (want[7],) if cost else ())
     assert int(st[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "int8"])
+@pytest.mark.parametrize("name", ["kmedoid", "facility", "satcover"])
+@pytest.mark.parametrize("shape", [(1, 70, 150, 40), (2, 130, 257, 50),
+                                   (1, 5, 3, 7), (1, 129, 300, 520)])
+def test_cuda_stream_slab_equals_the_64x64_build(cuda, shape, name,
+                                                 storage):
+    """The stream filter's slab on the 128x128 tile equals the 64x64
+    tile's build (FOLD: 256 features a partial) bit for bit, every entry
+    and every singleton partial, for f32 and int8 ground, at ragged N,
+    B and D (D = 520 folds twice and leaves a tail); the norms come from
+    the once-per-evaluation-set pass."""
+    a, b, n, d = shape
+    tr = FEATURE_RULES[name]
+    rng = np.random.default_rng(31)
+    ground = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                             device=cuda)
+    x = torch.as_tensor(rng.normal(size=(a, b, d)).astype(np.float32),
+                        device=cuda)
+    row0 = TR.empty_row(ground[None], torch.ones(1, n, dtype=torch.bool,
+                                                 device=cuda), tr)[0]
+    row0 = row0.contiguous()
+    gscale = None
+    if storage == "int8":
+        ground, scale = ops.quantize_ground(ground)
+        gscale = scale.reshape(-1).contiguous()
+    gnorm = (TS.ground_norms(ground, gscale) if tr.pairwise == "dist"
+             else None)
+    got = TS.stream_slab(ground, x, row0, tr, gscale=gscale, gnorm=gnorm)
+    want = TS.stream_slab(ground, x, row0, tr, gscale=gscale,
+                          reference=True)
+    # the float64 partials compared as their 64-bit words
+    parity.compare_exact((got[0], got[1].view(torch.int64)),
+                         (want[0], want[1].view(torch.int64)),
+                         "stream slab vs the 64x64 build")
+    # the filter's own slab is the same build
+    st = _stream_state(cuda, tr, a, 8, n, row0)
+    mat = torch.empty(a, b, n, device=cuda)
+    valid = torch.ones(a, b, dtype=torch.bool, device=cuda)
+    TS.stream_filter(ground, x, *st, valid, 3, EPS_LOG, tr, gscale=gscale,
+                     scratch=mat)
+    parity.compare_exact(mat, want[0], "stream_filter's slab")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("lanes", [(1, 1), (3, 1), (2, 2)])
+@pytest.mark.parametrize("variant", ["kmedoid", "facility", "kmedoid[int8]",
+                                     "mmr"])
+def test_cuda_stream_decisions_on_both_tiers(cuda, variant, lanes, cost,
+                                             monkeypatch):
+    """The feature decisions give the same bits on the shared-memory tier
+    (a cluster of 8 blocks a level, a chunk of the row each) and on the
+    device-memory tier (forced by squeezing the byte gate), every output,
+    over three chained batches (ragged N, so the chunks end unevenly and
+    the scalar path runs; N = 256 for the 16-byte one); and hold to the
+    plain version by parity.compare_stream."""
+    g, a = lanes
+    tr = FEATURE_RULES[variant.split("[")[0]]
+    k, l = 5, 32
+    for n in (150, 203, 256):
+        b, d = 70, 40
+        ground = torch.as_tensor(np.random.default_rng(n).normal(
+            size=(n, d)).astype(np.float32), device=cuda)
+        row0 = TR.empty_row(ground[None], torch.ones(
+            1, n, dtype=torch.bool, device=cuda), tr)[0].contiguous()
+        gkw = {}
+        g_in = ground
+        if variant.endswith("[int8]"):
+            ground, scale = ops.quantize_ground(ground)
+            gkw = {"gscale": scale.reshape(-1).contiguous()}
+            g_in = TR.dequant(ground, scale).contiguous()
+        st = _stream_state(cuda, tr, g, l, n, row0, cost)
+        for x, valid, costs in _stream_batches(cuda, a, b, d, 3, n):
+            kw = dict(costs=costs, spent=st[6], budget=6.0) if cost else {}
+            assert plans.stream_tier(n, b, tr) == "kernel"
+            mat_k = torch.empty(a, b, n, device=cuda)
+            got = TS.stream_filter(ground, x, *st[:6], valid, k, EPS_LOG,
+                                   tr, scratch=mat_k, **kw, **gkw)
+            monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", 64)
+            assert plans.stream_tier(n, b, tr) == "global"
+            off_chip = TS.stream_filter(ground, x, *st[:6], valid, k,
+                                        EPS_LOG, tr, **kw, **gkw)
+            monkeypatch.undo()
+            parity.compare_exact(off_chip, got, "decisions, device-memory "
+                                 "tier vs the cluster's shared memory")
+            want = TS.stream_filter_plain(g_in, x, *st[:6], valid, k,
+                                          EPS_LOG, tr, **kw)
+            parity.compare_stream(
+                got, want, mat_k, TRef.pairwise(g_in, x, tr),
+                st[:6] + ((st[6],) if cost else (None,)), valid, k,
+                EPS_LOG, tr, costs=costs if cost else None,
+                budget=6.0 if cost else None)
+            st = (want[0], st[1], want[1], want[2], want[4], want[5]) + (
+                (want[7],) if cost else ())
+        assert int(st[3].sum()) > 0
+
+
+def _sets(a, b, words, items, seed, cuda):
+    """(a, b, words) bitmaps of random sets of ~`items` items each (a
+    kosarak-like sparse stream: a set touches ~items of its words)."""
+    rng = np.random.default_rng(seed)
+    bits = np.zeros((a * b, words), np.uint32)
+    for i in range(a * b):
+        its = rng.choice(words * 32, size=rng.integers(1, 2 * items),
+                         replace=False)
+        np.bitwise_or.at(bits[i], its // 32,
+                         (np.uint32(1) << (its % 32).astype(np.uint32)))
+    return TR.to_words(bits.reshape(a, b, words)).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("lanes", [(1, 1), (5, 1), (4, 4)])
+@pytest.mark.parametrize("words", [1_290, 8_192])
+def test_cuda_stream_filter_bits_sparse_sets(cuda, words, lanes, cost,
+                                            monkeypatch):
+    """B6 over bitmaps at kosarak-like (1,290 words, sets of ~15 items)
+    and wider (8,192 words) shapes: one sieve, a window's 5 checkpoints
+    and 4 continuous lanes, with and without costs, every output bit for
+    bit equal to the plain version over three chained batches, on the
+    shared-memory tier and, forced, the device-memory tier."""
+    tr = TR.BITS_OR
+    g, a = lanes
+    b, k, l = 256 // a, 16, 24
+    st = _stream_state(cuda, tr, g, l, words, cost=cost)
+    rng = np.random.default_rng(words + g)
+    admitted = 0
+    for i in range(3):
+        x = _sets(a, b, words, 15, 100 * i + g, cuda)
+        valid = torch.as_tensor(rng.random((a, b)) > 0.1, device=cuda)
+        costs = torch.as_tensor(rng.uniform(0.5, 2.0, (a, b)).astype(
+            np.float32), device=cuda)
+        kw = dict(costs=costs, spent=st[6], budget=8.0) if cost else {}
+        want = TS.stream_filter_plain(None, x, *st[:6], valid, k, EPS_LOG,
+                                      tr, **kw)
+        assert plans.stream_tier(words, b, tr) == "kernel"
+        counters.reset()
+        got = TS.stream_filter(None, x, *st[:6], valid, k, EPS_LOG, tr, **kw)
+        assert counters.snapshot()["stream_filter[coverage]"][
+            "launches"] == 1
+        parity.compare_exact(got, want, "stream_filter[coverage]")
+        monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", 64)
+        glob = TS.stream_filter(None, x, *st[:6], valid, k, EPS_LOG, tr,
+                                **kw)
+        monkeypatch.undo()
+        parity.compare_exact(glob, want, "stream_filter[coverage], global")
+        admitted += int(want[3].sum())
+        st = (want[0], st[1], want[1], want[2], want[4], want[5]) + (
+            (want[7],) if cost else ())
+    assert admitted > 0
 
 
 @pytest.mark.cuda

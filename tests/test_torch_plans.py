@@ -96,3 +96,68 @@ def test_unknown_engine_raises():
 def test_bucket_len_matches_reference():
     for size, tile in [(1, 8), (9, 8), (300, 128), (4096, 256)]:
         assert TPlans.bucket_len(size, tile) == JPlans.bucket_len(size, tile)
+
+
+# ---------------------------------------------------------------------------
+# the stream filter: both tiers' gates
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,tier", [
+    (150, "kernel"), (2_048, "kernel"), (2_049, "kernel"),
+    (4_097, "kernel"), (8_193, "kernel"), (16_384, "kernel"),
+    (100_000, "kernel"),
+    (463_552, "kernel"), (463_553, "global"),
+    (1_000_000, "global")])
+def test_stream_tier_from_rows(n, tier):
+    """A feature level's row is cut over the 8 blocks of a cluster at
+    every n; the shared-memory tier ends where a block's chunk no longer
+    fits the H100's 227 KB a block (beyond 463,552 f32 rows)."""
+    for rule in (TR.DIST_MIN, TR.DOT_MAX):
+        assert TPlans.stream_smem_bytes(n, 256, rule) == (
+            4 * TPlans.stream_chunk(n) + TPlans.STREAM_STATIC_BYTES)
+        assert TPlans.stream_tier(n, 256, rule) == tier
+        assert TPlans.stream_plan(n, 256, 64, rule)["tier"] == tier
+
+
+@pytest.mark.parametrize("n", [150, 2_048, 16_384, 100_000])
+def test_stream_tier_follows_the_byte_gate(n, monkeypatch):
+    """The gate is read at call time (how the CUDA tests force the
+    device-memory tier): a block's chunk exactly at STREAM_SMEM_BYTES
+    stays on chip, a byte less sends the level rows to device memory."""
+    b, rule = 70, TR.DIST_MIN
+    need = TPlans.stream_smem_bytes(n, b, rule)
+    monkeypatch.setattr(TPlans, "STREAM_SMEM_BYTES", need)
+    assert TPlans.stream_tier(n, b, rule) == "kernel"
+    monkeypatch.setattr(TPlans, "STREAM_SMEM_BYTES", need - 1)
+    assert TPlans.stream_tier(n, b, rule) == "global"
+    assert TPlans.stream_plan(n, b, 64, rule)["tier"] == "global"
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 150, 16_384, 100_000, 463_553])
+def test_stream_chunks_cover_the_row(n):
+    """The gain's 8 chunks cover the row, each a multiple of 4 entries
+    (16-byte loads), none wider than needed."""
+    ch = TPlans.stream_chunk(n)
+    assert ch % 4 == 0 and 8 * ch >= n and 8 * (ch - 4) < n
+
+
+@pytest.mark.parametrize("words,tier", [
+    (45, "kernel"), (1_290, "kernel"), (8_192, "kernel"),
+    (57_780, "kernel"), (57_781, "global")])
+def test_stream_bitmap_gate(words, tier):
+    """A bitmap level's words, its B gains and flags in one block (one
+    block a level, no cluster): kosarak's 1,290 words and 8,192 on chip,
+    the device-memory tier beyond ~57,800 words at B = 256."""
+    assert TPlans.stream_tier(words, 256, TR.BITS_OR) == tier
+    assert TPlans.stream_smem_bytes(words, 256, TR.BITS_OR) == (
+        4 * (words + 256 + 64) + TPlans.STREAM_BITS_STATIC_BYTES)
+
+
+def test_stream_static_bytes_are_the_kernels():
+    """The decision block's static shared memory beside its chunk: (8
+    window arrivals, 8 warps) float64 warp sums, (2, 8) chunk sums and 8
+    warp maxima."""
+    assert TPlans.STREAM_STATIC_BYTES == 672
+    assert TPlans.stream_smem_bytes(16_384, 256, TR.DIST_MIN) == (
+        4 * 2_048 + 672)

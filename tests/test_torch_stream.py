@@ -175,6 +175,46 @@ def test_stream_filter_matches_reference(name, quant, cost, monkeypatch):
             np.testing.assert_allclose(r[7], t[7], rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+def test_stream_ground_is_what_the_filter_stores(name, dtype, monkeypatch):
+    """ops.stream_ground alone decides the stream's ground storage: the
+    int8 rung quantizes as quantize_ground, f32 stays; a CPU ground
+    carries no norms. Handed to the filter with its scales it gives the
+    bits of the filter quantizing itself, and norms passed beside a
+    ground the call would quantize raise (they are not the rows the
+    slab reads)."""
+    monkeypatch.setenv(flags.FUSED_CACHE_DTYPE_ENV,
+                       "int8" if dtype == "int8" else "f32")
+    _, tr = RULES[name]
+    ground, row0, batches, _, l = _filter_inputs(name, seed=4)
+    g = _t(ground)
+    stored, gscale, gnorm = ops.stream_ground(g, dtype, tr)
+    assert gnorm is None
+    if dtype == "int8":
+        q, scale = ops.quantize_ground(g)
+        assert torch.equal(stored, q)
+        assert torch.equal(gscale, scale.reshape(-1))
+    else:
+        assert gscale is None and torch.equal(stored, g)
+    x, valid = batches[0]
+
+    def state():
+        return (_t(np.tile(row0[None], (l, 1))), _t(row0),
+                torch.zeros(l), torch.zeros(l, dtype=torch.int32),
+                torch.arange(l, dtype=torch.int32), torch.zeros(()),
+                _t(valid), 5, EPS_LOG, tr)
+
+    want = ops.stream_filter(g, _t(x), *state())
+    got = ops.stream_filter(stored, _t(x), *state(), gscale=gscale)
+    assert int(want[2].sum()) > 0
+    for w, o in zip(want, got):
+        assert torch.equal(w, o)
+    if dtype == "int8":
+        with pytest.raises(ValueError, match="gnorm"):
+            ops.stream_filter(g, _t(x), *state(), gnorm=TS.ground_norms(g))
+
+
 @pytest.mark.parametrize("cost", [False, True])
 @pytest.mark.parametrize("name", ["kmedoid", "facility", "kcover"])
 def test_stream_filter_plain_matches_interpret_kernel(name, cost):
@@ -343,11 +383,11 @@ def test_singleton_proxy_chunks_match_one_shot(monkeypatch):
 
 
 def test_stream_plan_gate(monkeypatch):
-    """The kernel at the chip's two shapes (the k-medoid stream: 16,384
-    evaluation rows of 12,288 features; kosarak: 1,290 words), int8
-    under the forced rung, the global-memory tier beyond a block's
-    shared memory (the H100's 227 KB): the reference launcher's
-    whole-stream evaluation set of 100,000 images among them."""
+    """The kernel at the chip's shapes (the k-medoid stream: 16,384 and
+    100,000 evaluation rows of 12,288 features, a level's row over a
+    thread-block cluster; kosarak: 1,290 words), int8 under the forced
+    rung, the global-memory tier beyond what a cluster's shared memory
+    holds (the H100's 227 KB a block, 8 blocks)."""
     assert plans.STREAM_SMEM_BYTES == 232_448
     assert plans.stream_plan(16_384, 256, 12_288, TR.DIST_MIN) == {
         "tier": "kernel", "dtype": "float32"}
@@ -359,14 +399,18 @@ def test_stream_plan_gate(monkeypatch):
     assert plans.stream_plan(1_290, 256, None, TR.BITS_OR)["dtype"] == \
         "uint32"
     assert plans.stream_plan(60_000, 256, 64, TR.DOT_MAX)["tier"] == \
+        "kernel"
+    assert plans.stream_plan(500_000, 256, 64, TR.DOT_MAX)["tier"] == \
         "global"
     assert plans.stream_plan(7_000, 256, None, TR.BITS_OR)["tier"] == \
+        "kernel"
+    assert plans.stream_plan(60_000, 256, None, TR.BITS_OR)["tier"] == \
         "global"
     monkeypatch.delenv(flags.FUSED_CACHE_DTYPE_ENV)
     assert plans.stream_plan(100_000, 256, 12_288, TR.DIST_MIN) == {
-        "tier": "global", "dtype": "float32"}
+        "tier": "kernel", "dtype": "float32"}
     monkeypatch.setattr(plans, "STREAM_SMEM_BYTES", 50_000)
-    assert plans.stream_plan(16_384, 256, 12_288, TR.DIST_MIN)["tier"] == \
+    assert plans.stream_plan(100_000, 256, 12_288, TR.DIST_MIN)["tier"] == \
         "global"
 
 
@@ -391,13 +435,13 @@ def test_plain_tier_gives_the_kernel_tier_selections(monkeypatch):
 
 @pytest.mark.parametrize("name", ["kmedoid", "facility", "kcover"])
 def test_cpu_runs_the_plain_filter_at_any_size(name):
-    """States far beyond a block's shared memory (100,000 f32 evaluation
-    rows; 8,192 bitmap words) plan 'global'; on the CPU ops.stream_filter
-    still runs the plain version on them (a call, no launch), equal to
-    the reference's oracle path."""
+    """States beyond what shared memory holds (470,000 f32 evaluation
+    rows, past a cluster of 8 blocks; 60,000 bitmap words) plan
+    'global'; on the CPU ops.stream_filter still runs the plain version
+    on them (a call, no launch), equal to the reference's oracle path."""
     jr, tr = RULES[name]
     ground, row0, batches, _, l = _filter_inputs(
-        name, seed=6, n=100_000, d=4, b=16, l=8, words=8_192)
+        name, seed=6, n=470_000, d=4, b=16, l=8, words=60_000)
     n, b = row0.shape[0], batches[0][0].shape[0]
     d = None if ground is None else ground.shape[1]
     assert plans.stream_plan(n, b, d, tr)["tier"] == "global"
