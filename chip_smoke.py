@@ -19,7 +19,9 @@ script exits non-zero:
              knapsack run's leaf (32 × 3,125²) and node (32 × 400²)
              shapes, gains at the stochastic run's leaf shape (32 ×
              3,125 ground rows × 72 sampled candidates), with a TF32
-             build rejected
+             build rejected; each also bit for bit against the design
+             it replaced (fused_step's row blocks, gains' 64×64 tile:
+             `vs_earlier_design`, `vs_64x64_build`, differing = 0)
   reference  small trees through the kernels against the same trees
              through the plain CPU path: run_tree_dense on small-integer
              facility data; then (line `reference_dispatch`)
@@ -34,11 +36,13 @@ script exits non-zero:
              launches), spent ≤ budget at the root and every lane
   stochastic the same lanes without a constraint, sample_leaf = 72 (the
              paper's ε = 0.01 subset): leaves on the step engine (200
-             gains launches), nodes on the resident loop
+             gains launches, 1 gains_norms: the ground's norms once),
+             nodes on the resident loop
   timing     each kernel at its path's shape beside its bound, its
              plain version and a one-call PyTorch yardstick (line
              `timing_steps` for fused_step and gains, with fused_step
-             at the node shape and the step engine's row update)
+             at the node shape, gains' once-a-greedy norms pass and the
+             step engine's row update)
 
 The memory-capped cache tiers (bf16 and int8 cached matrices, the
 planner's storage ladder), between the phases above:
@@ -446,13 +450,22 @@ def _fused_step_parity(torch, F, parity, R, rules, mat_of, b, n, seed):
         plain = F.fused_step_plain(mat, row, mask, prev, rule)
         res = parity.compare_steps(kern, plain, mat, mask, rule,
                                    what=f"fused_step {name}")
+        yard = parity.compare_exact(kern, F.fused_step(
+            mat, row, mask, prev, rule, reference=True),
+            f"fused_step {name} vs the earlier design")
         mask2 = mask.scatter(1, plain[1][:, None], 0.0)
         kern2 = F.fused_step(mat, plain[0], mask2, plain[1], rule)
         plain2 = F.fused_step_plain(mat, plain[0], mask2, plain[1], rule)
         res2 = parity.compare_steps(kern2, plain2, mat, mask2, rule,
                                     what=f"fused_step {name}, step 2")
+        yard2 = parity.compare_exact(kern2, F.fused_step(
+            mat, plain[0], mask2, plain[1], rule, reference=True),
+            f"fused_step {name} vs the earlier design, step 2")
         res["max_gain_err"] = max(res["max_gain_err"], res2["max_gain_err"])
         res["ties"] += res2["ties"]
+        res["vs_earlier_design"] = {
+            "entries": yard["entries"] + yard2["entries"],
+            "differing": yard["differing"] + yard2["differing"]}
         out[name] = res
         del mat, row
     return out
@@ -475,13 +488,23 @@ def _gains_parity(torch, P, parity, R, rules, ground, cands):
             row = R.update_row(ground, row,
                                ground[:, 97 * j % ground.shape[1]], rule)
         row = row.contiguous()
-        got = P.gains(ground, row, cands, cand_valid, rule)
+        gnorm = (P.ground_norms(ground) if rule.pairwise == "dist"
+                 else None)
+        got = P.gains(ground, row, cands, cand_valid, rule, gnorm=gnorm)
         plain = P.gains_plain(ground, row, cands, cand_valid, rule)
         exact = parity.exact_gains(ground, row, cands, rule)
         stats = parity.gains_stats(got, plain, exact)
         assert parity.pairwise_holds(stats), f"gains {name}: {stats}"
         fin = torch.isfinite(plain)
         stats["max_abs_diff"] = float((got[fin] - plain[fin]).abs().max())
+        parity.compare_exact(got, P.gains(ground, row, cands, cand_valid,
+                                          rule),
+                             f"gains {name}: norms passed vs computed")
+        yard = parity.compare_exact(got, P.gains(
+            ground, row, cands, cand_valid, rule, reference=True),
+            f"gains {name} vs the 64x64 build")
+        stats["vs_64x64_build"] = {"entries": yard["entries"],
+                                   "differing": yard["differing"]}
         if rule.fold == "min" and ground.is_cuda:   # TF32 only on the card
             torch.backends.cuda.matmul.allow_tf32 = True
             try:
@@ -895,8 +918,9 @@ def _run_dispatcher(torch, x, cfg, pools, expect, objective="kmedoid",
     """One LevelDispatcher tree over the run's lanes, stage by stage:
     per-stage wall time (host clock around synchronized work), the
     engine the planner picks there and the launches per kernel, each
-    held to `expect(stage, engine)`. Returns (stage reports, launch
-    totals, the final lane state)."""
+    held to `expect(stage, engine)`, and the caching allocator's
+    device allocations, frees and retries. Returns (stage reports,
+    launch totals, the final lane state)."""
     from repro_torch.core.functions import make_objective
     from repro_torch.core.greedyml import LevelDispatcher
     from repro_torch.kernels import counters
@@ -908,9 +932,17 @@ def _run_dispatcher(torch, x, cfg, pools, expect, objective="kmedoid",
     ids, pay, valid = pools
     stages, totals = [], {}
     sols = None
+    def allocator():
+        # cudaMalloc/cudaFree calls (each a host sync) and retries after
+        # freeing the cache: what the caching allocator made a stage wait
+        st = torch.cuda.memory_stats()
+        return [st.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                       "num_alloc_retries")]
+
     for stage in range(disp.num_levels + 1):
         torch.cuda.synchronize()
         counters.reset()
+        mem0 = allocator()
         t0 = time.perf_counter()
         if stage == 0:
             sols = disp.leaves(ids, pay, valid)
@@ -932,7 +964,9 @@ def _run_dispatcher(torch, x, cfg, pools, expect, objective="kmedoid",
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
         stages.append({"stage": stage, "engine": engine, "seconds": secs,
-                       "launches": launches})
+                       "launches": launches,
+                       "device_allocs_frees_retries": [
+                           b - a for a, b in zip(mem0, allocator())]})
     return stages, totals, sols
 
 
@@ -994,7 +1028,7 @@ def phase_stochastic(torch, x, cfg, pools):
     def expect(stage, engine):
         if stage == 0:
             assert engine == "step", engine
-            return {"gains": cfg.k}
+            return {"gains": cfg.k, "gains_norms": 1}
         assert engine == "mega_resident", (stage, engine)
         return {"greedy_loop_resident": 1, "pairwise": 1}
 
@@ -1086,6 +1120,24 @@ def phase_timing(torch, x, cfg, seed, reps):
     return out
 
 
+def _vs_global(torch, step, reps) -> dict:
+    """fused_step at one shape beside its global tier, the earlier design
+    (the parent's kernel): the global tier's CUDA-event ms a call, and
+    each design's device ms a launch by torch.profiler (at the node
+    shapes the host sets the event time, so only device time compares
+    the kernels)."""
+    def device_ms(fn):
+        split = _kernel_split(torch, fn, 20)["kernel_split"]
+        if not isinstance(split, dict):
+            return split
+        return {k: v["ms_per_launch"] for k, v in split.items()
+                if "fused_step" in k}
+    return {"global_ms": cuda_ms(torch, lambda: step(reference=True),
+                                 20 * reps),
+            "device_ms": device_ms(step),
+            "global_device_ms": device_ms(lambda: step(reference=True))}
+
+
 def phase_timing_steps(torch, x, cfg, pools, reps):
     """The per-step kernels at their paths' shapes: fused_step over the
     knapsack leaves' caches (32 × 3,125²), gains over the stochastic
@@ -1112,6 +1164,8 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
         "shape": [b, n, n],
         "ms": cuda_ms(torch, lambda: F.fused_step(mat, row, mask, prev, rule),
                       20 * reps),
+        **_vs_global(torch, lambda **kw: F.fused_step(
+            mat, row, mask, prev, rule, **kw), reps),
         "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
             mat, row, mask, prev, rule), reps),
         "library_ms": None, "bound_ms": bms, "bound_by": by}
@@ -1128,6 +1182,8 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
         "shape": [b, bk, bk],
         "ms": cuda_ms(torch, lambda: F.fused_step(nmat, nrow, nmask, prev,
                                                   rule), 20 * reps),
+        **_vs_global(torch, lambda **kw: F.fused_step(
+            nmat, nrow, nmask, prev, rule, **kw), reps),
         "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
             nmat, nrow, nmask, prev, rule), 20 * reps),
         "bound_ms": bound(3.0 * b * bk * bk,
@@ -1137,12 +1193,17 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
     idx = LaneSampler(cfg.seed)(0, b, 1, n, c)[:, 0].to(x.device)
     cands = torch.gather(pay, 1, idx[..., None].expand(b, c, d)).contiguous()
     cv = torch.ones(b, c, dtype=torch.bool, device=x.device)
-    flops = 2.0 * b * n * c * d + 2.0 * b * (n + c) * d + 4.0 * b * n * c
-    nbytes = 4.0 * (b * n * d + b * c * d + b * n + b * c)
+    # a step's work: the products, the candidates' norms and the gain
+    # parts; the ground's norms are the greedy's, taken once (norms_ms)
+    gnorm = P.ground_norms(pay)
+    flops = 2.0 * b * n * c * d + 2.0 * b * c * d + 4.0 * b * n * c
+    nbytes = 4.0 * (b * n * d + b * c * d + 2 * b * n + b * c)
     bms, by = bound(flops, nbytes)
     out["gains"] = {
         "shape": [b, n, c, d],
-        "ms": cuda_ms(torch, lambda: P.gains(pay, row, cands, cv, rule), reps),
+        "ms": cuda_ms(torch, lambda: P.gains(pay, row, cands, cv, rule,
+                                             gnorm=gnorm), reps),
+        "norms_ms": cuda_ms(torch, lambda: P.ground_norms(pay), reps),
         "plain_ms": cuda_ms(torch, lambda: P.gains_plain(pay, row, cands, cv,
                                                          rule), reps),
         "library_ms": cuda_ms(torch, lambda: torch.cdist(
@@ -1157,6 +1218,44 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
         "bound_ms": bound(3.0 * b * n * d, 4.0 * (b * n * d + 2 * b * n))[0]}
     emit({"phase": "timing_steps", **out})
     return out
+
+
+def phase_timing_fused_global(torch, cfg, reps):
+    """fused_step's global tier where the planner sends a step to it: the
+    sequential Greedy over all n images (simulate.run_greedy_dense), one
+    greedy whose f32 (n, n) cache (40,000 MB at n = 100,000) fits the
+    budget but whose span partials fit no cluster's shared memory. The
+    cache is random (the time does not depend on its values); the step
+    is held to finite gains and a winner in range. Reported, not in the
+    kernels line."""
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import plans
+    from repro_torch.kernels import rules as R
+    n = cfg.n
+    plan = plans.select_engine(R.DIST_MIN, n, n, cfg.feature_dim)
+    assert plan.engine == "fused", plan
+    assert not plans.fused_cluster_fits(plan.dtype, n, plan.block_n)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    mat = torch.rand((1, n, n), generator=gen, device=dev)
+    row = torch.full((1, n), 2.0, device=dev)
+    mask = torch.ones(1, n, device=dev)
+    prev = torch.zeros(1, dtype=torch.int64, device=dev)
+    rule = R.DIST_MIN
+    _, best, gain = F.fused_step(mat, row, mask, prev, rule,
+                                 block_n=plan.block_n)
+    assert 0 <= int(best[0]) < n and bool(torch.isfinite(gain).all())
+    ms = cuda_ms(torch, lambda: F.fused_step(mat, row, mask, prev, rule,
+                                             block_n=plan.block_n), reps)
+    bms, by = bound(3.0 * n * n, 4.0 * n * n + 4.0 * 4 * n + 16.0)
+    # the step engine's work a step at the same size: the products alone
+    step_bms = bound(2.0 * n * n * cfg.feature_dim, 4.0 * n * cfg.feature_dim)
+    emit({"phase": "timing_fused_global", "shape": [1, n, n],
+          "dtype": plan.dtype, "block_n": plan.block_n, "ms": ms,
+          "bound_ms": bms, "bound_by": by,
+          "step_engine_bound_ms": step_bms[0]})
+    del mat
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1333,12 +1432,16 @@ def phase_parity_quant(torch, x, cfg, pools):
             for dt, (mat, scale) in caches.items():
                 what = f"fused_step{TAG[dt]} {name} {where}"
                 logical = R.logical(mat, scale).contiguous()
-                r, mk, pv, cmps, sames = row, mask, prev, [], []
+                r, mk, pv, cmps, sames, yards = row, mask, prev, [], [], []
                 for _ in range(2):
                     got = F.fused_step(mat, r, mk, pv, rule, scale=scale)
                     sames.append(parity.compare_exact(
                         got, F.fused_step(logical, r, mk, pv, rule),
                         what + " vs the f32 kernel"))
+                    yards.append(parity.compare_exact(
+                        got, F.fused_step(mat, r, mk, pv, rule, scale=scale,
+                                          reference=True),
+                        what + " vs the earlier design"))
                     plain = F.fused_step_plain(mat, r, mk, pv, rule,
                                                scale=scale)
                     cmps.append(parity.compare_steps(got, plain, logical, mk,
@@ -1348,6 +1451,9 @@ def phase_parity_quant(torch, x, cfg, pools):
                 res[f"fused_step{TAG[dt]}_vs_f32_kernel"] = {
                     "entries": sum(s["entries"] for s in sames),
                     "differing": sum(s["differing"] for s in sames)}
+                res[f"fused_step{TAG[dt]}_vs_earlier_design"] = {
+                    "entries": sum(s["entries"] for s in yards),
+                    "differing": sum(s["differing"] for s in yards)}
                 res[f"fused_step{TAG[dt]}_plain"] = {
                     "max_gain_err": max(c["max_gain_err"] for c in cmps),
                     "ties": sum(c["ties"] for c in cmps)}
@@ -1533,8 +1639,9 @@ def phase_timing_quant(torch, x, cfg, pools, reps):
     version and its bound, the storage's own bytes: pairwise[bf16] and
     the streaming loops at the leaf level (32 × 3,284²; the loop re-reads
     its caches every step less what L2 and shared memory hold),
-    fused_step at the knapsack leaf (32 × 3,125²), the resident loops at
-    a level-1 node batch (16 × 400²). pairwise[bf16] beside
+    fused_step at the knapsack leaf (32 × 3,125²) and node (32 × 400²),
+    the resident loops at a level-1 node batch (16 × 400²).
+    pairwise[bf16] beside
     torch.cdist(…).to(torch.bfloat16); no single PyTorch call computes
     the others."""
     from repro_torch.kernels import fused_step as F
@@ -1597,12 +1704,37 @@ def phase_timing_quant(torch, x, cfg, pools, reps):
             "shape": [b, n, n],
             "ms": cuda_ms(torch, lambda: F.fused_step(
                 mat, row, mask, prev, rule, scale=scale), 20 * reps),
+            **_vs_global(torch, lambda **kw: F.fused_step(
+                mat, row, mask, prev, rule, scale=scale, **kw), reps),
             "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
                 mat, row, mask, prev, rule, scale=scale), reps),
             "library_ms": None, "bound_ms": bms, "bound_by": by}
         del mat, scale
-    nodes = cfg.num_machines // cfg.branching
+    # the knapsack node shape (timing_steps' nodes): caches in L2
     bk = cfg.branching * k
+    kn = node_pools(torch, x, b, bk, cfg.seed + 3)
+    nrow = R.empty_row(kn, torch.ones(b, bk, dtype=torch.bool,
+                                      device=x.device), rule).contiguous()
+    nmask = torch.ones(b, bk, device=x.device)
+    for dt in QUANT:
+        mat = ops.pairwise_matrix(kn, kn, rule, dt)
+        mat, scale = (mat.q, mat.scale) if dt == "int8" else (mat, None)
+        ops_entry = 4.0 if dt == "int8" else 3.0
+        nbytes = (mat.element_size() * b * bk * bk
+                  + (4.0 * b * bk if dt == "int8" else 0.0)
+                  + 4.0 * 3 * b * bk + 16.0 * b)
+        out[f"fused_step{TAG[dt]}_node"] = {
+            "shape": [b, bk, bk],
+            "ms": cuda_ms(torch, lambda: F.fused_step(
+                mat, nrow, nmask, prev, rule, scale=scale), 20 * reps),
+            **_vs_global(torch, lambda **kw: F.fused_step(
+                mat, nrow, nmask, prev, rule, scale=scale, **kw), reps),
+            "plain_ms": cuda_ms(torch, lambda: F.fused_step_plain(
+                mat, nrow, nmask, prev, rule, scale=scale), 20 * reps),
+            "bound_ms": bound(ops_entry * b * bk * bk, nbytes)[0]}
+        del mat, scale
+    del kn
+    nodes = cfg.num_machines // cfg.branching
     d = x.shape[1]
     cd = node_pools(torch, x, nodes, bk, cfg.seed + 1)
     vv = torch.ones(nodes, bk, dtype=torch.bool, device=x.device)
@@ -2378,15 +2510,20 @@ def phase_parity_stream(torch, x, cfg, pools):
         for j in range(5):
             row = R.update_row(gdeq, row, gdeq[:, 97 * j % nl], rule)
         row = row.contiguous()
-        got = P.gains(gq, row, cands, cv, rule, gscale=gs)
+        gnorm = P.ground_norms(gq, gs) if rule.pairwise == "dist" else None
+        got = P.gains(gq, row, cands, cv, rule, gscale=gs, gnorm=gnorm)
         same = parity.compare_exact(got, P.gains(gdeq, row, cands, cv, rule),
                                     f"gains[int8] {name} vs the f32 kernel")
+        yard = parity.compare_exact(got, P.gains(
+            gq, row, cands, cv, rule, gscale=gs, reference=True),
+            f"gains[int8] {name} vs the 64x64 build")
         plain = P.gains_plain(gq, row, cands, cv, rule, gs)
         stats = parity.compare_gains(got, plain, gdeq, row, cands, rule,
                                      what=f"gains[int8] {name}")
         fin = torch.isfinite(plain)
         stats["max_abs_diff"] = float((got[fin] - plain[fin]).abs().max())
         stats["vs_f32_kernel_differing"] = same["differing"]
+        stats["vs_64x64_build_differing"] = yard["differing"]
         b2q[name] = stats
     errs["gains[int8]"] = b2q["kmedoid"]["max_abs_diff"]
     del gq, gs, gdeq, cands
@@ -2674,7 +2811,7 @@ def phase_stochastic_int8(torch, x, cfg, pools):
     def expect(stage, engine):
         if stage == 0:
             assert engine == "step", engine
-            return {"gains[int8]": cfg.k}
+            return {"gains[int8]": cfg.k, "gains_norms": 1}
         assert engine == "mega_resident", (stage, engine)
         return {"greedy_loop_resident[int8]": 1, "pairwise": 1}
 
@@ -2813,21 +2950,24 @@ def phase_timing_stream(torch, x, cfg, pools, stream_inputs, reps,
     cands = torch.gather(lpay, 1, idx[..., None].expand(lanes, c, d))
     cands = cands.contiguous()
     cv = torch.ones(lanes, c, dtype=torch.bool, device=x.device)
-    flops = (2.0 * lanes * nl * c * d + 2.0 * lanes * (nl + c) * d
+    gnorm, f32_gnorm = P.ground_norms(gq, gs), P.ground_norms(lpay)
+    # as the f32 row: the ground's norms are the greedy's (norms_ms)
+    flops = (2.0 * lanes * nl * c * d + 2.0 * lanes * c * d
              + 5.0 * lanes * nl * c)
     nbytes = (lanes * nl * d + 4.0 * (lanes * nl + lanes * c * d
-                                      + lanes * nl + lanes * c))
+                                      + 2 * lanes * nl + lanes * c))
     bms, by = bound(flops, nbytes)
     out["gains[int8]"] = {
         "shape": [lanes, nl, c, d],
         "ms": cuda_ms(torch, lambda: P.gains(gq, row, cands, cv, rule,
-                                             gscale=gs), reps),
+                                             gscale=gs, gnorm=gnorm), reps),
+        "norms_ms": cuda_ms(torch, lambda: P.ground_norms(gq, gs), reps),
         "f32_kernel_ms": cuda_ms(torch, lambda: P.gains(
-            lpay, row, cands, cv, rule), reps),
+            lpay, row, cands, cv, rule, gnorm=f32_gnorm), reps),
         "plain_ms": cuda_ms(torch, lambda: P.gains_plain(
             gq, row, cands, cv, rule, gs), reps),
         "library_ms": None, "bound_ms": bms, "bound_by": by}
-    del gq, gs, row, cands
+    del gq, gs, gnorm, f32_gnorm, row, cands
     out.update(_timing_stream_global(torch, x, cfg, global_inputs, reps))
     emit({"phase": "timing_stream", **out})
     return out
@@ -3283,6 +3423,7 @@ def main(argv=None) -> int:
     del x, pools, stream_inputs, global_inputs
     gc.collect()
     torch.cuda.empty_cache()
+    phase_timing_fused_global(torch, cfg, args.reps)
     kc = KOSARAK
     bits, words = phase_data_kcover(torch, kc, KOSARAK_AVG_SIZE, dev)
     kpools = lane_pools(torch, words, kc.num_machines, kc.seed)

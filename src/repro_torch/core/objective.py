@@ -9,10 +9,12 @@ once per level, where the reference vmapped one greedy:
   value(state)                             → (B,) f(S) on each eval set
   gains(state, cands, cand_valid)          → (B, C) normalized gains
                                              (the gains kernel)
-  quantize_ground(state)                   → state with its ground held
-                                             int8 beside it, once per
-                                             greedy, under a forced int8
-                                             rung (the step engine)
+  prepare_ground(state)                    → state with its ground as
+                                             the gains read it, once per
+                                             greedy (the step engine):
+                                             int8 beside it under a
+                                             forced int8 rung, and its
+                                             'dist' norms
   update(state, payload)                   → state after one element each
   plan_dims(state, cands)                  → (n, c, d) for select_engine
   prepare(state, cands, cand_valid[, plan]) → (matrix, EnginePlan) | None
@@ -49,13 +51,16 @@ class RuleState:
     rules; `base` is the value offset (k-medoid's L({e0}) term, 0
     elsewhere); `n_eff` the valid-ground normalizer (1 for bitmaps);
     `gquant` the ground's int8 storage (q (B, N, D), scale (B, 1, N))
-    when the step engine runs under a forced int8 rung, else None."""
+    when the step engine runs under a forced int8 rung, else None;
+    `gnorm` the stored ground's (B, N) 'dist' norms, which the step
+    engine takes once per greedy for the gains kernel, else None."""
     ground: Optional[torch.Tensor]    # (B, N, D) evaluation features
     gvalid: Optional[torch.Tensor]    # (B, N) bool
     row: torch.Tensor                 # (B, N) f32 | (B, W) int32 words
     base: torch.Tensor                # (B,) f32
     n_eff: torch.Tensor               # (B,) f32
     gquant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    gnorm: Optional[torch.Tensor] = None
 
 
 class RuleObjective:
@@ -106,26 +111,34 @@ class RuleObjective:
 
     # -- per-step engine -----------------------------------------------------
 
-    def quantize_ground(self, state: RuleState) -> RuleState:
-        """Under REPRO_TORCH_FUSED_CACHE_DTYPE=int8 the per-step gains
-        read the ground features per-row-quantized, as in the reference.
-        The quantization is deterministic, so it is done once per greedy
-        and held beside the state (1 byte an entry) instead of on every
-        step (at the stochastic Tiny-ImageNet leaves 4.9 GB of f32 a
-        step); other rungs and bitmap rules leave the state as it is."""
-        if (self.rule.is_bitmap or state.gquant is not None
-                or flags.fused_cache_dtype() != "int8"):
+    def prepare_ground(self, state: RuleState) -> RuleState:
+        """The ground as the per-step gains read it, held beside the
+        state once per greedy — its rows do not change over the steps:
+        under REPRO_TORCH_FUSED_CACHE_DTYPE=int8 per-row-quantized, as in
+        the reference (1 byte an entry; at the stochastic Tiny-ImageNet
+        leaves quantizing every step would re-read 4.9 GB of f32), and
+        for a 'dist' rule the stored rows' norms (`ops.gains_norms`,
+        which the kernel would otherwise take every step). Bitmap rules
+        leave the state as it is."""
+        if self.rule.is_bitmap:
             return state
-        return dataclasses.replace(state,
-                                   gquant=ops.quantize_ground(state.ground))
+        if state.gquant is None and flags.fused_cache_dtype() == "int8":
+            state = dataclasses.replace(
+                state, gquant=ops.quantize_ground(state.ground))
+        if state.gnorm is None and self.rule.pairwise == "dist":
+            g, gs = (state.gquant if state.gquant is not None
+                     else (state.ground, None))
+            state = dataclasses.replace(state, gnorm=ops.gains_norms(g, gs))
+        return state
 
     def gains(self, state: RuleState, cands, cand_valid):
         if state.gquant is not None:
             raw = ops.gains(state.gquant[0], state.row, cands, cand_valid,
-                            self.rule, gscale=state.gquant[1])
+                            self.rule, gscale=state.gquant[1],
+                            gnorm=state.gnorm)
         else:
             raw = ops.gains(state.ground, state.row, cands, cand_valid,
-                            self.rule)
+                            self.rule, gnorm=state.gnorm)
         return torch.where(torch.isfinite(raw),
                            raw / state.n_eff.unsqueeze(-1), raw)
 

@@ -8,33 +8,71 @@
 // _kernel_quant entry point), (B, N) state rows, (B, C) 0/1 f32 masks
 // and (B,) int64 previous winners (-1 = none). Outputs: the new rows
 // (B, N), and per
-// greedy the masked first-argmax column (int32) and its raw gain sum
+// greedy the masked first-argmax column (int64) and its raw gain sum
 // (f32) - the semantics of kernels/ref.py:fused_step.
 //
 // What bounds it on the H100: device-memory bytes. A step reads every
 // greedy's whole cache once for ~3 flops per entry: at the knapsack leaf
 // shape of the Tiny-ImageNet configuration (32 leaves x 3,125^2 x 4 B =
-// 1.25 GB, far over the 50 MB L2) that is ~0.37 ms at 3.35 TB/s.
+// 1.25 GB, far over the 50 MB L2) that is ~0.37 ms at 3.35 TB/s, 0.19 ms
+// for bf16 and 0.09 ms for int8.
 //
-// What the design does about it: the TPU walked the (N/BN,) row blocks
-// of one greedy in order on one core, carrying the gains in VMEM. Here
-// each greedy spans P = N/R blocks, each holding R ground rows, so one
-// step streams every cache through all SMs at once. A block folds the
-// previous winner's column into its rows (the deferred update) and
-// writes them out, then streams its (R, C) slab with consecutive threads
-// on consecutive columns (coalesced) and writes a (C,) partial to
-// device memory. Blocks run in no order on a GPU, so the last block of a
-// greedy to finish - counted with an atomic int after a __threadfence -
-// sums the P partials of every column in block order (no float atomics:
-// runs repeat bit for bit) and takes the masked first-argmax, keeping
-// the reference's one launch per step without a grid barrier.
+// What the design does about it. The TPU walked the (N/BN,) row blocks
+// of one greedy in order on one core, carrying the gains in VMEM. Here a
+// greedy's cache is cut into spans of RT_FUSED_SPAN = 128 columns and
+// chunks of CH ground rows (the caller's block_n, 32 by default), and a
+// block takes CPB consecutive chunks of one span:
+//  1. it folds the previous winner's column into its rows (the deferred
+//     update; the span-0 blocks write the new rows out);
+//  2. it streams its (CPB * CH, 128) slab in 16-byte loads, a lane a
+//     vector a row: 4 f32, 8 bf16 or 16 int8 entries, so LR = 32, 16 or
+//     8 lanes cover a row's 512, 256 or 128 contiguous bytes. Each group
+//     of LR lanes takes one chunk at a time, RT_FUSED_U = 4 rows' loads
+//     at once; a lane sums its entries' gain parts over the chunk's rows
+//     in f32, in row order, and leaves the chunk's partials in shared
+//     memory. The loads in flight come from occupancy: 64 registers a
+//     thread leave room for 4 blocks (32 warps) an SM, which beat 2 or 3
+//     blocks with 8 or 16 rows at once, or with the next rows' loads
+//     issued ahead, at the leaf (PERF.md §6). When C is not a multiple
+//     of the vector the rows start off the 16-byte grid: a lane then
+//     loads the aligned vector under its columns and takes the entries
+//     it lacks from its neighbour's by warp shuffles (RT_ROWS_SHIFT; the
+//     leaf's C = 3,125 is such a C). A matrix whose base is off the grid
+//     takes scalar loads (RT_ROWS_SCALAR);
+//  3. a span's CL blocks are a thread-block cluster (CPB = ceil(P / CL),
+//     P = ceil(N / CH)): after one cluster barrier each block adds, for
+//     its share of the span's columns, the P chunk partials in chunk
+//     order (the other blocks' through distributed shared memory, the
+//     loads issued ahead of the chain of adds) and takes their masked
+//     first-argmax;
+//  4. every block writes its (gain, column) pair, and the greedy's last
+//     block to finish - counted with an atomic int after a __threadfence
+//     - picks the first maximum of the greedy's few pairs (no float
+//     atomics: runs repeat bit for bit), so the step stays one launch
+//     without a grid barrier, and no block sums a whole greedy's
+//     partials alone.
+// The sum's order is the earlier design's (f32 over each chunk's rows in
+// row order, then the chunk partials in chunk order), so the kernel
+// gives its bits. CL is the smallest of 1..8 that gives about 8 blocks
+// an SM or leaves each lane group one chunk, with the partials in shared
+// memory (rt_fused_cluster): at the leaf 25 spans x 2 x 32 greedies =
+// 1,600 blocks of 49 chunks; at a 400-row node 4 spans x 2 (f32) a
+// greedy.
 //
-// bf16 and int8 storage run the same template over rt_entry (rules.cuh):
-// each entry is widened to the f32 value rules.dequant gives (int8: one
-// __fmul_rn by its row's scale, which a block stages beside its rows in
-// shared memory), then the identical f32 algebra, so a variant equals
-// the f32 kernel run on the dequantized cache bit for bit. A step then
-// reads 2 or 1 bytes an entry: 0.63 or 0.31 GB at the knapsack leaf.
+// Where a span's partials do not fit even a cluster of 8 blocks (more
+// than ~92,000 f32 or bf16 rows, ~77,000 int8 rows: the caller's gate,
+// plans.fused_cluster_fits) the step runs the earlier design,
+// rt_fused_step_global_kernel: a greedy's N / CH row blocks write (B, P,
+// C) f32 partials to device memory and the greedy's last block sums them
+// in block order - the same sums in the same order, so the same bits.
+//
+// bf16 and int8 storage run the same template: each vector is widened to
+// the f32 values rules.dequant gives (bf16 exactly; int8 by one
+// __fmul_rn of the byte's exact integer value - a byte permute and one
+// f32 subtraction, not a conversion instruction a byte - by its row's
+// scale, which a block stages beside its rows in shared memory), then the
+// identical f32 algebra, so a variant equals the f32 kernel run on the
+// dequantized cache bit for bit.
 //
 // The bitmap rule (coverage) runs rt_fused_step_bits, the uint32 branch
 // of _step_body: its matrix is the transpose of the candidates' words,
@@ -49,20 +87,412 @@
 // exact in any order since the gains are integers. Bound by bytes: a
 // step reads the cache once, 32 x 30,938 x 1,290 words x 4 B = 5.1 GB at
 // the kcover knapsack leaf, 1.5 ms at 3.35 TB/s.
+#include <cooperative_groups.h>
+
 #include "rules.cuh"
 
+namespace cg = cooperative_groups;
+
+#define RT_FUSED_SPAN 128  // columns a block: LR lanes x one 16-byte vector
+#define RT_FUSED_CLUSTER_MAX 8
+// rows a lane group loads at once, and the blocks an SM the registers
+// leave room for (64 registers a thread): chosen at the knapsack leaf
+// over 2-8 rows and 2-4 blocks (PERF.md §6)
+#define RT_FUSED_U 4
+#define RT_FUSED_MINB 4
+
+// how a block reads its rows
+#define RT_ROWS_SCALAR 0   // the matrix base off the 16-byte grid
+#define RT_ROWS_SHIFT 1    // C % VW != 0: aligned vectors shuffled into place
+#define RT_ROWS_ALIGNED 2  // every row on the 16-byte grid
+
 template <class S>
-__global__ void __launch_bounds__(RT_THREADS)
+struct RtFusedVec {
+  static constexpr int VW = 16 / (int)sizeof(S);  // entries a vector
+  static constexpr int LR = RT_FUSED_SPAN / VW;   // lanes a row
+};
+
+// A vector's VW entries as f32, rules.dequant's values. int8: the byte's
+// integer value exactly (the f32 2^23 + (q + 128), less 2^23 + 128),
+// times the row's scale once (__fmul_rn, as rt_entry).
+__device__ __forceinline__ void rt_widen(const uint4& w, float,
+                                         float (&e)[4]) {
+  e[0] = __uint_as_float(w.x), e[1] = __uint_as_float(w.y);
+  e[2] = __uint_as_float(w.z), e[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void rt_widen(const uint4& w, float,
+                                         float (&e)[8]) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    e[2 * k] = __uint_as_float(u[k] << 16);
+    e[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void rt_widen(const uint4& w, float s,
+                                         float (&e)[16]) {
+  const unsigned u[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                         w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float q = __fsub_rn(
+        __uint_as_float(__byte_perm(u[k >> 2], 0x4B000000u,
+                                    0x7440u | (unsigned)(k & 3))),
+        8388736.0f);
+    e[k] = __fmul_rn(q, s);
+  }
+}
+
+// The 16 bytes at byte offset ob (0..15) of the 32 bytes a:b (BYTES:
+// offsets that are not whole 32-bit words occur).
+template <bool BYTES>
+__device__ __forceinline__ uint4 rt_realign(const uint4& a, const uint4& b,
+                                            int ob) {
+  unsigned u[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int qw = ob >> 2;
+  if (qw & 2) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) u[k] = u[k + 2];
+  }
+  if (qw & 1) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) u[k] = u[k + 1];
+  }
+  if constexpr (!BYTES) {
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+    const unsigned sh = (unsigned)(ob & 3) * 8u;
+    return make_uint4(__funnelshift_r(u[0], u[1], sh),
+                      __funnelshift_r(u[1], u[2], sh),
+                      __funnelshift_r(u[2], u[3], sh),
+                      __funnelshift_r(u[3], u[4], sh));
+  }
+}
+
+// Lane l + 1's vector, within groups of `width` lanes.
+__device__ __forceinline__ uint4 rt_shfl_down(const uint4& v, int width) {
+  return make_uint4(__shfl_down_sync(0xffffffffu, v.x, 1, width),
+                    __shfl_down_sync(0xffffffffu, v.y, 1, width),
+                    __shfl_down_sync(0xffffffffu, v.z, 1, width),
+                    __shfl_down_sync(0xffffffffu, v.w, 1, width));
+}
+
+// Grid (spans * CL, B), clusters of CL blocks along x: a span's ranks.
+// Dynamic shared memory: part (CPB, SPAN) chunk partials, rows (CPB * CH)
+// the block's new state rows, scl (CPB * CH) their int8 scales. pval /
+// pidx (B, gridDim.x): the blocks' (gain, column) pairs; arrivals (B,)
+// zero on entry and left zero.
+template <class S, int PATH>
+__global__ void __launch_bounds__(RT_THREADS, RT_FUSED_MINB)
     rt_fused_step_kernel(const S* __restrict__ mat,
                          const float* __restrict__ scale,
                          const float* __restrict__ row_in,
                          const float* __restrict__ mask,
                          const long long* __restrict__ prev_in,
-                         float* __restrict__ row_out, int* __restrict__ best,
-                         float* __restrict__ gain,
-                         float* __restrict__ partials,
-                         int* __restrict__ arrivals, int N, int C, int P,
-                         int R, RtRule rule) {
+                         float* __restrict__ row_out,
+                         long long* __restrict__ best,
+                         float* __restrict__ gain, float* __restrict__ pval,
+                         int* __restrict__ pidx, int* __restrict__ arrivals,
+                         int N, int C, int CH, int CL, int CPB,
+                         RtRule rule) {
+  constexpr int VW = RtFusedVec<S>::VW;
+  constexpr int LR = RtFusedVec<S>::LR;
+  constexpr int SPAN = RT_FUSED_SPAN;
+  constexpr int U = RT_FUSED_U;
+  extern __shared__ __align__(16) float smem[];
+  float* part = smem;               // (CPB, SPAN)
+  float* rows = part + CPB * SPAN;  // (CPB * CH,)
+  float* scl = rows + CPB * CH;     // (CPB * CH,), int8 only
+  __shared__ float sv[32];
+  __shared__ int si[32];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const size_t b = blockIdx.y;
+  const int span = blockIdx.x / CL;
+  const int rank = blockIdx.x % CL;
+  const int P = (N + CH - 1) / CH;
+  const int q0 = rank * CPB;
+  const int nq = max(0, min(P - q0, CPB));  // this block's chunks
+  const int r0 = q0 * CH;
+  const int nr = max(0, min(N - r0, nq * CH));
+  const int cs = span * SPAN;
+  const size_t e_greedy = b * N * C;  // the greedy's first entry
+  const long long prev = prev_in[b];
+
+  // 1. deferred update: fold the previous winner's column into the rows
+  for (int i = tid; i < nr; i += T) {
+    const size_t r = (size_t)(r0 + i);
+    const float s = rt_scaled<S>() ? scale[b * N + r] : 1.f;
+    if (rt_scaled<S>()) scl[i] = s;
+    float v = row_in[b * N + r];
+    if (prev >= 0) v = rt_fold(v, rt_entry(mat, e_greedy + r * C + prev, s),
+                               rule);
+    rows[i] = v;
+    if (span == 0) row_out[b * N + r] = v;
+  }
+  __syncthreads();
+
+  // 2. the chunk partials: lane group g of G takes chunks g, g + G, ...,
+  //    U rows' vectors at a time; every lane of a warp runs the same trip
+  //    counts (the shuffles)
+  const int lane = tid % LR;
+  const int grp = tid / LR;
+  const int G = T / LR;
+  const int rounds = (nq + G - 1) / G;
+  for (int t = 0; t < rounds; ++t) {
+    const int j = grp + t * G;
+    const bool live = j < nq;
+    const int i0 = j * CH;
+    const int ni = live ? min(CH, nr - i0) : 0;
+    // the chunk's first entry: row i0 of the block, the span's column 0
+    const size_t e0 = e_greedy + (size_t)(r0 + (live ? i0 : 0)) * C + cs;
+    float acc[VW];
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[v] = 0.f;
+    for (int u0 = 0; u0 < CH; u0 += U) {
+      uint4 raw[U];
+      int ob[U];  // the row's byte offset from the 16-byte grid (SHIFT)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        raw[u] = make_uint4(0u, 0u, 0u, 0u);
+        ob[u] = 0;
+        const int i = u0 + u;
+        if (i >= ni) continue;
+        const size_t e_row = e0 + (size_t)i * C;  // row i, column cs
+        const size_t e_end = e_row - cs + C;      // the row's end
+        if constexpr (PATH == RT_ROWS_ALIGNED) {
+          const size_t a = e_row + lane * VW;
+          if (a < e_end)
+            raw[u] = __ldg(reinterpret_cast<const uint4*>(mat + a));
+        } else if constexpr (PATH == RT_ROWS_SHIFT) {
+          const int off = (int)(e_row % VW);
+          ob[u] = off * (int)sizeof(S);
+          // the vector on the 16-byte grid under the lane's columns
+          const size_t a = e_row + lane * VW - off;
+          if (a < e_end)
+            raw[u] = __ldg(reinterpret_cast<const uint4*>(mat + a));
+        }
+      }
+      if constexpr (PATH == RT_ROWS_SHIFT) {
+        // the entries past a lane's vector: its neighbour's, or for the
+        // last lane of a row the vector past the span
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          uint4 nx = rt_shfl_down(raw[u], LR);
+          const int i = u0 + u;
+          if (lane == LR - 1 && i < ni && ob[u] != 0) {
+            const size_t e_row = e0 + (size_t)i * C;
+            const size_t a = e_row + LR * VW - ob[u] / (int)sizeof(S);
+            nx = a < e_row - cs + C
+                     ? __ldg(reinterpret_cast<const uint4*>(mat + a))
+                     : make_uint4(0u, 0u, 0u, 0u);
+          }
+          raw[u] = rt_realign<(sizeof(S) < 4)>(raw[u], nx, ob[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = u0 + u;
+        if (i >= ni) continue;
+        const int li = i0 + i;
+        const float sc = rt_scaled<S>() ? scl[li] : 1.f;
+        float e[VW];
+        if constexpr (PATH == RT_ROWS_SCALAR) {
+          const size_t e_row = e0 + (size_t)i * C;
+#pragma unroll
+          for (int v = 0; v < VW; ++v)
+            e[v] = cs + lane * VW + v < C
+                       ? rt_entry(mat, e_row + lane * VW + v, sc)
+                       : 0.f;
+        } else {
+          rt_widen(raw[u], sc, e);
+        }
+        const float r = rows[li];
+#pragma unroll
+        for (int v = 0; v < VW; ++v) acc[v] += rt_gain_part(r, e[v], rule);
+      }
+    }
+    if (live) {
+      float4* dst = reinterpret_cast<float4*>(&part[j * SPAN + lane * VW]);
+#pragma unroll
+      for (int v = 0; v < VW; v += 4)
+        dst[v / 4] = make_float4(acc[v], acc[v + 1], acc[v + 2], acc[v + 3]);
+    }
+  }
+
+  // 3. the chains: this rank's share of the span's columns, each the sum
+  //    of all P chunk partials in chunk order, then masked first-argmax
+  if (CL > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+  const int per = (SPAN + CL - 1) / CL;
+  float bv = -INFINITY;
+  int bi = RT_NO_INDEX;
+  for (int lc = rank * per + tid; lc < min(SPAN, (rank + 1) * per);
+       lc += T) {
+    const int c = cs + lc;
+    if (c >= C) break;
+    float g = 0.f;
+    for (int o = 0; o < CL; ++o) {
+      const int cnt = max(0, min(P - o * CPB, CPB));
+      const float* src =
+          CL > 1 ? cg::this_cluster().map_shared_rank(part, o) : part;
+#pragma unroll 8
+      for (int k = 0; k < cnt; ++k) g += src[k * SPAN + lc];
+    }
+    rt_argmax_pair(bv, bi, mask[b * C + c] > 0.f ? g : -INFINITY, c);
+  }
+  // no block leaves while another may still read its partials
+  if (CL > 1) cg::this_cluster().sync();
+  rt_block_argmax(bv, bi, sv, si);
+  const int SC = gridDim.x;
+  if (tid == 0) {
+    pval[b * SC + blockIdx.x] = bv;
+    pidx[b * SC + blockIdx.x] = bi;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(arrivals + b, 1) == SC - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // 4. the greedy's last block: the first maximum of its blocks' pairs
+  bv = -INFINITY;
+  bi = RT_NO_INDEX;
+  for (int q = tid; q < SC; q += T)
+    rt_argmax_pair(bv, bi, __ldcg(&pval[b * SC + q]),
+                   __ldcg(&pidx[b * SC + q]));
+  rt_block_argmax(bv, bi, sv, si);
+  if (tid == 0) {
+    best[b] = bi;
+    gain[b] = bv;
+    arrivals[b] = 0;  // ready for the next launch
+  }
+}
+
+// Shared-memory bytes of a block holding cpb chunks of ch rows.
+template <class S>
+static size_t rt_fused_smem(int cpb, int ch) {
+  return (size_t)cpb *
+         (RT_FUSED_SPAN + (size_t)ch * (rt_scaled<S>() ? 2 : 1)) *
+         sizeof(float);
+}
+
+// The cluster size: the smallest CL of 1..8 whose blocks' partials fit
+// shared memory and that gives the launch about 8 blocks an SM or leaves
+// every lane group at most one chunk; 0 when none fits.
+template <class S>
+static int rt_fused_cluster(int B, int N, int C, int CH, int smem_max) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long spans = (C + RT_FUSED_SPAN - 1) / RT_FUSED_SPAN;
+  const int P = (N + CH - 1) / CH;
+  const int groups = RT_THREADS / RtFusedVec<S>::LR;
+  for (int cl = 1; cl <= RT_FUSED_CLUSTER_MAX; ++cl) {
+    const int cpb = (P + cl - 1) / cl;
+    if (rt_fused_smem<S>(cpb, CH) > (size_t)smem_max) continue;
+    if ((long long)B * spans * cl >= 8LL * sms || cpb <= groups ||
+        cl == RT_FUSED_CLUSTER_MAX)
+      return cl;
+  }
+  return 0;
+}
+
+template <class S, int PATH>
+static cudaError_t rt_fused_step_path(const S* mat, const float* scale,
+                                      const float* row_in, const float* mask,
+                                      const long long* prev, float* row_out,
+                                      long long* best, float* gain, float* pval,
+                                      int* pidx, int* arrivals, int B, int N,
+                                      int C, int CH, int CL, RtRule rule,
+                                      cudaStream_t st) {
+  const int P = (N + CH - 1) / CH;
+  const int cpb = (P + CL - 1) / CL;
+  const int spans = (C + RT_FUSED_SPAN - 1) / RT_FUSED_SPAN;
+  const size_t smem = rt_fused_smem<S>(cpb, CH);
+  void* fn = (void*)rt_fused_step_kernel<S, PATH>;
+  cudaError_t e;
+  if (smem > 48 * 1024) {  // beyond the default: opt in (a host call)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(spans * CL), (unsigned)B);
+  cfg.blockDim = dim3(RT_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  void* args[] = {(void*)&mat,  (void*)&scale,    (void*)&row_in,
+                  (void*)&mask, (void*)&prev,     (void*)&row_out,
+                  (void*)&best, (void*)&gain,     (void*)&pval,
+                  (void*)&pidx, (void*)&arrivals, (void*)&N,
+                  (void*)&C,    (void*)&CH,       (void*)&CL,
+                  (void*)&cpb,  (void*)&rule};
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <class S>
+static cudaError_t rt_fused_step_launch(const void* mat, const float* scale,
+                                        const float* row_in,
+                                        const float* mask,
+                                        const long long* prev, float* row_out,
+                                        long long* best, float* gain,
+                                        float* pval, int* pidx, int* arrivals,
+                                        int B, int N, int C, int CH,
+                                        RtRule rule, cudaStream_t st) {
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  smem_max -= 1024;  // the static argmax scratch
+  const int CL = rt_fused_cluster<S>(B, N, C, CH, smem_max);
+  if (CL <= 0) return cudaErrorInvalidValue;  // the global tier's shapes
+  const S* m = (const S*)mat;
+  constexpr int VW = RtFusedVec<S>::VW;
+  if ((uintptr_t)m % 16 != 0)
+    return rt_fused_step_path<S, RT_ROWS_SCALAR>(
+        m, scale, row_in, mask, prev, row_out, best, gain, pval, pidx,
+        arrivals, B, N, C, CH, CL, rule, st);
+  if (C % VW != 0)
+    return rt_fused_step_path<S, RT_ROWS_SHIFT>(
+        m, scale, row_in, mask, prev, row_out, best, gain, pval, pidx,
+        arrivals, B, N, C, CH, CL, rule, st);
+  return rt_fused_step_path<S, RT_ROWS_ALIGNED>(
+      m, scale, row_in, mask, prev, row_out, best, gain, pval, pidx,
+      arrivals, B, N, C, CH, CL, rule, st);
+}
+
+// The global tier: the earlier design, P = N/R blocks of R rows a greedy,
+// (B, P, C) f32 partials in device memory, the greedy's last block
+// summing them alone - the same sums in the same order as
+// rt_fused_step_kernel.
+template <class S>
+__global__ void __launch_bounds__(RT_THREADS)
+    rt_fused_step_global_kernel(const S* __restrict__ mat,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ row_in,
+                                const float* __restrict__ mask,
+                                const long long* __restrict__ prev_in,
+                                float* __restrict__ row_out,
+                                long long* __restrict__ best,
+                                float* __restrict__ gain,
+                                float* __restrict__ partials,
+                                int* __restrict__ arrivals, int N, int C,
+                                int P, int R, RtRule rule) {
   extern __shared__ float rows[];  // (R,) this block's new state rows
   float* scl = rows + R;           // (R,) their int8 scales (int8 only)
   __shared__ float sv[32];
@@ -125,48 +555,72 @@ __global__ void __launch_bounds__(RT_THREADS)
 }
 
 template <class S>
-static cudaError_t rt_fused_step_launch(const void* mat, const float* scale,
+static cudaError_t rt_fused_step_global(const S* mat, const float* scale,
                                         const float* row_in,
                                         const float* mask,
                                         const long long* prev, float* row_out,
-                                        int* best, float* gain,
+                                        long long* best, float* gain,
                                         float* partials, int* arrivals, int B,
-                                        int N, int C, int P, int R,
-                                        RtRule rule, cudaStream_t stream) {
+                                        int N, int C, int R, RtRule rule,
+                                        cudaStream_t st) {
+  const int P = max(1, (N + R - 1) / R);
   const size_t smem = (size_t)R * (rt_scaled<S>() ? 2 : 1) * sizeof(float);
-  rt_fused_step_kernel<S><<<B * P, RT_THREADS, smem, stream>>>(
-      (const S*)mat, scale, row_in, mask, prev, row_out, best, gain, partials,
+  rt_fused_step_global_kernel<S><<<B * P, RT_THREADS, smem, st>>>(
+      mat, scale, row_in, mask, prev, row_out, best, gain, partials,
       arrivals, N, C, P, R, rule);
   return cudaGetLastError();
 }
 
+template <class S>
+static cudaError_t rt_fused_step_any(const void* mat, const float* scale,
+                                     const float* row_in, const float* mask,
+                                     const long long* prev, float* row_out,
+                                     long long* best, float* gain,
+                                     float* partials, int* pairs,
+                                     int* arrivals, int B, int N, int C,
+                                     int CH, RtRule rule, cudaStream_t st) {
+  if (partials != nullptr)
+    return rt_fused_step_global<S>((const S*)mat, scale, row_in, mask, prev,
+                                   row_out, best, gain, partials, arrivals,
+                                   B, N, C, CH, rule, st);
+  const int spans = (C + RT_FUSED_SPAN - 1) / RT_FUSED_SPAN;
+  float* pval = (float*)pairs;
+  int* pidx = pairs + (size_t)B * spans * RT_FUSED_CLUSTER_MAX;
+  return rt_fused_step_launch<S>(mat, scale, row_in, mask, prev, row_out,
+                                 best, gain, pval, pidx, arrivals, B, N, C,
+                                 CH, rule, st);
+}
+
 // mat: (B, N, C) in `storage` (RT_STORE_F32 | BF16 | INT8); scale: (B, N)
-// f32 row scales for int8, else null. partials: (B, P, C) f32 scratch;
-// arrivals: (B,) int32, zero on entry and left zero; R ground rows per
-// block, P = ceil(N / R). Returns the cudaError_t.
+// f32 row scales for int8, else null; CH ground rows a chunk of the sum.
+// partials null: the cluster design, pairs 2 * B * ceil(C / 128) * 8
+// int32 scratch (the blocks' gains and columns); else the global tier,
+// partials (B, ceil(N / CH), C) f32 scratch (pairs unused). arrivals:
+// (B,) int32, zero on entry and left zero. Returns the cudaError_t.
 extern "C" int rt_fused_step(const void* mat, const float* scale,
                              const float* row_in, const float* mask,
-                             const long long* prev, float* row_out, int* best,
-                             float* gain, float* partials, int* arrivals,
-                             int B, int N, int C, int P, int R, int storage,
-                             int fold, float cap, float lam, float lam1,
-                             void* stream) {
+                             const long long* prev, float* row_out,
+                             long long* best, float* gain, float* partials,
+                             int* pairs, int* arrivals, int B, int N, int C,
+                             int CH, int storage, int fold, float cap,
+                             float lam, float lam1, void* stream) {
   if (B == 0) return 0;
-  RtRule rule{fold, cap, lam, lam1};
+  if (N < 0 || C <= 0 || CH <= 0) return (int)cudaErrorInvalidValue;
+  const RtRule rule{fold, cap, lam, lam1};
   cudaStream_t st = (cudaStream_t)stream;
   switch (storage) {
     case RT_STORE_F32:
-      return (int)rt_fused_step_launch<float>(
+      return (int)rt_fused_step_any<float>(
           mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-          arrivals, B, N, C, P, R, rule, st);
+          pairs, arrivals, B, N, C, CH, rule, st);
     case RT_STORE_BF16:
-      return (int)rt_fused_step_launch<__nv_bfloat16>(
+      return (int)rt_fused_step_any<__nv_bfloat16>(
           mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-          arrivals, B, N, C, P, R, rule, st);
+          pairs, arrivals, B, N, C, CH, rule, st);
     case RT_STORE_INT8:
-      return (int)rt_fused_step_launch<int8_t>(
+      return (int)rt_fused_step_any<int8_t>(
           mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-          arrivals, B, N, C, P, R, rule, st);
+          pairs, arrivals, B, N, C, CH, rule, st);
   }
   return (int)cudaErrorInvalidValue;
 }

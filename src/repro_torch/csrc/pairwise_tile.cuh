@@ -1,15 +1,16 @@
 // One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
 //
-// Shared by the build phase of the resident loop kernel
-// (greedy_loop_resident.cu) and the per-step gains kernel (gains.cu):
-// `rt_tile` accumulates a tile and hands its registers to an epilogue;
-// `rt_pairwise_tile` is the epilogue that stores the entries (the
-// resident build). The pairwise kernel and the stream filter's slab run
-// the larger tile of tile128.cuh, built for the H100's fp32 pipes, with
-// the same arithmetic per entry: one f32 fmaf chain over ascending
-// features, the same float64 norms and `rt_entry_value`, so their
-// entries equal this tile's bit for bit (stream_filter.cu keeps a 64x64
-// build of its slab, rt_stream_slab64_kernel, as the check's yardstick).
+// The build phase of the resident loop kernel (greedy_loop_resident.cu)
+// runs it: `rt_tile` accumulates a tile and hands its registers to an
+// epilogue; `rt_pairwise_tile` is the epilogue that stores the entries
+// (the resident build). The pairwise kernel and the stream filter's slab
+// run the larger tile of tile128.cuh, built for the H100's fp32 pipes,
+// and the per-step gains a 64-row variant of it (gains.cu), with the same
+// arithmetic per entry: one f32 fmaf chain over ascending features, the
+// same float64 norms and `rt_entry_value`, so their entries equal this
+// tile's bit for bit (stream_filter.cu and gains.cu keep a 64x64 build,
+// rt_stream_slab64_kernel and rt_gains64_kernel, as their checks'
+// yardsticks).
 // 256 threads; each owns a 4x4 register micro-tile. The feature axis is
 // walked in slices of 16: both operand slices are staged in shared
 // memory (k-major, rows padded to 68 floats so the transposing stores do
@@ -38,12 +39,12 @@
 // other kernels) keeps the single chain.
 //
 // The ground rows may be stored int8 with one f32 scale a row (the
-// per-step gains and the stream filter under an int8 rung: rules.
-// quantize_rows of the ground features). The tile stages its 64 rows'
-// scales in shared memory and widens each entry as it is staged, by
-// rt_entry's __fmul_rn(q, scale): the staged slice, and so every product
-// and norm after it, is what the f32 tile reads from the dequantized
-// ground (rules.dequant), bit for bit.
+// yardsticks of the per-step gains and the stream filter under an int8
+// rung: rules.quantize_rows of the ground features). The tile stages its
+// 64 rows' scales in shared memory and widens each entry as it is
+// staged, by rt_entry's __fmul_rn(q, scale): the staged slice, and so
+// every product and norm after it, is what the f32 tile reads from the
+// dequantized ground (rules.dequant), bit for bit.
 #pragma once
 
 #include "rules.cuh"

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ARRIVALS: Dict[torch.device, torch.Tensor] = {}
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
 BUILD_SECONDS: Optional[float] = None     # wall time of this process's build
 
 
@@ -131,4 +132,15 @@ def arrivals(device: torch.device, n: int) -> torch.Tensor:
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _ARRIVALS[device] = buf
+    return buf[:n]
+
+
+def scratch(device: torch.device, n: int) -> torch.Tensor:
+    """n int32 words of device scratch that a kernel writes before it
+    reads them (fused_step.cu's block pairs): one buffer per device,
+    used by every launch on the stream in turn, not allocated per call."""
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1024), dtype=torch.int32, device=device)
+        _SCRATCH[device] = buf
     return buf[:n]

@@ -6,21 +6,28 @@ previous winners → (new rows (B, N), best (B,) int64, raw gain (B,) f32):
 fold the previous winner's column into the row (the deferred update),
 sum the rule's gain parts over the rows, take the masked first-argmax.
 One launch serves every greedy of a level. The kernel is
-csrc/fused_step.cu (P row blocks per greedy, partials reduced in block
-order by each greedy's last block to finish) for the feature rules'
-caches in their storage — f32, bf16 or int8 with (B, 1, N) row scales
-(`_kernel_quant`), counted as `fused_step`, `fused_step[bf16]`,
-`fused_step[int8]`; each variant widens an entry to the f32 value
-rules.dequant gives and runs the f32 arithmetic, so it equals the f32
-kernel on the dequantized cache bit for bit — and
-csrc/fused_step.cu:rt_fused_step_bits for the bitmap rule: its
-(B, W, C) matrix is the transposed view of the candidates' (B, C, W)
-int32 words, which the kernel reads in place (P blocks of `block_c`
-candidates per greedy, counted as `fused_step[coverage]`).
+csrc/fused_step.cu for the feature rules' caches in their storage — f32,
+bf16 or int8 with (B, 1, N) row scales (`_kernel_quant`), counted as
+`fused_step`, `fused_step[bf16]`, `fused_step[int8]`: spans of 128
+columns read in 16-byte loads, a span's chunks of `block_n` rows over a
+thread-block cluster whose blocks add each column's chunk partials in
+chunk order, the greedy's last block picking among the blocks' winners.
+Each variant widens an entry to the f32 value rules.dequant gives and
+runs the f32 arithmetic, so it equals the f32 kernel on the dequantized
+cache bit for bit. Where a span's partials do not fit a cluster's
+shared memory (`plans.fused_cluster_fits`) the step runs the global
+tier, the earlier design: row blocks, their partials in device memory,
+one last block a greedy summing them — the same sums, the same bits
+(``reference=True`` forces it: a test's yardstick). For the bitmap rule
+csrc/fused_step.cu:rt_fused_step_bits: its (B, W, C) matrix is the
+transposed view of the candidates' (B, C, W) int32 words, which the
+kernel reads in place (P blocks of `block_c` candidates per greedy,
+counted as `fused_step[coverage]`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,7 +36,9 @@ from repro_torch.kernels import rules as R
 from repro_torch.kernels.pairwise import (FOLDS, check_feature_rule,
                                           check_operand, check_storage,
                                           check_words, storage_counters)
-from repro_torch.kernels.plans import BITS_BLOCK_C, FUSED_BLOCK_N
+from repro_torch.kernels.plans import (BITS_BLOCK_C, FUSED_BLOCK_N,
+                                       FUSED_CLUSTER_MAX, FUSED_SPAN,
+                                       fused_cluster_fits)
 from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
@@ -49,26 +58,31 @@ def fused_step_plain(mat, row, mask, prev, rule: KernelRule, scale=None):
     return ref.fused_step(R.logical(mat, scale), row, mask, prev, rule)
 
 
+@functools.cache
 def _lib():
     lib = build.load("fused_step")
     lib.rt_fused_step.restype = _I
-    lib.rt_fused_step.argtypes = [_P] * 10 + [_I] * 7 + [_F, _F, _F, _P]
+    lib.rt_fused_step.argtypes = [_P] * 11 + [_I] * 6 + [_F, _F, _F, _P]
     lib.rt_fused_step_bits.restype = _I
     lib.rt_fused_step_bits.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     return lib
 
 
 def fused_step(mat, row, mask, prev, rule: KernelRule,
-               block_n: int = FUSED_BLOCK_N, scale=None):
+               block_n: int = FUSED_BLOCK_N, scale=None,
+               reference: bool = False):
     """mat (B, N, C) f32, bf16 or int8 (with `scale`, its (B, 1, N) f32
     row scales), row (B, N), mask (B, C) 0/1 f32, prev (B,) int. CPU
     tensors take the plain version; CUDA tensors launch the kernel
-    (contiguous; `block_n` ground rows per block) or raise. The bitmap
-    rule goes to `fused_step_bits`."""
+    (contiguous; gains summed over chunks of `block_n` rows) or raise.
+    ``reference`` runs the global tier, the earlier design the cluster
+    design equals bit for bit, whatever the shape (a test's yardstick,
+    not counted). The bitmap rule goes to `fused_step_bits`."""
     if rule.is_bitmap:
         return fused_step_bits(mat, row, mask, prev, rule)
     counter = COUNTERS.get(mat.dtype, COUNTERS[F32])
-    counter.calls += 1
+    if not reference:
+        counter.calls += 1
     if not mat.is_cuda:
         return fused_step_plain(mat, row, mask, prev, rule, scale)
     check_feature_rule(rule, "fused_step")
@@ -85,26 +99,34 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
         raise ValueError("fused_step kernel needs at least one candidate")
     if max(b, n, c) >= 2 ** 31:
         raise ValueError("fused_step extents must fit int32")
-    r = max(1, int(block_n))
-    p = max(1, -(-n // r))
+    ch = max(1, int(block_n))
     row_out = torch.empty((b, n), dtype=F32, device=dev)
-    best = torch.empty((b,), dtype=torch.int32, device=dev)
+    best = torch.empty((b,), dtype=torch.int64, device=dev)
     gain = torch.empty((b,), dtype=F32, device=dev)
     if b == 0:
-        return row_out, best.long(), gain
-    partials = torch.empty((b, p, c), dtype=F32, device=dev)
+        return row_out, best, gain
+    partials = pairs = None
+    dtype = str(mat.dtype).removeprefix("torch.")
+    if reference or not fused_cluster_fits(dtype, n, ch):
+        partials = torch.empty((b, max(1, -(-n // ch)), c), dtype=F32,
+                               device=dev)
+    else:   # each block's (gain, column): b × spans × FUSED_CLUSTER_MAX
+        pairs = build.scratch(dev, 2 * b * -(-c // FUSED_SPAN)
+                              * FUSED_CLUSTER_MAX)
     arrivals = build.arrivals(dev, b)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_fused_step(
         mat.data_ptr(), None if scale is None else scale.data_ptr(),
-        row.data_ptr(), mask.data_ptr(), prev.data_ptr(),
-        row_out.data_ptr(), best.data_ptr(), gain.data_ptr(),
-        partials.data_ptr(), arrivals.data_ptr(), b, n, c, p, r, storage,
-        FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, stream)
+        row.data_ptr(), mask.data_ptr(), prev.data_ptr(), row_out.data_ptr(),
+        best.data_ptr(), gain.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if pairs is None else pairs.data_ptr(), arrivals.data_ptr(),
+        b, n, c, ch, storage, FOLDS[rule.fold], rule.cap, rule.lam,
+        1.0 - rule.lam, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "fused_step kernel")
-    counter.launches += 1
-    return row_out, best.long(), gain
+    if not reference:
+        counter.launches += 1
+    return row_out, best, gain
 
 
 def fused_step_bits(mat, row, mask, prev, rule: KernelRule,

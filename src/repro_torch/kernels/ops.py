@@ -8,6 +8,7 @@ is no backend switch that could put a plain version on the card.
 
   pairwise_matrix       cached (B, N, C) matrix → kernels/pairwise.py
   gains                 step engine's gains     → kernels/pairwise.py
+  gains_norms           its ground's norms      → kernels/pairwise.py
   fused_step            fused engine's step     → kernels/fused_step.py
   greedy_loop           streaming tier          → kernels/greedy_loop.py
   greedy_loop_resident  resident tier           → kernels/greedy_loop.py
@@ -112,24 +113,42 @@ def quantize_ground(ground):
             scale.reshape(g.shape[:-1]).unsqueeze(-2))
 
 
-def gains(ground, row, cands, cand_valid, rule: KernelRule, gscale=None):
+def gains(ground, row, cands, cand_valid, rule: KernelRule, gscale=None,
+          gnorm=None):
     """Per-step marginal gains: RAW part sums (B, C), −inf at invalid
     candidates (the gains kernel; bitmap cands are (B, C, W) words and
     the ground is not read). ``gscale`` (B, 1, N): the ground is already
     int8 (`quantize_ground`; the objective quantizes once per greedy).
-    With REPRO_TORCH_FUSED_CACHE_DTYPE=int8 an f32 ground is quantized
-    here, as in the reference; the kernel reads it as int8."""
+    ``gnorm`` (B, N): the stored ground's `gains_norms` for a 'dist'
+    rule (the objective takes them once per greedy; the kernel computes
+    them per call when not given). With REPRO_TORCH_FUSED_CACHE_DTYPE=
+    int8 an f32 ground is quantized here, as in the reference; the
+    kernel reads it as int8 (a ``gnorm`` beside a ground quantized here
+    raises: it would be the f32 rows')."""
     if (not rule.is_bitmap and gscale is None and ground is not None
             and flags.fused_cache_dtype() == "int8"):
+        if gnorm is not None:
+            raise ValueError("gains: gnorm goes with the stored ground "
+                             "(int8 here: pass its gscale)")
         ground, gscale = quantize_ground(ground)
     if rule.is_bitmap:
         cands = cands.contiguous()
     else:
         ground = (ground.to(F32) if gscale is None else ground).contiguous()
         gscale = None if gscale is None else gscale.to(F32).contiguous()
+        gnorm = None if gnorm is None else gnorm.to(F32).contiguous()
         cands = cands.to(F32).contiguous()
     return pairwise_k.gains(ground, _cast_row(row, rule), cands, cand_valid,
-                            rule, gscale=gscale)
+                            rule, gscale=gscale, gnorm=gnorm)
+
+
+def gains_norms(ground, gscale=None):
+    """The 'dist' norms (B, N) of a ground as `gains` stores it (f32, or
+    int8 with its (B, 1, N) scales): one pass, taken once per greedy
+    (the ground does not change over its steps)."""
+    ground = (ground.to(F32) if gscale is None else ground).contiguous()
+    gscale = None if gscale is None else gscale.to(F32).contiguous()
+    return pairwise_k.ground_norms(ground, gscale)
 
 
 def pairwise_matrix(ground, cands, rule: KernelRule,
@@ -165,7 +184,7 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
                plan: Optional[EnginePlan] = None):
     """One fused greedy step over the cached matrix → (new_row (B, N),
     best (B,), raw gain (B,)) (the fused_step kernel on the cache as
-    stored; ``plan`` gives a feature rule's rows per block)."""
+    stored; ``plan`` gives a feature rule's rows a chunk of the sum)."""
     kw = {}
     if not rule.is_bitmap:      # a bitmap matrix is read in place
         mat, kw["scale"], dtype = _storage(mat)

@@ -11,14 +11,22 @@ wrappers and plain versions. One launch serves every greedy of a level.
             `pairwise[bf16]`).
   gains     (answers `gains_pallas`) the step engine's uncached gains:
             Σ_n part(row_n, M_nc) per candidate, (B, C) f32, −inf at
-            invalid candidates: csrc/gains.cu (the same tiles with a
-            gain-sum epilogue, the sum over rows in float64) for the
-            feature rules; over int8 ground rows with (B, 1, N) f32 row
-            scales (`gscale=`, answers `_gains_kernel_quant`) the same
-            kernel widening each entry as its tile stages it, counted as
-            `gains[int8]`; for the bitmap rule (cands (B, C, W) and row
-            (B, W) 32-bit words) csrc/gains.cu:rt_gains_bits, exact
-            integer popcount sums, counted as `gains[coverage]`.
+            invalid candidates: csrc/gains.cu for the feature rules
+            (64-row tiles of the candidate width, 64 or 80, that pads C
+            least, 8 × (4 + E) accumulators a thread, no TF32; the sum
+            over rows in float64, in the 64×64 tile's grouping, so
+            equal to that tile's build bit for bit: `reference=True`
+            runs it). For 'dist' the ground's float64 norms come from
+            `ground_norms` — once per greedy, passed as ``gnorm=`` (the
+            step engine keeps them in its state), else computed per call
+            — and the candidates' from the same pass per call. Over int8
+            ground rows with (B, 1, N) f32 row scales (`gscale=`,
+            answers `_gains_kernel_quant`) the same kernel widens each
+            entry as it stages it, counted as `gains[int8]`; for the
+            bitmap rule (cands (B, C, W) and row (B, W) 32-bit words)
+            csrc/gains.cu:rt_gains_bits, exact integer popcount sums,
+            counted as `gains[coverage]`. The norms pass counts as
+            `gains_norms`, a helper with no TPU kernel behind it.
 
 Also the storage helpers the cached-matrix kernels share: a feature
 rule's cache is f32, bf16 or int8 with (B, 1, N) f32 row scales
@@ -28,6 +36,7 @@ launch counter of its own (`storage_counters`).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,6 +64,7 @@ COUNTERS = {F32: counters.counter("pairwise"),
 GAINS_COUNTERS = {F32: counters.counter("gains"),
                   INT8: counters.counter("gains[int8]")}
 GAINS_BITS_COUNTER = counters.counter("gains[coverage]")
+NORMS_COUNTER = counters.counter("gains_norms")
 FOLDS = {"min": 0, "max": 1, "satsum": 2, "sum": 3}
 # a bitmap gain is at most 32·W; f32 holds every integer up to 2²⁴
 MAX_EXACT_WORDS = 2 ** 24 // 32
@@ -178,31 +188,79 @@ def gains_plain(ground, row, cands, cand_valid, rule: R.KernelRule,
     return ref.gains(ground, row, cands, cand_valid, rule)
 
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
 def _gains_lib():
     lib = build.load("gains")
-    fn = lib.rt_gains
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-        ctypes.c_float] * 3 + [ctypes.c_void_p]
-    fn = lib.rt_gains_bits
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    lib.rt_gains.restype = _I
+    lib.rt_gains.argtypes = [_P] * 9 + [_I] * 7 + [ctypes.c_float] * 3 + [
+        _I, _P]
+    lib.rt_gains_norms.restype = _I
+    lib.rt_gains_norms.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I, _P]
+    lib.rt_gains_bits.restype = _I
+    lib.rt_gains_bits.argtypes = [_P] * 3 + [_I] * 3 + [_P]
     return lib
 
 
+def _check_ground(ground, gscale, b, n, d, dev):
+    if gscale is None:
+        check_operand(ground, (b, n, d), F32, "ground", dev)
+    else:
+        check_operand(ground, (b, n, d), INT8, "ground", dev)
+        check_operand(gscale, (b, 1, n), F32, "gscale", dev)
+
+
+def ground_norms(ground, gscale=None):
+    """(B, N) f32 squared norms of the ground rows ((B, N, D) f32, or
+    int8 with its (B, 1, N) row scales: the dequantized rows), each one
+    float64 fma(v, v, ·) chain in ascending feature order cast once to
+    f32, as the gains kernel reads them for 'dist'. A ground's rows do
+    not change over a greedy, so the step engine takes them once. On the
+    card one launch, counted as `gains_norms`; CPU tensors get the plain
+    float64 sum (the plain gains need no norms)."""
+    NORMS_COUNTER.calls += 1
+    if not ground.is_cuda:
+        g = R.dequant(ground, gscale) if gscale is not None else ground
+        return g.double().square().sum(-1).to(F32)
+    if ground.dim() != 3:
+        raise ValueError("ground_norms takes (B, N, D) ground rows")
+    b, n, d = ground.shape
+    dev = ground.device
+    _check_ground(ground, gscale, b, n, d, dev)
+    out = torch.empty((b, n), dtype=F32, device=dev)
+    if b * n == 0:
+        return out
+    lib = _gains_lib()
+    err = lib.rt_gains_norms(ground.data_ptr(),
+                             None if gscale is None else gscale.data_ptr(),
+                             out.data_ptr(), b * n, d,
+                             STORAGES[ground.dtype],
+                             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "gains ground norms")
+    NORMS_COUNTER.launches += 1
+    return out
+
+
 def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
-          gscale=None):
+          gscale=None, gnorm=None, reference: bool = False):
     """ground (B, N, D), row (B, N), cands (B, C, D), cand_valid (B, C)
     → raw gain sums (B, C) f32, −inf at invalid candidates. With
     ``gscale`` (B, 1, N) f32 the ground is int8 per-row-quantized
-    storage (rules.quantize_rows). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (feature rules, f32 candidates,
-    contiguous) or raise."""
+    storage (rules.quantize_rows). ``gnorm`` (B, N): the stored ground's
+    `ground_norms`, for a 'dist' rule (computed here when not given; the
+    plain version needs none). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (feature rules, f32 candidates,
+    contiguous) or raise. ``reference`` runs the 64×64-tile build the
+    kernel equals bit for bit instead (a test's yardstick, not
+    counted)."""
     if rule.is_bitmap:
         return _gains_bits(row, cands, cand_valid, rule)
     counter = GAINS_COUNTERS[INT8 if gscale is not None else F32]
-    counter.calls += 1
+    if not reference:
+        counter.calls += 1
     if not cands.is_cuda:
         return gains_plain(ground, row, cands, cand_valid, rule, gscale)
     check_feature_rule(rule, "gains")
@@ -211,11 +269,7 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
     b, n, d = ground.shape
     c = cands.shape[1]
     dev = cands.device
-    if gscale is None:
-        check_operand(ground, (b, n, d), F32, "ground", dev)
-    else:
-        check_operand(ground, (b, n, d), INT8, "ground", dev)
-        check_operand(gscale, (b, 1, n), F32, "gscale", dev)
+    _check_ground(ground, gscale, b, n, d, dev)
     check_operand(cands, (b, c, d), F32, "cands", dev)
     check_operand(row, (b, n), F32, "row", dev)
     if tuple(cand_valid.shape) != (b, c):
@@ -223,22 +277,34 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
                          f"expected {(b, c)}")
     if max(b, n, c, d) >= 2 ** 31:
         raise ValueError("gains extents must fit int32")
+    dist = rule.pairwise == "dist" and not reference
+    if not dist:
+        gnorm = None
+    elif gnorm is None:
+        gnorm = ground_norms(ground, gscale)
+    else:
+        check_operand(gnorm, (b, n), F32, "gnorm", dev)
     raw = torch.zeros((b, c), dtype=F32, device=dev)
     if b * n * c > 0:
-        nb, ct = -(-n // 64), -(-c // 64)
-        partials = torch.empty((b, nb, c), dtype=torch.float64, device=dev)
-        arrivals = build.arrivals(dev, b * ct)
+        partials = torch.empty((b, -(-n // 64), c), dtype=torch.float64,
+                               device=dev)
+        cnorm = torch.empty((b, c), dtype=F32, device=dev) if dist else None
+        arrivals = build.arrivals(dev, b * -(-c // 64))
         lib = _gains_lib()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rt_gains(ground.data_ptr(),
                            None if gscale is None else gscale.data_ptr(),
+                           None if gnorm is None else gnorm.data_ptr(),
                            row.data_ptr(), cands.data_ptr(),
+                           None if cnorm is None else cnorm.data_ptr(),
                            partials.data_ptr(), arrivals.data_ptr(),
                            raw.data_ptr(), b, n, c, d, MODES[rule.pairwise],
                            STORAGES[ground.dtype], FOLDS[rule.fold],
-                           rule.cap, rule.lam, 1.0 - rule.lam, stream)
+                           rule.cap, rule.lam, 1.0 - rule.lam,
+                           int(reference), stream)
         build.check(lib, err, counter.name + " kernel")
-        counter.launches += 1
+        if not reference:
+            counter.launches += 1
     return torch.where(cand_valid, raw, torch.full_like(raw, float("-inf")))
 
 

@@ -84,9 +84,9 @@ ENGINES = ("step", "fused", "mega_stream", "mega_resident")
 THREADS = 256                       # threads per block of the loop kernels
 # argmax scratch of a loop block: one (value, index) pair per thread
 REDUCE_BYTES = 8 * THREADS
-# the pairwise tile of the resident build and the gains: two 16×68 f32
-# operand tiles (64 columns + 4 of bank padding), two 64-entry norm
-# vectors and the 64 row scales of an int8 ground (csrc/pairwise_tile.cuh)
+# the pairwise tile of the resident build: two 16×68 f32 operand tiles
+# (64 columns + 4 of bank padding), two 64-entry norm vectors and the 64
+# row scales of an int8 ground (csrc/pairwise_tile.cuh)
 TILE_BYTES = 4 * (2 * 16 * 68 + 3 * 64)
 # the chunks of a feature sieve level's row that the stream filter's
 # decisions sum a gain over (in chunk order), a block of a portable
@@ -113,11 +113,14 @@ STREAM_BITS_STATIC_BYTES = 48
 STREAM_SMEM_BYTES = flags.H100_SMEM_PER_BLOCK
 LOOP_BLOCK_MAX = 256                # target ground rows per loop block
 LOOP_BLOCK_MIN = 8
-# ground rows per block of the per-step fused kernel: at the knapsack
-# leaf shape (32 greedies × 3,125 rows) 32 rows give 98 blocks per greedy,
-# ~3 full waves of 8 blocks on each of the 132 SMs, for 3% more traffic
-# in gain partials than the 1.25 GB of caches a step reads
+# ground rows a chunk of the per-step fused kernel's gain sum (f32 over
+# a chunk's rows in order, then the chunk partials in order: the bits of
+# every design since the first); its blocks read spans of FUSED_SPAN
+# columns, a span's chunks spread over a thread-block cluster of at most
+# FUSED_CLUSTER_MAX blocks (csrc/fused_step.cu)
 FUSED_BLOCK_N = 32
+FUSED_SPAN = 128
+FUSED_CLUSTER_MAX = 8
 # candidates per block of the bitmap kernels (one warp per candidate, 8
 # warps a block), which their wrappers size themselves. fused_step: at
 # the kcover leaf (32 greedies × 30,938) 484 blocks per greedy, each
@@ -147,8 +150,8 @@ class EnginePlan:
     engine        'step' | 'fused' | 'mega_stream' | 'mega_resident'
     rule          the objective's KernelRule
     tier          raw fused_plan tier, None when every cache was refused
-    block_n       ground rows per block of the per-step fused kernel
-                  (feature rules; 0 for bitmap rules, whose kernels'
+    block_n       ground rows a chunk of the per-step fused kernel's
+                  gain sum (feature rules; 0 for bitmap rules, whose kernels'
                   wrappers size their candidate blocks: BITS_*_BLOCK_C)
     loop_block_n  target ground rows per block of the streaming loop
                   (feature rules; 0 for bitmap rules)
@@ -187,16 +190,31 @@ def _row_bytes(dtype: str) -> int:
 
 
 def fused_block_n(dtype: str = "float32") -> int:
-    """Rows per block of the per-step fused kernel over a `dtype` cache;
-    0 if none fits. Its block keeps only its state rows (in and out),
-    their int8 scales and the argmax scratch in shared memory — gain
-    partials go to device memory — so the shape does not enter."""
+    """Rows a chunk of the per-step fused kernel's gain sum over a
+    `dtype` cache; 0 if none fits. A block of its global tier keeps a
+    chunk's state rows (in and out), their int8 scales and the argmax
+    scratch in shared memory, so the shape does not enter."""
     bn = FUSED_BLOCK_N
     while bn >= LOOP_BLOCK_MIN:
         if (4 * 2 + _row_bytes(dtype)) * bn + REDUCE_BYTES <= _smem_budget():
             return bn
         bn //= 2
     return 0
+
+
+def fused_cluster_fits(dtype: str, n: int, block_n: int) -> bool:
+    """Whether the per-step fused kernel's cluster design takes a
+    `dtype` cache of n ground rows in chunks of `block_n`: a span's
+    chunks spread over FUSED_CLUSTER_MAX blocks, each keeping its chunks'
+    (FUSED_SPAN,) f32 partials, its rows' state and their int8 scales in
+    the H100's shared memory less the kernel's 1 KB of static scratch
+    (csrc/fused_step.cu:rt_fused_cluster). Beyond (f32 or bf16 n ≳
+    92,000, int8 n ≳ 77,000) the step runs the global tier, its partials
+    in device memory: the same sums, the same bits."""
+    chunks = -(-n // block_n)
+    per_block = -(-chunks // FUSED_CLUSTER_MAX)
+    need = per_block * (4 * FUSED_SPAN + (4 + _row_bytes(dtype)) * block_n)
+    return need <= flags.H100_SMEM_PER_BLOCK - 1024
 
 
 def loop_block_n(c: int, dtype: str = "float32") -> int:

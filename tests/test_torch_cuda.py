@@ -282,6 +282,138 @@ def test_cuda_gains_kernel_matches_plain(cuda, name, shape):
 STORED = ["bfloat16", "int8"]
 
 
+# the redesigned step kernels: gains on 64-row tiles of the candidate
+# width that pads C least (C = 1 and 128: one and two 64-wide tiles; 65
+# and 72: one 80-wide; 129: two 80-wide), fused_step in 16-byte loads
+# over clusters
+GAINS_SHAPES = [(2, 150, c, d) for c in (1, 65, 72, 128, 129)
+                for d in (520, 517)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "int8"])
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("shape", GAINS_SHAPES)
+def test_cuda_gains_equals_the_64x64_build(cuda, shape, name, storage):
+    """The gains kernel at ragged C (one or two 64- or 80-wide tiles), N
+    off the 64-row grid and D = 520 or off the 16-byte
+    grid, f32 and int8 ground: the ground's norms passed (as the step
+    engine passes them) give the bits of the norms computed per call, and
+    both equal the 64x64-tile build (its norms inline) bit for bit. Held
+    to the plain version by the float64 rule where it has gains enough
+    to be a statistic (C ≥ 65: 2·C of them; at C = 1 two gains make its
+    RMS and max ratios noise, and the bits are the 64x64 build's, which
+    test_cuda_gains_kernel_matches_plain and chip_smoke.py hold)."""
+    tr = FEATURE_RULES[name]
+    b, n, c, d = shape
+    g, cd = _dev_pools(cuda, b, n, c, d, seed=21)
+    kw, deq = {}, g
+    if storage == "int8":
+        q, scale = ops.quantize_ground(g)
+        kw, g, deq = {"gscale": scale}, q, TR.dequant(q, scale).contiguous()
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(deq, valid, tr)
+    for j in range(3):
+        row = TR.update_row(deq, row, deq[:, 11 * j], tr)
+    row = row.contiguous()
+    cv = torch.arange(c, device=cuda).expand(b, c) % 5 != 1
+    tag = "[int8]" if storage == "int8" else ""
+    counters.reset()
+    got = TP.gains(g, row, cd, cv, tr, **kw)
+    snap = counters.snapshot()
+    assert snap["gains" + tag]["launches"] == 1
+    assert snap["gains_norms"]["launches"] == (tr.pairwise == "dist")
+    gnorm = TP.ground_norms(g, kw.get("gscale"))
+    parity.compare_exact(got, TP.gains(g, row, cd, cv, tr, gnorm=gnorm, **kw),
+                         "gains, gnorm passed")
+    parity.compare_exact(got, TP.gains(g, row, cd, cv, tr, reference=True,
+                                       **kw), "gains vs the 64x64 build")
+    if c > 1:
+        parity.compare_gains(got, TP.gains_plain(g, row, cd, cv, tr,
+                                                 kw.get("gscale")),
+                             deq, row, cd, tr)
+
+
+@pytest.mark.cuda
+def test_cuda_gains_norms_are_the_rows_float64_chain(cuda):
+    """ground_norms: the float64 sum of squares of each (dequantized) row
+    cast once to f32 — the chain in ascending order, so within one f32
+    rounding of the float64 value; the int8 rows' norms are the
+    dequantized rows'."""
+    g, _ = _dev_pools(cuda, 2, 70, 1, 517, seed=22)
+    want = g.double().square().sum(-1)
+    got = TP.ground_norms(g)
+    assert torch.allclose(got.double(), want, rtol=2 * 2 ** -24, atol=0)
+    q, scale = ops.quantize_ground(g)
+    deq = TR.dequant(q, scale)
+    assert torch.equal(TP.ground_norms(q, scale), TP.ground_norms(
+        deq.contiguous()))
+    with pytest.raises(ValueError):
+        TP.ground_norms(q)
+
+
+# (B, N, C). The cluster each storage's kernel picks (f32 / bf16 / int8;
+# csrc/fused_step.cu:rt_fused_cluster, the smallest of 1..8 leaving a lane
+# group one chunk of 32 rows): (1, 300, 131) 2 / 1 / 1; (3, 77, 160) and
+# (1, 5, 3) 1; (2, 1000, 257) 4 / 2 / 1; (1, 2000, 20) 8 / 4 / 2. The
+# last shape's partials fit no cluster: the global tier.
+FUSED_SHAPES = [(1, 300, 131), (3, 77, 160), (2, 1000, 257), (1, 2000, 20),
+                (1, 5, 3), (1, 100_000, 5)]
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose first byte lies off the 16-byte grid."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32"] + STORED)
+@pytest.mark.parametrize("name", sorted(FEATURE_RULES))
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_cuda_fused_step_equals_the_earlier_design(cuda, shape, name, dtype):
+    """fused_step over two steps, at B = 1 and ragged N, at odd C (rows
+    off the 16-byte grid: the shuffled loads) and C a multiple of 16 (the
+    aligned loads), over f32, bf16 and int8 caches, on clusters of 1, 2,
+    4 and 8 blocks a span and on the global tier: bit for bit the
+    earlier design (row blocks summed by one last block), also over a
+    matrix whose base is off the 16-byte grid (scalar loads), and held
+    to the plain version by compare_steps."""
+    tr = FEATURE_RULES[name]
+    b, n, c = shape
+    g, cd = _dev_pools(cuda, b, n, c, 24, seed=23)
+    m32 = TP.pairwise_plain(g, cd, tr.pairwise).contiguous()
+    mat, scale = ((m32, None) if dtype == "float32"
+                  else _stored(m32, dtype))
+    logical = TR.logical(mat, scale).contiguous()
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mask = (torch.rand(b, c, generator=gen, device=cuda) > 0.3).float()
+    prev = torch.full((b,), -1, device=cuda)
+    tag = {"float32": "", "bfloat16": "[bf16]", "int8": "[int8]"}[dtype]
+    odd = _misaligned(mat)
+    assert odd.data_ptr() % 16 != 0
+    assert plans.fused_cluster_fits(dtype, n, plans.FUSED_BLOCK_N) == (
+        n < 100_000)
+    for _ in range(2):
+        counters.reset()
+        got = TF.fused_step(mat, row, mask, prev, tr, scale=scale)
+        assert counters.snapshot()["fused_step" + tag]["launches"] == 1
+        want = TF.fused_step(mat, row, mask, prev, tr, scale=scale,
+                             reference=True)
+        parity.compare_exact(got, want, "fused_step vs the earlier design")
+        parity.compare_exact(TF.fused_step(odd, row, mask, prev, tr,
+                                           scale=scale), want,
+                             "fused_step, base off the 16-byte grid")
+        plain = TF.fused_step_plain(mat, row, mask, prev, tr, scale=scale)
+        parity.compare_steps(got, plain, logical, mask, tr)
+        row, prev = plain[0], plain[1]
+        mask = mask.scatter(1, prev[:, None], 0.0)
+
+
 def _stored(mat, dtype):
     """An f32 (B, N, C) matrix in `dtype` storage → (matrix, scale)."""
     if dtype == "int8":
