@@ -14,7 +14,11 @@ script exits non-zero:
              at the runs' own shapes, for every feature rule: pairwise
              and the loops at the first leaf's pool and a level's 16
              node pools (there pairwise == the resident kernel's build
-             bit for bit, and pairwise[bf16] by the float64 rule);
+             bit for bit, and pairwise[bf16] by the float64 rule); the
+             streaming loop at the leaf level (32 × 3,284²) bit for bit
+             against k fused_step launches over the same cache
+             (`loop_vs_fused_step`), the resident loop against the
+             streaming loop over its own matrix (`resident_vs_loop`);
              then (line `parity_steps`) fused_step at the
              knapsack run's leaf (32 × 3,125²) and node (32 × 400²)
              shapes, gains at the stochastic run's leaf shape (32 ×
@@ -39,7 +43,10 @@ script exits non-zero:
              gains launches, 1 gains_norms: the ground's norms once),
              nodes on the resident loop
   timing     each kernel at its path's shape beside its bound, its
-             plain version and a one-call PyTorch yardstick (line
+             plain version and a one-call PyTorch yardstick (the
+             streaming loop also beside k fused_step launches over its
+             cache, `fused_step_x_k_ms`; the resident loop at every
+             level's node count, its build and steps split; line
              `timing_steps` for fused_step and gains, with fused_step
              at the node shape, gains' once-a-greedy norms pass and the
              step engine's row update)
@@ -55,8 +62,10 @@ planner's storage ladder), between the phases above:
                 rounded, the chunked int8 cache against quantize_rows on
                 the CPU, fused_step and the streaming loop against the
                 f32 kernel on the dequantized cache, the resident
-                scratch against round_resident of its f32 build; and
-                against their plain versions (kernels/parity.py)
+                scratch against round_resident of its f32 build; the
+                loops against k fused_step launches and against the
+                streaming loop over the resident matrix, as in parity;
+                and against their plain versions (kernels/parity.py)
   run_bf16      (after run) run_tree_dense('kmedoid', …) with the bf16
   run_int8      / int8 rung forced (every level in that storage) and
                 with REPRO_TORCH_FUSED_CACHE_MB = 1,024 / 512 (the
@@ -70,7 +79,8 @@ planner's storage ladder), between the phases above:
                 launches a stage, spent ≤ budget everywhere
   timing_quant  (after timing_steps) each variant at its path's shape
                 beside its bound (the storage's own bytes), its plain
-                version and, for pairwise[bf16], torch.cdist to bf16
+                version and, for pairwise[bf16], torch.cdist to bf16;
+                the loops as in timing
 
 Then the coverage problems, after the k-medoid tensors are freed:
 
@@ -577,6 +587,30 @@ def phase_parity_steps(torch, x, cfg, pools):
             "gains": out["gains"]["kmedoid"]["max_abs_diff"]}
 
 
+def _loop_vs_fused_step(L, parity, mat, row, mask, k, rule, scale=None,
+                        what="greedy_loop"):
+    """The streaming loop against k fused_step launches over the same
+    cache (the winner passed on, the mask threaded), bit for bit; with
+    the loop's plan (blocks, span groups and ranks a greedy)."""
+    res = parity.compare_exact(
+        L.greedy_loop(mat, row, mask, k, rule, scale=scale),
+        L.fused_steps(mat, row, mask, k, rule, scale=scale),
+        f"{what} vs {k} fused_step launches")
+    return dict(res, plan=L.loop_plan(mat))
+
+
+def _resident_vs_loop(torch, L, parity, cd, row, mask, ctl, k, rule, dt,
+                      built, what="greedy_loop_resident"):
+    """The resident loop against the streaming loop over the matrix it
+    ran over (its f32 values, read back into `built`), bit for bit; with
+    where its steps kept the matrix ('chip' or 'device')."""
+    got = L.greedy_loop_resident(cd, cd, row, mask, ctl, k, rule,
+                                 cache_dtype=dt, scratch=built)
+    res = parity.compare_exact(got, L.greedy_loop(built, row, mask, k, rule),
+                               f"{what} vs greedy_loop over its matrix")
+    return got, dict(res, tier=L.resident_tier(*built.shape[1:], dt))
+
+
 def phase_parity(torch, x, cfg, seed):
     """Each kernel against its plain version on the card
     (kernels/parity.py states the rules and their reasons):
@@ -608,6 +642,13 @@ def phase_parity(torch, x, cfg, seed):
              "mmr": R.mmr(0.5, 2.0)}
     out = {"pairwise": {}, "greedy_loop": {}, "greedy_loop_resident": {}}
     _, pay, valid = leaf_pools(torch, x, cfg.num_machines, seed)
+    # the leaf level's loop (32 × 3,284²) against k fused_step launches
+    rule = rules["kmedoid"]
+    mat = P.pairwise(pay, pay, rule.pairwise)
+    out["loop_vs_fused_step"] = _loop_vs_fused_step(
+        L, parity, mat, R.empty_row(pay, valid, rule).contiguous(),
+        valid.float().contiguous(), cfg.k, rule)
+    del mat
     g = pay[:1].contiguous()                       # the first leaf
     v = valid[:1]
     del pay, valid
@@ -635,6 +676,7 @@ def phase_parity(torch, x, cfg, seed):
         mode: _bf16_pairwise_rule(torch, cd, mode)
         for mode in ("dot", "dist")}}
     equal_builds = 0
+    out["resident_vs_loop"] = {}
     for name, rule in rules.items():
         vv = torch.ones(nodes, bk, dtype=torch.bool, device=x.device)
         row = R.empty_row(cd, vv, rule).contiguous()
@@ -642,8 +684,9 @@ def phase_parity(torch, x, cfg, seed):
         ctl = torch.tensor([[cfg.k, bk, bk]] * nodes, dtype=torch.int32,
                            device=x.device)
         built = torch.empty(nodes, bk, bk, device=x.device)
-        kern = L.greedy_loop_resident(cd, cd, row, mask, ctl, cfg.k, rule,
-                                      scratch=built)
+        kern, out["resident_vs_loop"][name] = _resident_vs_loop(
+            torch, L, parity, cd, row, mask, ctl, cfg.k, rule, "float32",
+            built, f"greedy_loop_resident {name}")
         assert torch.equal(built, P.pairwise(cd, cd, rule.pairwise)), \
             f"resident {name}: its build is not the pairwise kernel's"
         equal_builds += 1
@@ -1091,6 +1134,8 @@ def phase_timing(torch, x, cfg, seed, reps):
         "shape": [b, n, n, k],
         "ms": cuda_ms(torch, lambda: L.greedy_loop(mat, row, mask, k, rule),
                       reps),
+        "fused_step_x_k_ms": _loop_vs_fused_steps(torch, mat, row, mask, k,
+                                                  rule, None, reps),
         "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_plain(
             mat, row, mask, k, rule), 1, warmup=0),
         "library_ms": None, "bound_ms": bms, "bound_by": by}
@@ -1113,7 +1158,8 @@ def phase_timing(torch, x, cfg, seed, reps):
             cd, cd, row, mask, ctl, k, rule), reps),
         "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_resident_plain(
             cd, cd, row, mask, ctl, k, rule), reps),
-        "library_ms": None, "bound_ms": bms, "bound_by": by}
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+        **_resident_levels(torch, x, cfg, "float32", reps, seed + 1)}
     emit({"phase": "timing", "peaks": {"fp32_flops": PEAK_FP32_FLOPS,
                                        "hbm_bytes": PEAK_HBM_BYTES},
           **out})
@@ -1136,6 +1182,65 @@ def _vs_global(torch, step, reps) -> dict:
                                  20 * reps),
             "device_ms": device_ms(step),
             "global_device_ms": device_ms(lambda: step(reference=True))}
+
+
+def _loop_vs_fused_steps(torch, mat, row, mask, k, rule, scale, reps):
+    """The streaming loop's yardstick: k fused_step launches over the
+    same cache, each step's winner passed on as the next one's prev (the
+    mask fixed), CUDA-event ms for all k together."""
+    from repro_torch.kernels import fused_step as F
+    prev0 = torch.full((mat.shape[0],), -1, dtype=torch.int64,
+                       device=mat.device)
+
+    def steps():
+        r, pv = row, prev0
+        for _ in range(k):
+            r, pv, _ = F.fused_step(mat, r, mask, pv, rule, scale=scale)
+    return cuda_ms(torch, steps, reps)
+
+
+def _resident_levels(torch, x, cfg, dt, reps, seed):
+    """The resident loop at every level's node count of the run's tree
+    (16, 8, 4, 2, 1 nodes × b·k² × D, k steps; ground = candidates, as a
+    node of run_tree_dense): each level's ms, the same call at k = 0 (the
+    build and rounding alone: `build_ms`) and their difference
+    (`steps_ms`), CUDA events; each CUDA kernel's device ms a call
+    (`kernel_split`, torch.profiler: the build and the steps are two
+    launches); the bound of each level's build and steps."""
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import rules as R
+    rule = R.DIST_MIN
+    k = cfg.k
+    bk = cfg.branching * k
+    d = x.shape[1]
+    rnd = {"float32": 0.0, "bfloat16": 1.0, "int8": 4.0}[dt]
+    levels = []
+    for nodes in _level_nodes(cfg):
+        cd = node_pools(torch, x, nodes, bk, seed + nodes)
+        vv = torch.ones(nodes, bk, dtype=torch.bool, device=x.device)
+        row = R.empty_row(cd, vv, rule).contiguous()
+        mask = vv.float().contiguous()
+
+        def ctl(kq):
+            return torch.tensor([[kq, bk, bk]] * nodes, dtype=torch.int32,
+                                device=x.device)
+        full, zero = ctl(k), ctl(0)
+        ms = cuda_ms(torch, lambda: L.greedy_loop_resident(
+            cd, cd, row, mask, full, k, rule, cache_dtype=dt), reps)
+        build_ms = cuda_ms(torch, lambda: L.greedy_loop_resident(
+            cd, cd, row, mask, zero, 0, rule, cache_dtype=dt), reps)
+        flops = (2.0 * nodes * bk * bk * d + 4.0 * nodes * bk * d
+                 + rnd * nodes * bk * bk + 3.0 * k * nodes * bk * bk)
+        nbytes = 4.0 * nodes * (2 * bk * d + 3 * bk) + 12.0 * nodes * k
+        split = _kernel_split(torch, lambda: L.greedy_loop_resident(
+            cd, cd, row, mask, full, k, rule, cache_dtype=dt), 3)
+        levels.append({"nodes": nodes, "ms": ms, "build_ms": build_ms,
+                       "steps_ms": ms - build_ms,
+                       "kernel_split": split["kernel_split"],
+                       "bound_ms": bound(flops, nbytes)[0]})
+        del cd, row, mask
+    return {"levels": levels, "levels_ms": sum(v["ms"] for v in levels),
+            "levels_build_ms": sum(v["build_ms"] for v in levels)}
 
 
 def phase_timing_steps(torch, x, cfg, pools, reps):
@@ -1370,6 +1475,9 @@ def phase_parity_quant(torch, x, cfg, pools):
         mask = lvalid.float().contiguous()
         for dt, (mat, scale) in caches.items():
             what = f"greedy_loop{TAG[dt]} {name}"
+            res[f"greedy_loop{TAG[dt]}_loop_vs_fused_step"] = \
+                _loop_vs_fused_step(L, parity, mat, row, mask, cfg.k, rule,
+                                    scale, what)
             got = L.greedy_loop(mat, row, mask, cfg.k, rule, scale=scale)
             f32 = L.greedy_loop(R.logical(mat, scale).contiguous(), row, mask,
                                 cfg.k, rule)
@@ -1398,8 +1506,9 @@ def phase_parity_quant(torch, x, cfg, pools):
         for dt in QUANT:
             what = f"greedy_loop_resident{TAG[dt]} {name}"
             built = torch.empty(nodes, bk, bk, device=x.device)
-            got = L.greedy_loop_resident(cd, cd, row, mask, ctl, cfg.k, rule,
-                                         cache_dtype=dt, scratch=built)
+            got, res[f"resident{TAG[dt]}_resident_vs_loop"] = \
+                _resident_vs_loop(torch, L, parity, cd, row, mask, ctl,
+                                  cfg.k, rule, dt, built, what)
             res[f"resident{TAG[dt]}_scratch_vs_rounding"] = \
                 parity.compare_exact(built, L.round_resident(built32, dt, ctl),
                                      what + ": scratch vs round_resident")
@@ -1485,13 +1594,14 @@ def _quant_tree(torch, x, cfg, env: dict, f32_run):
     cache budget): per level the engine and storage the planner picks
     there, the launches each variant's counter shows (asserted), the wall
     time; the leaf stage's device allocation beyond the pools held to
-    the planned cache bytes (≤ 1.05× plus one int8 chunk's f32: no f32
-    copy of a cache anywhere); the root beside the f32 run's."""
+    the planned bytes, the cache and the streaming loop's chunk partials
+    (≤ 1.05× plus one int8 chunk's f32: no f32 copy of a cache
+    anywhere); the root beside the f32 run's."""
     from repro_torch.core.simulate import partition, run_tree_dense
     from repro_torch.core.tree import AccumulationTree
     from repro_torch.kernels import counters
-    from repro_torch.kernels.plans import (cache_bytes, quant_chunk,
-                                           select_engine)
+    from repro_torch.kernels.plans import (cache_bytes, loop_scratch_bytes,
+                                           quant_chunk, select_engine)
     from repro_torch.kernels.rules import DIST_MIN
     tree = AccumulationTree(cfg.num_machines, cfg.branching)
     m, d = cfg.num_machines, x.shape[1]
@@ -1505,7 +1615,10 @@ def _quant_tree(torch, x, cfg, env: dict, f32_run):
             plans.append((n, reps, select_engine(DIST_MIN, n, n, d,
                                                  replicas=reps)))
         leaf = plans[0][2]
-        planned = cache_bytes(n_leaf, n_leaf, leaf.dtype, m)
+        # the cache and, beside it while the loop runs, its chunk partials
+        planned = (cache_bytes(n_leaf, n_leaf, leaf.dtype, m)
+                   + loop_scratch_bytes(n_leaf, n_leaf, leaf.dtype, m,
+                                        leaf.block_n))
         chunk = (quant_chunk(n_leaf, n_leaf) * n_leaf * n_leaf * 4
                  if leaf.dtype == "int8" else 0)
         pool_bytes = m * n_leaf * d * 4
@@ -1682,6 +1795,8 @@ def phase_timing_quant(torch, x, cfg, pools, reps):
             "shape": [b, n, n, k], "cache_bytes": cache,
             "ms": cuda_ms(torch, lambda: L.greedy_loop(
                 mat, row, mask, k, rule, scale=scale), reps),
+            "fused_step_x_k_ms": _loop_vs_fused_steps(
+                torch, mat, row, mask, k, rule, scale, reps),
             "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_plain(
                 mat, row, mask, k, rule, scale=scale), 1, warmup=0),
             "library_ms": None, "bound_ms": bms, "bound_by": by}
@@ -1756,7 +1871,8 @@ def phase_timing_quant(torch, x, cfg, pools, reps):
                 cd, cd, nrow, nmask, ctl, k, rule, cache_dtype=dt), reps),
             "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_resident_plain(
                 cd, cd, nrow, nmask, ctl, k, rule, cache_dtype=dt), reps),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            **_resident_levels(torch, x, cfg, dt, reps, cfg.seed + 1)}
     emit({"phase": "timing_quant", **out})
     return out
 
@@ -2323,7 +2439,8 @@ def _kernel_split(torch, fn, calls: int = 10) -> dict:
     for name, count, us in _cuda_events(torch, prof):
         for short in ("rt_row_norms", "rt_stream_slab", "rt_stream_singles",
                       "rt_stream_decide", "rt_stream_bits_prep",
-                      "rt_stream_bits_level"):
+                      "rt_stream_bits_level", "rt_resident_build",
+                      "rt_resident_steps"):
             if short in name:
                 name = short
         k = kernels.setdefault(name, {"launches_recorded": 0, "us": 0.0})

@@ -26,12 +26,12 @@
 // B*(N + C) rows (B*N when ground and candidates are one tensor). The
 // product's epilogue reads them; no tile recomputes them.
 //
-// Every entry is computed as the resident build's tile computes it
-// (pairwise_tile.cuh: rt_tile, rt_pairwise_tile): one f32 fmaf chain over
-// ascending features from 0 (no split of D), the same float64 norms, and
-// rt_entry_value, stored f32 or rounded to nearest even for bf16. So this
-// kernel equals the resident kernel's build bit for bit, and the entries
-// of the 64x64-tile kernel it replaced.
+// Every entry is computed as the 64x64 tile computes it (pairwise_tile.cuh:
+// rt_tile): one f32 fmaf chain over ascending features from 0 (no split
+// of D), the same float64 norms, and rt_entry_value, stored f32 or
+// rounded to nearest even for bf16. So this kernel equals the entries of
+// the 64x64-tile kernel it replaced, and the resident kernel's build
+// (greedy_loop_resident.cu), bit for bit.
 //
 // No torch matmul, cdist, cuBLAS or tensor-core path is used.
 //

@@ -1,14 +1,13 @@
 // One 64x64 tile of the ground x candidate matrix, fp32 FMA (no TF32).
 //
-// The build phase of the resident loop kernel (greedy_loop_resident.cu)
-// runs it: `rt_tile` accumulates a tile and hands its registers to an
-// epilogue; `rt_pairwise_tile` is the epilogue that stores the entries
-// (the resident build). The pairwise kernel and the stream filter's slab
-// run the larger tile of tile128.cuh, built for the H100's fp32 pipes,
-// and the per-step gains a 64-row variant of it (gains.cu), with the same
-// arithmetic per entry: one f32 fmaf chain over ascending features, the
-// same float64 norms and `rt_entry_value`, so their entries equal this
-// tile's bit for bit (stream_filter.cu and gains.cu keep a 64x64 build,
+// `rt_tile` accumulates a tile and hands its registers to an epilogue.
+// The pairwise kernel and the stream filter's slab run the larger tile of
+// tile128.cuh, built for the H100's fp32 pipes, the per-step gains a
+// 64-row variant of it (gains.cu) and the resident loop's build its own
+// register tiles (greedy_loop_resident.cu), all with the same arithmetic
+// per entry: one f32 fmaf chain over ascending features, the same
+// float64 norms and `rt_entry_value`, so their entries equal this tile's
+// bit for bit (stream_filter.cu and gains.cu keep a 64x64 build,
 // rt_stream_slab64_kernel and rt_gains64_kernel, as their checks'
 // yardsticks).
 // 256 threads; each owns a 4x4 register micro-tile. The feature axis is
@@ -179,45 +178,9 @@ __device__ __forceinline__ void rt_tile(const TG* __restrict__ G,
   __syncthreads();  // the block may reuse `s` for its next tile
 }
 
-// The f32 ground's tile (pairwise, the resident build, the f32 gains).
-template <class Epilogue>
-__device__ __forceinline__ void rt_tile(const float* __restrict__ G,
-                                        const float* __restrict__ Cd, int N,
-                                        int C, int D, int n0, int c0,
-                                        int mode, RtTileSmem& s,
-                                        Epilogue&& epi) {
-  rt_tile<0>(G, (const float*)nullptr, Cd, N, C, D, n0, c0, mode, s, epi);
-}
-
 // An entry as stored: f32 as computed, bf16 rounded to nearest even
 // (as torch.Tensor.to(torch.bfloat16) and XLA's convert round).
 __device__ __forceinline__ void rt_store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void rt_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// The stored tile: out is the (N, C) row-major matrix of ONE greedy, f32
-// or bf16 (the same entries, another store).
-template <class T>
-__device__ __noinline__ void rt_pairwise_tile(const float* __restrict__ G,
-                                              const float* __restrict__ Cd,
-                                              T* __restrict__ out, int N,
-                                              int C, int D, int n0, int c0,
-                                              int mode, RtTileSmem& s) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  rt_tile(G, Cd, N, C, D, n0, c0, mode, s, [&](float (&acc)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = n0 + ty * 4 + i;
-      if (r >= N) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx * 4 + j;
-        if (c >= C) continue;
-        rt_store(out + (size_t)r * C + c,
-                 rt_tile_entry(s, acc[i][j], ty * 4 + i, tx * 4 + j, mode));
-      }
-    }
-  });
 }

@@ -1,17 +1,24 @@
 """Whole-greedy loop kernels: wrappers and plain versions (answers
 `src/repro/kernels/greedy_loop.py`).
 
-Two tiers, each ONE launch for every greedy of a level:
+Two tiers, each ONE dispatch for every greedy of a level (the resident
+tier's is two CUDA launches: the build, the steps):
 
   greedy_loop           streaming tier (csrc/greedy_loop.cu): all k steps
                         over cached (B, N, C) matrices in device memory;
-                        a cooperative launch with P blocks per greedy
-                        and one grid barrier per step.
+                        a greedy's blocks split its rows into chunks of
+                        `block_n` and its columns into 128-wide spans,
+                        and wait only for each other (a cooperative
+                        launch, a barrier per greedy). It gives the bits
+                        of k fused_step launches with the same
+                        `block_n`.
   greedy_loop_resident  resident tier (csrc/greedy_loop_resident.cu):
-                        builds each (N, C) matrix into an L2-sized
-                        scratch, then runs all k steps, one block per
-                        node; ``ctl`` (B, 3) int32 = [kq, logical_n,
-                        logical_c], steps ≥ kq freeze.
+                        builds each (N, C) matrix over the whole card,
+                        then runs all k steps on a cluster of 8 blocks a
+                        node holding the matrix in its storage dtype;
+                        ``ctl`` (B, 3) int32 = [kq, logical_n,
+                        logical_c], steps ≥ kq freeze. It gives the bits
+                        of `greedy_loop` over the matrix it ran over.
 
 Outputs follow kernels/ref.py:greedy_loop: final rows (B, N), bests
 (B, k) int64 with −1 for rejected steps, raw gains (B, k) f32. The
@@ -20,9 +27,9 @@ bf16 or int8 with (B, 1, N) row scales (`_stream_kernel_quant`),
 counted as `greedy_loop`, `greedy_loop[bf16]`, `greedy_loop[int8]` —
 widening each entry to rules.dequant's f32 value, so a variant equals
 the f32 kernel on the dequantized cache bit for bit. The resident
-kernel rounds its f32 scratch in place to the plan's storage (bf16, or
-int8 by rules.quantize_rows; `greedy_loop_resident[bf16]`/`[int8]`), as
-`resident_matrix` does. Both
+kernel rounds its f32 build to the plan's storage (bf16, or int8 by
+rules.quantize_rows; `greedy_loop_resident[bf16]`/`[int8]`), as
+`resident_matrix` does, and keeps it in that dtype. Both
 bitmap tiers (`greedy_loop_bits`, `greedy_loop_resident_bits`, counted as
 `greedy_loop[coverage]` / `greedy_loop_resident[coverage]`) launch one
 kernel, csrc/greedy_loop.cu:rt_greedy_loop_bits, over the candidates'
@@ -38,12 +45,12 @@ import torch
 
 from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.pairwise import (DTYPES, FOLDS, INT8, MODES,
+from repro_torch.kernels.pairwise import (DTYPES, FOLDS, MODES,
                                           STORAGES, check_feature_rule,
                                           check_operand, check_storage,
                                           check_words, storage_counters)
 from repro_torch.kernels.plans import (BITS_LOOP_BLOCK_C,
-                                       BITS_RESIDENT_BLOCK_C, LOOP_BLOCK_MAX)
+                                       BITS_RESIDENT_BLOCK_C, FUSED_BLOCK_N)
 from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
@@ -109,6 +116,35 @@ def greedy_loop_resident_plain(ground, cands, row, mask, ctl, k: int,
     return ref.greedy_loop(mat, row, mask, k, rule, kq=ctl[..., 0])
 
 
+def fused_steps(mat, row, mask, k: int, rule: KernelRule,
+                block_n: int = FUSED_BLOCK_N, scale=None):
+    """k fused_step launches over the cache with each step's winner passed
+    on as prev and taken out of the mask, then one more launch for the
+    final fold: the streaming loop's yardstick of bits (with the same
+    `block_n` the loop gives these bits). Feature rules; returns as
+    `greedy_loop`."""
+    from repro_torch.kernels import fused_step as F
+    b = mat.shape[0]
+    idx = torch.arange(b, device=mat.device)
+    prev = torch.full((b,), -1, dtype=torch.int64, device=mat.device)
+    mask = mask.clone()
+    bests, gains = [], []
+    for _ in range(k):
+        row, best, gain = F.fused_step(mat, row, mask, prev, rule,
+                                       block_n=block_n, scale=scale)
+        accept = torch.isfinite(gain) & (gain > 0)
+        prev = torch.where(accept, best, -1)
+        mask[idx[accept], best[accept]] = 0.0
+        bests.append(prev)
+        gains.append(gain)
+    if k:
+        row = F.fused_step(mat, row, mask, prev, rule, block_n=block_n,
+                           scale=scale)[0]
+    empty = torch.empty((b, 0), device=mat.device)
+    return (row, torch.stack(bests, 1) if k else empty.long(),
+            torch.stack(gains, 1) if k else empty)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -116,14 +152,14 @@ def greedy_loop_resident_plain(ground, cands, row, mask, ctl, k: int,
 
 def _stream_lib():
     lib = build.load("greedy_loop")
-    lib.rt_greedy_loop_occupancy.restype = _I
-    lib.rt_greedy_loop_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I),
-                                             ctypes.POINTER(_I)]
+    lib.rt_greedy_loop_plan.restype = _I
+    lib.rt_greedy_loop_plan.argtypes = [_I, _P] + [_I] * 4 + [_P]
     lib.rt_greedy_loop_bits_occupancy.restype = _I
     lib.rt_greedy_loop_bits_occupancy.argtypes = [_I, ctypes.POINTER(_I),
                                                   ctypes.POINTER(_I)]
     lib.rt_greedy_loop.restype = _I
-    lib.rt_greedy_loop.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _F, _P]
+    lib.rt_greedy_loop.argtypes = ([_P] * 11 + [_I] * 5 + [_P] + [_I] * 2
+                                   + [_F, _F, _F, _P])
     lib.rt_greedy_loop_bits.restype = _I
     lib.rt_greedy_loop_bits.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     return lib
@@ -131,12 +167,11 @@ def _stream_lib():
 
 def _resident_lib():
     lib = build.load("greedy_loop_resident")
-    lib.rt_resident_occupancy.restype = _I
-    lib.rt_resident_occupancy.argtypes = [_I, ctypes.POINTER(_I),
-                                          ctypes.POINTER(_I)]
+    lib.rt_greedy_loop_resident_plan.restype = _I
+    lib.rt_greedy_loop_resident_plan.argtypes = [_I] * 4 + [_P]
     lib.rt_greedy_loop_resident.restype = _I
-    lib.rt_greedy_loop_resident.argtypes = ([_P] * 9 + [_I] * 8
-                                            + [_F, _F, _F, _I, _P])
+    lib.rt_greedy_loop_resident.argtypes = ([_P] * 11 + [_I] * 9
+                                            + [_F, _F, _F, _P])
     return lib
 
 
@@ -150,34 +185,35 @@ def _co_resident(lib, occupancy, smem: int, *lead) -> int:
     return bps.value * sms.value
 
 
-def blocks_per_greedy(lib, b: int, n: int, c: int,
-                      block_n: int = LOOP_BLOCK_MAX, storage: int = 0):
-    """(P, R): blocks per greedy and ground rows per block of the streaming
-    loop over a `storage` cache. Starts from ⌈n / block_n⌉ blocks and
-    gives each block more rows while the card cannot hold all b·P blocks
-    at once; raises when even one block per greedy does not fit."""
-    p = max(1, -(-n // max(1, block_n)))
-    per_row = 2 if storage == STORAGES[INT8] else 1    # + int8 row scales
-    while True:
-        r = max(1, -(-n // p))
-        cap = _co_resident(lib, lib.rt_greedy_loop_occupancy,
-                           4 * (c + per_row * r), storage)
-        if b * p <= cap:
-            return p, r
-        if p == 1:
-            raise RuntimeError(
-                f"streaming loop: {b} greedies × 1 block exceed the {cap} "
-                "blocks the card holds at once")
-        p = max(1, min(p - 1, cap // b))
+def _plan(lib, mat, ch: int, storage: int):
+    """rt_greedy_loop_plan's (blocks a greedy, the spans' columns) for the
+    (B, N, C) CUDA cache `mat` in chunks of `ch` rows."""
+    b, n, c = mat.shape
+    plan = (_I * 2)()
+    build.check(lib, lib.rt_greedy_loop_plan(storage, mat.data_ptr(), b, n,
+                                             c, ch, plan),
+                "greedy_loop plan")
+    return plan
+
+
+def loop_plan(mat, block_n: int = FUSED_BLOCK_N) -> dict:
+    """How the streaming loop splits each greedy of the (B, N, C) CUDA
+    cache `mat` (f32, bf16 or int8) in chunks of `block_n` rows: {'blocks'
+    a greedy} (csrc/greedy_loop.cu:rt_greedy_loop_plan)."""
+    plan = _plan(_stream_lib(), mat, max(1, int(block_n)),
+                 STORAGES.get(mat.dtype, STORAGES[F32]))
+    return {"blocks": plan[0]}
 
 
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
-                block_n: int = LOOP_BLOCK_MAX, scale=None):
+                block_n: int = FUSED_BLOCK_N, scale=None):
     """STREAMING tier over cached matrices. mat (B, N, C) f32, bf16 or
     int8 (with `scale`, its (B, 1, N) f32 row scales), row (B, N), mask
-    (B, C) 0/1 f32, `block_n` the target ground rows per block. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise. The bitmap rule goes to `greedy_loop_bits`."""
+    (B, C) 0/1 f32, `block_n` the ground rows a chunk of the gain sum (as
+    fused_step's: the loop gives the bits of k fused_step launches with
+    the same block_n). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise. The bitmap rule goes to
+    `greedy_loop_bits`."""
     if rule.is_bitmap:
         return greedy_loop_bits(mat, row, mask, k, rule)
     counter = STREAM_COUNTERS.get(mat.dtype, STREAM_COUNTERS[F32])
@@ -197,16 +233,22 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     gains = torch.empty((b, k), dtype=F32, device=dev)
     if b == 0:
         return row_out, bests.long(), gains
+    ch = max(1, int(block_n))
     lib = _stream_lib()
-    p, r = blocks_per_greedy(lib, b, n, c, block_n, storage)
-    partials = torch.empty((2, b, p, c), dtype=F32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = _plan(lib, mat, ch, storage)
+    # the chunk partials (plans.loop_scratch_bytes), the blocks' pairs,
+    # the barrier counters
+    partials = torch.empty((b, -(-n // ch), plan[1]), dtype=F32, device=dev)
+    pval = torch.empty((b, plan[0]), dtype=F32, device=dev)
+    pidx = torch.empty((b, plan[0]), dtype=torch.int32, device=dev)
+    bar = torch.zeros((b,), dtype=torch.int32, device=dev)
     err = lib.rt_greedy_loop(
         mat.data_ptr(), None if scale is None else scale.data_ptr(),
         row.data_ptr(), mask.data_ptr(), row_out.data_ptr(),
         bests.data_ptr(), gains.data_ptr(), partials.data_ptr(),
-        b, n, c, k, p, r, storage, FOLDS[rule.fold], rule.cap, rule.lam,
-        1.0 - rule.lam, stream)
+        pval.data_ptr(), pidx.data_ptr(), bar.data_ptr(), b, n, c, k, ch, plan,
+        storage, FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "greedy_loop kernel")
     counter.launches += 1
     return row_out, bests.long(), gains
@@ -214,14 +256,16 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
 
 def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
                          rule: KernelRule, cache_dtype: str = "float32",
-                         scratch=None):
+                         scratch=None, block_n: int = FUSED_BLOCK_N):
     """RESIDENT tier: ground (B, N, D), cands (B, C, D), row (B, N),
     mask (B, C) 0/1 f32, ctl (B, 3) int32, `cache_dtype` the plan's
     storage ('float32' | 'bfloat16' | 'int8'), whose rounding the matrix
-    gets inside the logical extents ctl[:, 1:3]. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. `scratch`, a
-    (B, N, C) f32 tensor, receives the matrices the loop runs over (for
-    checks; by default the kernel's is allocated by the wrapper)."""
+    gets inside the logical extents ctl[:, 1:3]; gains summed in chunks
+    of `block_n` rows (the loop gives the bits of `greedy_loop` over the
+    matrix it ran over). CPU tensors take the plain version; CUDA tensors
+    launch the kernels (one counted dispatch) or raise. `scratch`, a
+    (B, N, C) f32 tensor, receives the f32 values of the matrices the
+    loop runs over (for checks; by default the wrapper allocates it)."""
     if rule.is_bitmap:
         if scratch is not None:
             raise ValueError("the bitmap resident loop builds no matrix")
@@ -252,25 +296,48 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
     gains = torch.empty((b, k), dtype=F32, device=dev)
     if b == 0:
         return row_out, bests.long(), gains
+    ch = max(1, int(block_n))
+    storage = STORAGES[DTYPES[cache_dtype]]
     lib = _resident_lib()
-    cap = _co_resident(lib, lib.rt_resident_occupancy, 4 * (n + c))
-    if cap < 1:
-        raise RuntimeError("resident loop: no block fits an SM")
-    tiles = b * (-(-n // 64)) * (-(-c // 64))
-    grid = max(1, min(max(tiles, b), cap))
+    plan = (_I * 2)()       # on chip?, the stored rows' padded width
+    build.check(lib, lib.rt_greedy_loop_resident_plan(storage, n, c, ch,
+                                                      plan),
+                "greedy_loop_resident plan")
     if scratch is None:
         scratch = torch.empty((b, n, c), dtype=F32, device=dev)
     check_operand(scratch, (b, n, c), F32, "scratch", dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    typed = partials = None
+    if not plan[0]:                 # the device tier's copy and partials
+        typed = torch.empty((b, n, plan[1]), dtype=DTYPES[cache_dtype],
+                            device=dev)
+        partials = torch.empty((b, 2, -(-n // ch), plan[1]), dtype=F32,
+                               device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     err = lib.rt_greedy_loop_resident(
         ground.data_ptr(), cands.data_ptr(), row.data_ptr(), mask.data_ptr(),
-        ctl.data_ptr(), scratch.data_ptr(), row_out.data_ptr(),
-        bests.data_ptr(), gains.data_ptr(), b, n, c, d, k,
-        MODES[rule.pairwise], STORAGES[DTYPES[cache_dtype]],
-        FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam, grid, stream)
+        ctl.data_ptr(), scratch.data_ptr(), ptr(typed), ptr(partials),
+        row_out.data_ptr(), bests.data_ptr(),
+        gains.data_ptr(), b, n, c, d, k, ch, MODES[rule.pairwise], storage,
+        FOLDS[rule.fold], rule.cap, rule.lam, 1.0 - rule.lam,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "greedy_loop_resident kernel")
     counter.launches += 1
     return row_out, bests.long(), gains
+
+
+def resident_tier(n: int, c: int, cache_dtype: str = "float32",
+                  block_n: int = FUSED_BLOCK_N) -> str:
+    """Where the resident loop's steps keep a node's (n, c) matrix in
+    `cache_dtype`: 'chip' (its cluster's shared memory) or 'device' (a
+    device-memory copy; csrc/greedy_loop_resident.cu)."""
+    plan = (_I * 2)()
+    lib = _resident_lib()
+    build.check(lib, lib.rt_greedy_loop_resident_plan(
+        STORAGES[DTYPES[cache_dtype]], n, c, max(1, int(block_n)), plan),
+        "greedy_loop_resident plan")
+    return "chip" if plan[0] else "device"
 
 
 def bits_blocks_per_greedy(lib, b: int, c: int, w: int,

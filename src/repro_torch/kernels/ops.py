@@ -47,8 +47,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rules as R
 from repro_torch.kernels import stream_filter as stream_k
 from repro_torch.kernels.plans import (QUANT_CHUNK_BYTES, EnginePlan,
-                                       fused_block_n, loop_block_n,
-                                       quant_chunk, stream_plan)
+                                       fused_block_n, quant_chunk,
+                                       stream_plan)
 from repro_torch.kernels.rules import KernelRule
 from repro_torch.runtime import flags
 
@@ -197,13 +197,15 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
                 plan: Optional[EnginePlan] = None):
     """STREAMING tier: all k steps over cached (B, N, C) matrices in one
-    launch, over the caches as stored. Returns (final rows (B, N), bests
-    (B, k) with −1 = rejected, raw gains (B, k))."""
+    launch, over the caches as stored (a feature rule's gains summed in
+    the plan's chunks of block_n rows, as fused_step sums them). Returns
+    (final rows (B, N), bests (B, k) with −1 = rejected, raw gains
+    (B, k))."""
     kw = {}
     if not rule.is_bitmap:      # a bitmap matrix is read in place
         mat, kw["scale"], dtype = _storage(mat)
-        kw["block_n"] = (plan.loop_block_n if plan is not None
-                         else 0) or loop_block_n(mat.shape[-1], dtype)
+        kw["block_n"] = (plan.block_n if plan is not None
+                         else 0) or fused_block_n(dtype)
     return loop_k.greedy_loop(mat, _cast_row(row, rule),
                               mask.to(F32).contiguous(), k, rule, **kw)
 

@@ -10,9 +10,10 @@ Tiers, for a batch of ``replicas`` greedies that one launch serves:
 
   resident   the loop block's state row, mask and argmax scratch fit one
              block's shared memory, AND the matrices of all `replicas`
-             greedies fit the L2 share (flags.resident_l2_mb, 25 MB).
-             The kernel builds each matrix into a device scratch that
-             stays in L2 and runs all k steps: ONE launch per level.
+             greedies, in the storage dtype, fit the L2 share
+             (flags.resident_l2_mb, 25 MB). The kernel builds each
+             matrix over the card and runs all k steps on a cluster a
+             node: ONE dispatch per level.
   streaming  the (N, C) caches of all replicas fit the device-memory
              budget (flags.fused_cache_mb, 40 GB) and one loop block's
              rows + candidate mask fit shared memory. The pairwise
@@ -30,9 +31,9 @@ first rung whose bytes (`cache_bytes`) fit flags.fused_cache_mb — or the
 rung REPRO_TORCH_FUSED_CACHE_DTYPE forces. At the Tiny-ImageNet leaves
 (32 × 3,284²) that is 1.38 GB, 0.69 GB or 0.345 GB: a 1,024 MB budget
 picks bf16, 512 MB int8; a node level (16 × 400², 10.2 MB) stays f32.
-The kernels read every rung as it is stored. The resident tier's scratch
-stays f32 whatever the rung (its kernel rounds the entries in place), so
-the L2 gate counts 4 B an entry. An int8 cache is built in chunks of
+The kernels read every rung as it is stored, the resident tier's steps
+too (its f32 build is rounded once into the rung), so the L2 gate counts
+the rung's bytes an entry. An int8 cache is built in chunks of
 greedies (`quant_chunk`): the f32 transient is one chunk, not the f32
 cache the ladder stepped down from.
 
@@ -153,8 +154,9 @@ class EnginePlan:
     block_n       ground rows a chunk of the per-step fused kernel's
                   gain sum (feature rules; 0 for bitmap rules, whose kernels'
                   wrappers size their candidate blocks: BITS_*_BLOCK_C)
-    loop_block_n  target ground rows per block of the streaming loop
-                  (feature rules; 0 for bitmap rules)
+    loop_block_n  the streaming tier's admission (`loop_block_n`;
+                  feature rules; 0 for bitmap rules): the streaming
+                  loop sums in chunks of block_n rows, as fused_step
     dtype         cache storage dtype ('float32'|'bfloat16'|'int8'|'uint32')
     replicas      greedies served by one launch (the batch dimension)
     """
@@ -218,12 +220,12 @@ def fused_cluster_fits(dtype: str, n: int, block_n: int) -> bool:
 
 
 def loop_block_n(c: int, dtype: str = "float32") -> int:
-    """Target rows per block of the STREAMING loop kernel over `c`
-    candidates of a `dtype` cache; 0 if none fits. A block keeps its
-    rows' state (and int8 scales), its own copy of the (C,) candidate
-    mask and the argmax scratch in shared memory across all k steps; the
-    kernel wrapper may give a block more rows than this when the card
-    cannot hold enough blocks at once."""
+    """The STREAMING tier's gate over `c` candidates of a `dtype` cache:
+    the rows a loop block of the first design held beside its own copy
+    of the (C,) candidate mask and the argmax scratch in shared memory,
+    0 if none fits. The kernel since keeps only its chain columns' mask
+    and chunks of the plan's block_n rows (csrc/greedy_loop.cu), so the
+    gate admits no shape the kernel cannot run."""
     bn = LOOP_BLOCK_MAX
     while bn >= LOOP_BLOCK_MIN:
         if (4 * (c + bn) + _row_bytes(dtype) * bn + REDUCE_BYTES
@@ -249,16 +251,20 @@ def _resident_need(n: int, c: int, d: Optional[int],
 
 def resident_fits(n: int, c: int, d: Optional[int],
                   rule: Optional[KernelRule] = None,
-                  replicas: int = 1) -> bool:
+                  replicas: int = 1, dtype: str = "float32") -> bool:
     """The resident gate: one block's state fits shared memory and all
-    concurrent matrices fit the L2 share. The resident kernel keeps its
-    matrices in an f32 scratch whatever the cache dtype (a bf16/int8
-    plan rounds the entries in place), so an entry counts 4 B — a
-    bitmap's words 4 B too."""
+    concurrent matrices fit the L2 share in the storage the loop keeps
+    them in — `dtype`'s itemsize an entry plus an int8 matrix's row
+    scales (`cache_bytes`), as the reference's gate counts them; a
+    bitmap's words 4 B. The f32 build before the rounding is written
+    once and read once; the steps run over the stored matrix (in their
+    clusters' shared memory, or beyond it from device memory)."""
     need = _resident_need(n, c, d, rule=rule)
     if need is None or need > _smem_budget():
         return False
-    return max(1, replicas) * n * c * 4 <= flags.resident_l2_mb() * 2 ** 20
+    stored = "uint32" if rule is not None and rule.is_bitmap else dtype
+    return (cache_bytes(n, c, stored, replicas)
+            <= flags.resident_l2_mb() * 2 ** 20)
 
 
 def cache_bytes(n: int, c: int, dtype: str, replicas: int = 1) -> int:
@@ -268,6 +274,17 @@ def cache_bytes(n: int, c: int, dtype: str, replicas: int = 1) -> int:
     "matrix" views."""
     scales = 4 * n if dtype == "int8" else 0
     return max(1, replicas) * (n * c * cache_itemsize(dtype) + scales)
+
+
+def loop_scratch_bytes(n: int, c: int, dtype: str, replicas: int = 1,
+                       block_n: int = FUSED_BLOCK_N) -> int:
+    """Device bytes of the streaming loop's chunk partials over `replicas`
+    (n, c) caches stored as `dtype`: each greedy's ceil(n / block_n) f32
+    rows of its spans' columns (128 for f32, 256 for bf16 and int8;
+    csrc/greedy_loop.cu), beside the cache while the loop runs."""
+    span = 128 if dtype == "float32" else 256
+    return (max(1, replicas) * -(-n // max(1, block_n))
+            * -(-c // span) * span * 4)
 
 
 def quant_chunk(n: int, c: int) -> int:
@@ -301,7 +318,8 @@ def fused_plan(n: int, c: int, d: Optional[int] = None,
         return None
     bn = 0 if bitmap else fused_block_n(dtype)
     if ((bitmap or d is not None)
-            and resident_fits(n, c, d, rule=rule, replicas=reps)):
+            and resident_fits(n, c, d, rule=rule, replicas=reps,
+                              dtype=dtype)):
         return {"tier": "resident", "block_n": bn, "loop_block_n": 0,
                 "dtype": dtype}
     if bitmap:

@@ -534,6 +534,96 @@ def test_cuda_resident_quant_kernel(cuda, name, dtype):
         built - TL.resident_matrix(g, cd, tr, ctl, dtype)).abs())
 
 
+# (B, N, C, block_n): ragged N, C off every load grid (131, 37, 261) and
+# on it (90 off the 16-byte one, 200), B = 1, 3 and 8 (more blocks a
+# greedy than a thread-block cluster holds, each greedy's own barrier)
+# and B = 40, 64 (a few blocks a greedy)
+LOOP_SHAPES = [(1, 600, 301, 32), (3, 257, 90, 16), (8, 100, 200, 32),
+               (40, 70, 37, 32), (64, 300, 260, 32)]
+
+
+def _loop_inputs(cuda, tr, b, n, c, dtype, seed):
+    g, cd = _dev_pools(cuda, b, n, c, 24, seed=seed)
+    mat = TP.pairwise_plain(g, cd, tr.pairwise).contiguous()
+    mat, scale = (mat, None) if dtype == "float32" else _stored(mat, dtype)
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    rng = np.random.default_rng(seed)
+    mask = torch.as_tensor(rng.random((b, c)) > 0.1, device=cuda).float()
+    return mat, scale, row, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32"] + STORED)
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+@pytest.mark.parametrize("shape", LOOP_SHAPES)
+def test_cuda_greedy_loop_equals_fused_steps(cuda, shape, name, dtype):
+    """The streaming loop gives the bits of k fused_step launches over the
+    same cache with the same block_n, the winner passed on as prev and
+    taken out of the mask: every storage, rows on and off the grid of
+    the loop's loads, one greedy over more blocks than a cluster holds."""
+    b, n, c, ch = shape
+    tr = FEATURE_RULES[name]
+    mat, scale, row, mask = _loop_inputs(cuda, tr, b, n, c, dtype, 31)
+    if b == 1:
+        assert TL.loop_plan(mat, ch)["blocks"] > 16
+    k = 9
+    counters.reset()
+    got = TL.greedy_loop(mat, row, mask, k, tr, block_n=ch, scale=scale)
+    tag = {"float32": "", "bfloat16": "[bf16]", "int8": "[int8]"}[dtype]
+    assert counters.snapshot()["greedy_loop" + tag]["launches"] == 1
+    res = parity.compare_exact(got, TL.fused_steps(
+        mat, row, mask, k, tr, block_n=ch, scale=scale),
+        f"greedy_loop{tag} vs {k} fused_step launches")
+    assert res["accepted"] > 0
+
+
+def _resident_inputs(cuda, tr, nodes, n, d, seed):
+    _, cd = _dev_pools(cuda, nodes, 1, n, d, seed=seed)
+    g = cd.clone()
+    valid = torch.ones(nodes, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    rng = np.random.default_rng(seed)
+    mask = torch.as_tensor(rng.random((nodes, n)) > 0.1, device=cuda).float()
+    return g, cd, row, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32"] + STORED)
+@pytest.mark.parametrize("name", ["kmedoid", "facility"])
+@pytest.mark.parametrize("nodes,n", [(1, 100), (3, 130), (8, 100),
+                                     (16, 60), (1, 1600)])
+def test_cuda_resident_equals_loop_over_its_matrix(cuda, nodes, n, name,
+                                                   dtype):
+    """The resident loop gives the bits of the streaming loop over the
+    matrix it ran over (its f32 values, `scratch`), node by node: steps
+    past kq frozen (bests -1, gains 0), int8/bf16 logical extents short
+    of the shape; 1,600 rows a node pass a cluster's shared memory (the
+    device tier)."""
+    tr = FEATURE_RULES[name]
+    g, cd, row, mask = _resident_inputs(cuda, tr, nodes, n, 16, 41 + nodes)
+    k = 12
+    kq = [k if i % 3 else 5 for i in range(nodes)]
+    ctl = torch.tensor([[kq[i], n - (i % 2) * 7, n - (i % 3) * 5]
+                        for i in range(nodes)], dtype=torch.int32,
+                       device=cuda)
+    assert TL.resident_tier(n, n, dtype) == ("device" if n > 1000
+                                             else "chip")
+    built = torch.empty(nodes, n, n, device=cuda)
+    rows, bests, gains = TL.greedy_loop_resident(
+        g, cd, row, mask, ctl, k, tr, cache_dtype=dtype, scratch=built)
+    parity.compare_exact(built, TL.round_resident(
+        TP.pairwise(g, cd, tr.pairwise), dtype, ctl))
+    for i in range(nodes):
+        want = TL.greedy_loop(built[i:i + 1].contiguous(), row[i:i + 1],
+                              mask[i:i + 1], kq[i], tr)
+        parity.compare_exact(
+            (rows[i:i + 1], bests[i:i + 1, :kq[i]], gains[i:i + 1, :kq[i]]),
+            want, f"resident node {i} vs greedy_loop over its matrix")
+        assert bool((bests[i, kq[i]:] == -1).all())
+        assert bool((gains[i, kq[i]:] == 0).all())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     """The per-step gains over int8-quantized ground features

@@ -50,6 +50,53 @@ def test_resident_gate_needs_the_l2_share(monkeypatch):
                              replicas=16)["tier"] == "streaming"
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_resident_gate_counts_the_storage_itemsize(dtype, monkeypatch):
+    """A level-1 node batch whose f32 matrices bust the L2 share fits it
+    in bf16 or int8: the gate counts the storage the steps keep (with
+    int8's row scales), as the reference's resident_fits does."""
+    n, reps = 400, 16
+    f32 = TPlans.cache_bytes(n, n, "float32", reps)
+    stored = TPlans.cache_bytes(n, n, dtype, reps)
+    assert stored < f32
+    monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV, str((f32 - 1) / 2 ** 20))
+    assert not TPlans.resident_fits(n, n, 64, TR.DIST_MIN, replicas=reps)
+    assert TPlans.resident_fits(n, n, 64, TR.DIST_MIN, replicas=reps,
+                                dtype=dtype)
+    monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV, str((stored - 1) / 2 ** 20))
+    assert not TPlans.resident_fits(n, n, 64, TR.DIST_MIN, replicas=reps,
+                                    dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", [(400, 400, 16), (1_000, 900, 4),
+                                   (3_284, 3_284, 1), (64, 20_000, 2),
+                                   (2_500, 2_500, 1)])
+def test_resident_gate_admits_what_it_admitted_at_4_bytes(shape, dtype):
+    """Every shape the gate admitted when it counted 4 B an entry is
+    admitted at every storage."""
+    n, c, reps = shape
+    share = flags.resident_l2_mb() * 2 ** 20
+    old = (TPlans._resident_need(n, c, 64, TR.DIST_MIN)
+           <= flags.fused_vmem_mb() * 2 ** 20 and reps * n * c * 4 <= share)
+    new = TPlans.resident_fits(n, c, 64, TR.DIST_MIN, replicas=reps,
+                               dtype=dtype)
+    assert new or not old
+    if dtype == "float32":
+        assert new == old
+
+
+@pytest.mark.parametrize("dtype,span", [("float32", 128), ("bfloat16", 256),
+                                        ("int8", 256)])
+def test_loop_scratch_bytes_at_the_leaves(dtype, span):
+    """The streaming loop's chunk partials at the Tiny-ImageNet leaves
+    (32 × 3,284², chunks of 32 rows): 103 f32 rows of the spans' 3,328
+    columns a greedy, 43.9 MB beside the cache."""
+    got = TPlans.loop_scratch_bytes(3_284, 3_284, dtype, 32,
+                                    TPlans.FUSED_BLOCK_N)
+    assert got == 32 * 103 * -(-3_284 // span) * span * 4 == 43_876_352
+
+
 def test_resident_gate_needs_shared_memory():
     # a state row + mask wider than 227 KB cannot be one block's
     assert not TPlans.resident_fits(40_000, 20_000, 64, TR.DIST_MIN)

@@ -12,8 +12,9 @@ REPRO_FUSED_CACHE_MB / REPRO_FUSED_CACHE_DTYPE in the reference.
   * the int8 cache built in chunks of greedies equals the one-shot
     `quantize_rows` bit for bit; `apply_column` gathers a column in its
     storage and equals the whole matrix's dequant; the planner's bytes
-    (`cache_bytes` counts the int8 scale rows, `resident_fits` 4 B an
-    entry: the resident scratch stays f32) and its verdicts at the
+    (`cache_bytes` counts the int8 scale rows, `resident_fits` the
+    rung's bytes: the resident steps keep the rung's matrix, as the
+    reference's gate counts them) and its verdicts at the
     Tiny-ImageNet leaves under 1,024 MB (bf16) and 512 MB (int8);
   * whole trees under each forced rung: `run_tree_dense` (kmedoid,
     facility; leaves resident, and streaming with the L2 share shrunk as
@@ -273,18 +274,24 @@ def test_cache_bytes_count_the_int8_scale_rows():
 
 
 def test_resident_gate_counts_the_f32_scratch(monkeypatch):
-    """The resident kernel's scratch is f32 whatever the cache rung: an
-    int8 plan is admitted to L2 only where the f32 scratch fits."""
+    """The resident kernel's f32 build is a scratch written once and read
+    once; its steps keep the rung's matrix: an int8 plan is admitted to
+    L2 where the int8 bytes (and row scales) fit, even where the f32
+    build's would not, as the reference's gate counts the itemsize."""
     n, reps = 400, 16
     f32 = reps * n * n * 4
+    q8 = TPlans.cache_bytes(n, n, "int8", reps)
+    assert q8 == reps * (n * n + 4 * n)
     monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV, str((f32 - 1) / 2 ** 20))
     monkeypatch.setenv(flags.FUSED_CACHE_DTYPE_ENV, "int8")
     assert not TPlans.resident_fits(n, n, 64, TR.DIST_MIN, replicas=reps)
-    plan = TPlans.fused_plan(n, n, 64, TR.DIST_MIN, replicas=reps)
-    assert plan["dtype"] == "int8" and plan["tier"] == "streaming"
-    monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV, str(f32 / 2 ** 20))
+    assert TPlans.resident_fits(n, n, 64, TR.DIST_MIN, replicas=reps,
+                                dtype="int8")
     plan = TPlans.fused_plan(n, n, 64, TR.DIST_MIN, replicas=reps)
     assert plan["dtype"] == "int8" and plan["tier"] == "resident"
+    monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV, str((q8 - 1) / 2 ** 20))
+    plan = TPlans.fused_plan(n, n, 64, TR.DIST_MIN, replicas=reps)
+    assert plan["dtype"] == "int8" and plan["tier"] == "streaming"
 
 
 @pytest.mark.parametrize("budget_mb,dtype", [(None, "float32"),
@@ -425,8 +432,9 @@ def test_run_tree_dense_matches_reference(name, dtype, leaves, monkeypatch):
     x = _int_features(n, TTtest.D, 11)
     if leaves == "streaming":
         n_leaf = int(np.bincount(JS.partition(n, m, 0), minlength=m).max())
+        stored = TPlans.cache_bytes(n_leaf, n_leaf, dtype, m)
         monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV,
-                           str((m * n_leaf * n_leaf * 4 - 1) / 2 ** 20))
+                           str((stored - 1) / 2 ** 20))
     want = JS.run_tree_dense(name, x, TTtest.K, JTree(m, 2), seed=0,
                              backend="ref")
     calls = []
@@ -454,6 +462,48 @@ def test_run_tree_dense_matches_reference(name, dtype, leaves, monkeypatch):
                             hold=_hold_levels(dtype))
     same = np.array_equal(got.ids, np.asarray(want.ids, np.int64))
     # runs that differ must have split at a tie the lockstep met
+    assert same or ties >= 1, (got.ids, want.ids)
+    if same:
+        assert abs(got.value - want.value) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("name", sorted(RULES))
+def test_rung_bytes_admit_resident_nodes(name, dtype, monkeypatch):
+    """run_tree_dense on T(8, 2) under a forced rung with an L2 share just
+    short of a level-1 node batch's f32 matrices: the planner refuses the
+    batch at f32 and admits it in the rung's bytes, so every node level
+    runs the resident loop (mega_resident) over the rung's matrices; the
+    tree equals the reference's on its ref backend (the roots unless the
+    lockstep walk met a tie)."""
+    n, m, k, d = TTtest.N, TTtest.M, TTtest.K, TTtest.D
+    nodes, bk = m // 2, 2 * k
+    f32 = TPlans.cache_bytes(bk, bk, "float32", nodes)
+    monkeypatch.setenv(flags.RESIDENT_L2_MB_ENV, str((f32 - 1) / 2 ** 20))
+    rule = RULES[name][1]
+    assert TPlans.select_engine(rule, bk, bk, d,
+                                replicas=nodes).engine == "mega_stream"
+    _force(monkeypatch, dtype)
+    plan = TPlans.select_engine(rule, bk, bk, d, replicas=nodes)
+    assert (plan.engine, plan.dtype) == ("mega_resident", dtype)
+    x = _int_features(n, d, 13)
+    want = JS.run_tree_dense(name, x, k, JTree(m, 2), seed=0, backend="ref")
+    calls = []
+
+    def record(lvl):
+        calls.append({c: v["calls"] for c, v in counters.snapshot().items()
+                      if v["calls"]})
+        counters.reset()
+
+    counters.reset()
+    got = TS.run_tree_dense(name, x, k, TTree(m, 2), seed=0, device="cpu",
+                            on_level=record)
+    tag = "[bf16]" if dtype == "bfloat16" else "[int8]"
+    for lvl in calls[1:]:
+        assert lvl.get("greedy_loop_resident" + tag) == 1, calls
+    assert got.evals_total == want.evals_total
+    ties = TTtest._lockstep(name, x, k, JTree(m, 2), hold=_hold_levels(dtype))
+    same = np.array_equal(got.ids, np.asarray(want.ids, np.int64))
     assert same or ties >= 1, (got.ids, want.ids)
     if same:
         assert abs(got.value - want.value) <= 1e-5
