@@ -93,7 +93,8 @@ Then the coverage problems, after the k-medoid tensors are freed:
                     1,290, node 32 × 128 × 1,290), the streaming loop
                     (the first leaf level), the resident loop (every
                     level's 16, 8, 4, 2, 1 nodes and the stochastic
-                    run's 32 lanes)
+                    run's 32 lanes, on the tier its plan picks and on
+                    the device-memory tier, forced)
   kcover_run        run_tree_dense('kcover', …) at KOSARAK, T(32, 2):
                     1 streaming-loop launch at the leaves, 1 resident
                     launch per level, 0 pairwise; the leaf cache bytes
@@ -106,11 +107,14 @@ Then the coverage problems, after the k-medoid tensors are freed:
                     configuration (65,536 road-graph neighbourhoods),
                     after the streaming loop at its first leaf level
                     (8 × 8,355 × 2,048, k = 128) and the resident loop
-                    at its levels' 4, 2, 1 nodes (× 256 × 2,048) are
-                    held bit for bit against their plain versions
+                    at its levels' 4, 2, 1 nodes (× 256 × 2,048, both
+                    tiers) are held bit for bit against their plain
+                    versions (line `parity_kdom`), and the resident loop
+                    is timed at those levels (line `timing_kdom`)
   timing_coverage   each bitmap kernel at its path's shape beside its
                     bytes bound and its plain version; the resident
-                    loop also at other candidates per block
+                    loop at every level's nodes and the 32 lanes (µs a
+                    step, tier, cluster, the forced device-memory tier)
 
 Streaming (sieve streaming: one stream-filter launch a batch for all
 levels of all stacked sieves), beside the k-medoid phases:
@@ -256,7 +260,8 @@ SOURCES = {
     "gains[coverage]": "src/repro_torch/csrc/gains.cu",
     "fused_step[coverage]": "src/repro_torch/csrc/fused_step.cu",
     "greedy_loop[coverage]": "src/repro_torch/csrc/greedy_loop.cu",
-    "greedy_loop_resident[coverage]": "src/repro_torch/csrc/greedy_loop.cu",
+    "greedy_loop_resident[coverage]":
+        "src/repro_torch/csrc/greedy_loop_resident.cu",
     "pairwise[bf16]": "src/repro_torch/csrc/pairwise.cu",
     "fused_step[bf16]": "src/repro_torch/csrc/fused_step.cu",
     "fused_step[int8]": "src/repro_torch/csrc/fused_step.cu",
@@ -2036,33 +2041,48 @@ def _leaf_loop_parity(torch, words, cfg):
     return res
 
 
+def _bits_nodes(torch, words, nodes: int, bk: int, seed: int):
+    """`nodes` nodes of bk sets drawn from the data, every 7th OR'ed with
+    random words holding bit 31: (nodes, bk, W) words."""
+    dev = words.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cd = words[torch.randint(0, words.shape[0], (nodes, bk), generator=gen,
+                             device=dev)]
+    cd[:, ::7] |= random_words(torch, (nodes, (bk + 6) // 7, words.shape[1]),
+                               seed, dev)
+    return cd
+
+
 def _resident_coverage_parity(torch, words, nodes: int, bk: int, k: int,
                               seed: int):
     """The bitmap resident loop against its plain version over `nodes`
-    nodes of bk sets drawn from the data (every 7th set OR'ed with
-    random words holding bit 31), k steps from an empty row; odd nodes
-    freeze at kq = k/2 (ctl), the others run all k steps."""
+    nodes of `_bits_nodes`, k steps from an empty row; odd nodes freeze
+    at kq = k/2 (ctl), the others run all k steps: on the tier
+    greedy_loop.resident_bits_plan picks and on the device-memory tier
+    (forced), each bit for bit."""
     from repro_torch.kernels import greedy_loop as L
     from repro_torch.kernels import parity
     from repro_torch.kernels import rules as R
     dev = words.device
     w = words.shape[1]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cd = words[torch.randint(0, words.shape[0], (nodes, bk), generator=gen,
-                             device=dev)]
-    cd[:, ::7] |= random_words(torch, (nodes, (bk + 6) // 7, w), seed, dev)
+    cd = _bits_nodes(torch, words, nodes, bk, seed)
     row = torch.zeros(nodes, w, dtype=R.WORD_DTYPE, device=dev)
     mask = torch.ones(nodes, bk, device=dev)
     ctl = torch.tensor([[k if i % 2 == 0 else k // 2, w, bk]
                         for i in range(nodes)], dtype=torch.int32,
                        device=dev)
-    res = parity.compare_exact(
-        L.greedy_loop_resident(None, cd, row, mask, ctl, k, R.BITS_OR),
-        L.greedy_loop_resident_plain(None, cd, row, mask, ctl, k,
-                                     R.BITS_OR),
-        f"greedy_loop_resident[coverage], {nodes} nodes")
-    res["shape"] = [nodes, bk, w, k]
-    return res
+    plain = L.greedy_loop_resident_plain(None, cd, row, mask, ctl, k,
+                                         R.BITS_OR)
+    what = f"greedy_loop_resident[coverage], {nodes} nodes"
+    out = {"shape": [nodes, bk, w, k],
+           "plan": list(L.resident_bits_plan(w, bk))}
+    out["plan_tier"] = parity.compare_exact(L.greedy_loop_resident(
+        None, cd, row, mask, ctl, k, R.BITS_OR), plain, what)
+    with _device_memory_tier("RESIDENT_BITS_SMEM_BYTES"):
+        out["device_tier"] = parity.compare_exact(L.greedy_loop_resident(
+            None, cd, row, mask, ctl, k, R.BITS_OR), plain,
+            what + ", device-memory tier")
+    return out
 
 
 def _coverage_tree(torch, name, bits, words, cfg, phase: str):
@@ -2214,10 +2234,10 @@ def phase_kcover_stochastic(torch, words, cfg, pools):
     return totals
 
 
-def phase_kdom_run(torch, cfg, dev):
-    """run_tree_dense('kdom', …) at the reference's kdom configuration:
-    closed neighbourhoods of the road-like graph, packed over its
-    vertices (W ≫ k: 2,048 words against k = 128)."""
+def phase_data_kdom(torch, cfg, dev):
+    """kdom's bitmaps: closed neighbourhoods of the road-like graph,
+    packed over its vertices (W ≫ k: 2,048 words against k = 128), on
+    the card as int32 words."""
     from repro_torch.data.synthetic import gen_graph_road, pack_bitmaps
     from repro_torch.kernels.rules import to_words
     t0 = time.perf_counter()
@@ -2227,6 +2247,14 @@ def phase_kdom_run(torch, cfg, dev):
     emit({"phase": "data_kdom", "n": cfg.n, "words": int(bits.shape[1]),
           "gigabytes": bits.nbytes / 1e9,
           "seconds": time.perf_counter() - t0})
+    return bits, words
+
+
+def phase_kdom_run(torch, cfg, dev, reps):
+    """run_tree_dense('kdom', …) at the reference's kdom configuration,
+    after its loops' parity and (line `timing_kdom`) the resident loop
+    at every level's nodes."""
+    bits, words = phase_data_kdom(torch, cfg, dev)
     out = {"greedy_loop": _leaf_loop_parity(torch, words, cfg)}
     bk = cfg.branching * cfg.k
     out["greedy_loop_resident"] = {
@@ -2234,6 +2262,8 @@ def phase_kdom_run(torch, cfg, dev):
                                            cfg.seed + 10 + nn)
         for nn in _level_nodes(cfg)}
     emit({"phase": "parity_kdom", "rule": "exact (bit for bit)", **out})
+    emit({"phase": "timing_kdom", "greedy_loop_resident[coverage]_levels":
+          _resident_bits_levels(torch, words, cfg, reps, variants=True)})
     launches, _ = _coverage_tree(torch, "kdom", bits, words, cfg,
                                  "kdom_run")
     return launches, _max_errs(out)
@@ -2245,14 +2275,16 @@ def phase_timing_coverage(torch, words, cfg, pools, reps):
     integer operations per word read, far below the card's integer
     rate). The streaming loop re-reads its caches every step, less what
     L2 and shared memory could hold; the resident loop reads its nodes'
-    words once from device memory. No single PyTorch call computes a
-    popcount gain, so there is no library time."""
+    words once from device memory, and is timed at every level's nodes
+    and the stochastic run's lanes (`_resident_bits_levels`: µs a step,
+    its tier and cluster, the forced device-memory tier). No single
+    PyTorch call computes a popcount gain, so there is no library
+    time."""
     from repro_torch.core.greedyml import LaneSampler
     from repro_torch.kernels import fused_step as F
     from repro_torch.kernels import greedy_loop as L
     from repro_torch.kernels import pairwise as P
     from repro_torch.kernels import rules as R
-    from repro_torch.kernels.plans import BITS_RESIDENT_BLOCK_C
     rule = R.BITS_OR
     dev = words.device
     w = words.shape[1]
@@ -2305,52 +2337,112 @@ def phase_timing_coverage(torch, words, cfg, pools, reps):
         "bound_ms": 4.0 * (b * bk * w + 3 * b * w + b * bk) / PEAK_HBM_BYTES
         * 1e3}
     del nmat
+    out["greedy_loop[coverage]"] = _leaf_loop_bits_timing(torch, words, cfg,
+                                                          reps)
+    levels = _resident_bits_levels(torch, words, cfg, reps, lanes=(b,),
+                                   variants=True)
+    nn = cfg.num_machines // cfg.branching
+    args = _level_args(torch, words, cfg, nn)
+    out["greedy_loop_resident[coverage]"] = {
+        **{key: levels[str(nn)][key]
+           for key in ("shape", "ms", "bound_ms", "bound_by")},
+        "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_resident_plain(
+            None, *args, k, rule), reps),
+        "library_ms": None}
+    out["greedy_loop_resident[coverage]_levels"] = levels
+    emit({"phase": "timing_coverage", **out})
+    return out
+
+
+def _bits_digest(outs) -> str:
+    """sha1 of a loop's outputs (rows, bests, gains) as bytes: two trees
+    whose digests agree gave the same bits."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in outs:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _leaf_loop_bits_timing(torch, words, cfg, reps) -> dict:
+    """The bitmap streaming loop (4c) over the first leaf level of
+    run_tree_dense (its padded pools, read in place), k steps from an
+    empty row, beside its plain version and its bound: the caches
+    re-read every step, less what L2 and shared memory could hold; the
+    `digest` of its outputs."""
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import rules as R
+    rule = R.BITS_OR
+    k = cfg.k
+    w = words.shape[1]
     ids, pay, valid = leaf_pools(torch, words, cfg.num_machines, cfg.seed)
     mat = pay.transpose(1, 2)
     bl, nl = pay.shape[:2]
-    lrow = torch.zeros(bl, w, dtype=R.WORD_DTYPE, device=dev)
+    row = torch.zeros(bl, w, dtype=R.WORD_DTYPE, device=words.device)
     mask = valid.float()
     cache = 4.0 * bl * nl * w
     nbytes = (k * cache - (k - 1) * min(cache, on_chip_bytes(torch))
               + 4.0 * (2 * bl * w + bl * nl) + 8.0 * bl * k)
-    out["greedy_loop[coverage]"] = {
+    return {
         "shape": [bl, w, nl, k],
-        "ms": cuda_ms(torch, lambda: L.greedy_loop_bits(mat, lrow, mask, k,
+        "ms": cuda_ms(torch, lambda: L.greedy_loop_bits(mat, row, mask, k,
                                                         rule), reps),
         "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_plain(
-            mat, lrow, mask, k, rule), 1, warmup=0),
+            mat, row, mask, k, rule), 1, warmup=0),
         "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
-        "bound_by": "bytes"}
-    del ids, pay, valid, mat, mask
-    nn = cfg.num_machines // cfg.branching
-    cd = words[pick[:nn]]
-    rrow = torch.zeros(nn, w, dtype=R.WORD_DTYPE, device=dev)
-    rmask = torch.ones(nn, bk, device=dev)
-    ctl = torch.tensor([[k, w, bk]] * nn, dtype=torch.int32, device=dev)
-    nbytes = 4.0 * (nn * bk * w + 2 * nn * w + nn * bk + 3 * nn) \
-        + 8.0 * nn * k
-    out["greedy_loop_resident[coverage]"] = {
-        "shape": [nn, bk, w, k], "block_c": BITS_RESIDENT_BLOCK_C,
-        "ms": cuda_ms(torch, lambda: L.greedy_loop_resident(
-            None, cd, rrow, rmask, ctl, k, rule), 10 * reps),
-        "plain_ms": cuda_ms(torch, lambda: L.greedy_loop_resident_plain(
-            None, cd, rrow, rmask, ctl, k, rule), reps),
-        "library_ms": None, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
-        "bound_by": "bytes"}
-    # the resident loop's candidates per block (bk = one block a node)
-    # at the level-1 nodes and at the stochastic run's 32 lanes
-    sweep = {}
-    for args in ((cd, rrow, rmask, ctl),
-                 (words[pick], torch.zeros_like(row),
-                  torch.ones(b, bk, device=dev),
-                  torch.tensor([[k, w, bk]] * b, dtype=torch.int32,
-                               device=dev))):
-        sweep[f"{args[0].shape[0]}x{bk}x{w}"] = {
-            str(bc): cuda_ms(torch, lambda: L.greedy_loop_resident_bits(
-                *args, k, rule, block_c=bc), 10 * reps)
-            for bc in (4, 8, 16, 32, bk)}
-    out["greedy_loop_resident[coverage]_block_c"] = sweep
-    emit({"phase": "timing_coverage", **out})
+        "bound_by": "bytes",
+        "digest": _bits_digest(L.greedy_loop_bits(mat, row, mask, k, rule))}
+
+
+def _level_args(torch, words, cfg, nodes: int):
+    """The bitmap resident loop's inputs at a level of `nodes` nodes:
+    `_bits_nodes` of b·k sets, an empty row, every candidate live, all k
+    steps (ctl)."""
+    from repro_torch.kernels import rules as R
+    dev = words.device
+    w = words.shape[1]
+    bk = cfg.branching * cfg.k
+    return (_bits_nodes(torch, words, nodes, bk, cfg.seed + 20 + nodes),
+            torch.zeros(nodes, w, dtype=R.WORD_DTYPE, device=dev),
+            torch.ones(nodes, bk, device=dev),
+            torch.tensor([[cfg.k, w, bk]] * nodes, dtype=torch.int32,
+                         device=dev))
+
+
+def _resident_bits_levels(torch, words, cfg, reps, lanes=(),
+                          variants=False) -> dict:
+    """The bitmap resident loop (5c) at the node count of every level of
+    cfg's tree and at `lanes` (`_level_args`), timed through
+    greedy_loop_resident (a call every tree of the port has), in µs a
+    step beside the bytes bound (the words read once, the rows, masks
+    and ctl in, the rows and k outputs out), with the `digest` of its
+    outputs. `variants`: also the tier and cluster the plan picks and
+    the forced device-memory tier's time."""
+    from repro_torch.kernels import greedy_loop as L
+    from repro_torch.kernels import rules as R
+    rule = R.BITS_OR
+    k = cfg.k
+    w = words.shape[1]
+    bk = cfg.branching * k
+    out = {}
+    for nn in sorted(set(_level_nodes(cfg)) | set(lanes), reverse=True):
+        args = _level_args(torch, words, cfg, nn)
+        ms = cuda_ms(torch, lambda: L.greedy_loop_resident(
+            None, *args, k, rule), 10 * reps)
+        nbytes = (4.0 * (nn * bk * w + 2 * nn * w + nn * bk + 3 * nn)
+                  + 8.0 * nn * k)
+        row = {"shape": [nn, bk, w, k], "ms": ms, "us_per_step": ms * 1e3 / k,
+               "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+               "digest": _bits_digest(L.greedy_loop_resident(
+                   None, *args, k, rule))}
+        if variants:
+            tier, cluster = L.resident_bits_plan(w, bk)
+            row.update(tier=tier, cluster=cluster)
+            with _device_memory_tier("RESIDENT_BITS_SMEM_BYTES"):
+                row["device_tier_ms"] = cuda_ms(
+                    torch, lambda: L.greedy_loop_resident(
+                        None, *args, k, rule), 10 * reps)
+        out[str(nn)] = row
     return out
 
 
@@ -2396,17 +2488,18 @@ def _next_state(out, row0, cost: bool):
 
 
 @contextlib.contextmanager
-def _device_memory_tier():
-    """The stream filter's device-memory tier (rows off chip), forced by
-    squeezing plans.STREAM_SMEM_BYTES for the duration, as the CUDA
-    tests do."""
+def _device_memory_tier(gate: str = "STREAM_SMEM_BYTES"):
+    """A kernel's device-memory tier, forced by squeezing its shared
+    memory gate in plans for the duration, as the CUDA tests do: the
+    stream filter's rows (STREAM_SMEM_BYTES), or the bitmap resident
+    loop's words (RESIDENT_BITS_SMEM_BYTES)."""
     from repro_torch.kernels import plans
-    old = plans.STREAM_SMEM_BYTES
-    plans.STREAM_SMEM_BYTES = 64
+    old = getattr(plans, gate)
+    setattr(plans, gate, 64)
     try:
         yield
     finally:
-        plans.STREAM_SMEM_BYTES = old
+        setattr(plans, gate, old)
 
 
 def _cuda_events(torch, prof):
@@ -3564,7 +3657,7 @@ def main(argv=None) -> int:
     del bits, words
     gc.collect()
     torch.cuda.empty_cache()
-    _, kdom_errs = phase_kdom_run(torch, KDOM, dev)
+    _, kdom_errs = phase_kdom_run(torch, KDOM, dev, args.reps)
     for name, err in [*kdom_errs.items(), *global_errs.items()]:
         errs[name] = max(errs[name], err)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -69,18 +69,9 @@
 // x 4 B = 5.1 GB at the kcover leaf, so 64 steps are at least ~98 ms at
 // 3.35 TB/s.
 //
-// The same kernel is the bitmap branch of _resident_kernel
-// (greedy_loop_resident_pallas), the accumulation nodes' loop: there the
-// on-chip matrix is the transpose of the node's (C, W) candidate words
-// (R.matrix_block is c.T), so there is nothing to build, and a copy into
-// a scratch would only duplicate words the node's union already holds
-// contiguously. The nodes' words are read in place and sit in L2 after
-// the first step (16 nodes x 128 x 1,290 words x 4 B = 10.6 MB at
-// kcover's level 1, under the 25 MB share the planner admits). ctl
-// (B, 3) int32 = [kq, logical_n, logical_c] is then given, and steps
-// s >= kq freeze (bests -1, gains 0, nothing folded); a frozen greedy's
-// blocks still meet every grid barrier. The streaming tier passes no
-// ctl (kq = k).
+// The accumulation nodes' bitmap loop (the bits branch of
+// _resident_kernel) is csrc/greedy_loop_resident.cu's
+// rt_resident_bits_kernel: a cluster a node, no grid barrier.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -518,7 +509,6 @@ __global__ void __launch_bounds__(RT_THREADS)
     rt_greedy_loop_bits_kernel(const unsigned* __restrict__ cands,
                                const unsigned* __restrict__ row_in,
                                const float* __restrict__ mask_in,
-                               const int* __restrict__ ctl,
                                unsigned* __restrict__ row_out,
                                int* __restrict__ bests,
                                float* __restrict__ gains,
@@ -540,21 +530,12 @@ __global__ void __launch_bounds__(RT_THREADS)
   const int c0 = p * CB;
   const int nc = max(0, min(C - c0, CB));
   const unsigned* base = cands + (size_t)b * C * W;
-  const int kq = ctl ? ctl[(size_t)b * 3] : k;
 
   for (int w = tid; w < W; w += T) covered[w] = row_in[(size_t)b * W + w];
   for (int i = tid; i < nc; i += T) mask[i] = mask_in[(size_t)b * C + c0 + i];
   __syncthreads();
 
   for (int s = 0; s < k; ++s) {
-    if (s >= kq) {  // frozen: nothing more is taken
-      if (p == 0 && tid == 0) {
-        bests[(size_t)b * k + s] = -1;
-        gains[(size_t)b * k + s] = 0.f;
-      }
-      grid.sync();
-      continue;
-    }
     // this block's candidates, one warp each: masked first-argmax
     float bv = -INFINITY;
     int bi = RT_NO_INDEX;
@@ -608,13 +589,11 @@ extern "C" int rt_greedy_loop_bits_occupancy(int smem_bytes,
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// cands (B, C, W) and rows (B, W) 32-bit words; ctl (B, 3) int32 or
-// null (only kq is read); pval/pidx: (2, B, P) scratch; CB candidates
-// per block, P = ceil(C / CB), all B * P blocks co-resident. Returns the
-// cudaError_t.
+// cands (B, C, W) and rows (B, W) 32-bit words; pval/pidx: (2, B, P)
+// scratch; CB candidates per block, P = ceil(C / CB), all B * P blocks
+// co-resident. Returns the cudaError_t.
 extern "C" int rt_greedy_loop_bits(const unsigned* cands, const unsigned* row_in,
-                                   const float* mask_in, const int* ctl,
-                                   unsigned* row_out,
+                                   const float* mask_in, unsigned* row_out,
                                    int* bests, float* gains, float* pval,
                                    int* pidx, int B, int C, int W, int k, int P,
                                    int CB, void* stream) {
@@ -625,7 +604,7 @@ extern "C" int rt_greedy_loop_bits(const unsigned* cands, const unsigned* row_in
       smem);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {(void*)&cands,  (void*)&row_in, (void*)&mask_in,
-                  (void*)&ctl,    (void*)&row_out, (void*)&bests,
+                  (void*)&row_out, (void*)&bests,
                   (void*)&gains,  (void*)&pval,   (void*)&pidx,
                   (void*)&B,      (void*)&C,      (void*)&W,
                   (void*)&k,      (void*)&P,      (void*)&CB};

@@ -61,8 +61,10 @@
 // partials in device memory (rt_greedy_loop_resident_plan says which).
 //
 // The bitmap rule (coverage) has nothing to build: its branch of
-// _resident_kernel runs csrc/greedy_loop.cu:rt_greedy_loop_bits with ctl.
+// _resident_kernel is rt_resident_bits_kernel, at the end of this file.
 #include <cooperative_groups.h>
+
+#include <climits>
 
 #include "pairwise_tile.cuh"
 #include "span_pass.cuh"
@@ -615,6 +617,483 @@ extern "C" int rt_greedy_loop_resident(
       e = rt_res_launch<int8_t>(ground, cands, a, B, D, mode, st);
       break;
   }
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The bitmap rule (coverage): the bits branch of _resident_kernel
+// ---------------------------------------------------------------------------
+//
+// There R.matrix_block is c.T: a node's on-chip matrix is the transpose
+// of its (C, W) candidate words, so nothing is built and the words are
+// read in place. Inputs: cands (B, C, W) and rows (B, W) 32-bit words,
+// masks (B, C) 0/1 f32, ctl (B, 3) int32 (only kq = ctl[b][0] is read).
+// Outputs as kernels/ref.py:greedy_loop with kq: the masked first-argmax
+// of the popcount gains, accepted only when > 0, steps s >= kq frozen
+// (bests -1, gains 0), the row after the last accepted winner. The
+// gains are exact integer sums, so any order gives the same bits.
+//
+// What bounds it on the H100: neither bytes nor operations but the
+// latency of a step. At kcover's level 1 (16 nodes x 128 sets x 1,290
+// words, k = 64) the words are 10.6 MB, read once: 3.2 us at 3.35 TB/s,
+// against 64 steps that each depend on the last winner.
+//
+// What the design does about it: a thread-block cluster of R blocks a
+// node, launched with cudaLaunchKernelEx and no grid barrier, so a node
+// waits only for its own blocks; the nodes lie along the grid's x axis
+// (R B blocks), so a launch holds up to 2^31 / R of them.
+// Rank r holds words [W r / R, W (r + 1) / R) of every candidate - the
+// node split by WORDS - in its shared memory (cp.async once; 645 KB a
+// kcover node over R = 8 blocks, 2 MiB a kdom node over a non-portable
+// cluster of R = 16), with that slice of the covered row. A step:
+//  1. each live candidate's popcount of its words not yet covered, over
+//     the slice, by tpc threads (rt_bits_tpc: 2 at kcover's 128
+//     candidates, 1 at kdom's 256) in 16-byte vectors, the rows padded
+//     so that a quarter-warp's vectors fall in distinct bank groups;
+//     the words' ones are added in carry-save planes, one POPC for 8
+//     words (the POPC pipe runs at a quarter of the logic pipe's rate);
+//  2. the partials go to EVERY rank's shared memory by st.async, 4
+//     candidates a store, each completing its bytes on the receiving
+//     rank's mbarrier for the step (two buffers and two barriers, by
+//     step parity): a transaction barrier and no cluster barrier, whose
+//     arrival fences the whole GPU's memory;
+//  3. warp 0 of every block waits for its barrier's phase, adds each
+//     live candidate's R partials from its own shared memory and takes
+//     the masked first-argmax (two integer reductions); after a block
+//     barrier every block folds the winner's words of its own slice into
+//     its covered slice (all blocks find the same winner): no word
+//     crosses the cluster. A rank pushes step s + 2 into a buffer only
+//     after every rank's step s + 1 arrived, which each pushed after
+//     reading its step s, so two buffers suffice.
+// Where the words do not fit the cluster's shared memory
+// (rt_greedy_loop_resident_bits_plan says which), the same steps read the
+// slice from device memory (L1 and L2), 8 words a thread in flight and
+// 16 warps a block, and exchange the partials through a (B, 2, R, Cp)
+// int32 device scratch under a cluster barrier.
+//
+// Measured on the H100 (PERF.md section 6): the node split by
+// CANDIDATES instead (rank r holding whole sets and the whole covered
+// row, the blocks' winners meeting over distributed shared memory, the
+// winner's words read from its owner) was slower at every level under
+// the same cluster barrier, and that barrier cost ~1,400 cycles a step.
+
+#define RT_BITS_CLUSTER_MAX 16  // blocks a node's cluster, at most
+
+struct RtResBitsArgs {
+  const unsigned* cands;  // (B, C, W)
+  const unsigned* row_in;  // (B, W)
+  const float* mask_in;   // (B, C)
+  const int* ctl;         // (B, 3)
+  unsigned* row_out;      // (B, W)
+  int* bests;             // (B, k)
+  float* gains;           // (B, k)
+  int* partials;          // device tier: (B, 2, R, Cp), else null
+  int C, W, k, R;
+};
+
+__device__ __forceinline__ void rt_cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void rt_cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The (C,) mask as bits, one 32-bit word a thread.
+__device__ __forceinline__ void rt_mask_bits(const float* mask, int C,
+                                             unsigned* bits) {
+  for (int q = threadIdx.x; q < (C + 31) / 32; q += blockDim.x) {
+    unsigned v = 0u;
+    for (int j = 0; j < 32 && q * 32 + j < C; ++j)
+      if (mask[q * 32 + j] > 0.f) v |= 1u << j;
+    bits[q] = v;
+  }
+}
+
+// Threads a block of the words-split kernel: 8 warps on chip (16 ran
+// slower at kcover's 16 nodes), 16 on the device tier, whose L1 and L2
+// loads need the warps in flight (PERF.md section 6).
+__host__ __device__ constexpr int rt_bits_threads(bool onchip) {
+  return onchip ? RT_THREADS : 2 * RT_THREADS;
+}
+
+// Threads a candidate's slice is summed by: the largest power of two
+// <= 32 with C of them in a block of T (one round of candidates at
+// C <= T).
+__host__ __device__ __forceinline__ int rt_bits_tpc(int C, int T) {
+  int t = 32;
+  while (t > 1 && (long long)t * C > T) t >>= 1;
+  return t;
+}
+
+// A slice's row stride in shared memory, in words: the slice rounded
+// up to whole 16-byte vectors, then padded to 4 tpc modulo 32, so that
+// the 8 lanes of a quarter-warp (8 / tpc candidates, tpc threads on
+// consecutive vectors of each) read 8 distinct 16-byte bank groups.
+__host__ __device__ __forceinline__ int rt_bits_ld(int WS, int tpc) {
+  const int v = (WS + 3) & ~3;
+  return v + ((4 * tpc - v) % 32 + 32) % 32;
+}
+
+// Bytes of dynamic shared memory of a words-split block: the covered
+// slice (in whole vectors) and the mask's bits; on chip also every
+// candidate's slice (C rows of rt_bits_ld), the (2, R, Cp) partials
+// every rank pushes (Cp = C rounded up to 4) and their two mbarriers.
+__host__ __device__ __forceinline__ size_t rt_bits_smem(int C, int W, int R,
+                                                        bool onchip) {
+  const int WS = (W + R - 1) / R;
+  size_t words = (size_t)((WS + 3) & ~3) + (C + 31) / 32;
+  if (onchip)
+    words += (size_t)C * rt_bits_ld(WS, rt_bits_tpc(C, RT_THREADS)) +
+             2 * (size_t)R * ((C + 3) & ~3) + 4;
+  return 4 * words;
+}
+
+__device__ __forceinline__ int rt_bits_part4(uint4 r, uint4 m) {
+  return rt_bits_part(r.x, m.x) + rt_bits_part(r.y, m.y) +
+         rt_bits_part(r.z, m.z) + rt_bits_part(r.w, m.w);
+}
+
+// A carry-save adder of three bit-planes: lo = a ^ b ^ c, hi = the
+// majority (two instructions), so a column's ones over many words are
+// counted in binary planes and only the top plane is popcounted.
+__device__ __forceinline__ void rt_csa(unsigned& hi, unsigned& lo,
+                                       unsigned a, unsigned b, unsigned c) {
+  lo = a ^ b ^ c;
+  hi = (a & b) | (c & (a ^ b));
+}
+
+// The exact popcount of the 8 words m & ~r of two vector pairs added
+// into (ones, twos, fours) planes and the eights' count (Harley and
+// Seal): one POPC for 8 words where the plain sum takes 8 (the POPC
+// pipe is a quarter of the logic pipe's rate).
+__device__ __forceinline__ void rt_bits_csa8(uint4 r0, uint4 m0, uint4 r1,
+                                             uint4 m1, unsigned& ones,
+                                             unsigned& twos, unsigned& fours,
+                                             int& eights) {
+  unsigned ta, tb, fa, fb, e;
+  rt_csa(ta, ones, ones, m0.x & ~r0.x, m0.y & ~r0.y);
+  rt_csa(tb, ones, ones, m0.z & ~r0.z, m0.w & ~r0.w);
+  rt_csa(fa, twos, twos, ta, tb);
+  rt_csa(ta, ones, ones, m1.x & ~r1.x, m1.y & ~r1.y);
+  rt_csa(tb, ones, ones, m1.z & ~r1.z, m1.w & ~r1.w);
+  rt_csa(fb, twos, twos, ta, tb);
+  rt_csa(e, fours, fours, fa, fb);
+  eights += __popc(e);
+}
+
+// The cluster's transaction barriers (mbarrier) and asynchronous
+// remote stores (st.async): rank o's copy of a shared address, a
+// barrier's init, a phase's expected bytes, the wait for a phase of
+// the given parity, and 4 or 16 bytes stored into rank o's shared
+// memory that complete on rank o's barrier.
+__device__ __forceinline__ unsigned rt_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned rt_mapa(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void rt_mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void rt_mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void rt_mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "RT_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra RT_DONE;\n"
+      "bra RT_WAIT;\n"
+      "RT_DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void rt_st_async(unsigned addr, int v,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void rt_st_async4(unsigned addr, int x, int y,
+                                             int z, int w, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.u32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(x), "r"(y), "r"(z), "r"(w), "r"(bar)
+      : "memory");
+}
+
+// Grid (R B), clusters of R along x: rank r of node blockIdx.x / R. See
+// above.
+template <bool ONCHIP>
+__global__ void __launch_bounds__(rt_bits_threads(ONCHIP))
+    rt_resident_bits_kernel(const RtResBitsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int win[2];  // the step's winner: gain, index
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = tid & 31;
+  const int R = a.R, C = a.C, W = a.W;
+  const int Cp = (C + 3) & ~3;
+  const int WS = (W + R - 1) / R;
+  const int tpc = rt_bits_tpc(C, T);
+  const int h = tid % tpc;  // this thread's words or vectors: h + tpc j
+  const int r = (int)cl.block_rank();
+  const size_t b = blockIdx.x / R;
+  const int w0 = (int)((long long)W * r / R);
+  const int nw = (int)((long long)W * (r + 1) / R) - w0;
+  const int nv = (nw + 3) >> 2;  // 16-byte vectors of the slice
+  const unsigned* src = a.cands + b * C * W + w0;
+  // shared memory: covered (whole vectors), [words (C, ld), partials
+  // (2, R, Cp), 2 mbarriers], mask
+  unsigned* cov = reinterpret_cast<unsigned*>(smem_raw);
+  unsigned* p = cov + ((WS + 3) & ~3);
+  const unsigned* words = src;  // candidate c's slice at words + c * ld
+  int ld = W;
+  int* part = nullptr;
+  unsigned bar = 0;  // the first mbarrier's shared address
+  if constexpr (ONCHIP) {
+    // the slices, zero past nw up to the vector (a zero word gains 0)
+    ld = rt_bits_ld(WS, tpc);
+    for (int i = tid; i < C * 4 * nv; i += T) {
+      const int c = i / (4 * nv);
+      const int w = i - c * 4 * nv;
+      if (w < nw)
+        rt_cp_async4(p + (size_t)c * ld + w, src + (size_t)c * W + w);
+      else
+        p[(size_t)c * ld + w] = 0u;
+    }
+    words = p;
+    p += (size_t)C * ld;
+    part = reinterpret_cast<int*>(p);
+    p += 2 * (size_t)R * Cp;
+    bar = rt_smem(p);
+    p += 4;
+    if (tid == 0) {
+      rt_mbar_init(bar);
+      rt_mbar_init(bar + 8);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+  unsigned* mbits = p;
+  for (int w = tid; w < nw; w += T) cov[w] = a.row_in[b * W + w0 + w];
+  rt_mask_bits(a.mask_in + b * C, C, mbits);
+  if constexpr (ONCHIP) {
+    rt_cp_async_wait();
+    cl.sync();  // every rank's barriers are set before any push to it
+  } else {
+    __syncthreads();
+  }
+
+  auto word = [&](int c, int w) -> unsigned {
+    const unsigned* q = words + (size_t)c * ld + w;
+    return ONCHIP ? *q : __ldg(q);
+  };
+  auto live = [&](int c) { return (mbits[c >> 5] >> (c & 31)) & 1u; };
+  const int kq = min(a.k, a.ctl[b * 3]);
+  for (int s = 0; s < kq; ++s) {
+    // this step's partials, (R, Cp): on chip every rank's own copy,
+    // else the node's in device memory
+    const int par = s & 1;
+    int* buf = ONCHIP ? part + (size_t)par * R * Cp
+                      : a.partials + (b * 2 + par) * R * (size_t)Cp;
+    if (ONCHIP && tid == 0) rt_mbar_expect(bar + 8 * par, 4u * R * Cp);
+    // 1. each live candidate's sum over this slice by tpc threads, pushed
+    // to buf[r][c] of every rank (on chip 4 candidates a store where a
+    // warp holds whole groups of 4)
+    for (int c0 = 0; c0 < C; c0 += T / tpc) {
+      const int c = c0 + tid / tpc;
+      const bool on = c < C && live(c);
+      int acc = 0;
+      if (on) {
+        if constexpr (ONCHIP) {
+          const uint4* m4 = reinterpret_cast<const uint4*>(words + c * ld);
+          const uint4* r4 = reinterpret_cast<const uint4*>(cov);
+          unsigned ones = 0u, twos = 0u, fours = 0u;
+          int v = h;
+          for (; v + tpc < nv; v += 2 * tpc)
+            rt_bits_csa8(r4[v], m4[v], r4[v + tpc], m4[v + tpc], ones, twos,
+                         fours, acc);
+          acc = 8 * acc + 4 * __popc(fours) + 2 * __popc(twos) + __popc(ones);
+          if (v < nv) acc += rt_bits_part4(r4[v], m4[v]);
+        } else {
+          int w = h;
+          for (; w + 7 * tpc < nw; w += 8 * tpc) {
+            unsigned m[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) m[u] = word(c, w + u * tpc);
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              acc += rt_bits_part(cov[w + u * tpc], m[u]);
+          }
+          for (; w < nw; w += tpc) acc += rt_bits_part(cov[w], word(c, w));
+        }
+      }
+      for (int off = tpc >> 1; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if constexpr (ONCHIP) {
+        const unsigned dst = rt_smem(buf + r * Cp);
+        if (tpc <= 8) {  // lane g0 pushes candidates c - c % 4 .. + 3
+          const int g0 = lane & ~(4 * tpc - 1);
+          const int x = __shfl_sync(0xffffffffu, acc, g0);
+          const int y = __shfl_sync(0xffffffffu, acc, g0 + tpc);
+          const int z = __shfl_sync(0xffffffffu, acc, g0 + 2 * tpc);
+          const int q = __shfl_sync(0xffffffffu, acc, g0 + 3 * tpc);
+          if (lane == g0 && c < C)
+            for (int o = 0; o < R; ++o)
+              rt_st_async4(rt_mapa(dst + 4 * c, o), x, y, z, q,
+                           rt_mapa(bar + 8 * par, o));
+        } else if (h == 0 && c < Cp) {
+          for (int o = 0; o < R; ++o)
+            rt_st_async(rt_mapa(dst + 4 * c, o), acc,
+                        rt_mapa(bar + 8 * par, o));
+        }
+      } else if (on && h == 0) {
+        buf[(size_t)r * Cp + c] = acc;
+      }
+    }
+    // 2. warp 0: every rank's partials are in (on chip: this step's
+    // barrier phase completes; else a cluster barrier), each live
+    // candidate's total, the masked first-argmax
+    if constexpr (!ONCHIP) cl.sync();
+    if (tid < 32) {
+      if constexpr (ONCHIP) rt_mbar_wait(bar + 8 * par, (s >> 1) & 1);
+      int bg = -1;
+      int bi = RT_NO_INDEX;
+      for (int v = lane; v < Cp / 4; v += 32) {
+        int4 t = make_int4(0, 0, 0, 0);
+#pragma unroll 4
+        for (int o = 0; o < R; ++o) {
+          const int4* q = reinterpret_cast<const int4*>(buf + o * Cp) + v;
+          const int4 u = ONCHIP ? *q : __ldcg(q);
+          t.x += u.x, t.y += u.y, t.z += u.z, t.w += u.w;
+        }
+        const int g[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // ascending: the first of equals stays
+          if (g[j] > bg && live(4 * v + j)) {
+            bg = g[j];
+            bi = 4 * v + j;
+          }
+      }
+      const int wg = __reduce_max_sync(0xffffffffu, bg);
+      const unsigned wi = __reduce_min_sync(
+          0xffffffffu, bg == wg ? (unsigned)bi : (unsigned)RT_NO_INDEX);
+      if (lane == 0) {
+        win[0] = wg;
+        win[1] = (int)wi;
+      }
+    }
+    __syncthreads();
+    // 3. every block: the winner folded into this slice
+    const int bg = win[0];
+    const int bi = win[1];
+    const bool accept = bg > 0;
+    if (r == 0 && tid == 0) {
+      a.bests[b * a.k + s] = accept ? bi : -1;
+      a.gains[b * a.k + s] = bg < 0 ? -INFINITY : (float)bg;
+    }
+    if (accept) {
+      for (int w = tid; w < nw; w += T)
+        cov[w] = rt_bits_fold(cov[w], word(bi, w));
+      if (tid == 0) mbits[bi >> 5] &= ~(1u << (bi & 31));
+    }
+    __syncthreads();
+  }
+  if (r == 0)  // frozen steps
+    for (int s = max(kq, 0) + tid; s < a.k; s += T) {
+      a.bests[b * a.k + s] = -1;
+      a.gains[b * a.k + s] = 0.f;
+    }
+  for (int w = tid; w < nw; w += T) a.row_out[b * W + w0 + w] = cov[w];
+  // no rank leaves while a push to it may be in flight
+  if constexpr (ONCHIP) cl.sync();
+}
+
+// The tier and cluster of the words-split kernel over nodes of C
+// candidates x W words: plan[0] = 1 (on chip) with plan[1] = R for the
+// smallest cluster of 8 or 16 blocks whose rt_bits_smem fits both `gate`
+// bytes and the card's per-block shared memory (kcover's 128 x 1,290 on
+// 8, kdom's 256 x 2,048 on a non-portable 16), else plan[0] = 0 (the
+// words in device memory) with R = 8. Both tiers give the same bits.
+// Returns the cudaError_t.
+extern "C" int rt_greedy_loop_resident_bits_plan(int C, int W, long long gate,
+                                                 int* plan) {
+  if (C < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  const long long max = rt_smem_max();
+  if (gate > max) gate = max;
+  plan[0] = 0;
+  plan[1] = 8;
+  for (int R = 8; R <= RT_BITS_CLUSTER_MAX; R *= 2)
+    if ((long long)rt_bits_smem(C, W, R, true) <= gate) {
+      plan[0] = 1;
+      plan[1] = R;
+      break;
+    }
+  return 0;
+}
+
+// cands (B, C, W), rows (B, W) 32-bit words, mask (B, C) 0/1 f32, ctl
+// (B, 3) int32; R blocks a node's cluster (1..16; above 8 a
+// non-portable cluster); partials: the device tier's (B, 2, R, Cp)
+// int32 scratch (Cp = C rounded up to 4), null on chip
+// (rt_greedy_loop_resident_bits_plan says which). Returns the
+// cudaError_t.
+extern "C" int rt_greedy_loop_resident_bits(
+    const unsigned* cands, const unsigned* row_in, const float* mask_in,
+    const int* ctl, unsigned* row_out, int* bests, float* gains,
+    int* partials, int B, int C, int W, int k, int R, void* stream) {
+  if (B == 0) return 0;
+  if (B < 0 || C < 0 || W < 0 || k < 0 || R < 1 || R > RT_BITS_CLUSTER_MAX ||
+      (long long)R * B > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  RtResBitsArgs a = {cands, row_in, mask_in, ctl,   row_out,
+                     bests, gains,  partials, C,   W, k, R};
+  const bool onchip = partials == nullptr;
+  const void* fn = onchip ? (const void*)rt_resident_bits_kernel<true>
+                          : (const void*)rt_resident_bits_kernel<false>;
+  const size_t smem = rt_bits_smem(C, W, R, onchip);
+  if (smem > (size_t)rt_smem_max()) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (R > 8) {
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(R * B));
+  cfg.blockDim = dim3(rt_bits_threads(onchip));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {(void*)&a};
+  e = cudaLaunchKernelExC(&cfg, fn, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -29,28 +29,31 @@ widening each entry to rules.dequant's f32 value, so a variant equals
 the f32 kernel on the dequantized cache bit for bit. The resident
 kernel rounds its f32 build to the plan's storage (bf16, or int8 by
 rules.quantize_rows; `greedy_loop_resident[bf16]`/`[int8]`), as
-`resident_matrix` does, and keeps it in that dtype. Both
-bitmap tiers (`greedy_loop_bits`, `greedy_loop_resident_bits`, counted as
-`greedy_loop[coverage]` / `greedy_loop_resident[coverage]`) launch one
-kernel, csrc/greedy_loop.cu:rt_greedy_loop_bits, over the candidates'
-(B, C, W) int32 words read in place (the reference's matrix is their
-transpose, so the resident tier has nothing to build); they differ in
-their candidates per block and in the resident tier's ``ctl``.
+`resident_matrix` does, and keeps it in that dtype. The bitmap tiers
+read the candidates' (B, C, W) int32 words in place (the reference's
+matrix is their transpose, so the resident tier has nothing to build):
+`greedy_loop_bits` (`greedy_loop[coverage]`) launches
+csrc/greedy_loop.cu:rt_greedy_loop_bits, a cooperative launch whose
+blocks split each greedy's candidates; `greedy_loop_resident_bits`
+(`greedy_loop_resident[coverage]`) launches
+csrc/greedy_loop_resident.cu:rt_resident_bits_kernel, a thread-block
+cluster a node splitting its words (`resident_bits_plan`), under
+``ctl``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, counters, ref
+from repro_torch.kernels import build, counters, plans, ref
 from repro_torch.kernels import rules as R
 from repro_torch.kernels.pairwise import (DTYPES, FOLDS, MODES,
                                           STORAGES, check_feature_rule,
                                           check_operand, check_storage,
                                           check_words, storage_counters)
-from repro_torch.kernels.plans import (BITS_LOOP_BLOCK_C,
-                                       BITS_RESIDENT_BLOCK_C, FUSED_BLOCK_N)
+from repro_torch.kernels.plans import BITS_LOOP_BLOCK_C, FUSED_BLOCK_N
 from repro_torch.kernels.rules import WORD_DTYPE, KernelRule
 
 F32 = torch.float32
@@ -161,7 +164,7 @@ def _stream_lib():
     lib.rt_greedy_loop.argtypes = ([_P] * 11 + [_I] * 5 + [_P] + [_I] * 2
                                    + [_F, _F, _F, _P])
     lib.rt_greedy_loop_bits.restype = _I
-    lib.rt_greedy_loop_bits.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+    lib.rt_greedy_loop_bits.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     return lib
 
 
@@ -172,6 +175,11 @@ def _resident_lib():
     lib.rt_greedy_loop_resident.restype = _I
     lib.rt_greedy_loop_resident.argtypes = ([_P] * 11 + [_I] * 9
                                             + [_F, _F, _F, _P])
+    lib.rt_greedy_loop_resident_bits_plan.restype = _I
+    lib.rt_greedy_loop_resident_bits_plan.argtypes = [_I, _I,
+                                                      ctypes.c_longlong, _P]
+    lib.rt_greedy_loop_resident_bits.restype = _I
+    lib.rt_greedy_loop_resident_bits.argtypes = [_P] * 8 + [_I] * 5 + [_P]
     return lib
 
 
@@ -340,6 +348,23 @@ def resident_tier(n: int, c: int, cache_dtype: str = "float32",
     return "chip" if plan[0] else "device"
 
 
+def resident_bits_plan(w: int, c: int) -> Tuple[str, int]:
+    """(tier, cluster) of the bitmap resident loop over nodes of c
+    candidates × w words (csrc/greedy_loop_resident.cu:
+    rt_greedy_loop_resident_bits_plan): ('chip', R) for the smallest
+    cluster of 8 or 16 blocks whose shared memory, each block within
+    `plans.RESIDENT_BITS_SMEM_BYTES` (read at call time), holds the
+    node's words — kcover's 128 × 1,290 on 8 blocks, kdom's 256 × 2,048
+    on 16 — else ('device', 8): the same steps read the words from
+    device memory. Both tiers give the same bits."""
+    plan = (_I * 2)()
+    lib = _resident_lib()
+    build.check(lib, lib.rt_greedy_loop_resident_bits_plan(
+        c, w, plans.RESIDENT_BITS_SMEM_BYTES, plan),
+        "greedy_loop_resident[coverage] plan")
+    return ("chip" if plan[0] else "device"), plan[1]
+
+
 def bits_blocks_per_greedy(lib, b: int, c: int, w: int,
                            block_c: int = BITS_LOOP_BLOCK_C):
     """(P, CB): blocks per greedy and candidates per block of the bitmap
@@ -360,39 +385,6 @@ def bits_blocks_per_greedy(lib, b: int, c: int, w: int,
         p = max(1, min(p - 1, cap // b))
 
 
-def _loop_bits(cands, row, mask, ctl, k: int, block_c: int, counter,
-               what: str):
-    """Launch csrc/greedy_loop.cu:rt_greedy_loop_bits: cands (B, C, W)
-    int32 words, row (B, W) int32, mask (B, C) 0/1 f32, ctl (B, 3) int32
-    or None (no step budget); counts one launch on `counter`."""
-    b, c, w = cands.shape
-    dev = cands.device
-    check_operand(cands, (b, c, w), WORD_DTYPE, "candidate words", dev)
-    check_operand(row, (b, w), WORD_DTYPE, "row", dev)
-    check_operand(mask, (b, c), F32, "mask", dev)
-    if ctl is not None:
-        check_operand(ctl, (b, 3), torch.int32, "ctl", dev)
-    check_words(w, what)
-    row_out = torch.empty((b, w), dtype=WORD_DTYPE, device=dev)
-    bests = torch.empty((b, k), dtype=torch.int32, device=dev)
-    gains = torch.empty((b, k), dtype=F32, device=dev)
-    if b == 0:
-        return row_out, bests.long(), gains
-    lib = _stream_lib()
-    p, cb = bits_blocks_per_greedy(lib, b, c, w, block_c)
-    pval = torch.empty((2, b, p), dtype=F32, device=dev)
-    pidx = torch.empty((2, b, p), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt_greedy_loop_bits(
-        cands.data_ptr(), row.data_ptr(), mask.data_ptr(),
-        None if ctl is None else ctl.data_ptr(), row_out.data_ptr(),
-        bests.data_ptr(), gains.data_ptr(), pval.data_ptr(), pidx.data_ptr(),
-        b, c, w, k, p, cb, stream)
-    build.check(lib, err, f"bitmap {what} kernel")
-    counter.launches += 1
-    return row_out, bests.long(), gains
-
-
 def greedy_loop_bits(mat, row, mask, k: int, rule: KernelRule,
                      block_c: int = BITS_LOOP_BLOCK_C):
     """The bitmap rule's STREAMING tier: mat (B, W, C) is the transposed
@@ -405,24 +397,74 @@ def greedy_loop_bits(mat, row, mask, k: int, rule: KernelRule,
         return greedy_loop_plain(mat, row, mask, k, rule)
     if mat.dim() != 3:
         raise ValueError("greedy_loop kernel takes (B, W, C) matrices")
-    return _loop_bits(mat.transpose(-1, -2), row, mask, None, k, block_c,
-                      STREAM_BITS_COUNTER, "greedy_loop")
+    cands = mat.transpose(-1, -2)
+    b, c, w = cands.shape
+    dev = cands.device
+    row_out, bests, gains = _bits_operands(cands, row, mask, k,
+                                           "greedy_loop")
+    if b == 0:
+        return row_out, bests.long(), gains
+    lib = _stream_lib()
+    p, cb = bits_blocks_per_greedy(lib, b, c, w, block_c)
+    pval = torch.empty((2, b, p), dtype=F32, device=dev)
+    pidx = torch.empty((2, b, p), dtype=torch.int32, device=dev)
+    err = lib.rt_greedy_loop_bits(
+        cands.data_ptr(), row.data_ptr(), mask.data_ptr(),
+        row_out.data_ptr(), bests.data_ptr(), gains.data_ptr(),
+        pval.data_ptr(), pidx.data_ptr(), b, c, w, k, p, cb,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "bitmap greedy_loop kernel")
+    STREAM_BITS_COUNTER.launches += 1
+    return row_out, bests.long(), gains
+
+
+def _bits_operands(cands, row, mask, k: int, what: str):
+    """Check a bitmap loop's operands — cands (B, C, W) int32 words, row
+    (B, W) int32, mask (B, C) 0/1 f32 on one CUDA device — and allocate
+    its outputs: row_out (B, W), bests (B, k) int32, gains (B, k) f32."""
+    b, c, w = cands.shape
+    dev = cands.device
+    check_operand(cands, (b, c, w), WORD_DTYPE, "candidate words", dev)
+    check_operand(row, (b, w), WORD_DTYPE, "row", dev)
+    check_operand(mask, (b, c), F32, "mask", dev)
+    check_words(w, what)
+    return (torch.empty((b, w), dtype=WORD_DTYPE, device=dev),
+            torch.empty((b, k), dtype=torch.int32, device=dev),
+            torch.empty((b, k), dtype=F32, device=dev))
 
 
 def greedy_loop_resident_bits(cands, row, mask, ctl, k: int,
-                              rule: KernelRule,
-                              block_c: int = BITS_RESIDENT_BLOCK_C):
+                              rule: KernelRule):
     """The bitmap rule's RESIDENT tier: cands (B, C, W) int32 words, read
     in place (the reference's on-chip matrix is their transpose), row
-    (B, W) int32, mask (B, C) 0/1 f32, ctl (B, 3) int32 (steps ≥ kq
-    freeze), `block_c` the target candidates per block. CPU tensors take
-    the plain version; CUDA tensors launch the streaming loop's bitmap
-    kernel with ctl or raise."""
+    (B, W) int32, mask (B, C) 0/1 f32, ctl (B, 3) int32 (steps ≥ kq =
+    ctl[:, 0] freeze). CPU tensors take the plain version; CUDA tensors
+    launch csrc/greedy_loop_resident.cu's cluster kernel or raise: a
+    cluster a node on the tier and cluster size `resident_bits_plan`
+    picks."""
     RESIDENT_BITS_COUNTER.calls += 1
     if not cands.is_cuda:
         return greedy_loop_resident_plain(None, cands, row, mask, ctl, k,
                                           rule)
     if cands.dim() != 3:
         raise ValueError("bitmap resident kernel takes (B, C, W) words")
-    return _loop_bits(cands, row, mask, ctl, k, block_c,
-                      RESIDENT_BITS_COUNTER, "greedy_loop_resident")
+    b, c, w = cands.shape
+    dev = cands.device
+    row_out, bests, gains = _bits_operands(cands, row, mask, k,
+                                           "greedy_loop_resident")
+    check_operand(ctl, (b, 3), torch.int32, "ctl", dev)
+    if b == 0:
+        return row_out, bests.long(), gains
+    tier, cluster = resident_bits_plan(w, c)
+    partials = (None if tier == "chip" else   # (…, c rounded up to 4)
+                torch.empty((b, 2, cluster, (c + 3) & ~3),
+                            dtype=torch.int32, device=dev))
+    lib = _resident_lib()
+    err = lib.rt_greedy_loop_resident_bits(
+        cands.data_ptr(), row.data_ptr(), mask.data_ptr(), ctl.data_ptr(),
+        row_out.data_ptr(), bests.data_ptr(), gains.data_ptr(),
+        None if partials is None else partials.data_ptr(), b, c, w, k,
+        cluster, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "greedy_loop_resident[coverage] kernel")
+    RESIDENT_BITS_COUNTER.launches += 1
+    return row_out, bests.long(), gains

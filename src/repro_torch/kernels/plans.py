@@ -48,8 +48,10 @@ holds 16 × 400² × 4 B = 10 MB and goes to `resident`.
 
 Bitmap rules plan over W universe words: their "matrix" is the (W, C)
 transpose of the candidates' 32-bit words, 4 B a word as allocated
-(rules.WORD_DTYPE), and their kernels split a greedy by CANDIDATES, each
-block holding the whole (W,) word row. The streaming gate is the
+(rules.WORD_DTYPE), and their step and streaming kernels split a
+greedy by CANDIDATES, each block holding the whole (W,) word row (the
+resident loop splits a node by WORDS over a thread-block cluster:
+greedy_loop.resident_bits_plan). The streaming gate is the
 bitmap loop block's shared memory with one block per greedy (the least
 its wrapper falls back to): the W-word row and the (C,) mask,
 4·(W + C) bytes. At kosarak's shape (W = 1,290) that admits leaves of
@@ -122,17 +124,13 @@ LOOP_BLOCK_MIN = 8
 FUSED_BLOCK_N = 32
 FUSED_SPAN = 128
 FUSED_CLUSTER_MAX = 8
-# candidates per block of the bitmap kernels (one warp per candidate, 8
-# warps a block), which their wrappers size themselves. fused_step: at
-# the kcover leaf (32 greedies × 30,938) 484 blocks per greedy, each
-# folding and copying the 5 KB word row for 64 candidates' 330 KB. The
-# loops' targets, widened by the wrapper until all blocks fit the card at
-# once: the streaming tier's leaves, and the resident tier's nodes of
-# b·k candidates, split over several blocks each so a level's few nodes
-# spread over the SMs (one grid barrier a step). At kcover's level 1
-# (16 nodes × 128 × 1,290 words, k = 64) on an H100 SXM 700 W, 8 a block
-# took 0.39 ms, 16 0.53 ms and one block a node 2.78 ms (chip_smoke.py,
-# timing_coverage's sweep)
+# candidates per block of the bitmap fused step and streaming loop (one
+# warp per candidate, 8 warps a block), which their wrappers size
+# themselves. fused_step: at the kcover leaf (32 greedies × 30,938) 484
+# blocks per greedy, each folding and copying the 5 KB word row for 64
+# candidates' 330 KB. The streaming loop's target, widened by the
+# wrapper until all blocks fit the card at once (one grid barrier a
+# step)
 # f32 bytes of one chunk of an int8 cache build: the greedies whose f32
 # matrices fit it are built and quantized at once (at least one). At the
 # Tiny-ImageNet leaves a greedy's matrix is 43 MB, so each chunk is one
@@ -141,7 +139,10 @@ FUSED_CLUSTER_MAX = 8
 QUANT_CHUNK_BYTES = 64 * 2 ** 20
 BITS_BLOCK_C = 64
 BITS_LOOP_BLOCK_C = 256
-BITS_RESIDENT_BLOCK_C = 8
+# the shared memory a block of the bitmap resident loop may hold on chip
+# (greedy_loop.resident_bits_plan, read at call time): the H100's
+# per-block maximum less the kernel's static argmax scratch
+RESIDENT_BITS_SMEM_BYTES = flags.H100_SMEM_PER_BLOCK - 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +154,7 @@ class EnginePlan:
     tier          raw fused_plan tier, None when every cache was refused
     block_n       ground rows a chunk of the per-step fused kernel's
                   gain sum (feature rules; 0 for bitmap rules, whose kernels'
-                  wrappers size their candidate blocks: BITS_*_BLOCK_C)
+                  wrappers size their own blocks)
     loop_block_n  the streaming tier's admission (`loop_block_n`;
                   feature rules; 0 for bitmap rules): the streaming
                   loop sums in chunks of block_n rows, as fused_step

@@ -160,7 +160,7 @@ def test_cuda_greedy_loop_kernel_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(KERNEL_RULES))
-def test_cuda_resident_kernel_matches_plain(cuda, name):
+def test_cuda_resident_kernel_matches_plain(cuda, name, monkeypatch):
     tr = KERNEL_RULES[name]
     ctl = torch.tensor([[10, 100, 100], [4, 100, 100]] * 2,
                        dtype=torch.int32, device=cuda)
@@ -174,11 +174,10 @@ def test_cuda_resident_kernel_matches_plain(cuda, name):
         snap = counters.snapshot()
         assert snap["greedy_loop_resident[coverage]"]["launches"] == 1
         assert parity.compare_exact(got, want)["accepted"] > 0
-        # a node over several blocks (the default; 3 candidates a block,
-        # fewer than its warps) and in one block
-        for block_c in (3, 100):
-            parity.compare_exact(TL.greedy_loop_resident_bits(
-                cd, row, mask, ctl, 10, tr, block_c=block_c), want)
+        # the device-memory tier, forced through the plan
+        monkeypatch.setattr(plans, "RESIDENT_BITS_SMEM_BYTES", 64)
+        parity.compare_exact(TL.greedy_loop_resident(
+            None, cd, row, mask, ctl, 10, tr), want)
         return
     _, cd = _dev_pools(cuda, 4, 1, 100, 48, seed=7)
     g = cd.clone()
@@ -195,6 +194,106 @@ def test_cuda_resident_kernel_matches_plain(cuda, name):
     want = TL.greedy_loop_resident_plain(g, cd, row, mask, ctl, 10, tr)
     parity.compare_loops(got, want, tr, entry_diff=(
         built - TL.resident_matrix(g, cd, tr)).abs())
+
+
+def _bits_node_case(cuda, b, c, w, k, kqs, seed, zero=False):
+    """b nodes of c candidate words × w, a random covered row, a random
+    mask with 70% of it set, kq cycling through `kqs` by node; `zero`:
+    all-zero words and node 0 wholly masked."""
+    cd = _words((b, c, w), seed, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mask = (torch.rand(b, c, generator=gen, device=cuda) < 0.7).float()
+    if zero:
+        cd.zero_()
+        mask[0] = 0.0
+    ctl = torch.tensor([[kqs[i % len(kqs)], w, c] for i in range(b)],
+                       dtype=torch.int32, device=cuda)
+    return cd, _words((b, w), seed + 1, cuda), mask, ctl, k
+
+
+# (b nodes, c candidates, w words, k, kq by node, ...): C and W off the
+# cluster's multiples, freezes at k, k/2 and 0; fewer candidates than a
+# warp's groups of 4 (16 threads a candidate); 8 threads a candidate,
+# one lane a warp pushing its groups of 4; several rounds of candidates
+# a step on chip (256 threads) and on the device tier (512); all-zero
+# words with one node wholly masked (nothing accepted); kdom's node (on
+# 16 blocks); more nodes than the old cooperative kernel could hold at
+# once (1,200 × 8 blocks of 8 candidates, against the card's ≈ 1,056)
+RESIDENT_BITS_CASES = {
+    "eight_threads": lambda cuda: _bits_node_case(cuda, 3, 24, 50, 8,
+                                                  (8, 4, 0), 36),
+    "rounds": lambda cuda: _bits_node_case(cuda, 2, 300, 40, 10,
+                                           (10, 5), 37),
+    "device_rounds": lambda cuda: _bits_node_case(cuda, 2, 601, 33, 10,
+                                                  (10, 0), 38),
+    "ragged": lambda cuda: _bits_node_case(cuda, 5, 100, 70, 10,
+                                           (10, 5, 0), 31),
+    "few_candidates": lambda cuda: _bits_node_case(cuda, 4, 13, 45, 9,
+                                                   (9, 4), 35),
+    "nothing_accepted": lambda cuda: _bits_node_case(cuda, 3, 40, 19, 6,
+                                                     (6,), 32, zero=True),
+    "kdom_node": lambda cuda: _bits_node_case(cuda, 3, 256, 2_048, 12,
+                                              (12, 6), 33),
+    "many_nodes": lambda cuda: _bits_node_case(cuda, 1_200, 64, 33, 6,
+                                               (6, 3, 0), 34),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RESIDENT_BITS_CASES))
+def test_cuda_resident_bits_matches_plain_on_both_tiers(cuda, case,
+                                                        monkeypatch):
+    """The bitmap resident loop's cluster kernel equals its plain version
+    bit for bit on the tier the plan picks and on the device-memory tier
+    forced through the plan."""
+    cd, row, mask, ctl, k = RESIDENT_BITS_CASES[case](cuda)
+    b, c, w = cd.shape
+    rule = TR.BITS_OR
+    want = TL.greedy_loop_resident_plain(None, cd, row, mask, ctl, k, rule)
+    counters.reset()
+    got = TL.greedy_loop_resident_bits(cd, row, mask, ctl, k, rule)
+    assert counters.snapshot()["greedy_loop_resident[coverage]"][
+        "launches"] == 1
+    res = parity.compare_exact(got, want)
+    assert (res["accepted"] == 0) == (case == "nothing_accepted")
+    assert TL.resident_bits_plan(w, c) == (
+        ("chip", 16) if case == "kdom_node" else ("chip", 8))
+    monkeypatch.setattr(plans, "RESIDENT_BITS_SMEM_BYTES", 64)
+    assert TL.resident_bits_plan(w, c) == ("device", 8)
+    parity.compare_exact(TL.greedy_loop_resident_bits(
+        cd, row, mask, ctl, k, rule), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", [
+    ((128, 1_290), ("chip", 8)),      # kcover's and the dispatcher's nodes
+    ((256, 2_048), ("chip", 16)),     # kdom's
+    ((1_000, 2_048), ("device", 8)),  # past 16 blocks' shared memory
+])
+def test_cuda_resident_bits_plan(cuda, shape, plan):
+    """The tier and cluster the bitmap resident loop's plan promises at
+    the coverage trees' node shapes (test_torch_plans.py::
+    test_resident_bits_plan: all admitted by the resident gate)."""
+    c, w = shape
+    assert TL.resident_bits_plan(w, c) == plan
+
+
+@pytest.mark.cuda
+def test_cuda_resident_bits_plan_follows_the_byte_gate(cuda, monkeypatch):
+    """kcover's node on 8 blocks needs 94,896 bytes a block: 162 words of
+    each of 128 candidates in rows of 168 (41 16-byte vectors, padded to
+    8 modulo 32 at 2 threads a candidate), the (2, 8, 128) partials and
+    their two barriers, the covered slice in 41 vectors and 4 mask
+    words. One byte less in the gate sends it to 16 blocks, and a gate
+    below any slice to the device-memory tier."""
+    need = 4 * (128 * 168 + 2 * 8 * 128 + 4 + 164 + 4)
+    assert need == 94_896
+    monkeypatch.setattr(plans, "RESIDENT_BITS_SMEM_BYTES", need)
+    assert TL.resident_bits_plan(1_290, 128) == ("chip", 8)
+    monkeypatch.setattr(plans, "RESIDENT_BITS_SMEM_BYTES", need - 1)
+    assert TL.resident_bits_plan(1_290, 128) == ("chip", 16)
+    monkeypatch.setattr(plans, "RESIDENT_BITS_SMEM_BYTES", 64)
+    assert TL.resident_bits_plan(1_290, 128) == ("device", 8)
 
 
 @pytest.mark.cuda

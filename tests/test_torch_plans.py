@@ -208,3 +208,21 @@ def test_stream_static_bytes_are_the_kernels():
     assert TPlans.STREAM_STATIC_BYTES == 672
     assert TPlans.stream_smem_bytes(16_384, 256, TR.DIST_MIN) == (
         4 * 2_048 + 672)
+
+
+@pytest.mark.parametrize("shape,onchip", [
+    ((16, 128, 1_290), True),       # kcover's level 1 (645 KB a node)
+    ((32, 128, 1_290), True),       # the dispatcher's 32 lanes
+    ((4, 256, 2_048), True),        # kdom's level 1 (2 MiB a node)
+    ((1, 1_000, 2_048), False),     # past 16 blocks' shared memory
+])
+def test_resident_bits_plan(shape, onchip):
+    """The bitmap resident loop's node batches are all admitted by the
+    resident gate (25 MB), up to nodes whose words exceed what 16 blocks'
+    shared memory can hold, which its device-memory tier then runs. The
+    tier and cluster of each (greedy_loop.resident_bits_plan) come from
+    the kernel's own plan: test_torch_cuda.py::test_cuda_resident_bits_plan."""
+    b, c, w = shape
+    assert TPlans.select_engine(TR.BITS_OR, w, c,
+                                replicas=b).engine == "mega_resident"
+    assert (4 * c * w > 16 * TPlans.RESIDENT_BITS_SMEM_BYTES) != onchip
