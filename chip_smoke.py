@@ -181,6 +181,34 @@ and after timing_coverage, on the kosarak bitmaps:
   timing_stream_coverage  the bitmap stream filter per batch (split,
                           launches, admitted, both tiers)
 
+and distributed GreedyML over torch.distributed (one rank a tree
+machine; the card is one H100, and NCCL takes no two ranks on one
+device, so the multi-rank groups run over gloo with every rank on the
+card and its collectives staging the k-row solutions through the host):
+
+  distributed_stream_kcover  (after timing_stream_coverage) 4 spawned
+                          ranks, stream_select_distributed over the
+                          continuous_kcover stream (b = 2, a merge every
+                          256 batches): merges and digest equal
+                          continuous_kcover's; per rank one
+                          stream_filter[coverage] launch a batch
+  distributed_kdom        (after kdom_run) 8 spawned ranks, one
+                          lane_pools block each: greedyml_distributed
+                          over (2, 2, 2) and randgreedi_distributed over
+                          8, each root on every rank bit for bit equal to
+                          LevelDispatcher(mesh=None) over the same pools;
+                          per rank its stages' wall and launches (1
+                          greedy_loop[coverage] at the leaves, 1
+                          greedy_loop_resident[coverage] a level) and
+                          each level's gathered bytes and seconds
+  distributed_nccl        world size 1 over NCCL in this process:
+                          greedyml_distributed on all the kdom bitmaps
+                          equal to LevelDispatcher(mesh=None, (1,))
+  coreset                 select_coreset('greedyml:facility') on
+                          gen_embeddings(65,536, 256), k = 128, through
+                          the 8-rank group, every rank's ids equal to the
+                          stacked dispatcher's over the same blocks
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -2253,7 +2281,8 @@ def phase_data_kdom(torch, cfg, dev):
 def phase_kdom_run(torch, cfg, dev, reps):
     """run_tree_dense('kdom', …) at the reference's kdom configuration,
     after its loops' parity and (line `timing_kdom`) the resident loop
-    at every level's nodes."""
+    at every level's nodes; → (launches, errors, the bitmaps' words on
+    the card)."""
     bits, words = phase_data_kdom(torch, cfg, dev)
     out = {"greedy_loop": _leaf_loop_parity(torch, words, cfg)}
     bk = cfg.branching * cfg.k
@@ -2266,7 +2295,7 @@ def phase_kdom_run(torch, cfg, dev, reps):
           _resident_bits_levels(torch, words, cfg, reps, variants=True)})
     launches, _ = _coverage_tree(torch, "kdom", bits, words, cfg,
                                  "kdom_run")
-    return launches, _max_errs(out)
+    return launches, _max_errs(out), words
 
 
 def phase_timing_coverage(torch, words, cfg, pools, reps):
@@ -3478,6 +3507,7 @@ def phase_continuous_kcover(torch, words, cfg):
         torch.cuda.synchronize()
     device_ms = sum(us for _, _, us in _cuda_events(torch, prof)) / 1e3
     seen = device_ms > 0
+    digest = _digest(sol.ids[sol.valid].cpu().numpy(), sol.value)
     emit({"phase": "continuous_kcover", "lanes": CONTINUOUS_LANES,
           "branching": 2, "merge_every": MERGE_EVERY, **info,
           "wall_seconds": wall, "arrivals_per_second": cfg.n / wall,
@@ -3485,8 +3515,9 @@ def phase_continuous_kcover(torch, words, cfg):
           "busy_share": device_ms / (wall * 1e3) if seen else
           "not measured",
           "launches": launches, "value": float(sol.value),
-          "digest": _digest(sol.ids[sol.valid].cpu().numpy(), sol.value)})
-    return launches
+          "digest": digest})
+    return launches, {"merges": merges, "batches": info["batches"],
+                      "digest": digest}
 
 
 def phase_timing_stream_coverage(torch, words, cfg, reps):
@@ -3567,6 +3598,397 @@ def phase_stream_idle(torch, name, data, cfg, k, ground=None,
           "busy_share": busy / wall if seen else "not measured",
           "host_gap_ms_per_batch": wall - busy if seen else "not measured",
           "kernel_split": kernels})
+
+
+# ---------------------------------------------------------------------------
+# distributed GreedyML: one rank a tree machine (torch.distributed)
+# ---------------------------------------------------------------------------
+#
+# The card is one H100 and NCCL takes no two ranks on one device, so the
+# multi-rank trees run over gloo with every rank on the same card: each
+# rank runs its lane's kernels on the card and its collectives stage the
+# k-row solutions through the host. NCCL runs at world size 1, in this
+# process. The ranks are spawned processes (launch/spawn.py): the
+# kernels' libraries are loaded here first, so they find them built; the
+# bitmaps and embeddings reach them through CUDA IPC (no copy). A rank
+# that fails, or is still running at its deadline, fails the phase.
+
+DIST_DEADLINE = 420.0
+DIST_STREAM_LANES = 4
+
+
+def _rank_device(torch, dev: str):
+    if dev.startswith("cuda"):
+        torch.cuda.set_device(torch.device(dev))
+    return torch.device(dev)
+
+
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lane_block(torch, x, lanes: int, seed: int, lane: int):
+    """Lane `lane`'s (ids, payloads, valid) of lane_pools(x, lanes, seed),
+    gathering only its own rows."""
+    n = x.shape[0]
+    n_pad = -(-n // lanes) * lanes
+    perm = np.full(n_pad, -1, np.int64)
+    perm[:n] = np.random.default_rng(seed).permutation(n)
+    per = n_pad // lanes
+    mine = torch.as_tensor(perm[lane * per:(lane + 1) * per],
+                           device=x.device)
+    pay = x[mine.clamp(min=0)]
+    pay[mine < 0] = 0
+    return mine, pay, mine >= 0
+
+
+def _stage_hook(torch, dev, stages):
+    """on_level callback of the distributed drivers: a stage's wall (the
+    rank's device synchronised) and its launches."""
+    from repro_torch.kernels import counters
+    _sync(torch, dev)
+    t_last = [time.perf_counter()]
+
+    def on_level(stage):
+        _sync(torch, dev)
+        now = time.perf_counter()
+        stages.append({"stage": stage, "seconds": now - t_last[0],
+                       "launches": {n: c["launches"] for n, c in
+                                    counters.snapshot().items()
+                                    if c["launches"]}})
+        counters.reset()
+        t_last[0] = time.perf_counter()
+    return on_level
+
+
+def _dist_tree_rank(rank, x, name, k, universe, seed, radices, dev):
+    """One rank of distributed_kdom: its lane of lane_pools(x, m, seed)
+    through greedyml_distributed over `radices`, then
+    randgreedi_distributed; per stage its wall and launches, per level
+    the gathers' bytes and seconds."""
+    import torch
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import (greedyml_distributed,
+                                           randgreedi_distributed)
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_tree_mesh
+    dev = _rank_device(torch, dev)
+    mesh = make_tree_mesh(radices, device=dev)
+    obj = make_objective(name, universe=universe, device=dev)
+    ids, pay, val = lane_block(torch, x, mesh.lanes, seed, rank)
+    out = {}
+    for algo, fn in (("greedyml", greedyml_distributed),
+                     ("randgreedi", randgreedi_distributed)):
+        stages = []
+        mesh.log = []
+        counters.reset()
+        hook = _stage_hook(torch, dev, stages)
+        t0 = time.perf_counter()
+        sol = fn(obj, ids, pay, val, k, mesh, on_level=hook)
+        _sync(torch, dev)
+        out[algo] = {"ids": sol.ids.cpu(), "valid": sol.valid.cpu(),
+                     "value": float(sol.value),
+                     "wall_seconds": time.perf_counter() - t0,
+                     "stages": stages, "collectives": mesh.log}
+        mesh.log = None
+    return out
+
+
+def _stacked_root(torch, name, pools, k, universe, radices):
+    """The same lanes stacked on one device, LevelDispatcher(mesh=None)
+    over `pools` (ids, payloads, valid) → (root, wall seconds)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import LevelDispatcher, root_solution
+    dev = pools[1].device
+    obj = make_objective(name, universe=universe, device=dev)
+    disp = LevelDispatcher(obj, k, radices)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    sols = disp.leaves(*pools)
+    for lvl in range(disp.num_levels):
+        sols = disp.level(sols, lvl)
+    root = root_solution(sols)
+    _sync(torch, dev)
+    return root, time.perf_counter() - t0
+
+
+def _levels_of(collectives) -> list:
+    """Per level: the gathers' bytes and seconds (three a level: ids,
+    payloads, valid); the root's broadcasts last."""
+    by = {}
+    for c in collectives:
+        key = "broadcast" if c["level"] is None else c["level"]
+        d = by.setdefault(key, {"level": key, "bytes": 0, "seconds": 0.0,
+                                "calls": 0})
+        d["bytes"] += c["bytes"]
+        d["seconds"] += c["seconds"]
+        d["calls"] += 1
+    return list(by.values())
+
+
+def _rank_summary(results, algo) -> dict:
+    """Per rank: wall, each stage's wall and launches, each level's
+    collectives."""
+    return {str(r): {"wall_seconds": res[algo]["wall_seconds"],
+                     "stages": res[algo]["stages"],
+                     "collectives": _levels_of(res[algo]["collectives"])}
+            for r, res in enumerate(results)}
+
+
+def _same_root(results, algo, root) -> None:
+    want = root.ids.cpu()
+    for r, res in enumerate(results):
+        got = res[algo]
+        assert got["ids"].equal(want), (algo, r, got["ids"], want)
+        assert got["valid"].equal(root.valid.cpu()), (algo, r)
+        assert got["value"] == float(root.value), (algo, r, got["value"],
+                                                   float(root.value))
+
+
+def phase_distributed_kdom(torch, words, cfg, dev: str = "cuda:0",
+                           deadline: float = DIST_DEADLINE):
+    """The kdom tree over 8 spawned gloo ranks on the one card, one lane
+    a rank (its lane_pools block): greedyml_distributed over (2, 2, 2)
+    and randgreedi_distributed over all 8, each root on every rank equal
+    bit for bit (ids, valid, value) to LevelDispatcher(mesh=None) over
+    the same pools stacked, radices (2, 2, 2) and (8,); per rank per
+    stage 1 greedy_loop[coverage] at the leaves and 1
+    greedy_loop_resident[coverage] a level."""
+    from repro_torch.launch.spawn import run_ranks
+    m, b = cfg.num_machines, cfg.branching
+    radices = (b,) * int(round(math.log(m, b)))
+    _sync(torch, words.device)
+    t0 = time.perf_counter()
+    results = run_ranks(_dist_tree_rank, m, args=(
+        words, cfg.objective, cfg.k, cfg.universe, cfg.seed, radices, dev),
+        timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    pools = lane_pools(torch, words, m, cfg.seed)
+    want, want_wall = _stacked_root(torch, cfg.objective, pools, cfg.k,
+                                    cfg.universe, radices)
+    _same_root(results, "greedyml", want)
+    want_rg, rg_wall = _stacked_root(torch, cfg.objective, pools, cfg.k,
+                                     cfg.universe, (m,))
+    _same_root(results, "randgreedi", want_rg)
+    del pools
+    # one loop launch a stage: the planner's engine for one lane
+    from repro_torch.kernels.plans import select_engine
+    from repro_torch.kernels.rules import BITS_OR
+    w = int(words.shape[1])
+    engines = [select_engine(BITS_OR, w, cfg.n // m, replicas=1).engine] + [
+        select_engine(BITS_OR, w, r * cfg.k, replicas=1).engine
+        for r in radices]
+    kernel = {"mega_stream": "greedy_loop[coverage]",
+              "mega_resident": "greedy_loop_resident[coverage]"}
+    launches = {}
+    for res in results:
+        st = res["greedyml"]["stages"]
+        for s, e in zip(st, engines):
+            assert s["launches"] == {kernel[e]: 1}, (s, e)
+        for algo in ("greedyml", "randgreedi"):
+            for s in res[algo]["stages"]:
+                _add(launches, s["launches"])
+    emit({"phase": "distributed_kdom", "backend": "gloo",
+          "ranks": m, "device": "every rank on the one card; collectives "
+          "stage the k-row solutions through the host",
+          "radices": list(radices), "n": cfg.n, "k": cfg.k,
+          "words": w, "stage_engines": engines,
+          "root_equal_to_stacked": True, "value": float(want.value),
+          "randgreedi_value": float(want_rg.value),
+          "digest": _digest(want.ids[want.valid].cpu().numpy(), want.value),
+          "spawn_wall_seconds": spawn_wall,
+          "stacked_wall_seconds": {"greedyml": want_wall,
+                                   "randgreedi": rg_wall},
+          "ranks_greedyml": _rank_summary(results, "greedyml"),
+          "ranks_randgreedi": _rank_summary(results, "randgreedi"),
+          "launches": launches})
+    return launches
+
+
+def phase_distributed_nccl(torch, words, cfg):
+    """World size 1 over NCCL in this process (a HashStore rendezvous):
+    greedyml_distributed over radices (1,) on all the kdom bitmaps, its
+    root equal bit for bit to LevelDispatcher(mesh=None, radices=(1,))."""
+    import torch.distributed as dist
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import greedyml_distributed
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_tree_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = make_tree_mesh((1,))
+        assert mesh.backend == "nccl" and not mesh.stage_on_host
+        obj = make_objective(cfg.objective, universe=cfg.universe,
+                             device=mesh.device)
+        n = words.shape[0]
+        ids = torch.arange(n, device=words.device)
+        valid = torch.ones(n, dtype=torch.bool, device=words.device)
+        stages = []
+        mesh.log = []
+        counters.reset()
+        hook = _stage_hook(torch, words.device, stages)
+        t0 = time.perf_counter()
+        sol = greedyml_distributed(obj, ids, words, valid, cfg.k, mesh,
+                                   on_level=hook)
+        _sync(torch, words.device)
+        wall = time.perf_counter() - t0
+        collectives = _levels_of(mesh.log)
+    finally:
+        dist.destroy_process_group()
+    want, want_wall = _stacked_root(
+        torch, cfg.objective, (ids[None], words[None], valid[None]), cfg.k,
+        cfg.universe, (1,))
+    assert torch.equal(sol.ids, want.ids) and torch.equal(sol.valid,
+                                                          want.valid)
+    assert float(sol.value) == float(want.value), (float(sol.value),
+                                                   float(want.value))
+    launches = {}
+    for s in stages:
+        _add(launches, s["launches"])
+    emit({"phase": "distributed_nccl", "backend": "nccl", "ranks": 1,
+          "radices": [1], "n": int(n), "k": cfg.k,
+          "root_equal_to_stacked": True, "value": float(sol.value),
+          "wall_seconds": wall, "stacked_wall_seconds": want_wall,
+          "stages": stages, "collectives": collectives,
+          "launches": launches})
+    return launches
+
+
+def _dist_stream_rank(rank, words, universe, k, seed, batch, merge_every,
+                      eps, dev):
+    """One rank of distributed_stream_kcover: its share of every batch of
+    the kosarak stream (the continuous phase's order), merged over the
+    ranks every `merge_every` batches."""
+    import torch
+    from repro_torch.core.functions import make_objective
+    from repro_torch.data.synthetic import Stream
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_tree_mesh
+    from repro_torch.streaming import stream_select_distributed
+    dev = _rank_device(torch, dev)
+    mesh = make_tree_mesh((2,) * int(round(math.log2(
+        torch.distributed.get_world_size()))), device=dev)
+    obj = make_objective("kcover", universe=universe, device=dev)
+    order = np.random.default_rng(seed).permutation(words.shape[0])
+    stream = Stream(words, order, batch)
+    mesh.log = []
+    counters.reset()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    sol, info = stream_select_distributed(obj, stream, k, mesh,
+                                          merge_every=merge_every, eps=eps)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    return {"info": info, "wall_seconds": wall,
+            "digest": _digest(sol.ids[sol.valid].cpu().numpy(), sol.value),
+            "launches": {n: c["launches"] for n, c in
+                         counters.snapshot().items() if c["launches"]},
+            "collectives": _levels_of(mesh.log)}
+
+
+def phase_distributed_stream_kcover(torch, words, cfg, continuous,
+                                    dev: str = "cuda:0",
+                                    deadline: float = DIST_DEADLINE):
+    """stream_select_distributed over 4 spawned gloo ranks on the one
+    card (b = 2, two levels), the kosarak stream of continuous_kcover (B =
+    256, ε = 0.1, a merge every 256 batches): its merges and its digest
+    equal continuous_kcover's; each rank launches
+    stream_filter[coverage] once a batch."""
+    from repro_torch.launch.spawn import run_ranks
+    lanes = DIST_STREAM_LANES
+    t0 = time.perf_counter()
+    results = run_ranks(_dist_stream_rank, lanes, args=(
+        words, cfg.universe, cfg.k, cfg.seed, STREAM_BATCH, MERGE_EVERY,
+        STREAM_EPS, dev), timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    launches = {}
+    for r, res in enumerate(results):
+        assert res["info"]["merges"] == continuous["merges"], (
+            r, res["info"]["merges"], continuous["merges"])
+        assert res["info"]["batches"] == continuous["batches"]
+        assert res["digest"] == continuous["digest"], (r, res["digest"])
+        assert res["launches"].get("stream_filter[coverage]") == \
+            res["info"]["batches"], (r, res["launches"])
+        _add(launches, res["launches"])
+    emit({"phase": "distributed_stream_kcover", "backend": "gloo",
+          "ranks": lanes, "device": "every rank on the one card; merges "
+          "stage the k-row summaries through the host",
+          "branching": 2, "merge_every": MERGE_EVERY, "batch": STREAM_BATCH,
+          "batches": results[0]["info"]["batches"],
+          "merges": results[0]["info"]["merges"],
+          "digest": results[0]["digest"],
+          "equal_to_continuous": True, "spawn_wall_seconds": spawn_wall,
+          "ranks_detail": {str(r): {"wall_seconds": res["wall_seconds"],
+                                    "launches": res["launches"],
+                                    "collectives": res["collectives"]}
+                           for r, res in enumerate(results)},
+          "launches": launches})
+    return launches
+
+
+CORESET_N, CORESET_D, CORESET_K = 65_536, 256, 128
+
+
+def _coreset_rank(rank, emb, k, radices, dev):
+    """One rank of the coreset phase: select_coreset over its block."""
+    import torch
+    from repro_torch.data.selection import select_coreset
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import local_block, make_tree_mesh
+    dev = _rank_device(torch, dev)
+    mesh = make_tree_mesh(radices, device=dev)
+    counters.reset()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    ids = select_coreset(local_block(emb, mesh), k, "greedyml:facility",
+                         mesh=mesh)
+    _sync(torch, dev)
+    return {"ids": ids, "wall_seconds": time.perf_counter() - t0,
+            "launches": {n: c["launches"] for n, c in
+                         counters.snapshot().items() if c["launches"]}}
+
+
+def phase_coreset(torch, cfg, dev: str = "cuda:0", n: int = CORESET_N,
+                  d: int = CORESET_D, k: int = CORESET_K,
+                  deadline: float = DIST_DEADLINE):
+    """select_coreset('greedyml:facility') on gen_embeddings(65,536, 256)
+    with k = 128 through the 8-rank gloo group (each rank passes its
+    contiguous block), every rank's ids equal to the stacked
+    LevelDispatcher(mesh=None) over the same blocks."""
+    from repro_torch.data.synthetic import gen_embeddings
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.core.greedyml import shard_lanes
+    m, b = cfg.num_machines, cfg.branching
+    radices = (b,) * int(round(math.log(m, b)))
+    t0 = time.perf_counter()
+    emb = torch.as_tensor(gen_embeddings(n, d, seed=cfg.seed)).to(dev)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = run_ranks(_coreset_rank, m, args=(emb, k, radices, dev),
+                        timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    pools = shard_lanes(torch.arange(n, device=emb.device), emb,
+                        torch.ones(n, dtype=torch.bool, device=emb.device),
+                        m)
+    want, want_wall = _stacked_root(torch, "facility", pools, k, 0, radices)
+    want_ids = want.ids[want.valid].cpu().numpy()
+    launches = {}
+    for r, res in enumerate(results):
+        assert np.array_equal(res["ids"], want_ids), (r, res["ids"],
+                                                      want_ids)
+        _add(launches, res["launches"])
+    emit({"phase": "coreset", "spec": "greedyml:facility", "n": n, "d": d,
+          "k": k, "ranks": m, "radices": list(radices), "backend": "gloo",
+          "ids_equal_to_stacked": True, "selected": int(len(want_ids)),
+          "value": float(want.value),
+          "digest": _digest(want_ids, want.value),
+          "data_seconds": data_s, "spawn_wall_seconds": spawn_wall,
+          "stacked_wall_seconds": want_wall,
+          "rank_wall_seconds": [res["wall_seconds"] for res in results],
+          "launches": launches})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -3652,12 +4074,21 @@ def main(argv=None) -> int:
     phase_stream_idle(torch, "kcover", words, kc, kc.k)
     _add(launches, phase_stream_kcover_knapsack(torch, words, kc))
     _add(launches, phase_window_kcover(torch, words, kc))
-    _add(launches, phase_continuous_kcover(torch, words, kc))
+    cont_launches, continuous = phase_continuous_kcover(torch, words, kc)
+    _add(launches, cont_launches)
     times.update(phase_timing_stream_coverage(torch, words, kc, args.reps))
+    _add(launches, phase_distributed_stream_kcover(torch, words, kc,
+                                                   continuous))
     del bits, words
     gc.collect()
     torch.cuda.empty_cache()
-    _, kdom_errs = phase_kdom_run(torch, KDOM, dev, args.reps)
+    _, kdom_errs, kwords = phase_kdom_run(torch, KDOM, dev, args.reps)
+    _add(launches, phase_distributed_kdom(torch, kwords, KDOM))
+    _add(launches, phase_distributed_nccl(torch, kwords, KDOM))
+    del kwords
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, phase_coreset(torch, KDOM))
     for name, err in [*kdom_errs.items(), *global_errs.items()]:
         errs[name] = max(errs[name], err)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

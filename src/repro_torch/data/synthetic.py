@@ -1,7 +1,7 @@
 """Deterministic synthetic datasets (answers `src/repro/data/synthetic.py`).
 
-`gen_images`, `gen_kcover`, `gen_graph_road`, `gen_graph_social`,
-`pack_bitmaps` and `gen_stream` are numpy copies of the reference's
+`gen_images`, `gen_embeddings`, `gen_kcover`, `gen_graph_road`,
+`gen_graph_social`, `pack_bitmaps` and `gen_stream` are numpy copies of the reference's
 generators: the same seed gives the same arrays and the same arrival
 orders. `gen_images_on` draws the same mixture-of-Gaussians recipe
 directly on a torch device (the card unless the caller names another)
@@ -108,6 +108,12 @@ def gen_images(n: int, d: int, classes: int = 20, seed: int = 0
     x = x - x.mean(axis=1, keepdims=True)
     x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-9)
     return x.astype(np.float32)
+
+
+def gen_embeddings(n: int, d: int, clusters: int = 50, seed: int = 0
+                   ) -> np.ndarray:
+    """Unit-norm document embeddings (facility-location data selection)."""
+    return gen_images(n, d, classes=clusters, seed=seed)
 
 
 def gen_images_on(n: int, d: int, classes: int = 20, seed: int = 0,

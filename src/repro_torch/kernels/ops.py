@@ -186,7 +186,9 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
     best (B,), raw gain (B,)) (the fused_step kernel on the cache as
     stored; ``plan`` gives a feature rule's rows a chunk of the sum)."""
     kw = {}
-    if not rule.is_bitmap:      # a bitmap matrix is read in place
+    if rule.is_bitmap:  # (B, W, C) over candidate-major (B, C, W) words
+        mat = mat.mT.contiguous().mT
+    else:
         mat, kw["scale"], dtype = _storage(mat)
         kw["block_n"] = (plan.block_n if plan is not None
                          else 0) or fused_block_n(dtype)
@@ -202,7 +204,9 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     (final rows (B, N), bests (B, k) with −1 = rejected, raw gains
     (B, k))."""
     kw = {}
-    if not rule.is_bitmap:      # a bitmap matrix is read in place
+    if rule.is_bitmap:  # (B, W, C) over candidate-major (B, C, W) words
+        mat = mat.mT.contiguous().mT
+    else:
         mat, kw["scale"], dtype = _storage(mat)
         kw["block_n"] = (plan.block_n if plan is not None
                          else 0) or fused_block_n(dtype)

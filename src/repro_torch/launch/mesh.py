@@ -1,0 +1,281 @@
+"""The accumulation tree's machines as ranks of a `torch.distributed`
+process group (answers the tree helpers of `src/repro/launch/mesh.py`:
+`make_machine_mesh`, `make_tree_mesh`, `mesh_devices`, `factor_tree_axes`).
+
+One rank is one machine (a lane of the tree). Lane id = rank, mixed-radix
+over ``radices`` with the level-0 digit lowest: the paper's
+``parent(id, ℓ) = b^ℓ·⌊id/b^ℓ⌋``. Level ℓ's collectives run over the
+rank's level-ℓ subgroup: the ranks that share every digit but digit ℓ,
+in digit order (`level_ranks`) — the row `core/greedyml.py::gather_groups`
+builds for that lane, and the reference's ``lax.all_gather`` over
+``tree_axes[ℓ]``. Axis names are listed outermost first, ``lvl{L-1}`` …
+``lvl0``, as the reference's reversed mesh axes are, so
+`factor_tree_axes` reads alike.
+
+The caller's ``init_process_group`` chooses the backend; nothing here
+switches it. Under gloo a CUDA tensor is staged through the host for
+each collective; NCCL carries it in place (a bool as uint8). NCCL takes
+no two ranks on one device: the mesh refuses such a mapping before any
+collective runs. `force_host_devices`, `make_production_mesh` and
+`make_local_mesh` have no counterpart (JAX and the LLM stack only,
+ROADMAP item 10).
+"""
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+DeviceSpec = Union[None, str, torch.device]
+
+ITEM_5 = "sharded leaves (shard > 1) are not ported yet: ROADMAP A5"
+
+
+def digits(lane: int, radices: Sequence[int]) -> Tuple[int, ...]:
+    """The lane id's mixed-radix digits, level 0 first."""
+    out = []
+    for r in radices:
+        out.append(lane % r)
+        lane //= r
+    return tuple(out)
+
+
+def level_ranks(radices: Sequence[int], lvl: int, lane: int) -> List[int]:
+    """The ranks of `lane`'s level-`lvl` group: every lane that shares all
+    its digits but digit `lvl`, in digit order (ascending ranks)."""
+    inner = math.prod(radices[:lvl])
+    base = lane - digits(lane, radices)[lvl] * inner
+    return [base + d * inner for d in range(radices[lvl])]
+
+
+def level_partition(radices: Sequence[int], lvl: int) -> List[List[int]]:
+    """All level-`lvl` groups, each once, ordered by their first rank —
+    the order every rank creates them in."""
+    lanes = math.prod(radices)
+    seen, out = set(), []
+    for lane in range(lanes):
+        g = level_ranks(radices, lvl, lane)
+        if g[0] not in seen:
+            seen.add(g[0])
+            out.append(g)
+    return out
+
+
+def rank_devices(world: int, device_count: int,
+                 local_world: Optional[int] = None) -> List[torch.device]:
+    """The default placement: rank r on ``cuda:(local_rank % count)``,
+    local_rank = r % local_world (one host: the world)."""
+    if device_count < 1:
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(gloo) to run the ranks on the CPU")
+    local = local_world or world
+    return [torch.device("cuda", (r % local) % device_count)
+            for r in range(world)]
+
+
+def check_devices(backend: str, devices: Sequence[torch.device],
+                  local_world: Optional[int] = None) -> None:
+    """NCCL takes no two ranks on one CUDA device of one host (it would
+    refuse or hang in the first collective): raise first, naming the
+    ranks. Rank r sits on host r // local_world (one host: the world)."""
+    if str(backend).lower() != "nccl":
+        return
+    local = local_world or len(devices)
+    owner: Dict[Tuple[int, torch.device], int] = {}
+    for r, d in enumerate(devices):
+        d = torch.device(d)
+        if d.type != "cuda":
+            raise ValueError(f"NCCL needs CUDA devices; rank {r} is on {d}")
+        key = (r // local, d)
+        if key in owner:
+            raise ValueError(
+                f"NCCL takes no two ranks on one device: ranks {owner[key]} "
+                f"and {r} are both on {d} of host {key[0]}; give each rank "
+                "its own card, or initialise the group with the gloo "
+                "backend")
+        owner[key] = r
+
+
+class TreeMesh:
+    """The tree's view of the default process group: ``radices`` (level 0
+    first), axis names ``lvl{L-1}`` … ``lvl0``, ``shape`` keyed by axis
+    name, the world group, this rank's subgroup at every level
+    (``groups[ℓ]``, None meaning the world) and this rank's ``device``
+    (None: ``cuda:(local_rank % count)``, checked under NCCL for two
+    ranks on one card; else the device given, which NCCL takes only at
+    world size 1).
+
+    ``log``: None, or a list that every collective appends a record to
+    ({'op', 'level', 'bytes', 'seconds'}; the rank's device is
+    synchronised around the call so the seconds are the collective's)."""
+
+    def __init__(self, radices: Sequence[int], *, axis_prefix: str = "lvl",
+                 device: DeviceSpec = None):
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError("call torch.distributed.init_process_group "
+                               "first: the tree's ranks are its processes")
+        self.radices = tuple(int(r) for r in radices)
+        if not self.radices or min(self.radices) < 1:
+            raise ValueError(f"radices must be positive: {radices}")
+        self.world_size = dist.get_world_size()
+        self.rank = dist.get_rank()
+        lanes = math.prod(self.radices)
+        if lanes != self.world_size:
+            raise ValueError(f"the tree {self.radices} has {lanes} machines; "
+                             f"the process group has {self.world_size} ranks")
+        self.backend = str(dist.get_backend()).lower()
+        self.device = self._place(device)
+        self.axis_names = tuple(f"{axis_prefix}{i}"
+                                for i in reversed(range(len(self.radices))))
+        self.shape = {f"{axis_prefix}{i}": r
+                      for i, r in enumerate(self.radices)}
+        self.coords = digits(self.rank, self.radices)
+        self.group = dist.group.WORLD
+        # every rank creates every group of every level, in one order
+        self.groups = [self._level_group(lvl)
+                       for lvl in range(len(self.radices))]
+        self.stage_on_host = (self.backend == "gloo"
+                              and self.device.type == "cuda")
+        self.log: Optional[List[dict]] = None
+
+    def _place(self, device: DeviceSpec) -> torch.device:
+        if device is not None:
+            if self.backend == "nccl" and self.world_size > 1:
+                raise ValueError("under NCCL with more than one rank leave "
+                                 "device=None: the default placement is "
+                                 "checked for two ranks on one card")
+            return torch.device(device)
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "0")) or None
+        devices = rank_devices(self.world_size,
+                               torch.cuda.device_count()
+                               if torch.cuda.is_available() else 0,
+                               local_world)
+        check_devices(self.backend, devices, local_world)
+        return devices[self.rank]
+
+    def _level_group(self, lvl: int):
+        mine = None
+        for ranks in level_partition(self.radices, lvl):
+            if len(ranks) == self.world_size:
+                g = None                       # the world itself
+            else:
+                g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = g
+        return mine
+
+    @property
+    def lanes(self) -> int:
+        return self.world_size
+
+    def flat(self) -> "TreeMesh":
+        """One level over every rank (RandGreedi's tree), same device."""
+        m = TreeMesh.__new__(TreeMesh)
+        m.__dict__.update(self.__dict__)
+        m.radices = (self.world_size,)
+        m.axis_names = ("lvl0",)
+        m.shape = {"lvl0": self.world_size}
+        m.coords = (self.rank,)
+        m.groups = [None]
+        return m
+
+    # --------------------------------------------------------- collectives
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        t = x.detach()
+        if self.stage_on_host:
+            t = t.cpu()
+        if t.dtype == torch.bool:
+            t = t.to(torch.uint8)
+        return t.contiguous()
+
+    def _unwire(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return t.to(device=like.device, dtype=like.dtype)
+
+    def _record(self, op: str, lvl, nbytes: int, t0: float) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.log.append({"op": op, "level": lvl, "bytes": nbytes,
+                         "seconds": time.perf_counter() - t0})
+
+    def _start(self) -> float:
+        if self.log is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def all_gather(self, lvl: int, x: torch.Tensor) -> torch.Tensor:
+        """Concatenate `x` (n, …) of every rank of this rank's level-`lvl`
+        group along dim 0, in digit order (lax.all_gather, tiled)."""
+        t0 = self._start()
+        t = self._wire(x)
+        parts = [torch.empty_like(t) for _ in range(self.radices[lvl])]
+        dist.all_gather(parts, t, group=self.groups[lvl])
+        out = self._unwire(torch.cat(parts, 0), x)
+        if self.log is not None:
+            self._record("all_gather", lvl, t.numel() * t.element_size()
+                         * len(parts), t0)
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank `src`'s `x` on every rank, in a new tensor (`x` is left
+        as it was)."""
+        t0 = self._start()
+        t = self._wire(x)
+        if t.data_ptr() == x.data_ptr():
+            t = t.clone()
+        dist.broadcast(t, src=src)
+        out = self._unwire(t, x)
+        if self.log is not None:
+            self._record("broadcast", None, t.numel() * t.element_size(),
+                         t0)
+        return out
+
+
+def make_tree_mesh(radices: Sequence[int], shard: int = 1,
+                   axis_prefix: str = "lvl",
+                   device: DeviceSpec = None) -> TreeMesh:
+    """The tree mesh of a planned tree over the default process group:
+    level ℓ gathers over axis f"{axis_prefix}{ℓ}". ``shard`` > 1 (leaves
+    split over cooperating ranks) is not ported (ROADMAP A5)."""
+    if int(shard) != 1:
+        raise NotImplementedError(ITEM_5)
+    if not tuple(radices):
+        raise ValueError("empty tree with no sharding needs no mesh")
+    return TreeMesh(radices, axis_prefix=axis_prefix, device=device)
+
+
+def make_machine_mesh(m: int, b: int, axis_prefix: str = "lvl",
+                      device: DeviceSpec = None) -> TreeMesh:
+    """The tree T(m, L, b) over the default process group: m = b^L ranks,
+    level ℓ over axis f"{axis_prefix}{ℓ}"."""
+    if m <= 0 or b <= 1:
+        raise ValueError(f"need m>0, b>1; got m={m} b={b}")
+    L = int(round(math.log(m, b)))
+    if b ** L != m:
+        raise ValueError(f"the tree driver needs m=b^L; got m={m} b={b} "
+                         f"(use core.simulate for ragged trees)")
+    return make_tree_mesh((b,) * L, axis_prefix=axis_prefix, device=device)
+
+
+def mesh_devices(mesh: TreeMesh) -> int:
+    return math.prod(mesh.shape.values())
+
+
+def factor_tree_axes(mesh: TreeMesh,
+                     leaf_axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    """Order existing mesh axes into accumulation-tree levels (innermost
+    level first)."""
+    return tuple(reversed([a for a in leaf_axes if a in mesh.shape]))
+
+
+def local_block(x, mesh: TreeMesh):
+    """This rank's contiguous block of a global (n, …) array: lane i takes
+    block i, as `core/greedyml.py::shard_lanes` cuts it."""
+    n = x.shape[0]
+    if n % mesh.lanes:
+        raise ValueError(f"n={n} must divide over {mesh.lanes} lanes")
+    per = n // mesh.lanes
+    return x[mesh.rank * per:(mesh.rank + 1) * per]

@@ -1,6 +1,6 @@
 """Typed environment knobs of the port (answers `src/repro/runtime/flags.py`).
 
-Only the accessors the single-device selection path reads. The variables
+Only the accessors the selection path reads. The variables
 carry a ``REPRO_TORCH_`` prefix so a process that drives both packages
 (the parity tests) can shrink one package's budgets without touching the
 other's. Accessors re-read the environment on every call, so
@@ -39,6 +39,12 @@ TPU budgets of the reference:
                                 also stores the ground features of the
                                 per-step gains and of the stream filter
                                 per-row-quantized.
+  REPRO_TORCH_STREAM_BATCH      arrivals a batch of the streaming
+                                coreset selection (data/selection.py).
+                                Default 128, the reference's: a sieve
+                                re-anchors once a batch, so the batch
+                                size is part of the output, not a
+                                device budget.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ FUSED_CACHE_MB_ENV = "REPRO_TORCH_FUSED_CACHE_MB"
 FUSED_VMEM_MB_ENV = "REPRO_TORCH_FUSED_VMEM_MB"
 RESIDENT_L2_MB_ENV = "REPRO_TORCH_RESIDENT_L2_MB"
 FUSED_CACHE_DTYPE_ENV = "REPRO_TORCH_FUSED_CACHE_DTYPE"
+STREAM_BATCH_ENV = "REPRO_TORCH_STREAM_BATCH"
 
 H100_HBM_MB = 80 * 1024
 H100_L2_MB = 50.0
@@ -56,11 +63,19 @@ H100_SMEM_PER_BLOCK = 232_448          # bytes, 227 KB
 _FUSED_CACHE_MB_DEFAULT = H100_HBM_MB / 2            # 40,960 MB
 _FUSED_VMEM_MB_DEFAULT = H100_SMEM_PER_BLOCK / 2 ** 20  # 0.2217 MB
 _RESIDENT_L2_MB_DEFAULT = H100_L2_MB / 2             # 25 MB
+_STREAM_BATCH_DEFAULT = 128
 
 
 def _env_float(name: str, default: float) -> float:
     try:
         return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
     except ValueError:
         return default
 
@@ -84,3 +99,8 @@ def fused_cache_dtype() -> str:
     """Cache storage dtype preference: 'auto' | 'f32' | 'bf16' | 'int8'."""
     v = os.environ.get(FUSED_CACHE_DTYPE_ENV, "auto").lower()
     return v if v in ("auto", "f32", "bf16", "int8") else "auto"
+
+
+def stream_batch() -> int:
+    """Default arrival batch size B of the streaming coreset selection."""
+    return max(1, _env_int(STREAM_BATCH_ENV, _STREAM_BATCH_DEFAULT))

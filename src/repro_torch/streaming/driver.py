@@ -14,27 +14,32 @@ source), on the objective's device:
     children's summaries plus the fixed evaluation set, argmax{f(S),
     f(S_prev)}), then select_better'd against the last merged solution,
     so the answer only improves between merges.
+  * ``stream_select_distributed`` — the same continuous mode over the
+    ranks of a process group (``ContinuousSelector(mesh=`` a
+    launch/mesh.py::TreeMesh ``)``): each rank sieves its contiguous
+    share of every batch, and the merges gather over the ranks' level
+    subgroups.
 
-The merge runs core/greedyml.py::accumulate_one_level level by level
-over the stacked lanes — the reference's `accumulate_levels` under
-nested vmap — with the evaluation set as each level's augmentation, then
-replays the carried solution on the root's ground, as
-`accumulate_levels` does with `carry_prev`; lane 0 holds the root.
+Every merge goes through core/greedyml.py::accumulate_levels (the
+stacked lanes, or this rank's lane over the mesh) with the evaluation
+set as each level's augmentation and the last merged solution as
+``carry_prev``; the answer is machine 0's solution.
 
 Not ported: checkpoint/resume (``ckpt_dir``, ``resume``) and the
 supervised merge (``supervisor``) need checkpoint/manager.py and
-runtime/supervisor.py (ROADMAP item 7) and raise NotImplementedError;
-``stream_select_distributed`` needs a device mesh (ROADMAP item 3).
+runtime/supervisor.py (ROADMAP item 7) and raise NotImplementedError.
 """
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.greedy import Solution, replay_value, select_better
-from repro_torch.core.greedyml import LaneSampler, accumulate_one_level
+from repro_torch.core.greedy import Solution
+from repro_torch.core.greedyml import (LaneSampler, accumulate_levels,
+                                       check_tree_axes, root_solution)
+from repro_torch.launch.mesh import TreeMesh
 from repro_torch.streaming.sieve import SieveStreamer
 
 ITEM_7 = ("checkpoint/resume and the supervised merge wait for "
@@ -62,36 +67,47 @@ def stream_select(objective, stream: Iterable, k: int, *, eps: float = 0.1,
 
 
 class ContinuousSelector:
-    """Push-driven core of the continuous mode: `lanes` stacked sieves +
-    periodic GreedyML tree merges. push(ids, payloads, valid) folds one
-    batch, split equally over the lanes (lane i takes the i-th block),
-    into all lanes in one stream-filter launch and merges every
+    """Push-driven core of the continuous mode: lane sieves + periodic
+    GreedyML tree merges. push(ids, payloads, valid) folds one batch,
+    split equally over the lanes (lane i takes the i-th block), into the
+    lane sieves in one stream-filter launch and merges every
     `merge_every` pushes; result() returns the current merged Solution,
-    merging any unmerged tail first. ``lanes`` must be branching^levels;
-    ``sample_level``/``seed``: stochastic greedy at the merge nodes, with
-    draws from core/greedyml.LaneSampler (torch cannot reproduce the
-    reference's PRNG stream)."""
+    merging any unmerged tail first. ``mesh``: None keeps `lanes`
+    stacked sieves on one device (``lanes`` must be branching^levels);
+    a launch/mesh.py::TreeMesh gives this rank its own lane (lane =
+    rank, the mesh's tree; `lanes` and `branching` are ignored) and
+    merges over the ranks. ``sample_level``/``seed``: stochastic greedy
+    at the merge nodes, with draws from core/greedyml.LaneSampler (torch
+    cannot reproduce the reference's PRNG stream)."""
 
     def __init__(self, objective, k: int, *, lanes: int = 4,
                  branching: int = 0, merge_every: int = 4,
                  eps: float = 0.1, ground=None, ground_valid=None,
                  node_engine: str = "auto", sample_level: int = 0,
-                 seed: Optional[int] = None, supervisor=None):
+                 seed: Optional[int] = None, supervisor=None,
+                 mesh: Optional[TreeMesh] = None):
         if supervisor is not None:
             raise NotImplementedError(ITEM_7)
-        self.objective, self.k = objective, k
+        if mesh is not None and not isinstance(mesh, TreeMesh):
+            raise TypeError("mesh: a launch/mesh.py TreeMesh over the "
+                            f"process group, or None; got {mesh!r}")
+        if mesh is None:
+            b = branching or lanes
+            levels = max(1, round(math.log(lanes, b))) if lanes > 1 else 0
+            if b ** levels != lanes:
+                raise ValueError(f"lanes ({lanes}) must be "
+                                 f"branching^levels (b={b})")
+            self.radices = (b,) * levels
+        else:
+            lanes, self.radices = mesh.lanes, mesh.radices
+            b, levels = self.radices[0], len(self.radices)
+        self.objective, self.k, self.mesh = objective, k, mesh
         self.lanes, self.merge_every = lanes, merge_every
+        self.branching, self.levels = b, levels
         self.node_engine, self.sample_level = node_engine, sample_level
         self.sampler = LaneSampler(0 if seed is None else seed)
         self.streamer = SieveStreamer(objective, k, eps, ground=ground,
                                       ground_valid=ground_valid)
-        b = branching or lanes
-        levels = max(1, round(math.log(lanes, b))) if lanes > 1 else 0
-        if b ** levels != lanes:
-            raise ValueError(f"lanes ({lanes}) must be branching^levels "
-                             f"(b={b})")
-        self.branching, self.levels = b, levels
-        self.radices = (b,) * levels
         self.states: Optional[object] = None
         self.merged: Optional[Solution] = None
         self.merges, self.batches = [], 0
@@ -99,27 +115,20 @@ class ContinuousSelector:
         self._dirty = False
 
     def _merge_round(self, states, merged: Optional[Solution]) -> Solution:
-        obj, k = self.objective, self.k
-        sols = self.streamer.solution(states)             # (lanes, …)
-        ground, gvalid = sols.payloads, sols.valid
-        for lvl in range(self.levels):
-            n = self.radices[lvl] * k
-            draws = (self.sampler(1 + lvl, self.lanes, k, n,
-                                  self.sample_level)
-                     if 0 < self.sample_level < n else None)
-            sols, ground, gvalid = accumulate_one_level(
-                obj, sols, k, self.radices, lvl, aug=self.streamer.ground,
-                cand_idx=draws, sample=self.sample_level,
-                node_engine=self.node_engine)
-        root = sols.map(lambda x: x[:1])
-        if merged is not None:
-            carry = merged.map(lambda x: x.unsqueeze(0))
-            score = replay_value(obj, carry.payloads, carry.valid,
-                                 ground[:1], gvalid[:1])
-            root = select_better(root, Solution(carry.ids, carry.payloads,
-                                                carry.valid, score,
-                                                carry.evals))
-        return root.map(lambda x: x[0])
+        """The lanes' sieve summaries up the accumulation tree (the
+        evaluation set each level's augmentation), the last merged
+        solution carried; machine 0's answer (on every rank over a
+        mesh)."""
+        st = self.streamer
+        sols = st.solution(states)                     # (lanes | 1, …)
+        aug = None if st.ground is None else [st.ground] * self.levels
+        out = accumulate_levels(self.objective, sols, self.k, self.radices,
+                                aug_levels=aug,
+                                sample_level=self.sample_level,
+                                node_engine=self.node_engine,
+                                carry_prev=merged, sampler=self.sampler,
+                                mesh=self.mesh)
+        return root_solution(out, self.mesh)
 
     def push(self, ids, payloads, valid) -> "ContinuousSelector":
         """Fold one arrival batch (split equally over the lanes) into the
@@ -129,14 +138,17 @@ class ContinuousSelector:
             raise ValueError(f"batch {nb} must split over {self.lanes} "
                              "lanes")
         shp = (self.lanes, nb // self.lanes)
+        mine = (slice(None) if self.mesh is None
+                else slice(self.mesh.rank, self.mesh.rank + 1))
         pay = torch.as_tensor(payloads)
         if self.states is None:
-            self.states = self.streamer.init(pay, lanes=self.lanes)
+            self.states = self.streamer.init(
+                pay, lanes=self.lanes if self.mesh is None else 1)
             self.tier = self.streamer.plan(shp[1])["tier"]
         self.states = self.streamer.process_batch(
-            self.states, torch.as_tensor(ids).reshape(shp),
-            pay.reshape(shp + pay.shape[1:]),
-            torch.as_tensor(valid).reshape(shp))
+            self.states, torch.as_tensor(ids).reshape(shp)[mine],
+            pay.reshape(shp + pay.shape[1:])[mine],
+            torch.as_tensor(valid).reshape(shp)[mine])
         self.batches += 1
         self._dirty = True
         if self.batches % self.merge_every == 0:
@@ -192,8 +204,35 @@ def stream_select_continuous(objective, stream: Iterable, k: int, *,
     return sel.result(), sel.info()
 
 
-def stream_select_distributed(*args, **kwargs):
-    """The continuous mode over a real device mesh: not ported (ROADMAP
-    item 3, distributed GreedyML over torch.distributed)."""
-    raise NotImplementedError(
-        "stream_select_distributed needs a device mesh: ROADMAP item 3")
+def stream_select_distributed(objective, stream: Iterable, k: int,
+                              mesh: TreeMesh,
+                              tree_axes: Optional[Sequence[str]] = None, *,
+                              merge_every: int = 4, eps: float = 0.1,
+                              ground=None, ground_valid=None,
+                              node_engine: str = "auto",
+                              sample_level: int = 0,
+                              seed: Optional[int] = None
+                              ) -> Tuple[Solution, dict]:
+    """The continuous mode over the ranks of `mesh`, one lane a rank: a
+    loop over `ContinuousSelector(mesh=mesh)`. Every rank iterates the
+    whole stream and sieves its contiguous share of each batch (batch %
+    lanes == 0); every `merge_every` batches (and once more for a tail)
+    the lanes' summaries merge over the ranks. Merge for merge it equals
+    `stream_select_continuous` with the same lanes and branching.
+    ``tree_axes``, if given, must be the mesh's levels innermost first.
+    Returns (merged Solution, the same on every rank, {"merges",
+    "batches", "lanes"})."""
+    if not isinstance(mesh, TreeMesh):
+        raise TypeError("stream_select_distributed runs over a "
+                        "launch/mesh.py TreeMesh (the process group's "
+                        f"ranks); got {mesh!r}")
+    check_tree_axes(mesh, tree_axes)
+    sel = ContinuousSelector(objective, k, merge_every=merge_every,
+                             eps=eps, ground=ground,
+                             ground_valid=ground_valid,
+                             node_engine=node_engine,
+                             sample_level=sample_level, seed=seed, mesh=mesh)
+    for ids, pay, valid in stream:
+        sel.push(ids, pay, valid)
+    return sel.result(), {"merges": sel.merges, "batches": sel.batches,
+                          "lanes": sel.lanes}

@@ -159,6 +159,25 @@ def test_cuda_greedy_loop_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
+def test_cuda_bitmap_loop_takes_a_stacked_union(cuda):
+    """A stacked level's union of candidate words (gather_groups: one
+    union shared by its 8 lanes through a stride-0 view) goes through
+    ops.greedy_loop's kernel and gives the bits of the plain version on
+    the same words stored contiguously."""
+    from repro_torch.core.greedyml import gather_groups
+    union = gather_groups(_words((8, 30, 45), 7, cuda), (8,), 0)
+    assert not union.is_contiguous()
+    row = _words((8, 45), 17, cuda)
+    mask = torch.ones(8, 240, device=cuda)
+    counters.reset()
+    got = ops.greedy_loop(union.mT, row, mask, 12, TR.BITS_OR)
+    assert counters.snapshot()["greedy_loop[coverage]"]["launches"] == 1
+    want = TL.greedy_loop_plain(union.contiguous().mT, row, mask, 12,
+                                TR.BITS_OR)
+    assert parity.compare_exact(got, want)["accepted"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(KERNEL_RULES))
 def test_cuda_resident_kernel_matches_plain(cuda, name, monkeypatch):
     tr = KERNEL_RULES[name]
@@ -1216,3 +1235,104 @@ def test_cuda_gains_int8_ground(cuda, name, shape):
                          "gains[int8] vs the f32 kernel")
     parity.compare_gains(got, TP.gains_plain(q, row, cd, cv, tr, scale),
                          deq, row, cd, tr)
+
+
+# ---------------------------------------------------------------------------
+# distributed GreedyML on the card: gloo ranks sharing it, NCCL at world 1
+# ---------------------------------------------------------------------------
+
+
+def _dist_cuda_rank(rank, x, k, radices):
+    """A rank of the card's gloo group: its block of x through
+    greedyml_distributed and randgreedi_distributed, on cuda:0."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import (greedyml_distributed,
+                                           randgreedi_distributed)
+    from repro_torch.launch.mesh import local_block, make_tree_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = make_tree_mesh(radices, device=dev)
+    assert mesh.stage_on_host
+    obj = make_objective("kcover", universe=x.shape[1] * 32, device=dev)
+    n = x.shape[0]
+    ids = local_block(torch.arange(n, device=dev), mesh)
+    pay = local_block(x, mesh)
+    val = torch.ones(pay.shape[0], dtype=torch.bool, device=dev)
+    counters.reset()
+    out = {}
+    for algo, fn in (("greedyml", greedyml_distributed),
+                     ("randgreedi", randgreedi_distributed)):
+        sol = fn(obj, ids, pay, val, k, mesh)
+        out[algo] = (sol.ids.cpu(), sol.valid.cpu(), float(sol.value))
+    out["launches"] = {n_: c["launches"] for n_, c in
+                       counters.snapshot().items() if c["launches"]}
+    return out
+
+
+def _stacked_kcover_root(x, k, radices):
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import (LevelDispatcher, root_solution,
+                                           shard_lanes)
+    obj = make_objective("kcover", universe=x.shape[1] * 32,
+                         device=x.device)
+    disp = LevelDispatcher(obj, k, radices)
+    n = x.shape[0]
+    sols = disp.leaves(*shard_lanes(
+        torch.arange(n, device=x.device), x,
+        torch.ones(n, dtype=torch.bool, device=x.device), disp.lanes))
+    for lvl in range(disp.num_levels):
+        sols = disp.level(sols, lvl)
+    return root_solution(sols)
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_ranks_on_the_card_equal_stacked_lanes(cuda, tmp_path):
+    """2 spawned gloo ranks on the one card (collectives staged through
+    the host): greedyml_distributed and randgreedi_distributed equal the
+    stacked LevelDispatcher(mesh=None) bit for bit, and each rank
+    launched the bitmap loops on the card."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.spawn import run_ranks
+    for name in build.SOURCES:                  # built before the spawn
+        build.load(name)
+    x = _words((512, 24), seed=3, device=cuda)
+    results = run_ranks(_dist_cuda_rank, 2, args=(x, 8, (2,)),
+                        timeout=300, workdir=str(tmp_path))
+    want = _stacked_kcover_root(x, 8, (2,))
+    for res in results:
+        for algo in ("greedyml", "randgreedi"):
+            ids, valid, value = res[algo]
+            assert torch.equal(ids, want.ids.cpu()), (algo, ids, want.ids)
+            assert torch.equal(valid, want.valid.cpu())
+            assert value == float(want.value)
+        assert sum(res["launches"].values()) >= 4, res["launches"]
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world_of_one_equals_stacked_lanes(cuda):
+    """NCCL at world size 1 in this process (a HashStore): the tree's
+    collectives run on the card, and the root equals
+    LevelDispatcher(mesh=None, radices=(1,)) bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import greedyml_distributed
+    from repro_torch.launch.mesh import make_tree_mesh
+    if not dist.is_nccl_available():
+        pytest.skip("this torch build has no NCCL")
+    x = _words((300, 20), seed=5, device=cuda)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = make_tree_mesh((1,))
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        obj = make_objective("kcover", universe=640, device=cuda)
+        n = x.shape[0]
+        sol = greedyml_distributed(
+            obj, torch.arange(n, device=cuda), x,
+            torch.ones(n, dtype=torch.bool, device=cuda), 8, mesh)
+    finally:
+        dist.destroy_process_group()
+    want = _stacked_kcover_root(x, 8, (1,))
+    assert torch.equal(sol.ids, want.ids)
+    assert torch.equal(sol.valid, want.valid)
+    assert float(sol.value) == float(want.value)

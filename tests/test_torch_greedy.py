@@ -133,13 +133,14 @@ def test_registry_matches_reference():
 
 def test_constraint_and_sampling_are_not_ported_yet():
     """Constrained and stochastic greedy run on one device (see
-    tests/test_torch_constraints.py); their distributed half — a device
-    mesh, sharded leaves — is not ported yet and raises."""
+    tests/test_torch_constraints.py) and over a process group's ranks
+    (tests/test_torch_distributed.py); a mesh that is not a TreeMesh is
+    refused, and sharded leaves are not ported yet and raise."""
     from repro_torch.core.constraints import KnapsackSpec
     from repro_torch.core.greedyml import LevelDispatcher
     obj = t_make("facility", device="cpu")
     spec = KnapsackSpec(torch.ones(30), 4.0)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(TypeError, match="TreeMesh"):
         LevelDispatcher(obj, 3, (2,), mesh=object(), constraint=spec,
                         sample_leaf=5)
     with pytest.raises(NotImplementedError, match="A5"):

@@ -632,7 +632,8 @@ def test_unported_drivers_raise_naming_the_roadmap():
         stream_select(to, ts, K, resume=True)
     with pytest.raises(NotImplementedError, match="item 7"):
         stream_select_continuous(to, ts, K, supervisor=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # ported (tests/test_torch_distributed.py): it needs a TreeMesh
+    with pytest.raises(TypeError, match="TreeMesh"):
         t_driver.stream_select_distributed(to, ts, K, None, ("x",))
 
 
