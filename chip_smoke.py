@@ -209,6 +209,41 @@ card and its collectives staging the k-row solutions through the host):
                           the 8-rank group, every rank's ids equal to the
                           stacked dispatcher's over the same blocks
 
+and the sharded leaf tier, the lazy Minoux engine and the tree planner:
+
+  sharded_kmedoid         (after stochastic_int8) the first 4 of the
+                          stochastic lanes' pools (3,125 images each),
+                          each padded and split over 4 stacked shard
+                          lanes, LevelDispatcher((2, 2), shard=4): 200 ·
+                          n_s / tile_c gains launches for all 16 lanes +
+                          1 gains_norms; each machine's leaf equal to
+                          greedy_batch(engine='step') on its pool (or a
+                          float64-proven tie), the levels bit for bit to
+                          an unsharded LevelDispatcher((2, 2)) run from
+                          the same leaves; one tile's gains launch held
+                          against its plain version (float64 ratio
+                          rule) and timed beside its bound, its bytes
+  lazy_kmedoid            run_tree_lazy (DenseMedoid on the card) over
+                          the first 25,000 images, T(32, 2), k = 200,
+                          beside run_tree_dense on them; on small
+                          integers the card's selections and evals equal
+                          the CPU's
+  lazy_kcover             (after kcover_run) run_tree_lazy over the
+                          kosarak sets on the host: the dense root's
+                          value, levels and comm, fewer evals; the lazy
+                          Greedy over all sets against run_greedy_dense
+                          on the card
+  sharded_distributed     (after coreset) 4 spawned gloo ranks as one
+                          machine's shard lanes, shard_greedy_distributed
+                          on gen_embeddings(8,192, 256), k = 64: every
+                          rank bit for bit equal to shard_greedy_sim,
+                          the stacked launches a rank, the gathers'
+                          bytes and seconds
+  plan_tree               plans.plan_tree at paper_kmedoid, paper_kcover
+                          (words=) and paper_kdom over 32 lanes, at the
+                          default budget and one just below the smallest
+                          leaf cache
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -1930,7 +1965,8 @@ def random_words(torch, shape, seed: int, device):
 def phase_data_kcover(torch, cfg, avg_size: float, dev):
     """The KOSARAK bitmaps: gen_kcover + pack_bitmaps on the host (the
     reference's recipe, from the seed), then the words placed on the
-    card once as int32 (rules.to_words reinterprets, no host copy)."""
+    card once as int32 (rules.to_words reinterprets, no host copy);
+    → (bits, words, the sets' adjacency lists for the lazy engine)."""
     from repro_torch.data.synthetic import gen_kcover, pack_bitmaps
     from repro_torch.kernels.rules import to_words
     t0 = time.perf_counter()
@@ -1938,7 +1974,6 @@ def phase_data_kcover(torch, cfg, avg_size: float, dev):
     t_gen = time.perf_counter() - t0
     sizes = np.fromiter((len(x) for x in sets), np.int64, len(sets))
     bits = pack_bitmaps(sets, cfg.universe)
-    del sets
     t_pack = time.perf_counter() - t0 - t_gen
     words = to_words(bits).to(dev)
     torch.cuda.synchronize()
@@ -1950,7 +1985,7 @@ def phase_data_kcover(torch, cfg, avg_size: float, dev):
           "gigabytes": bits.nbytes / 1e9, "words_with_bit31": top,
           "gen_seconds": t_gen, "pack_seconds": t_pack,
           "seconds": time.perf_counter() - t0})
-    return bits, words
+    return bits, words, sets
 
 
 def phase_parity_coverage(torch, words, cfg, pools):
@@ -2114,7 +2149,8 @@ def _resident_coverage_parity(torch, words, nodes: int, bk: int, k: int,
 
 
 def _coverage_tree(torch, name, bits, words, cfg, phase: str):
-    """run_tree_dense on bitmaps at a full configuration: the leaves on
+    """run_tree_dense on bitmaps at a full configuration (→ launch totals,
+    its SimResult): the leaves on
     the streaming loop (1 launch), every level on the resident loop (1
     launch), no pairwise launch anywhere (a bitmap matrix is a view);
     the leaf stage's device allocation held to the planner's cache bytes
@@ -2195,7 +2231,7 @@ def _coverage_tree(torch, name, bits, words, cfg, phase: str):
           "global_value_seconds": rescore_s, "root_ids": len(ids),
           "evals_total": res.evals_total,
           "comm_elements": res.comm_elements})
-    return totals, res.root_value
+    return totals, res
 
 
 def phase_kcover_knapsack(torch, words, cfg, pools):
@@ -3991,6 +4027,389 @@ def phase_coreset(torch, cfg, dev: str = "cuda:0", n: int = CORESET_N,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded leaf tier, the lazy engine and the tree planner
+# ---------------------------------------------------------------------------
+
+SHARD_MACHINES, SHARD_LANES = 4, 4
+SHARD_DIST_N, SHARD_DIST_D, SHARD_DIST_K = 8_192, 256, 64
+LAZY_KMEDOID_N = 25_000
+
+
+def _shard_machine_lanes(torch, pools, shard: int, tile: int):
+    """Stacked (machines·shard, n_s, …) lanes of machine pools (M, n, …):
+    each pool padded by shard_gains.pad_pool and cut into `shard` lanes,
+    machine-major (lane = machine·shard + shard digit)."""
+    from repro_torch.kernels.shard_gains import pad_pool
+    out = ([], [], [])
+    for m in range(pools[0].shape[0]):
+        for dst, t in zip(out, pad_pool(*(p[m] for p in pools), shard,
+                                        tile)):
+            dst.append(t.reshape((shard, -1) + tuple(t.shape[1:])))
+    return tuple(torch.cat(x) for x in out)
+
+
+def _hold_leaf(torch, parity, rule, pool, valid, pool_ids, want, got,
+               what: str) -> int:
+    """One greedy against another over the same pool: ids and valid equal
+    (then evals equal, values within the reference's 1e-5), or the first
+    difference a tie float64 proves (parity.selection_tie, ROADMAP §C
+    P1). Returns 1 at a tie."""
+    if torch.equal(want.ids, got.ids):
+        assert torch.equal(want.valid, got.valid), what
+        assert int(want.evals) == int(got.evals), (what, int(want.evals),
+                                                   int(got.evals))
+        w, g = float(want.value), float(got.value)
+        assert abs(g - w) <= 1e-5 + 1e-5 * abs(w), (what, w, g)
+        return 0
+    assert parity.selection_tie(pool, valid, pool_ids, want.ids, got.ids,
+                                rule), (what, want.ids.tolist(),
+                                        got.ids.tolist())
+    return 1
+
+
+def phase_sharded_kmedoid(torch, x, cfg, pools, reps: int,
+                          machines: int = SHARD_MACHINES,
+                          shard: int = SHARD_LANES):
+    """The sharded leaf tier at the full width: the first `machines` of the
+    stochastic run's lane pools (3,125 images each), each split over
+    `shard` stacked lanes, through LevelDispatcher((2, 2), shard=4) with
+    the tile of shard_plan at the default budget: leaves k · n_s / tile_c
+    gains launches for all 16 lanes + one gains_norms; each machine's
+    leaf against greedy_batch(engine='step') on its pool, up to a tie
+    that float64 proves; the levels above against an unsharded
+    LevelDispatcher((2, 2)) run from the same leaves (one lane a
+    machine; both on the resident loop, bit for bit); one tile's gains
+    launch at this shape held against its plain version under the
+    float64 ratio rule and timed beside its bound. Returns the launches
+    and the tile's largest |kernel − plain| gain."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedy import greedy_batch
+    from repro_torch.core.greedyml import LevelDispatcher
+    from repro_torch.kernels import counters, ops, pairwise as P, parity
+    from repro_torch.kernels import plans
+    from repro_torch.kernels import rules as R
+    from repro_torch.kernels.shard_gains import resolve_tile_c
+    ids, pay, valid = (t[:machines] for t in pools)
+    obj = make_objective("kmedoid", device=x.device)
+    k, n, d = cfg.k, ids.shape[1], pay.shape[-1]
+    plan = plans.shard_plan(obj.rule, n, d, shard)
+    tile = resolve_tile_c(obj.rule, n, d, shard)
+    assert tile == plan["tile_c"], (tile, plan)
+    lanes = _shard_machine_lanes(torch, (ids, pay, valid), shard, tile)
+    n_s = lanes[0].shape[1]
+    radices = (cfg.branching,) * round(math.log(machines, cfg.branching))
+    disp = LevelDispatcher(obj, k, radices, shard=shard)
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    leaves = disp.leaves(*lanes)
+    torch.cuda.synchronize()
+    leaf_s = time.perf_counter() - t0
+    launches = {nm: c["launches"] for nm, c in counters.snapshot().items()
+                if c["launches"]}
+    want = {"gains": k * n_s // tile, "gains_norms": 1}
+    assert launches == want, (launches, want)
+    sols, level_s = leaves, []
+    for lvl in range(len(radices)):
+        counters.reset()
+        t0 = time.perf_counter()
+        sols = disp.level(sols, lvl)
+        torch.cuda.synchronize()
+        level_s.append(time.perf_counter() - t0)
+        got = {nm: c["launches"] for nm, c in counters.snapshot().items()
+               if c["launches"]}
+        assert got == {"greedy_loop_resident": 1, "pairwise": 1}, got
+    for i in range(machines * shard):       # a machine's lanes alike
+        assert torch.equal(leaves.ids[i], leaves.ids[i - i % shard])
+        assert torch.equal(sols.ids[i], sols.ids[i - i % shard])
+    # each machine's leaf against the step engine on its whole pool
+    t0 = time.perf_counter()
+    step = greedy_batch(obj, ids, pay, valid, k, engine="step")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    pick = lambda sol, i: sol.map(lambda t: t[i])
+    ties = sum(_hold_leaf(torch, parity, obj.rule, pay[m], valid[m], ids[m],
+                          pick(step, m), pick(leaves, m * shard),
+                          f"machine {m} vs step")
+               for m in range(machines))
+    # the levels against the unsharded dispatcher (levels on the resident
+    # loop) from the same leaves, one lane a machine: bit for bit, whether
+    # or not a leaf split from the step engine's at a tie
+    plain = LevelDispatcher(obj, k, radices, engine="step",
+                            node_engine="auto")
+    same_leaves = all(torch.equal(step.ids[m], leaves.ids[m * shard])
+                      for m in range(machines))
+    p_sols = leaves.map(lambda t: t[::shard].contiguous())
+    for lvl in range(len(radices)):
+        p_sols = plain.level(p_sols, lvl)
+    assert torch.equal(p_sols.ids[0], sols.ids[0]), (
+        p_sols.ids[0].tolist(), sols.ids[0].tolist())
+    assert torch.equal(p_sols.valid[0], sols.valid[0])
+    assert float(p_sols.value[0]) == float(sols.value[0])
+    root = pick(sols, 0)
+    root_ids = root.ids[root.valid].cpu().numpy()
+    # one tile's gains launch at the sharded shape: every lane's ground,
+    # on a live row (five of its rows folded in), against its machine's
+    # gathered (shard·tile, d) tile, the last candidate masked
+    g = lanes[1]
+    row = R.empty_row(g, lanes[2], obj.rule)
+    for j in range(5):
+        row = R.update_row(g, row, g[:, 97 * j % n_s], obj.rule)
+    row = row.contiguous()
+    b, c = g.shape[0], shard * tile
+    tile_pay = g[:, :tile].reshape(machines, c, d)
+    cands = tile_pay.repeat_interleave(shard, dim=0)
+    cv = torch.ones(b, c, dtype=torch.bool, device=x.device)
+    cv[:, -1] = False
+    gnorm = ops.gains_norms(g)
+    got = P.gains(g, row, cands, cv, obj.rule, gnorm=gnorm)
+    plain_g = P.gains_plain(g, row, cands, cv, obj.rule)
+    tile_stats = parity.compare_gains(got, plain_g, g, row, cands, obj.rule,
+                                      "gains at the sharded shape")
+    fin = torch.isfinite(plain_g)
+    tile_err = float((got[fin] - plain_g[fin]).abs().max())
+    tile_stats["max_abs_err"] = tile_err
+    del got, plain_g, fin
+    flops = 2.0 * b * n_s * c * d + 2.0 * b * c * d + 4.0 * b * n_s * c
+    nbytes = 4.0 * (b * n_s * d + b * c * d + 2 * b * n_s + b * c)
+    bms, by = bound(flops, nbytes)
+    gains_ms = cuda_ms(torch, lambda: P.gains(g, row, cands, cv, obj.rule,
+                                              gnorm=gnorm), reps)
+    plain_ms = cuda_ms(torch, lambda: P.gains_plain(g, row, cands, cv,
+                                                    obj.rule), 1)
+    lib_ms = cuda_ms(torch, lambda: torch.cdist(
+        g, cands, compute_mode="use_mm_for_euclid_dist"), reps)
+    del cands, tile_pay
+    emit({"phase": "sharded_kmedoid", "machines": machines, "shard": shard,
+          "lanes": machines * shard, "radices": list(radices), "k": k,
+          "pool": n, "n_s": n_s, "tile_c": tile,
+          "shard_plan_bytes": plan["bytes"],
+          "leaf_stage_seconds": leaf_s, "level_seconds": level_s,
+          "step_engine_seconds": step_s, "leaf_launches": launches,
+          "vs_step_ties": ties, "leaves_equal_to_step": same_leaves,
+          "levels_equal_to_unsharded": True,
+          "root_value": float(root.value), "accepted": int(len(root_ids)),
+          "digest": _digest(root_ids, root.value),
+          "gathered_tile_bytes": 4 * machines * c * d,
+          "lane_copy_bytes_a_tile": 4 * b * c * d,
+          "gains_tile": {"shape": [b, n_s, c, d], "ms": gains_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bms, "bound_by": by,
+                         "tflops": flops / gains_ms / 1e9,
+                         "max_abs_err": tile_err, "parity": tile_stats}})
+    return launches, tile_err
+
+
+def _shard_dist_rank(rank, emb, k, dev):
+    """One rank of sharded_distributed: shard_greedy_distributed over the
+    one machine's 4 shard ranks; its Solution, launches, wall and the
+    shard gathers' bytes and seconds."""
+    import torch
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.shard_gains import shard_greedy_distributed
+    from repro_torch.launch.mesh import make_tree_mesh
+    dev = _rank_device(torch, dev)
+    mesh = make_tree_mesh((), shard=SHARD_LANES, device=dev)
+    obj = make_objective("facility", device=dev)
+    n = emb.shape[0]
+    ids = torch.arange(n, device=dev)
+    val = torch.ones(n, dtype=torch.bool, device=dev)
+    mesh.log = []
+    counters.reset()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    sol = shard_greedy_distributed(obj, ids, emb, val, k, mesh)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    log, mesh.log = mesh.log, None
+    return {"sol": {f: getattr(sol, f).cpu() for f in
+                    ("ids", "payloads", "valid", "value", "evals")},
+            "wall_seconds": wall,
+            "launches": {nm: c["launches"] for nm, c in
+                         counters.snapshot().items() if c["launches"]},
+            "gathers": len(log),
+            "gather_bytes": sum(r["bytes"] for r in log),
+            "gather_seconds": sum(r["seconds"] for r in log)}
+
+
+def phase_sharded_distributed(torch, cfg, dev: str = "cuda:0",
+                              n: int = SHARD_DIST_N, d: int = SHARD_DIST_D,
+                              k: int = SHARD_DIST_K,
+                              deadline: float = DIST_DEADLINE):
+    """shard_greedy_distributed over 4 spawned gloo ranks on the card
+    (make_tree_mesh((), shard=4)) on gen_embeddings(8,192, 256), facility,
+    k = 64: every rank's Solution equal to shard_greedy_sim over the same
+    pool bit for bit, its launches the stacked count."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.data.synthetic import gen_embeddings
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.shard_gains import shard_greedy_sim
+    from repro_torch.launch.spawn import run_ranks
+    emb = torch.as_tensor(gen_embeddings(n, d, seed=cfg.seed)).to(dev)
+    t0 = time.perf_counter()
+    results = run_ranks(_shard_dist_rank, SHARD_LANES, args=(emb, k, dev),
+                        timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    obj = make_objective("facility", device=emb.device)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = shard_greedy_sim(obj, torch.arange(n, device=emb.device), emb,
+                            torch.ones(n, dtype=torch.bool,
+                                       device=emb.device), k,
+                            lanes=SHARD_LANES)
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    stacked = {nm: c["launches"] for nm, c in counters.snapshot().items()
+               if c["launches"]}
+    for r, res in enumerate(results):
+        for f, v in res["sol"].items():
+            assert torch.equal(v, getattr(want, f).cpu()), (r, f)
+        assert res["launches"] == stacked, (r, res["launches"], stacked)
+    ids = want.ids[want.valid].cpu().numpy()
+    emit({"phase": "sharded_distributed", "n": n, "d": d, "k": k,
+          "ranks": SHARD_LANES, "backend": "gloo",
+          "bit_for_bit_with_stacked": True, "launches_per_rank": stacked,
+          "value": float(want.value), "digest": _digest(ids, want.value),
+          "spawn_wall_seconds": spawn_wall,
+          "stacked_wall_seconds": stacked_s,
+          "rank_wall_seconds": [res["wall_seconds"] for res in results],
+          "rank_gathers": [res["gathers"] for res in results],
+          "rank_gather_bytes": [res["gather_bytes"] for res in results],
+          "rank_gather_seconds": [res["gather_seconds"]
+                                  for res in results]})
+    return {nm: v * SHARD_LANES for nm, v in stacked.items()}
+
+
+def phase_lazy_kcover(torch, sets, words, cfg, dense):
+    """run_tree_lazy over the kosarak-shaped sets (host, adjacency lists)
+    against kcover_run's dense tree `dense` (its SimResult): the same
+    global value, levels and comm elements, fewer evals; then
+    run_greedy_lazy over all the sets against run_greedy_dense on the
+    card: the same value, no more evals (tests/test_simulate.py's
+    assertions at full scale)."""
+    from repro_torch.core.simulate import (run_greedy_dense,
+                                           run_greedy_lazy, run_tree_lazy)
+    from repro_torch.core.tree import AccumulationTree
+    tree = AccumulationTree(cfg.num_machines, cfg.branching)
+    t0 = time.perf_counter()
+    lazy = run_tree_lazy("kcover", sets, cfg.k, tree, seed=cfg.seed,
+                         universe=cfg.universe)
+    tree_s = time.perf_counter() - t0
+    assert lazy.value == dense.value, (lazy.value, dense.value)
+    assert (lazy.levels, lazy.comm_elements) == (dense.levels,
+                                                 dense.comm_elements)
+    assert lazy.evals_total < dense.evals_total
+    t0 = time.perf_counter()
+    g_lazy = run_greedy_lazy("kcover", sets, cfg.k, universe=cfg.universe)
+    greedy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_dense = run_greedy_dense("kcover", words, cfg.k,
+                               universe=cfg.universe, device=words.device)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    assert g_lazy.value == g_dense.value, (g_lazy.value, g_dense.value)
+    assert g_lazy.evals_total <= g_dense.evals_total
+    emit({"phase": "lazy_kcover", "n": cfg.n, "k": cfg.k,
+          "m": cfg.num_machines, "b": cfg.branching,
+          "global_value": lazy.value, "dense_global_value": dense.value,
+          "levels": lazy.levels, "comm_elements": lazy.comm_elements,
+          "evals_total": lazy.evals_total,
+          "evals_critical": lazy.evals_critical,
+          "dense_evals_total": dense.evals_total,
+          "tree_host_seconds": tree_s,
+          "greedy_value": g_lazy.value, "greedy_evals": g_lazy.evals_total,
+          "greedy_dense_evals": g_dense.evals_total,
+          "greedy_host_seconds": greedy_s,
+          "greedy_dense_seconds": dense_s})
+
+
+def phase_lazy_kmedoid(torch, x, cfg, n: int = LAZY_KMEDOID_N,
+                       card: str = "cuda"):
+    """DenseMedoid on the card: run_tree_lazy over the first `n` images
+    (a cut of the 100,000) at the full width, m = 32, b = 2, k = 200,
+    beside run_tree_dense on the same images; and on small-integer data
+    (the reference phases' kind) the card's lazy selections and evals
+    equal to the CPU's."""
+    from repro_torch.core.simulate import run_tree_dense, run_tree_lazy
+    from repro_torch.core.tree import AccumulationTree
+    tree = AccumulationTree(cfg.num_machines, cfg.branching)
+    sub = x[:n]
+    t0 = time.perf_counter()
+    lazy = run_tree_lazy("kmedoid", sub, cfg.k, tree, seed=cfg.seed)
+    torch.cuda.synchronize()
+    lazy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = run_tree_dense("kmedoid", sub, cfg.k, tree, seed=cfg.seed,
+                           device=sub.device)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    assert lazy.levels == dense.levels
+    small = np.random.default_rng(cfg.seed).integers(-3, 4, (2_048, 64))
+    small = small.astype(np.float32)
+    st = AccumulationTree(8, 2)
+    card = run_tree_lazy("kmedoid", small, 16, st, seed=cfg.seed,
+                         device=card)
+    cpu = run_tree_lazy("kmedoid", small, 16, st, seed=cfg.seed,
+                        device="cpu")
+    assert list(card.ids) == list(cpu.ids), (card.ids, cpu.ids)
+    assert card.per_node_evals == cpu.per_node_evals
+    assert abs(card.value - cpu.value) <= 1e-5 * max(1.0, abs(cpu.value))
+    emit({"phase": "lazy_kmedoid", "n": n, "d": x.shape[1], "k": cfg.k,
+          "m": cfg.num_machines, "b": cfg.branching,
+          "lazy_global_value": lazy.value, "dense_global_value": dense.value,
+          "lazy_evals_total": lazy.evals_total,
+          "lazy_evals_critical": lazy.evals_critical,
+          "dense_evals_total": dense.evals_total,
+          "lazy_comm_elements": lazy.comm_elements,
+          "dense_comm_elements": dense.comm_elements,
+          "lazy_seconds": lazy_s, "dense_seconds": dense_s,
+          "small_integer_card_equals_cpu": True,
+          "small_integer_evals": card.evals_total})
+
+
+def _tree_plan_json(tp) -> dict:
+    if tp is None:
+        return None
+    return {"radices": list(tp.radices), "shard": tp.shard,
+            "machines": tp.machines, "leaf_n": tp.leaf_n,
+            "leaf_engine": tp.leaf_plan.engine,
+            "leaf_dtype": tp.leaf_plan.dtype,
+            "leaf_tile_c": tp.leaf_plan.tile_c,
+            "node_engine": tp.node_plan.engine,
+            "peak_bytes": tp.peak_bytes, "cost": tp.cost}
+
+
+def phase_plan_tree(torch, configs, lanes: int = 32):
+    """plans.plan_tree at each configuration over `lanes` lanes, under the
+    default budget and under one that refuses every cached leaf tier
+    (just below the smallest leaf cache the ladder could store)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import plans
+    from repro_torch.runtime import flags
+    out = {}
+    for name, cfg, d, words in configs:
+        rule = make_objective(name, universe=cfg.universe, device="cpu").rule
+        leaf_n = -(-cfg.n // lanes)
+        rows = words if rule.is_bitmap else leaf_n
+        cheapest = "uint32" if rule.is_bitmap else "int8"
+        refuse = (plans.cache_bytes(rows, leaf_n, cheapest) - 1) / 2 ** 20
+        row = {}
+        for tag, mb in (("default", flags.fused_cache_mb()),
+                        ("refusing_cached_leaves", refuse)):
+            with _env(**{flags.FUSED_CACHE_MB_ENV: mb}):
+                t0 = time.perf_counter()
+                tp = plans.plan_tree(rule, cfg.n, d, cfg.k, lanes,
+                                     words=words)
+                row[tag] = {"budget_mb": mb, "seconds":
+                            time.perf_counter() - t0,
+                            "plan": _tree_plan_json(tp)}
+        out[name] = row
+    emit({"phase": "plan_tree", "lanes": lanes, **out})
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -4040,6 +4459,11 @@ def main(argv=None) -> int:
         _add(launches, phase_knapsack_quant(torch, x, cfg, pools, dtype))
     launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
     _add(launches, phase_stochastic_int8(torch, x, cfg, pools))
+    shard_launches, shard_err = phase_sharded_kmedoid(torch, x, cfg, pools,
+                                                      args.reps)
+    _add(launches, shard_launches)
+    errs["gains"] = max(errs["gains"], shard_err)
+    phase_lazy_kmedoid(torch, x, cfg)
     stream_launches, stream_ratio = phase_stream_kmedoid(
         torch, x, cfg, x, f32_run[0])
     _add(launches, stream_launches)
@@ -4057,12 +4481,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_timing_fused_global(torch, cfg, args.reps)
     kc = KOSARAK
-    bits, words = phase_data_kcover(torch, kc, KOSARAK_AVG_SIZE, dev)
+    bits, words, sets = phase_data_kcover(torch, kc, KOSARAK_AVG_SIZE, dev)
     kpools = lane_pools(torch, words, kc.num_machines, kc.seed)
     errs.update(phase_parity_coverage(torch, words, kc, kpools))
-    tree_launches, kcover_root = _coverage_tree(torch, "kcover", bits, words,
-                                                kc, "kcover_run")
+    tree_launches, kcover_res = _coverage_tree(torch, "kcover", bits, words,
+                                               kc, "kcover_run")
+    kcover_root = kcover_res.root_value
     launches.update(tree_launches)
+    phase_lazy_kcover(torch, sets, words, kc, kcover_res)
+    del sets
     launches["fused_step[coverage]"] = phase_kcover_knapsack(
         torch, words, kc, kpools)["fused_step[coverage]"]
     launches["gains[coverage]"] = phase_kcover_stochastic(
@@ -4089,6 +4516,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _add(launches, phase_coreset(torch, KDOM))
+    _add(launches, phase_sharded_distributed(torch, KDOM))
+    phase_plan_tree(torch, [("kmedoid", cfg, cfg.feature_dim, None),
+                            ("kcover", kc, None, -(-kc.universe // 32)),
+                            ("kdom", KDOM, None, -(-KDOM.universe // 32))])
     for name, err in [*kdom_errs.items(), *global_errs.items()]:
         errs[name] = max(errs[name], err)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -38,7 +38,20 @@ reproduce JAX's PRNG stream, so the port's random stream differs from
 the reference's; tests hand the drivers a sampler that returns the
 reference's own draws.
 
-Sharded leaves (``shard > 1``, ROADMAP A5) are not ported and raise.
+Sharded leaves (``shard`` > 1, the reference's :337-546): every machine
+has `shard` lanes that split its leaf pool, lanes = machines·shard,
+lane = machine·shard + shard digit (`shard_lanes`' contiguous blocks are
+then each machine's pool in order). The leaves run the sharded tier
+(kernels/shard_gains.py) over each machine's lanes — stacked, ONE gains
+launch a (step, tile) for every lane; over a mesh, this rank's lane over
+its `TreeMesh.shard_group`. Each lane's block is padded at its end to
+whole candidate tiles (`shard_gains.pad_lanes`). As in the reference
+(`_shard_leaf_body`, :444-447), no constraint is bound at sharded
+leaves, and ``sample_leaf`` with ``shard`` > 1 raises. The levels carry
+the shard lanes as replicated machine state: stacked, a level runs once
+per machine (the machine's first lane) and is repeated over its lanes;
+over a mesh every rank runs its own, its gathers over the ranks that
+share its shard digit.
 """
 from __future__ import annotations
 
@@ -52,7 +65,8 @@ import torch
 from repro_torch.core.greedy import (Solution, _sample_candidates,
                                      greedy_batch, replay_value,
                                      select_better)
-from repro_torch.launch.mesh import ITEM_5, TreeMesh
+from repro_torch.kernels import shard_gains
+from repro_torch.launch.mesh import TreeMesh
 
 F32 = torch.float32
 
@@ -86,7 +100,7 @@ def empty_lane_solutions(lanes: int, k: int,
 
 def machine_flat_id(mesh: TreeMesh) -> int:
     """Mixed-radix machine id of this rank's lane (level-0 digit lowest):
-    the rank itself."""
+    the rank itself, or rank // shard with shard lanes."""
     mid, mult = 0, 1
     for d, r in zip(mesh.coords, mesh.radices):
         mid += d * mult
@@ -159,11 +173,15 @@ class LaneSampler:
 
 def _draws(sampler: Sampler, stage: int, lanes: int, k: int, n: int,
            sample: int, mesh: Optional[TreeMesh]):
-    """A stage's draws: every lane's, or over a mesh this rank's row."""
+    """A stage's draws: every lane's, or over a mesh this rank's
+    machine's row."""
     if not 0 < sample < n:
         return None
     d = sampler(stage, lanes, k, n, sample)
-    return d if mesh is None else d[mesh.rank:mesh.rank + 1]
+    if mesh is None:
+        return d
+    mid = machine_flat_id(mesh)
+    return d[mid:mid + 1]
 
 
 def accumulate_one_level(objective, s_prev: Solution, k: int,
@@ -249,17 +267,21 @@ def accumulate_levels(objective, s_prev: Solution, k: int,
 class LevelDispatcher:
     """Runs one GreedyML stage at a time over lane state.
 
-    ``radices``: per-level branching (innermost level first); lanes =
-    prod(radices). ``engine`` drives the leaf greedies, ``node_engine``
-    (default: inherit) the accumulation nodes. ``sample_leaf`` /
-    ``sample_level``: stochastic greedy at the leaves / nodes, with draws
-    from ``sampler`` (default `LaneSampler(seed or 0)`). ``constraint``:
-    a spec with ``bind(ids)``, e.g. KnapsackSpec. ``mesh``: None runs
-    every lane stacked on the objective's device, and stages take and
-    return stacked (lanes, …) Solutions; a `TreeMesh` (one rank a lane,
-    its radices the tree's) runs this rank's lane, and stages take and
-    return it as a stacked (1, …) Solution. ``shard`` > 1 is not ported
-    (ROADMAP A5).
+    ``radices``: per-level branching (innermost level first); machines =
+    prod(radices). ``shard``: lanes splitting each machine's leaf pool
+    (the sharded tier), lanes = machines·shard, lane = machine·shard +
+    shard digit; ``tile_c``: the sharded tier's candidate tile (0: the
+    planner's, `shard_gains.resolve_tile_c`). ``engine`` drives the solo
+    leaf greedies, ``node_engine`` (default: inherit) the accumulation
+    nodes. ``sample_leaf`` / ``sample_level``: stochastic greedy at the
+    leaves / nodes, with draws from ``sampler`` (default
+    `LaneSampler(seed or 0)`, one row a machine). ``constraint``: a spec
+    with ``bind(ids)``, e.g. KnapsackSpec (not bound at sharded leaves,
+    as in the reference). ``mesh``: None runs every lane stacked on the
+    objective's device, and stages take and return stacked (lanes, …)
+    Solutions; a `TreeMesh` (one rank a lane, its radices and shard the
+    tree's) runs this rank's lane, and stages take and return it as a
+    stacked (1, …) Solution.
     """
 
     objective: Any
@@ -272,20 +294,27 @@ class LevelDispatcher:
     sample_level: int = 0
     seed: Optional[int] = None
     shard: int = 1
+    tile_c: int = 0
     constraint: Any = None
     sampler: Optional[Sampler] = None
 
     def __post_init__(self):
-        if int(self.shard) != 1:
-            raise NotImplementedError(ITEM_5)
         if self.mesh is not None and not isinstance(self.mesh, TreeMesh):
             raise TypeError("mesh: a launch/mesh.py TreeMesh over the "
                             f"process group, or None; got {self.mesh!r}")
         self.radices = tuple(int(r) for r in self.radices)
-        self.lanes = math.prod(self.radices)
-        if self.mesh is not None and self.mesh.radices != self.radices:
-            raise ValueError(f"the mesh's tree {self.mesh.radices} is not "
-                             f"{self.radices}")
+        self.shard = max(1, int(self.shard))
+        self.machines = math.prod(self.radices)
+        self.lanes = self.machines * self.shard
+        if self.shard > 1 and self.sample_leaf:
+            raise ValueError("sharded leaves do not support stochastic "
+                             "leaf sampling (its per-step draws have no "
+                             "cross-lane protocol)")
+        if self.mesh is not None and (self.mesh.radices, self.mesh.shard) != (
+                self.radices, self.shard):
+            raise ValueError(f"the mesh's tree {self.mesh.radices} with shard "
+                             f"{self.mesh.shard} is not {self.radices} with "
+                             f"shard {self.shard}")
         self.node_engine = self.node_engine or self.engine
         if self.sampler is None:
             self.sampler = LaneSampler(0 if self.seed is None else self.seed)
@@ -295,7 +324,7 @@ class LevelDispatcher:
         return len(self.radices)
 
     def _draws(self, stage: int, n: int, sample: int):
-        return _draws(self.sampler, stage, self.lanes, self.k, n, sample,
+        return _draws(self.sampler, stage, self.machines, self.k, n, sample,
                       self.mesh)
 
     def _own_lane(self, x):
@@ -309,6 +338,8 @@ class LevelDispatcher:
         obj = self.objective
         ids = torch.as_tensor(ids, device=obj.device).to(torch.int64)
         self._own_lane(ids)
+        if self.shard > 1:
+            return self._sharded_leaves(ids, payloads, valid)
         return greedy_batch(
             obj, ids, payloads, valid, self.k, sample=self.sample_leaf,
             cand_idx=self._draws(0, ids.shape[1], self.sample_leaf),
@@ -316,10 +347,30 @@ class LevelDispatcher:
             constraint=(self.constraint.bind(ids)
                         if self.constraint is not None else None))
 
+    def _sharded_leaves(self, ids, payloads, valid) -> Solution:
+        """The sharded tier over each machine's `shard` lanes (no
+        constraint bound, as the reference's `_shard_leaf_body`)."""
+        obj = self.objective
+        payloads = torch.as_tensor(payloads, device=obj.device)
+        valid = torch.as_tensor(valid, device=obj.device).to(torch.bool)
+        tile, n_s = shard_gains.lane_tile(obj.rule, ids.shape[1],
+                                          payloads.shape[-1], self.shard,
+                                          self.tile_c)
+        ids, payloads, valid = shard_gains.pad_lanes(ids, payloads, valid,
+                                                     n_s)
+        return shard_gains.shard_greedy(obj, ids, payloads, valid, self.k,
+                                        lanes=self.shard, tile_c=tile,
+                                        mesh=self.mesh)
+
     def level(self, lane_sols: Solution, lvl: int,
               aug_row: Optional[torch.Tensor] = None) -> Solution:
-        """One accumulation round at level `lvl` over the lane state."""
+        """One accumulation round at level `lvl` over the lane state.
+        Stacked shard lanes hold their machine's state: the round runs
+        once per machine and is repeated over its lanes."""
         self._own_lane(lane_sols.ids)
+        stacked_shards = self.shard > 1 and self.mesh is None
+        if stacked_shards:
+            lane_sols = lane_sols.map(lambda x: x[::self.shard])
         n = self.radices[lvl] * lane_sols.ids.shape[1]
         out, _, _ = accumulate_one_level(
             self.objective, lane_sols, self.k, self.radices, lvl,
@@ -327,17 +378,17 @@ class LevelDispatcher:
             cand_idx=self._draws(1 + lvl, n, self.sample_level),
             sample=self.sample_level, node_engine=self.node_engine,
             constraint=self.constraint, mesh=self.mesh)
+        if stacked_shards:
+            out = out.map(lambda x: x.repeat_interleave(self.shard, dim=0))
         return out
 
 
 def check_tree_axes(mesh: TreeMesh, tree_axes: Optional[Sequence[str]]):
     """The reference's ``tree_axes`` argument: over a TreeMesh the levels
     are the mesh's, innermost first; anything else is refused."""
-    if tree_axes is not None and tuple(tree_axes) != tuple(
-            reversed(mesh.axis_names)):
+    if tree_axes is not None and tuple(tree_axes) != mesh.level_names:
         raise ValueError(f"tree_axes {tuple(tree_axes)} must be the mesh's "
-                         f"levels, innermost first: "
-                         f"{tuple(reversed(mesh.axis_names))}")
+                         f"levels, innermost first: {mesh.level_names}")
 
 
 def _run_tree(disp: LevelDispatcher, ids, payloads, valid, augment,

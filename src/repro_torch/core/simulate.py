@@ -1,6 +1,22 @@
-"""Single-device GreedyML accumulation tree T(m, L, b), dense engine
-(answers `src/repro/core/simulate.py`: `partition`, `global_value`,
-`run_tree_dense`, `run_greedy_dense`; the lazy Minoux engine waits).
+"""Single-device GreedyML accumulation tree T(m, L, b) (answers
+`src/repro/core/simulate.py`: `partition`, `global_value`,
+`run_tree_dense`, `run_greedy_dense`, and the lazy engine's
+`SparseCoverage`, `DenseMedoid`, `lazy_greedy`, `run_tree_lazy`,
+`run_greedy_lazy`).
+
+Two engines with the same tree semantics. The DENSE engine is the
+paper's algorithm on the kernels, below. The LAZY engine is the paper's
+own implementation: Minoux's lazy greedy over a `heapq` of (−gain, e,
+stamp), counting every marginal it evaluates — the function calls of
+the paper's Fig. 4/5 and Table 3 (`per_node_evals`, `evals_total`,
+`evals_critical` on the id-0 chain, `comm_elements`), exactly the
+reference's counts. `SparseCoverage` keeps the reference's adjacency
+lists on the host (a marginal is a gather of ~15 entries: a launch
+would cost more than the work); `DenseMedoid` keeps its ground and
+min-distance row as torch tensors on its device (the card unless the
+caller names one), each marginal the direct difference ‖ground − x_e‖
+(as the reference's, not the expansion of fault F0), the heap's first
+fill in batches of candidates.
 
 Where the reference vmapped greedy over the m leaves and over a level's
 nodes, the port passes a batch dimension: every leaf greedy of a run is
@@ -12,7 +28,8 @@ child's solution S_prev for argmax{f(S), f(S_prev)}.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+import heapq
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,8 +90,9 @@ def global_value(objective_name: str, data: Any, ids,
             sel = torch.as_tensor(ids, dtype=torch.int64, device=data.device)
             data = R.to_words(data[sel]).cpu().numpy().view(np.uint32)
             ids = np.arange(len(ids))
-        data = np.asarray(data)
-        if data.dtype == np.uint32:
+        if not isinstance(data, (list, tuple)):     # adjacency lists stay
+            data = np.asarray(data)
+        if isinstance(data, np.ndarray) and data.dtype == np.uint32:
             cov = np.zeros(data.shape[1], np.uint32)
             for e in ids:
                 cov |= data[e]
@@ -229,3 +247,195 @@ def run_greedy_dense(objective_name: str, payloads, k: int, *,
     ev = int(sol.evals)
     return SimResult(gval, ids_out, ev, ev, {(0, 0): ev}, 0, 0, 1, 1,
                      root_value=float(sol.value))
+
+
+# ---------------------------------------------------------------------------
+# the lazy engine (Minoux's lazy greedy; src/repro/core/simulate.py:237-373)
+# ---------------------------------------------------------------------------
+
+
+class SparseCoverage:
+    """k-cover / k-dominating set over adjacency lists (the paper's
+    representation), on the host as in the reference."""
+
+    def __init__(self, sets: Sequence[np.ndarray], universe: int):
+        self.sets = sets
+        self.covered = np.zeros(universe, bool)
+        self.total = 0
+
+    def marginal(self, e: int) -> float:
+        s = self.sets[e]
+        return float(np.count_nonzero(~self.covered[s]))
+
+    def add(self, e: int) -> None:
+        s = self.sets[e]
+        self.total += int(np.count_nonzero(~self.covered[s]))
+        self.covered[s] = True
+
+    def value(self) -> float:
+        return float(self.total)
+
+
+class DenseMedoid:
+    """k-medoid over a LOCAL evaluation ground set (paper §6.4), its ground
+    rows and min-distance row torch tensors on `device` (None: the data
+    tensor's own device, else the card — `runtime/device.py`)."""
+
+    # f32 bytes of one batch of the first fill's (C, N, D) differences
+    FILL_BYTES = 2 ** 30
+
+    def __init__(self, data, ground_idx, device: DeviceLike = None):
+        dev = data.device if isinstance(data, torch.Tensor) and \
+            device is None else resolve_device(device)
+        self.data = torch.as_tensor(data, device=dev).to(F32)
+        idx = torch.as_tensor(np.asarray(ground_idx, np.int64), device=dev)
+        self.ground = self.data[idx]
+        self.mind = torch.linalg.vector_norm(self.ground, dim=1)  # d(·, e0)
+        self.base = float(self.mind.mean())
+
+    def _dist(self, e: int) -> torch.Tensor:
+        return torch.linalg.vector_norm(self.ground - self.data[e], dim=1)
+
+    def marginal(self, e: int) -> float:
+        return float(torch.clamp(self.mind - self._dist(e), min=0.0).mean())
+
+    def marginals(self, cands: Sequence[int]) -> List[float]:
+        """`marginal` of every candidate, in batches: each row the same
+        direct difference, reduced as `marginal` reduces it."""
+        n, d = self.ground.shape
+        step = max(1, self.FILL_BYTES // max(1, 4 * n * d))
+        idx = torch.as_tensor(np.asarray(cands, np.int64),
+                              device=self.data.device)
+        out: List[float] = []
+        for i in range(0, len(cands), step):
+            x = self.data[idx[i:i + step]]
+            dist = torch.linalg.vector_norm(self.ground - x[:, None], dim=2)
+            out.extend(torch.clamp(self.mind - dist, min=0.0).mean(1)
+                       .tolist())
+        return out
+
+    def add(self, e: int) -> None:
+        self.mind = torch.minimum(self.mind, self._dist(e))
+
+    def value(self) -> float:
+        return self.base - float(self.mind.mean())
+
+
+def lazy_greedy(state, candidates: Sequence[int], k: int
+                ) -> Tuple[List[int], float, int]:
+    """Minoux's accelerated greedy → (selected, value, evals): a heap of
+    (−gain, e, stamp), an entry re-evaluated when popped stale, accepted
+    when fresh and > 0 — `heapq`'s order and ties, as the reference."""
+    candidates = list(candidates)
+    fill = (state.marginals(candidates) if hasattr(state, "marginals")
+            else [state.marginal(e) for e in candidates])
+    heap = [(-g, e, 0) for g, e in zip(fill, candidates)]
+    evals = len(heap)
+    heapq.heapify(heap)
+    selected: List[int] = []
+    stamp = 0
+    while heap and len(selected) < k:
+        neg, e, st = heapq.heappop(heap)
+        if st == stamp:
+            if -neg <= 0:
+                break
+            state.add(e)
+            selected.append(e)
+            stamp += 1
+        else:
+            g = state.marginal(e)
+            evals += 1
+            heapq.heappush(heap, (-g, e, stamp))
+    return selected, state.value(), evals
+
+
+def _lazy_state(objective_name: str, data, universe: int):
+    """The per-node state factory: adjacency lists for coverage, the
+    (n, D) tensor for k-medoid."""
+    if objective_name in ("kcover", "kdom"):
+        return lambda ground_idx: SparseCoverage(data, universe)
+    return lambda ground_idx: DenseMedoid(data, ground_idx)
+
+
+def run_tree_lazy(objective_name: str, data: Any, k: int,
+                  tree: AccumulationTree, seed: int = 0, *,
+                  universe: int = 0, augment: int = 0,
+                  device: DeviceLike = None) -> SimResult:
+    """The tree on the lazy engine. ``data``: a list of adjacency arrays
+    (kcover, kdom; host only) or (n, D) features (kmedoid: numpy or a
+    tensor, placed once on `device` — a tensor's own by default)."""
+    n = len(data)
+    m, b, L = tree.m, tree.b, tree.num_levels
+    assign = partition(n, m, seed)
+    rng = np.random.default_rng(seed + 1)
+    if objective_name not in ("kcover", "kdom"):
+        data = _medoid_data(data, device)
+    make_state = _lazy_state(objective_name, data, universe)
+
+    per_node: Dict[Tuple[int, int], int] = {}
+    comm = 0
+    sols: Dict[int, Tuple[List[int], float]] = {}
+    for mi in range(m):
+        cand = np.nonzero(assign == mi)[0]
+        sel, val, ev = lazy_greedy(make_state(cand), cand.tolist(), k)
+        sols[mi] = (sel, val)
+        per_node[(0, mi)] = ev
+
+    for lvl in range(1, L + 1):
+        new_sols: Dict[int, Tuple[List[int], float]] = {}
+        for nid in tree.nodes_at_level(lvl):
+            union: List[int] = []
+            for cid in tree.children_of(lvl, nid):
+                union.extend(sols[cid][0])
+                comm += len(sols[cid][0])
+            ground = np.asarray(union, np.int64)
+            if augment > 0 and objective_name == "kmedoid":
+                ground = np.concatenate(
+                    [ground, rng.integers(0, n, size=augment)])
+            sel, val, ev = lazy_greedy(make_state(ground), union, k)
+            per_node[(lvl, nid)] = ev
+            # argmax{f(S), f(S_prev)} with S_prev the same-id child's
+            prev_sel, _ = sols[nid]
+            st2 = make_state(ground)
+            for e in prev_sel:
+                st2.add(e)
+            prev_val = st2.value()
+            new_sols[nid] = ((sel, val) if val >= prev_val
+                             else (prev_sel, prev_val))
+        sols = new_sols
+
+    sel, val = sols[0]
+    evals_critical = sum(per_node[(lvl, 0)] for lvl in range(L + 1))
+    gval = global_value(objective_name, data, np.asarray(sel, np.int64),
+                        universe)
+    return SimResult(gval, np.asarray(sel), int(sum(per_node.values())),
+                     int(evals_critical), per_node, comm, L, m, b,
+                     root_value=float(val))
+
+
+def run_greedy_lazy(objective_name: str, data: Any, k: int, *,
+                    universe: int = 0,
+                    device: DeviceLike = None) -> SimResult:
+    """The sequential lazy Greedy over the whole data (one node)."""
+    n = len(data)
+    if objective_name in ("kcover", "kdom"):
+        st = SparseCoverage(data, universe)
+    else:
+        data = _medoid_data(data, device)
+        st = DenseMedoid(data, np.arange(n))
+    sel, val, ev = lazy_greedy(st, list(range(n)), k)
+    gval = global_value(objective_name, data, np.asarray(sel, np.int64),
+                        universe)
+    return SimResult(gval, np.asarray(sel), ev, ev, {(0, 0): ev},
+                     0, 0, 1, 1, root_value=float(val))
+
+
+def _medoid_data(data, device: DeviceLike) -> torch.Tensor:
+    """k-medoid features as one f32 tensor: a tensor stays on its device
+    unless `device` names another; numpy goes to `device` (the card by
+    default)."""
+    if isinstance(data, torch.Tensor):
+        return data.to(resolve_device(device) if device is not None
+                       else data.device, F32)
+    return torch.as_tensor(np.asarray(data), dtype=F32,
+                           device=resolve_device(device))

@@ -512,3 +512,61 @@ def _fold64(row, col, rule: KernelRule):
     if rule.fold == "sum":
         return row + torch.clamp(col, min=0.0)
     raise KeyError(rule.fold)
+
+
+def selection_tie(pool, valid, pool_ids, ids_a, ids_b,
+                  rule: KernelRule) -> bool:
+    """Whether two greedies over ONE pool (its own ground: `pool` (n, D),
+    `valid` (n,), global `pool_ids` (n,)) first differ at a genuine tie,
+    as ROADMAP §C P1 allows: at the first step where ids_a and ids_b
+    (k,) differ, the two picks' float64 raw gains after the common
+    prefix lie within the f32 bounds of their entries (a D-term 'dot' by
+    2·D·eps·‖g‖‖c‖; the 'dist' expansion by B = sq_dist_bound in squared
+    form, ≤ min(√B, B/2d) in d) and of their sums (2·n·eps·|g|). Runs in
+    float64 on the pool's device. True when the selections are equal."""
+    a = torch.as_tensor(ids_a).cpu().tolist()
+    b = torch.as_tensor(ids_b).cpu().tolist()
+    diff = [i for i, (u, v) in enumerate(zip(a, b)) if u != v]
+    if not diff:
+        return True
+    s = diff[0]
+    where = {int(e): j for j, e in enumerate(
+        torch.as_tensor(pool_ids).cpu().tolist()) if e >= 0}
+    g = pool.double()
+    valid = valid.to(g.device).bool()
+
+    def column(j):
+        c = g[j]
+        if rule.pairwise == "dist":
+            return torch.linalg.vector_norm(g - c, dim=-1)
+        return g @ c
+
+    if rule.fold == "min":
+        row = torch.where(valid, torch.linalg.vector_norm(g, dim=-1),
+                          torch.zeros((), dtype=g.dtype, device=g.device))
+    else:
+        row = torch.where(valid, torch.zeros_like(g[:, 0]),
+                          torch.full_like(g[:, 0], rule.row_pad))
+    for e in a[:s]:
+        if e >= 0:
+            row = _fold64(row, column(where[int(e)]), rule)
+    gains, tols = [], []
+    n, d = g.shape
+    for e in (a[s], b[s]):
+        if e < 0:
+            gains.append(0.0)
+            tols.append(0.0)
+            continue
+        j = where[int(e)]
+        col = column(j)
+        gain = float(_gain_part64(row, col, rule)[valid].sum())
+        if rule.pairwise == "dist":
+            bnd = sq_dist_bound(g, g[j:j + 1])[:, 0]
+            err = torch.minimum(bnd.sqrt(),
+                                bnd / torch.clamp(2 * col, min=1e-300))
+        else:
+            gn = torch.linalg.vector_norm(g, dim=-1)
+            err = 2 * d * EPS32 * gn * gn[j]
+        gains.append(gain)
+        tols.append(float(err[valid].sum()) + 2 * n * EPS32 * abs(gain))
+    return abs(gains[0] - gains[1]) <= tols[0] + tols[1] + 1e-12

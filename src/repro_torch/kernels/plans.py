@@ -69,20 +69,30 @@ up to ~57,000 words) the tier is 'kernel'; beyond it the plan says
 'global': the same kernels keep each level's row in device memory. The
 CPU runs the plain version at any size ('plain').
 
+The sharded tier (`shard_plan`, kernels/shard_gains.py) splits ONE
+greedy's ground set over `lanes` cooperating lanes and streams candidate
+tiles through the gains kernel: no cache at all, so `select_engine`
+escalates to it (resident → streaming → fused → sharded) only when
+every cached rung is refused and the caller offers lanes. `plan_tree`
+picks the accumulation tree's shape (machines, shard lanes, branching)
+from the same byte model (`engine_hbm_bytes`) under the device-memory
+budget, ranked by `core/tree.py::AccumulationTree.cost_model`.
+
 The CUDA kernels mask their ragged edges, so shapes are planned
 unpadded (the TPU tile padding of the reference has no counterpart).
-The autotune cache, `shard_plan`, `serve_plan` and `plan_tree` of the
-reference wait for later slices.
+The autotune cache and `serve_plan` of the reference wait for later
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 from repro_torch.kernels.rules import KernelRule, cache_itemsize
 from repro_torch.runtime import flags
 
-ENGINES = ("step", "fused", "mega_stream", "mega_resident")
+ENGINES = ("step", "fused", "mega_stream", "mega_resident", "sharded")
 
 THREADS = 256                       # threads per block of the loop kernels
 # argmax scratch of a loop block: one (value, index) pair per thread
@@ -149,7 +159,8 @@ RESIDENT_BITS_SMEM_BYTES = flags.H100_SMEM_PER_BLOCK - 1024
 class EnginePlan:
     """The planner's verdict for one (batched) greedy invocation.
 
-    engine        'step' | 'fused' | 'mega_stream' | 'mega_resident'
+    engine        'step' | 'fused' | 'mega_stream' | 'mega_resident' |
+                  'sharded'
     rule          the objective's KernelRule
     tier          raw fused_plan tier, None when every cache was refused
     block_n       ground rows a chunk of the per-step fused kernel's
@@ -160,6 +171,10 @@ class EnginePlan:
                   loop sums in chunks of block_n rows, as fused_step
     dtype         cache storage dtype ('float32'|'bfloat16'|'int8'|'uint32')
     replicas      greedies served by one launch (the batch dimension)
+    tile_c        sharded tier only: candidates each lane contributes to
+                  a gathered tile
+    lanes         sharded tier only: lanes one greedy's ground is split
+                  over
     """
     engine: str
     rule: KernelRule
@@ -168,10 +183,13 @@ class EnginePlan:
     loop_block_n: int = 0
     dtype: str = "float32"
     replicas: int = 1
+    tile_c: int = 0
+    lanes: int = 1
 
     @property
     def cached(self) -> bool:
-        return self.engine != "step"
+        # the sharded tier recomputes its tiles every step, as 'step'
+        return self.engine not in ("step", "sharded")
 
 
 def bucket_len(size: int, tile: int) -> int:
@@ -342,8 +360,9 @@ def fused_plan(n: int, c: int, d: Optional[int] = None,
 def select_engine(rule: KernelRule, n: int, c: int,
                   d: Optional[int] = None, *, requested: str = "auto",
                   sampling: bool = False, constrained: bool = False,
-                  replicas: int = 1) -> EnginePlan:
-    """Resolve the selection engine for one batched greedy invocation.
+                  replicas: int = 1, lanes: int = 1) -> EnginePlan:
+    """Resolve the selection engine for one batched greedy invocation
+    (answers `select_engine`, src/repro/kernels/plans.py:614).
 
     n: ground rows (universe WORDS for bitmap rules), c: candidates,
     d: feature dim (None for bitmap rules), replicas: greedies in the
@@ -355,6 +374,12 @@ def select_engine(rule: KernelRule, n: int, c: int,
       mega   megakernel, falling back to fused, then step
       fused  the cached per-step engine; step when the cache busts
       step   always the recompute-per-step path
+
+    `lanes` > 1 declares that the caller can split this greedy's ground
+    over that many lanes (kernels/shard_gains.py): when every cached
+    tier is refused, 'auto'/'mega' with no sampling and no constraint
+    escalate to engine 'sharded' with `shard_plan`'s tile_c, where the
+    shard gate admits the pool (the reference's branch at :660-673).
     """
     if requested not in ("auto", "mega", "fused", "step"):
         raise ValueError(f"unknown engine {requested!r}; "
@@ -364,6 +389,13 @@ def select_engine(rule: KernelRule, n: int, c: int,
         return step
     fp = fused_plan(n, c, d=d, rule=rule, replicas=replicas)
     if fp is None:
+        if (lanes > 1 and requested in ("auto", "mega")
+                and not sampling and not constrained):
+            sp = shard_plan(rule, n, d, lanes)
+            if sp is not None:
+                return EnginePlan("sharded", rule, tier="sharded",
+                                  dtype=sp["dtype"], replicas=replicas,
+                                  tile_c=sp["tile_c"], lanes=lanes)
         return step
     mega_ok = (requested in ("auto", "mega") and not sampling
                and not constrained and fp["tier"] in ("resident",
@@ -428,3 +460,185 @@ def stream_plan(n: int, b: int, d: Optional[int],
             raise ValueError("a feature rule's stream needs its feature dim")
         dtype = "int8" if flags.fused_cache_dtype() == "int8" else "float32"
     return {"tier": stream_tier(n, b, rule), "dtype": dtype}
+
+
+# ---------------------------------------------------------------------------
+# the sharded tier (kernels/shard_gains.py) and the tree planner
+# (answers src/repro/kernels/plans.py:354-392 and :696-819)
+# ---------------------------------------------------------------------------
+
+# candidate-tile ladder of the sharded tier, the reference's: a wide tile
+# takes fewer gathers and gains launches a step, a narrow one a smaller
+# gathered working set. The width changes launches and exchange sizes,
+# never selections.
+SHARD_TILE_MIN = 8
+_SHARD_TILES = (512, 256, 128, 64, 32, 16, 8)
+
+
+def shard_bytes(n: int, d: int, lanes: int, tile_c: int) -> int:
+    """Modeled device bytes of ONE lane of a sharded greedy over an
+    n-element pool split over `lanes`: its (n_s, d) feature shard with
+    its ids, valid and state-row columns, and the gathered (lanes·tile_c,
+    d) candidate tile with its mask and gains row. No (N, C) term."""
+    n_s = -(-(-(-n // lanes)) // tile_c) * tile_c    # padded lane shard
+    return 4 * n_s * (d + 3) + 4 * lanes * tile_c * (d + 2)
+
+
+def shard_plan(rule: KernelRule, n: int, d: Optional[int],
+               lanes: int) -> Optional[dict]:
+    """The sharded tier's gate: the widest ladder tile whose lane working
+    set (`shard_bytes`) fits flags.fused_cache_mb, as {'tile_c',
+    'bytes', 'dtype'}; None for bitmap rules (their ground axis is the
+    payload's words), one lane, no feature dim, or a pool whose least
+    tile busts the budget. The tier streams f32 features (no cache, so
+    no storage rung; the gains kernel reads an int8 ground only under a
+    forced int8 rung, as every step engine does)."""
+    if rule.is_bitmap or lanes < 2 or not d:
+        return None
+    budget = flags.fused_cache_mb() * 2 ** 20
+    for tile in _SHARD_TILES:
+        need = shard_bytes(n, d, lanes, tile)
+        if need <= budget:
+            return {"tile_c": tile, "bytes": need, "dtype": "float32"}
+    return None
+
+
+def engine_hbm_bytes(plan: EnginePlan, n: int, c: int,
+                     d: Optional[int] = None) -> int:
+    """Modeled device bytes one greedy holds under `plan`, the currency
+    `plan_tree` compares stages in: the pool (features or bitmap words,
+    ids, valid, state row) plus a cached tier's (n, c) matrix in its
+    storage (`cache_bytes`, unpadded); the sharded tier its lane's
+    `shard_bytes` (`n` is the whole pool)."""
+    if plan.engine == "sharded":
+        return shard_bytes(n, d or 0, plan.lanes, plan.tile_c)
+    if plan.rule.is_bitmap:
+        feat = 4 * (c * n + 2 * c + n)      # (C, W) words + ids/valid + row
+    else:
+        feat = 4 * (n * (d or 0) + 3 * n)
+    if not plan.cached:
+        return feat
+    return feat + cache_bytes(n, c, plan.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreePlan:
+    """The planner's verdict for one distributed selection: how `lanes`
+    lanes split into tree machines and shard lanes a leaf, and the
+    engines of the two kinds of stage.
+
+    radices     per-level branching, innermost first (LevelDispatcher's);
+                () is ONE machine, every lane sharding its leaf
+    shard       lanes cooperating on each leaf greedy (1: solo leaves)
+    leaf_plan   EnginePlan of the leaf greedies
+    node_plan   EnginePlan of the accumulation nodes' (b·k) pools
+    leaf_n      elements a leaf machine owns (before the shard split)
+    peak_bytes  the larger modeled per-lane bytes of the two stages
+    cost        BSP cost from AccumulationTree.cost_model (lower wins)
+    model       the cost_model dict the plan was checked against ({}
+                for the one-machine shape it cannot express)
+    """
+    radices: Tuple[int, ...]
+    shard: int
+    leaf_plan: EnginePlan
+    node_plan: EnginePlan
+    leaf_n: int
+    peak_bytes: int
+    cost: float
+    model: dict
+
+    @property
+    def machines(self) -> int:
+        return math.prod(self.radices)
+
+    @property
+    def branching(self) -> int:
+        return max(self.radices) if self.radices else 1
+
+    @property
+    def lanes(self) -> int:
+        return self.machines * self.shard
+
+
+def _radix_options(m: int):
+    """Uniform level stacks multiplying to m, innermost first: every
+    (b,)·L with b^L == m, from the flat RandGreedi (m,) to the deepest."""
+    if m == 1:
+        return [()]
+    opts = []
+    for b in range(2, m + 1):
+        level, total = 0, 1
+        while total < m:
+            total *= b
+            level += 1
+        if total == m:
+            opts.append((b,) * level)
+    return opts
+
+
+def plan_tree(rule: KernelRule, n: int, d: Optional[int], k: int,
+              lanes: int, budget_mb: Optional[float] = None,
+              words: Optional[int] = None) -> Optional[TreePlan]:
+    """The accumulation tree's shape for `lanes` lanes, from the byte
+    model the engine tiers gate on: every shard ∈ divisors(lanes) and
+    every uniform radix stack over the m = lanes / shard machines whose
+    leaf and node stages both fit `budget_mb` (default
+    flags.fused_cache_mb) a lane.
+
+      leaf stage  shard == 1: `select_engine` on the ceil(n/m) pool;
+                  shard > 1: the sharded tier (`select_engine(…,
+                  lanes=shard)`), feasible only if the escalation fires
+      node stage  `select_engine` on the b·k accumulation pool
+
+    Ranked by BSP cost (`AccumulationTree.cost_model`: leaf compute ÷
+    shard, plus interior compute and comm), then fewer levels, then more
+    sharding; the model's structure is asserted against the enumerated
+    tree. None when no shape fits. ``words``: a bitmap rule plans its
+    ground over universe words (d is None), so it never shards."""
+    from repro_torch.core.tree import AccumulationTree   # core → kernels
+
+    if rule.is_bitmap and not words:
+        raise ValueError("bitmap rules need words= for tree planning")
+    budget = (budget_mb if budget_mb is not None
+              else flags.fused_cache_mb()) * 2 ** 20
+    obj = "kmedoid" if rule.fold == "min" else "coverage"
+
+    def rows(c):
+        return words if rule.is_bitmap else c
+
+    best = None
+    for shard in (s for s in range(1, lanes + 1) if lanes % s == 0):
+        m = lanes // shard
+        leaf_n = -(-n // m)
+        lp = select_engine(rule, rows(leaf_n), leaf_n, d, lanes=shard)
+        if shard > 1 and lp.engine != "sharded":
+            continue        # the solo shapes cover it
+        leaf_bytes = engine_hbm_bytes(lp, rows(leaf_n), leaf_n, d)
+        if leaf_bytes > budget:
+            continue
+        for radices in _radix_options(m):
+            if radices:
+                br = radices[0]
+                nc = br * k
+                np_ = select_engine(rule, rows(nc), nc, d)
+                node_bytes = engine_hbm_bytes(np_, rows(nc), nc, d)
+                if node_bytes > budget:
+                    continue
+                model = AccumulationTree(m, br).cost_model(
+                    n, k, 1.0, objective=obj)
+                # the BSP model must describe the tree it costs
+                assert model["levels"] == len(radices), (model, radices)
+                assert model["elements_per_interior"] == br * k
+                cost = model["compute_cost"] / shard + model["comm_cost"]
+            else:
+                np_, node_bytes = lp, 0
+                model = {}
+                cost = ((n ** 2) * k if obj == "kmedoid"
+                        else n * k) / shard
+            cand = TreePlan(radices, shard, lp, np_, leaf_n,
+                            max(leaf_bytes, node_bytes), cost, model)
+            key = (cand.cost, len(cand.radices), -cand.shard)
+            if best is None or key < (best.cost, len(best.radices),
+                                      -best.shard):
+                best = cand
+    return best

@@ -12,6 +12,16 @@ builds for that lane, and the reference's ``lax.all_gather`` over
 ``lvl0``, as the reference's reversed mesh axes are, so
 `factor_tree_axes` reads alike.
 
+A planned tree with ``shard`` > 1 (`make_tree_mesh(radices, shard)`,
+the reference's :80-98) gives every machine `shard` ranks that split its
+leaf pool (kernels/shard_gains.py): rank = machine·shard + shard digit,
+the shard digit fastest, so `local_block` still hands rank i block i —
+the s-th contiguous slice of its machine's pool. Level ℓ's subgroup is
+then the ranks that share every machine digit but digit ℓ AND the shard
+digit (the shard lanes carry replicated machine state up the tree), and
+each machine's ranks form its contiguous shard subgroup
+(``shard_group``). The axis names gain an innermost ``shard``.
+
 The caller's ``init_process_group`` chooses the backend; nothing here
 switches it. Under gloo a CUDA tensor is staged through the host for
 each collective; NCCL carries it in place (a bool as uint8). NCCL takes
@@ -32,8 +42,6 @@ import torch.distributed as dist
 
 DeviceSpec = Union[None, str, torch.device]
 
-ITEM_5 = "sharded leaves (shard > 1) are not ported yet: ROADMAP A5"
-
 
 def digits(lane: int, radices: Sequence[int]) -> Tuple[int, ...]:
     """The lane id's mixed-radix digits, level 0 first."""
@@ -44,25 +52,35 @@ def digits(lane: int, radices: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def level_ranks(radices: Sequence[int], lvl: int, lane: int) -> List[int]:
+def level_ranks(radices: Sequence[int], lvl: int, lane: int,
+                shard: int = 1) -> List[int]:
     """The ranks of `lane`'s level-`lvl` group: every lane that shares all
-    its digits but digit `lvl`, in digit order (ascending ranks)."""
+    its machine digits but digit `lvl`, and its shard digit, in digit
+    order (ascending ranks)."""
+    machine, s = divmod(lane, shard)
     inner = math.prod(radices[:lvl])
-    base = lane - digits(lane, radices)[lvl] * inner
-    return [base + d * inner for d in range(radices[lvl])]
+    base = machine - digits(machine, radices)[lvl] * inner
+    return [(base + d * inner) * shard + s for d in range(radices[lvl])]
 
 
-def level_partition(radices: Sequence[int], lvl: int) -> List[List[int]]:
+def level_partition(radices: Sequence[int], lvl: int,
+                    shard: int = 1) -> List[List[int]]:
     """All level-`lvl` groups, each once, ordered by their first rank —
     the order every rank creates them in."""
-    lanes = math.prod(radices)
+    lanes = math.prod(radices) * shard
     seen, out = set(), []
     for lane in range(lanes):
-        g = level_ranks(radices, lvl, lane)
+        g = level_ranks(radices, lvl, lane, shard)
         if g[0] not in seen:
             seen.add(g[0])
             out.append(g)
     return out
+
+
+def shard_partition(machines: int, shard: int) -> List[List[int]]:
+    """Every machine's shard group: its `shard` contiguous ranks."""
+    return [list(range(m * shard, (m + 1) * shard))
+            for m in range(machines)]
 
 
 def rank_devices(world: int, device_count: int,
@@ -102,9 +120,12 @@ def check_devices(backend: str, devices: Sequence[torch.device],
 
 class TreeMesh:
     """The tree's view of the default process group: ``radices`` (level 0
-    first), axis names ``lvl{L-1}`` … ``lvl0``, ``shape`` keyed by axis
+    first), ``shard`` ranks a machine (1: one), axis names ``lvl{L-1}``
+    … ``lvl0`` (then ``shard`` when sharded), ``shape`` keyed by axis
     name, the world group, this rank's subgroup at every level
-    (``groups[ℓ]``, None meaning the world) and this rank's ``device``
+    (``groups[ℓ]``, None meaning the world), its machine's
+    ``shard_group`` (with ``shard`` > 1), ``machine`` and
+    ``shard_digit``, and its ``device``
     (None: ``cuda:(local_rank % count)``, checked under NCCL for two
     ranks on one card; else the device given, which NCCL takes only at
     world size 1).
@@ -113,31 +134,43 @@ class TreeMesh:
     ({'op', 'level', 'bytes', 'seconds'}; the rank's device is
     synchronised around the call so the seconds are the collective's)."""
 
-    def __init__(self, radices: Sequence[int], *, axis_prefix: str = "lvl",
-                 device: DeviceSpec = None):
+    def __init__(self, radices: Sequence[int], *, shard: int = 1,
+                 axis_prefix: str = "lvl", device: DeviceSpec = None):
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError("call torch.distributed.init_process_group "
                                "first: the tree's ranks are its processes")
         self.radices = tuple(int(r) for r in radices)
-        if not self.radices or min(self.radices) < 1:
-            raise ValueError(f"radices must be positive: {radices}")
+        self.shard = int(shard)
+        if (self.radices and min(self.radices) < 1) or self.shard < 1 or (
+                not self.radices and self.shard < 2):
+            raise ValueError(f"radices must be positive, shard ≥ 1 (≥ 2 "
+                             f"with no level): {radices}, {shard}")
         self.world_size = dist.get_world_size()
         self.rank = dist.get_rank()
-        lanes = math.prod(self.radices)
+        lanes = math.prod(self.radices) * self.shard
         if lanes != self.world_size:
-            raise ValueError(f"the tree {self.radices} has {lanes} machines; "
-                             f"the process group has {self.world_size} ranks")
+            raise ValueError(f"the tree {self.radices} with shard "
+                             f"{self.shard} has {lanes} lanes; the process "
+                             f"group has {self.world_size} ranks")
         self.backend = str(dist.get_backend()).lower()
         self.device = self._place(device)
         self.axis_names = tuple(f"{axis_prefix}{i}"
                                 for i in reversed(range(len(self.radices))))
         self.shape = {f"{axis_prefix}{i}": r
                       for i, r in enumerate(self.radices)}
-        self.coords = digits(self.rank, self.radices)
+        if self.shard > 1:
+            self.axis_names += ("shard",)
+            self.shape["shard"] = self.shard
+        self.machine, self.shard_digit = divmod(self.rank, self.shard)
+        self.coords = digits(self.machine, self.radices)
         self.group = dist.group.WORLD
-        # every rank creates every group of every level, in one order
-        self.groups = [self._level_group(lvl)
+        # every rank creates every group of every level, then the shard
+        # groups, in one order
+        self.groups = [self._subgroup(level_partition(self.radices, lvl,
+                                                      self.shard))
                        for lvl in range(len(self.radices))]
+        self.shard_group = (self._subgroup(shard_partition(
+            self.machines, self.shard)) if self.shard > 1 else None)
         self.stage_on_host = (self.backend == "gloo"
                               and self.device.type == "cuda")
         self.log: Optional[List[dict]] = None
@@ -157,9 +190,11 @@ class TreeMesh:
         check_devices(self.backend, devices, local_world)
         return devices[self.rank]
 
-    def _level_group(self, lvl: int):
+    def _subgroup(self, partition: List[List[int]]):
+        """Create every group of `partition` (all ranks, one order) and
+        return this rank's."""
         mine = None
-        for ranks in level_partition(self.radices, lvl):
+        for ranks in partition:
             if len(ranks) == self.world_size:
                 g = None                       # the world itself
             else:
@@ -172,8 +207,20 @@ class TreeMesh:
     def lanes(self) -> int:
         return self.world_size
 
+    @property
+    def machines(self) -> int:
+        return math.prod(self.radices)
+
+    @property
+    def level_names(self) -> Tuple[str, ...]:
+        """The tree levels' axis names, innermost first."""
+        return tuple(reversed([a for a in self.axis_names
+                               if a != "shard"]))
+
     def flat(self) -> "TreeMesh":
         """One level over every rank (RandGreedi's tree), same device."""
+        if self.shard > 1:
+            raise ValueError("RandGreedi's flat tree has no shard lanes")
         m = TreeMesh.__new__(TreeMesh)
         m.__dict__.update(self.__dict__)
         m.radices = (self.world_size,)
@@ -209,13 +256,23 @@ class TreeMesh:
     def all_gather(self, lvl: int, x: torch.Tensor) -> torch.Tensor:
         """Concatenate `x` (n, …) of every rank of this rank's level-`lvl`
         group along dim 0, in digit order (lax.all_gather, tiled)."""
+        return self._gather(self.groups[lvl], self.radices[lvl], x,
+                            "all_gather", lvl)
+
+    def shard_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Concatenate `x` (n, …) of every rank of this rank's shard group
+        along dim 0, in shard-digit order."""
+        return self._gather(self.shard_group, self.shard, x,
+                            "shard_gather", None)
+
+    def _gather(self, group, size: int, x: torch.Tensor, op: str, lvl):
         t0 = self._start()
         t = self._wire(x)
-        parts = [torch.empty_like(t) for _ in range(self.radices[lvl])]
-        dist.all_gather(parts, t, group=self.groups[lvl])
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t, group=group)
         out = self._unwire(torch.cat(parts, 0), x)
         if self.log is not None:
-            self._record("all_gather", lvl, t.numel() * t.element_size()
+            self._record(op, lvl, t.numel() * t.element_size()
                          * len(parts), t0)
         return out
 
@@ -237,14 +294,14 @@ class TreeMesh:
 def make_tree_mesh(radices: Sequence[int], shard: int = 1,
                    axis_prefix: str = "lvl",
                    device: DeviceSpec = None) -> TreeMesh:
-    """The tree mesh of a planned tree over the default process group:
-    level ℓ gathers over axis f"{axis_prefix}{ℓ}". ``shard`` > 1 (leaves
-    split over cooperating ranks) is not ported (ROADMAP A5)."""
-    if int(shard) != 1:
-        raise NotImplementedError(ITEM_5)
-    if not tuple(radices):
+    """The tree mesh of a planned tree (`kernels/plans.py::plan_tree` →
+    TreePlan) over the default process group: level ℓ gathers over axis
+    f"{axis_prefix}{ℓ}"; ``shard`` > 1 adds the innermost axis "shard",
+    the ranks that split each leaf (rank = machine·shard + shard digit)."""
+    if not tuple(radices) and int(shard) <= 1:
         raise ValueError("empty tree with no sharding needs no mesh")
-    return TreeMesh(radices, axis_prefix=axis_prefix, device=device)
+    return TreeMesh(radices, shard=shard, axis_prefix=axis_prefix,
+                    device=device)
 
 
 def make_machine_mesh(m: int, b: int, axis_prefix: str = "lvl",

@@ -1336,3 +1336,146 @@ def test_cuda_nccl_world_of_one_equals_stacked_lanes(cuda):
     assert torch.equal(sol.ids, want.ids)
     assert torch.equal(sol.valid, want.valid)
     assert float(sol.value) == float(want.value)
+
+
+# ---------------------------------------------------------------------------
+# the sharded leaf tier and the lazy engine's DenseMedoid on the card
+# ---------------------------------------------------------------------------
+
+
+def _int_pool(n, d, seed):
+    return np.random.default_rng(seed).integers(-3, 4, (n, d)).astype(
+        np.float32)
+
+
+def _sharded_leaves(x, name, k, radices, shard, dev, tile_c=0):
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import LevelDispatcher, shard_lanes
+    obj = make_objective(name, device=dev)
+    disp = LevelDispatcher(obj, k, radices, shard=shard, tile_c=tile_c)
+    t = torch.as_tensor(x).to(dev)
+    n = t.shape[0]
+    sols = disp.leaves(*shard_lanes(
+        torch.arange(n, device=dev), t,
+        torch.ones(n, dtype=torch.bool, device=dev), disp.lanes))
+    return obj, sols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["auto", "int8"])
+@pytest.mark.parametrize("name,data", [("facility", "int"),
+                                       ("kmedoid", "int"),
+                                       ("kmedoid", "images")])
+def test_cuda_sharded_leaves_match_cpu(cuda, monkeypatch, name, data, rung):
+    """LevelDispatcher((2,), shard=2) stacked on the card against the same
+    stacked lanes on the CPU (plain gains): ids and valid equal but at a
+    float64-proven tie, evals equal, values within 1e-5 (small-integer
+    facility bit for bit); k · n_s / tile_c gains launches for all 4
+    lanes (gains[int8] under the forced rung), + 1 gains_norms for
+    'dist'."""
+    if rung != "auto":
+        monkeypatch.setenv(flags.FUSED_CACHE_DTYPE_ENV, rung)
+    x = (_int_pool(256, 48, 3) if data == "int"
+         else gen_images(256, 48, classes=6, seed=3))
+    k, tile = 6, 16
+    counters.reset()
+    obj, got = _sharded_leaves(x, name, k, (2,), 2, cuda, tile_c=tile)
+    launched = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    gains = "gains[int8]" if rung == "int8" else "gains"
+    assert launched == {gains: k * (256 // 4) // tile,
+                        **({"gains_norms": 1} if name == "kmedoid"
+                           else {})}, launched
+    _, want = _sharded_leaves(x, name, k, (2,), 2, "cpu", tile_c=tile)
+    got = got.map(lambda t: t.cpu())
+    pools = torch.as_tensor(x).reshape(2, 128, -1)
+    for lane in range(4):
+        m = lane // 2
+        w, g = want.map(lambda t: t[lane]), got.map(lambda t: t[lane])
+        if name == "facility":
+            for f in ("ids", "valid", "value", "evals"):
+                assert torch.equal(getattr(g, f), getattr(w, f)), (lane, f)
+            continue
+        if torch.equal(g.ids, w.ids):
+            assert torch.equal(g.valid, w.valid)
+            assert int(g.evals) == int(w.evals)
+            assert abs(float(g.value) - float(w.value)) <= 1e-5
+        else:
+            assert parity.selection_tie(
+                pools[m], torch.ones(128, dtype=torch.bool),
+                torch.arange(m * 128, (m + 1) * 128), w.ids, g.ids,
+                obj.rule), (lane, w.ids, g.ids)
+
+
+def _shard_cuda_rank(rank, x, k):
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels.shard_gains import shard_greedy_distributed
+    from repro_torch.launch.mesh import make_tree_mesh
+    torch.cuda.set_device(x.device)
+    mesh = make_tree_mesh((), shard=2, device=x.device)
+    obj = make_objective("kmedoid", device=x.device)
+    n = x.shape[0]
+    counters.reset()
+    sol = shard_greedy_distributed(
+        obj, torch.arange(n, device=x.device), x,
+        torch.ones(n, dtype=torch.bool, device=x.device), k, mesh, tile_c=32)
+    return {"sol": [t.cpu() for t in (sol.ids, sol.payloads, sol.valid,
+                                      sol.value, sol.evals)],
+            "launches": {n: c["launches"] for n, c in
+                         counters.snapshot().items() if c["launches"]}}
+
+
+@pytest.mark.cuda
+def test_cuda_shard_ranks_on_the_card_equal_stacked_lanes(cuda, tmp_path):
+    """2 spawned gloo ranks sharing the card as one machine's shard lanes:
+    shard_greedy_distributed equals shard_greedy_sim on the card bit for
+    bit, with the stacked launches on each rank."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import build
+    from repro_torch.kernels.shard_gains import shard_greedy_sim
+    from repro_torch.launch.spawn import run_ranks
+    for name in build.SOURCES:                  # built before the spawn
+        build.load(name)
+    x = torch.as_tensor(gen_images(300, 40, classes=6, seed=9)).to(cuda)
+    results = run_ranks(_shard_cuda_rank, 2, args=(x, 7), timeout=300,
+                        workdir=str(tmp_path))
+    counters.reset()
+    want = shard_greedy_sim(make_objective("kmedoid", device=cuda),
+                            torch.arange(300, device=cuda), x,
+                            torch.ones(300, dtype=torch.bool, device=cuda),
+                            7, lanes=2, tile_c=32)
+    stacked = {n: c["launches"] for n, c in counters.snapshot().items()
+               if c["launches"]}
+    assert stacked == {"gains": 7 * 5, "gains_norms": 1}, stacked
+    for res in results:
+        for got, w in zip(res["sol"], (want.ids, want.payloads, want.valid,
+                                       want.value, want.evals)):
+            assert torch.equal(got, w.cpu())
+        assert res["launches"] == stacked
+
+
+@pytest.mark.cuda
+def test_cuda_dense_medoid_matches_cpu(cuda):
+    """The lazy engine's DenseMedoid on the card against the CPU on
+    small-integer data: the same selections, per-node evals and comm;
+    values within 1e-5."""
+    from repro_torch.core.simulate import (DenseMedoid, run_greedy_lazy,
+                                           run_tree_lazy)
+    from repro_torch.core.tree import AccumulationTree
+    x = _int_pool(512, 96, 4)
+    st = DenseMedoid(x, np.arange(0, 512, 3), device=cuda)
+    assert st.ground.is_cuda and st.mind.is_cuda
+    tree = AccumulationTree(8, 2)
+    for kw in ({}, {"augment": 24}):
+        card = run_tree_lazy("kmedoid", x, 10, tree, seed=2, device=cuda,
+                             **kw)
+        cpu = run_tree_lazy("kmedoid", x, 10, tree, seed=2, device="cpu",
+                            **kw)
+        assert list(card.ids) == list(cpu.ids)
+        assert card.per_node_evals == cpu.per_node_evals
+        assert card.comm_elements == cpu.comm_elements
+        assert abs(card.value - cpu.value) <= 1e-5 * max(1.0, cpu.value)
+    card = run_greedy_lazy("kmedoid", x, 12, device=cuda)
+    cpu = run_greedy_lazy("kmedoid", x, 12, device="cpu")
+    assert list(card.ids) == list(cpu.ids)
+    assert card.evals_total == cpu.evals_total

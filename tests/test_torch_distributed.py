@@ -3,8 +3,8 @@ CPU with gloo, at world sizes 1, 2 and 4.
 
   * the level subgroups of launch/mesh.py equal `gather_groups`' rows
     (pure, no process group);
-  * the mesh's errors: a world size that is not the tree's, ``shard`` >
-    1, no device without CUDA, and NCCL's two ranks on one device
+  * the mesh's errors: a world size that is not the tree's (also with
+    ``shard`` > 1), no device without CUDA, and NCCL's two ranks on one device
     (checked on the placement function);
   * at world sizes 2 and 4 (spawned ranks, a FileStore rendezvous under
     the test's temporary directory, one spawn a world size with a
@@ -546,9 +546,13 @@ def test_mesh_errors(world1):
         TM.make_machine_mesh(4, 2, device="cpu")
     with pytest.raises(ValueError, match="m=b"):
         TM.make_machine_mesh(6, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        TM.make_tree_mesh((1,), shard=2)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a shard > 1 mesh needs tree · shard ranks, and the dispatcher the
+    # mesh's shard
+    with pytest.raises(ValueError, match="1 ranks"):
+        TM.make_tree_mesh((1,), shard=2, device="cpu")
+    with pytest.raises(ValueError, match="1 ranks"):
+        TM.make_tree_mesh((), shard=2, device="cpu")
+    with pytest.raises(ValueError, match="shard"):
         TGML.LevelDispatcher(_objective("kcover"), K, (1,), mesh=world1,
                              shard=2)
     if not torch.cuda.is_available():

@@ -135,7 +135,8 @@ def test_constraint_and_sampling_are_not_ported_yet():
     """Constrained and stochastic greedy run on one device (see
     tests/test_torch_constraints.py) and over a process group's ranks
     (tests/test_torch_distributed.py); a mesh that is not a TreeMesh is
-    refused, and sharded leaves are not ported yet and raise."""
+    refused; a constrained sharded dispatcher builds and leaves its
+    leaves unbound, as the reference's (tests/test_torch_shard.py)."""
     from repro_torch.core.constraints import KnapsackSpec
     from repro_torch.core.greedyml import LevelDispatcher
     obj = t_make("facility", device="cpu")
@@ -143,8 +144,14 @@ def test_constraint_and_sampling_are_not_ported_yet():
     with pytest.raises(TypeError, match="TreeMesh"):
         LevelDispatcher(obj, 3, (2,), mesh=object(), constraint=spec,
                         sample_leaf=5)
-    with pytest.raises(NotImplementedError, match="A5"):
-        LevelDispatcher(obj, 3, (2,), shard=2, constraint=spec)
+    disp = LevelDispatcher(obj, 3, (2,), shard=2, constraint=spec)
+    assert (disp.machines, disp.lanes) == (2, 4)
+    ids, x, valid = _pool(n=32)
+    leaves = disp.leaves(torch.as_tensor(ids).reshape(4, 8),
+                         torch.as_tensor(x).reshape(4, 8, -1),
+                         torch.as_tensor(valid).reshape(4, 8))
+    assert float(spec.spent(leaves.ids[0], leaves.valid[0])) == float(
+        leaves.valid[0].sum())                   # unit costs, unbound
     ids, x, valid = _pool(n=30)
     sol = _t("facility", "auto", ids, x, valid, 3, sample=5,
              constraint=spec.bind(torch.as_tensor(ids, dtype=torch.int64)))
