@@ -244,6 +244,41 @@ and the sharded leaf tier, the lazy Minoux engine and the tree planner:
                           default budget and one just below the smallest
                           leaf cache
 
+and fault tolerance and serving (checkpoints under a temporary
+directory the phase removes; every save's and restore's bytes and
+seconds printed):
+
+  supervised_kmedoid      (after run) SelectionSupervisor over run's
+                          pools with a transient failure at level 3: the
+                          root bit for bit the unsupervised dispatcher's
+                          over the same pools and run's root ids and
+                          value; 315 MB saves
+  serve_kmedoid           QueryEngine: 32 queries over 400-image pools, k
+                          ∈ {50, 100, 200}, plus a knapsack and a sampled
+                          query (solo): one greedy_loop_resident launch
+                          an admitted batch, every query equal to its
+                          solo greedy() run bit for bit; p50/p99
+  supervised_kcover       (after kcover_run) clean == kcover_run's root,
+                          a transient failure replayed to the clean bits,
+                          lane 7 dead → tree (16, 2, 4) at ≥ 0.95×, a run
+                          stopped after level 2 resumed to the clean root
+  serve_kcover            64 queries of 128 kosarak sets (k = 64) plus a
+                          knapsack and a sampled query, as serve_kmedoid
+  supervised_stream       (after continuous_kcover) a transient merge
+                          failure: merges and digest equal
+                          continuous_kcover's; a lost lane (lane_reset);
+                          stream_select checkpointed, stopped at half and
+                          resumed equal to stream_kcover bit for bit
+  tenant_session          a TenantSession over the same stream equal to
+                          continuous_kcover
+  supervised_distributed  (after distributed_kdom) 8 gloo ranks: clean
+                          == distributed_kdom's root, replay == clean,
+                          lane 7 dead → a 4-rank subset mesh equal to the
+                          stacked supervised run with that failure
+  faultrun_smoke          (last) `python -m repro_torch.launch.faultrun
+                          --smoke` on the card exits 0
+  slice13_total           the seconds these phases added
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -3406,7 +3441,7 @@ def phase_stream_kcover(torch, words, cfg, root_value):
     emit({"phase": "stream_kcover", "universe": cfg.universe,
           "words": int(words.shape[1]), **rep, "global_value": gv,
           "root_value": root_value, "ratio_to_root": gv / root_value})
-    return rep["launches"]
+    return rep["launches"], sol
 
 
 def _kcover_stream(torch, words, cfg):
@@ -4410,6 +4445,589 @@ def phase_plan_tree(torch, configs, lanes: int = 32):
     emit({"phase": "plan_tree", "lanes": lanes, **out})
 
 
+# ---------------------------------------------------------------------------
+# fault tolerance and serving (slice 13)
+# ---------------------------------------------------------------------------
+
+# seconds each slice-13 phase took, printed once at the end
+SLICE13_SECONDS = {}
+SERVE_POOL, SERVE_KS = 400, (50, 100, 200)
+SERVE_KCOVER_POOL = 128
+
+
+@contextlib.contextmanager
+def _ckpt_probe(log: list):
+    """checkpoint/manager.py's save and restore timed for the duration:
+    each call's step, arrays.npz bytes and seconds appended to `log`."""
+    from repro_torch.checkpoint import manager
+    save0, restore0 = manager.save, manager.restore
+
+    def npz(path):
+        return os.path.getsize(os.path.join(path, "arrays.npz"))
+
+    def save(ckpt_dir, step, tree, extra=None, keep=3):
+        t0 = time.perf_counter()
+        path = save0(ckpt_dir, step, tree, extra=extra, keep=keep)
+        log.append({"op": "save", "step": step, "bytes": npz(path),
+                    "seconds": time.perf_counter() - t0})
+        return path
+
+    def restore(ckpt_dir, example_tree, step=None, shardings=None):
+        t0 = time.perf_counter()
+        out = restore0(ckpt_dir, example_tree, step=step,
+                       shardings=shardings)
+        path = os.path.join(ckpt_dir, f"step_{out[1]['step']:08d}")
+        log.append({"op": "restore", "step": out[1]["step"],
+                    "bytes": npz(path),
+                    "seconds": time.perf_counter() - t0})
+        return out
+
+    manager.save, manager.restore = save, restore
+    try:
+        yield log
+    finally:
+        manager.save, manager.restore = save0, restore0
+
+
+def _run_pools(torch, data, cfg):
+    """run_tree_dense's leaf pools (its seeded partition, −1 padded, on
+    the card) as global (m·P, …) arrays: shard_lanes gives lane i pool i,
+    so a dispatcher over them runs run_tree_dense's leaves."""
+    from repro_torch.core.simulate import _pools, partition
+    pool_ids, pool_valid = _pools(partition(data.shape[0],
+                                            cfg.num_machines, cfg.seed),
+                                  cfg.num_machines)
+    ids = torch.as_tensor(pool_ids, device=data.device)
+    pay = data[ids.clamp(min=0)]
+    pay[ids < 0] = 0
+    return (ids.reshape(-1), pay.reshape((-1,) + tuple(data.shape[1:])),
+            torch.as_tensor(pool_valid, device=data.device).reshape(-1))
+
+
+def _supervised_run(torch, obj, data, k, lanes, b, ckpt_dir, injector=None,
+                    max_restarts=3, resume=False, **kw):
+    """One SelectionSupervisor.select over stacked lanes on the card →
+    (root, info, report: wall, each dispatch's level/epoch/wall, the
+    event kinds, launches by kernel)."""
+    from repro_torch.kernels import counters
+    from repro_torch.runtime.supervisor import SelectionSupervisor
+    sup = SelectionSupervisor(ckpt_dir=ckpt_dir, injector=injector,
+                              max_restarts=max_restarts)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, info = sup.select(obj, *data, k, lanes=lanes, branching=b,
+                           resume=resume, **kw)
+    torch.cuda.synchronize()
+    return sol, info, _sup_report(info, time.perf_counter() - t0)
+
+
+def _sup_report(info, wall) -> dict:
+    from repro_torch.kernels import counters
+    return {"wall_seconds": wall,
+            "levels": [{"level": e["level"], "epoch": e["epoch"],
+                        "wall_s": e["wall_s"]} for e in info["events"]
+                       if e["kind"] == "dispatch"],
+            "events": [[e["kind"], e.get("level")] for e in info["events"]],
+            "final_tree": list(info["final_tree"]),
+            "workers": info["workers"],
+            "launches": {n: c["launches"] for n, c in
+                         counters.snapshot().items() if c["launches"]}}
+
+
+def _same_solution(a, b, what: str) -> None:
+    for f in ("ids", "payloads", "valid", "value", "evals"):
+        assert torch_equal(getattr(a, f), getattr(b, f)), (what, f)
+
+
+def torch_equal(a, b) -> bool:
+    return bool(a.shape == b.shape and (a == b).all())
+
+
+def _kinds(report) -> list:
+    return [k for k, _ in report["events"]]
+
+
+class _StopAt:
+    """An injector that raises an anonymous WorkerFailure at one level:
+    with max_restarts=0 the run stops there, its checkpoints kept."""
+
+    def __init__(self, level: int):
+        self.level = level
+
+    def check(self, level, alive=None):
+        from repro_torch.runtime.fault import WorkerFailure
+        if level == self.level:
+            raise WorkerFailure(f"stopped at level {level}")
+
+
+def _launch_totals(*reports) -> dict:
+    out = {}
+    for rep in reports:
+        _add(out, rep["launches"])
+    return out
+
+
+def phase_supervised_kcover(torch, words, cfg, kcover_res):
+    """SelectionSupervisor over kcover_run's pools (KOSARAK uncut, k = 64,
+    m = 32, b = 2): a clean run equal to kcover_run's root bit for bit; a
+    transient failure at (level 2, lane 5) replayed from the level-1
+    checkpoint to the clean bits; lane 7 dead from level 1 → the tree
+    re-planned to (16, 2, 4) over the survivors' solutions, value ≥ 0.95×
+    clean; a run stopped after level 2 and resumed by a fresh supervisor
+    reaching the clean root. Every save and restore's bytes and seconds,
+    every dispatch's wall, the launches."""
+    import tempfile
+    from repro_torch.core.functions import make_objective
+    from repro_torch.runtime.elastic import plan_degraded_tree
+    from repro_torch.runtime.fault import WorkerFailure
+    from repro_torch.runtime.supervisor import (LaneFailureInjector,
+                                                SelectionSupervisor)
+    t_phase = time.perf_counter()
+    m, b = cfg.num_machines, cfg.branching
+    obj = make_objective("kcover", universe=cfg.universe, device=words.device)
+    data = _run_pools(torch, words, cfg)
+    logs, reps = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, **kw):
+            logs[name] = []
+            with _ckpt_probe(logs[name]):
+                sol, info, rep = _supervised_run(
+                    torch, obj, data, cfg.k, m, b,
+                    os.path.join(tmp, name), **kw)
+            reps[name] = rep
+            return sol, info
+        clean, _ = run("clean")
+        root_ids = clean.ids[clean.valid].cpu().numpy()
+        assert np.array_equal(root_ids, np.asarray(kcover_res.ids)), (
+            root_ids, kcover_res.ids)
+        assert float(clean.value) == kcover_res.root_value, (
+            float(clean.value), kcover_res.root_value)
+        rep, _ = run("replay", injector=LaneFailureInjector(
+            fail_at=((2, 5),)))
+        _same_solution(rep, clean, "replay")
+        assert {"failure", "restore"} <= set(_kinds(reps["replay"]))
+        deg, dinfo = run("degraded", injector=LaneFailureInjector(
+            dead={7: 1}), max_restarts=1)
+        lanes2, levels2 = plan_degraded_tree(m - 1, b)     # (16, 4)
+        assert dinfo["degraded"] and dinfo["final_tree"] == (
+            lanes2, b, levels2), dinfo["final_tree"]
+        assert 7 not in dinfo["workers"]
+        ratio = float(deg.value) / float(clean.value)
+        assert ratio >= 0.95, ratio
+        logs["stopped"] = []
+        with _ckpt_probe(logs["stopped"]):
+            sup = SelectionSupervisor(ckpt_dir=os.path.join(tmp, "resume"),
+                                      injector=_StopAt(3), max_restarts=0)
+            try:
+                sup.select(obj, *data, cfg.k, lanes=m, branching=b)
+                raise AssertionError("the stopped run did not stop")
+            except WorkerFailure:
+                pass
+        res, rinfo = run("resume", resume=True)
+        _same_solution(res, clean, "resume")
+        assert _kinds(reps["resume"])[0] == "resume"
+        assert reps["resume"]["events"][0][1] == 2
+    SLICE13_SECONDS["supervised_kcover"] = time.perf_counter() - t_phase
+    emit({"phase": "supervised_kcover", "n": cfg.n, "k": cfg.k, "m": m,
+          "b": b, "root_equal_to_kcover_run": True,
+          "replay_equal_to_clean": True, "resume_equal_to_clean": True,
+          "root_value": float(clean.value),
+          "degraded_value": float(deg.value), "degraded_ratio": ratio,
+          "degraded_final_tree": list(dinfo["final_tree"]),
+          "runs": reps, "checkpoints": logs,
+          "seconds": SLICE13_SECONDS["supervised_kcover"]})
+    return _launch_totals(*reps.values())
+
+
+def phase_supervised_kmedoid(torch, x, cfg, f32_run):
+    """SelectionSupervisor over run's pools (Tiny-ImageNet, k = 200, m =
+    32, b = 2) with a transient failure at (level 3, lane 5): the root
+    equal bit for bit to the unsupervised LevelDispatcher over the same
+    pools, and run's root ids and value; every lane's 200 × 12,288 f32
+    payloads checkpointed (315 MB a save): saves' and the restore's
+    bytes and seconds."""
+    import tempfile
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import (LevelDispatcher, root_solution,
+                                           shard_lanes)
+    from repro_torch.runtime.supervisor import LaneFailureInjector
+    t_phase = time.perf_counter()
+    m, b = cfg.num_machines, cfg.branching
+    obj = make_objective("kmedoid", device=x.device)
+    data = _run_pools(torch, x, cfg)
+    disp = LevelDispatcher(obj, cfg.k, (b,) * round(math.log(m, b)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols = disp.leaves(*shard_lanes(*data, m))
+    for lvl in range(disp.num_levels):
+        sols = disp.level(sols, lvl)
+    want = root_solution(sols)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    del sols
+    log = []
+    with tempfile.TemporaryDirectory() as tmp, _ckpt_probe(log):
+        sol, info, rep = _supervised_run(
+            torch, obj, data, cfg.k, m, b, tmp,
+            injector=LaneFailureInjector(fail_at=((3, 5),)))
+    del data
+    _same_solution(sol, want, "supervised vs dispatcher")
+    assert {"failure", "restore"} <= set(_kinds(rep))
+    run_ids, _, run_root = f32_run
+    ids = sol.ids[sol.valid].cpu().numpy()
+    assert np.array_equal(ids, np.asarray(run_ids)), (ids, run_ids)
+    assert float(sol.value) == run_root, (float(sol.value), run_root)
+    SLICE13_SECONDS["supervised_kmedoid"] = time.perf_counter() - t_phase
+    emit({"phase": "supervised_kmedoid", "n": x.shape[0], "k": cfg.k,
+          "m": m, "b": b, "root_equal_to_dispatcher": True,
+          "root_equal_to_run": True,
+          "root_value": float(sol.value), "run_root_value": run_root,
+          "dispatcher_wall_seconds": plain_wall, "run": rep,
+          "checkpoints": log,
+          "seconds": SLICE13_SECONDS["supervised_kmedoid"]})
+    return rep["launches"]
+
+
+def _sup_dist_rank(rank, flat, name, k, universe, radices, root, dev):
+    """One rank of supervised_distributed: clean, replay and dead-lane
+    supervised trees over the mesh, each rank's root and report."""
+    import torch
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_tree_mesh
+    from repro_torch.runtime.supervisor import (LaneFailureInjector,
+                                                SelectionSupervisor)
+    dev = _rank_device(torch, dev)
+    mesh = make_tree_mesh(radices, device=dev)
+    obj = make_objective(name, universe=universe, device=dev)
+    runs = {"clean": (None, 3),
+            "replay": (LaneFailureInjector(fail_at=((2, 5),)), 3),
+            "degraded": (LaneFailureInjector(dead={7: 1}), 1)}
+    out = {}
+    for run, (inj, mr) in runs.items():
+        sup = SelectionSupervisor(ckpt_dir=os.path.join(root, run),
+                                  injector=inj, max_restarts=mr)
+        counters.reset()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        sol, info = sup.select(obj, *flat, k, lanes=mesh.lanes, mesh=mesh)
+        _sync(torch, dev)
+        out[run] = {"sol": sol.map(lambda x: x.cpu()),
+                    "report": _sup_report(info, time.perf_counter() - t0)}
+    return out
+
+
+def phase_supervised_distributed(torch, words, cfg, dev: str = "cuda:0",
+                                 deadline: float = DIST_DEADLINE):
+    """SelectionSupervisor over 8 spawned gloo ranks on the card, one
+    lane a rank (distributed_kdom's pools, paper_kdom uncut): the clean
+    root equal to distributed_kdom's on every rank; a transient failure
+    at (2, 5) replayed to the clean bits; lane 7 dead from level 1 →
+    the tree re-planned onto a 4-rank subset mesh, its root on every rank
+    equal bit for bit to the stacked supervised run with that failure."""
+    import tempfile
+    from repro_torch.core.functions import make_objective
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.runtime.elastic import plan_degraded_tree
+    from repro_torch.runtime.supervisor import LaneFailureInjector
+    t_phase = time.perf_counter()
+    m, b = cfg.num_machines, cfg.branching
+    lanes2, levels2 = plan_degraded_tree(m - 1, b)         # (4, 2)
+    radices = (b,) * int(round(math.log(m, b)))
+    pools = lane_pools(torch, words, m, cfg.seed)
+    want, _ = _stacked_root(torch, cfg.objective, pools, cfg.k,
+                            cfg.universe, radices)
+    flat = (pools[0].reshape(-1), pools[1].reshape(-1, words.shape[1]),
+            pools[2].reshape(-1))
+    obj = make_objective(cfg.objective, universe=cfg.universe,
+                         device=words.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        stacked, sinfo, srep = _supervised_run(
+            torch, obj, flat, cfg.k, m, b, os.path.join(tmp, "stacked"),
+            injector=LaneFailureInjector(dead={7: 1}), max_restarts=1)
+        t0 = time.perf_counter()
+        results = run_ranks(_sup_dist_rank, m, args=(
+            flat, cfg.objective, cfg.k, cfg.universe, radices,
+            os.path.join(tmp, "ranks"), dev), timeout=deadline)
+        spawn_wall = time.perf_counter() - t0
+    del pools, flat
+    launches = {}
+    for r, res in enumerate(results):
+        clean = res["clean"]["sol"]
+        _same_solution(clean, want.map(lambda t: t.cpu()), f"clean {r}")
+        _same_solution(res["replay"]["sol"], clean, f"replay {r}")
+        _same_solution(res["degraded"]["sol"],
+                       stacked.map(lambda t: t.cpu()), f"degraded {r}")
+        drep = res["degraded"]["report"]
+        assert drep["final_tree"] == [lanes2, b, levels2], drep[
+            "final_tree"]
+        assert drep["workers"] == list(range(lanes2)), drep["workers"]
+        assert {"failure", "restore"} <= set(_kinds(res["replay"]["report"]))
+        for run in res.values():
+            _add(launches, run["report"]["launches"])
+    SLICE13_SECONDS["supervised_distributed"] = time.perf_counter() - t_phase
+    emit({"phase": "supervised_distributed", "backend": "gloo", "ranks": m,
+          "radices": list(radices), "root_equal_to_distributed_kdom": True,
+          "replay_equal_to_clean": True,
+          "degraded_equal_to_stacked": True,
+          "degraded_final_tree": [lanes2, b, levels2],
+          "subset_ranks": list(range(lanes2)),
+          "value": float(want.value),
+          "degraded_value": float(stacked.value),
+          "stacked_degraded": srep, "spawn_wall_seconds": spawn_wall,
+          "rank0": {run: res["report"] for run, res in results[0].items()},
+          "launches": launches,
+          "seconds": SLICE13_SECONDS["supervised_distributed"]})
+    _add(launches, srep["launches"])
+    return launches
+
+
+def phase_supervised_stream(torch, words, cfg, continuous, stream_sol):
+    """The streaming drivers under supervision, on continuous_kcover's and
+    stream_kcover's streams (all 990,002 sets, B = 256): a transient
+    failure at merge 1 on lane 2 replayed — the merges and the answer
+    equal continuous_kcover's; lane 1 lost from merge 3 (lane_reset, a
+    cold sieve); stream_select checkpointed every 512 batches, stopped at
+    half the stream and resumed — ids and value equal stream_kcover's bit
+    for bit."""
+    import itertools
+    import tempfile
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.runtime.supervisor import (LaneFailureInjector,
+                                                SelectionSupervisor)
+    from repro_torch.streaming import stream_select, stream_select_continuous
+    t_phase = time.perf_counter()
+    obj = make_objective("kcover", universe=cfg.universe,
+                         device=words.device)
+    stream, _ = _kcover_stream(torch, words, cfg)
+    n_batches = -(-words.shape[0] // STREAM_BATCH)
+    logs, out, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, inj, mr in (
+                ("replay", LaneFailureInjector(fail_at=((1, 2),)), 3),
+                ("lane_lost", LaneFailureInjector(dead={1: 3}), 1)):
+            logs[name] = []
+            sup = SelectionSupervisor(ckpt_dir=os.path.join(tmp, name),
+                                      injector=inj, max_restarts=mr)
+            counters.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _ckpt_probe(logs[name]):
+                sol, info = stream_select_continuous(
+                    obj, stream, cfg.k, lanes=CONTINUOUS_LANES, branching=2,
+                    merge_every=MERGE_EVERY, eps=STREAM_EPS, supervisor=sup)
+            torch.cuda.synchronize()
+            kinds = [e["kind"] for e in info["events"]]
+            out[name] = {"wall_seconds": time.perf_counter() - t0,
+                         "merges": info["merges"], "kinds": kinds,
+                         "merge_walls": [e["wall_s"] for e in info["events"]
+                                         if e["kind"] == "merge"],
+                         "digest": _digest(sol.ids[sol.valid].cpu().numpy(),
+                                           sol.value)}
+            _add(launches, {n: c["launches"] for n, c in
+                            counters.snapshot().items() if c["launches"]})
+        rep = out["replay"]
+        assert rep["merges"] == continuous["merges"], (rep["merges"],
+                                                       continuous["merges"])
+        assert rep["digest"] == continuous["digest"]
+        assert {"failure", "restart"} <= set(rep["kinds"])
+        assert "lane_reset" in out["lane_lost"]["kinds"]
+        d = os.path.join(tmp, "stream")
+        logs["stream_select"] = []
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _ckpt_probe(logs["stream_select"]):
+            stream_select(obj, itertools.islice(iter(stream), n_batches // 2),
+                          cfg.k, eps=STREAM_EPS, ckpt_dir=d, ckpt_every=512)
+            resumed = stream_select(obj, stream, cfg.k, eps=STREAM_EPS,
+                                    ckpt_dir=d, resume=True)
+        torch.cuda.synchronize()
+        stop_resume_wall = time.perf_counter() - t0
+        _add(launches, {n: c["launches"] for n, c in
+                        counters.snapshot().items() if c["launches"]})
+    _same_solution(resumed, stream_sol, "stream_select resumed")
+    SLICE13_SECONDS["supervised_stream"] = time.perf_counter() - t_phase
+    emit({"phase": "supervised_stream", "lanes": CONTINUOUS_LANES,
+          "merge_every": MERGE_EVERY, "batches": n_batches,
+          "replay_merges_equal_to_continuous_kcover": True,
+          "resume_equal_to_stream_kcover": True,
+          "stopped_after_batches": n_batches // 2,
+          "stop_resume_wall_seconds": stop_resume_wall, "runs": out,
+          "checkpoints": logs, "launches": launches,
+          "seconds": SLICE13_SECONDS["supervised_stream"]})
+    return launches
+
+
+def phase_tenant_session(torch, words, cfg, continuous):
+    """A TenantSession over continuous_kcover's stream (the same lanes,
+    branching, merge cadence and ε): its merges and answer equal the
+    direct ContinuousSelector's (continuous_kcover)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.serving import SessionManager
+    t_phase = time.perf_counter()
+    obj = make_objective("kcover", universe=cfg.universe,
+                         device=words.device)
+    stream, _ = _kcover_stream(torch, words, cfg)
+    mgr = SessionManager()
+    sess = mgr.open("tenant0", obj, cfg.k, lanes=CONTINUOUS_LANES,
+                    branching=2, merge_every=MERGE_EVERY, eps=STREAM_EPS)
+    counters.reset()
+    for ids, pay, valid in stream:
+        sess.push(ids, pay, valid)
+    sol = mgr.close("tenant0")
+    torch.cuda.synchronize()
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    info = sess.info()
+    digest = _digest(sol.ids[sol.valid].cpu().numpy(), sol.value)
+    assert info["merges"] == continuous["merges"], info["merges"]
+    assert digest == continuous["digest"], (digest, continuous["digest"])
+    SLICE13_SECONDS["tenant_session"] = time.perf_counter() - t_phase
+    emit({"phase": "tenant_session", "equal_to_continuous_kcover": True,
+          "pushes": mgr.metrics.tenant_stats("tenant0")["stream_pushes"],
+          "merges": len(info["merges"]), "digest": digest,
+          "launches": launches,
+          "seconds": SLICE13_SECONDS["tenant_session"]})
+    return launches
+
+
+def _serve(torch, name, queries, solo_kw, resident: str):
+    """Drain `queries` through one QueryEngine on the card: every
+    admitted batch ONE resident dispatch, each batched query equal bit
+    for bit to its solo greedy(engine="mega"), each solo one to greedy()
+    with its own arguments → (report, launches)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedy import greedy
+    from repro_torch.kernels import counters
+    from repro_torch.serving import QueryEngine
+    dev = queries[0].payloads.device
+    eng = QueryEngine(device=dev)
+    qids = [eng.submit(q) for q in queries]
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    batches = eng.metrics.batches
+    assert batches and all(bt["dispatches"] == 1 for bt in batches), batches
+    assert launches.get(resident) == len(batches), (launches, batches)
+    n_batched = sum(bt["size"] for bt in batches)
+    assert n_batched == sum(r.batched for r in res.values())
+    obj = make_objective(name, universe=queries[0].universe, device=dev)
+    for qid, q in zip(qids, queries):
+        r = res[qid]
+        kw = solo_kw.get(qid, {"engine": "mega"})
+        assert r.batched == (qid not in solo_kw), qid
+        want = greedy(obj, q.ids, q.payloads, q.valid, q.k, **kw)
+        _same_solution(r.solution, want, f"query {qid}")
+    snap = eng.metrics.snapshot()
+    return {"queries": len(queries), "batched": n_batched,
+            "solo": len(queries) - n_batched,
+            "batch_sizes": [bt["size"] for bt in batches],
+            "batch_walls_s": [bt["wall_s"] for bt in batches],
+            "resident_dispatches": len(batches),
+            "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+            "queries_per_s": snap["queries_per_s"], "drain_seconds": wall,
+            "each_equal_to_solo": True}, launches
+
+
+def phase_serve_kmedoid(torch, x, cfg):
+    """QueryEngine on the card: 32 k-medoid queries over 400-image pools
+    of the Tiny-ImageNet images (the node shape, 12,288 features), k ∈
+    {50, 100, 200}, beside a knapsack query (uniform(0.5, 2) costs,
+    budget 50) and a sampled query (sample 10, seed 3), which go solo."""
+    from repro_torch.core.constraints import Knapsack
+    from repro_torch.serving import Query
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(cfg.seed + 7)
+    dev = x.device
+
+    def pool():
+        idx = torch.as_tensor(np.sort(rng.choice(x.shape[0], SERVE_POOL,
+                                                 replace=False)), device=dev)
+        return idx, x[idx], torch.ones(SERVE_POOL, dtype=torch.bool,
+                                       device=dev)
+
+    queries = [Query("kmedoid", SERVE_KS[i % 3], *pool())
+               for i in range(32)]
+    costs = torch.as_tensor(knapsack_costs(SERVE_POOL, cfg.seed), device=dev)
+    con = Knapsack(costs, 50.0)
+    sample = sample_size(SERVE_POOL, cfg.k)
+    queries.insert(5, Query("kmedoid", cfg.k, *pool(), constraint=con))
+    queries.insert(20, Query("kmedoid", cfg.k, *pool(), sample=sample,
+                             seed=3))
+    solo = {5: {"constraint": con},
+            20: {"sample": sample,
+                 "key": torch.Generator().manual_seed(3)}}
+    rep, launches = _serve(torch, "kmedoid", queries, solo,
+                           "greedy_loop_resident")
+    SLICE13_SECONDS["serve_kmedoid"] = time.perf_counter() - t_phase
+    emit({"phase": "serve_kmedoid", "pool": SERVE_POOL,
+          "d": x.shape[1], "ks": list(SERVE_KS), **rep,
+          "launches": launches,
+          "seconds": SLICE13_SECONDS["serve_kmedoid"]})
+    return launches
+
+
+def phase_serve_kcover(torch, words, cfg):
+    """QueryEngine on the card: 64 kcover queries of 128 kosarak sets (the
+    resident bitmap loop's node shape, 1,290 words), k = 64, beside a
+    knapsack query (budget 40) and a sampled query, which go solo."""
+    from repro_torch.core.constraints import Knapsack
+    from repro_torch.serving import Query
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(cfg.seed + 7)
+    dev = words.device
+    c = SERVE_KCOVER_POOL
+
+    def pool():
+        idx = torch.as_tensor(np.sort(rng.choice(words.shape[0], c,
+                                                 replace=False)), device=dev)
+        return idx, words[idx], torch.ones(c, dtype=torch.bool, device=dev)
+
+    queries = [Query("kcover", cfg.k, *pool(), universe=cfg.universe)
+               for _ in range(64)]
+    con = Knapsack(torch.as_tensor(knapsack_costs(c, cfg.seed),
+                                   device=dev), BUDGET_KCOVER)
+    sample = sample_size(c, cfg.k)
+    queries.insert(9, Query("kcover", cfg.k, *pool(), universe=cfg.universe,
+                            constraint=con))
+    queries.insert(40, Query("kcover", cfg.k, *pool(), universe=cfg.universe,
+                             sample=sample, seed=5))
+    solo = {9: {"constraint": con},
+            40: {"sample": sample, "key": torch.Generator().manual_seed(5)}}
+    rep, launches = _serve(torch, "kcover", queries, solo,
+                           "greedy_loop_resident[coverage]")
+    SLICE13_SECONDS["serve_kcover"] = time.perf_counter() - t_phase
+    emit({"phase": "serve_kcover", "pool": c,
+          "words": int(words.shape[1]), "k": cfg.k, **rep,
+          "launches": launches, "seconds": SLICE13_SECONDS["serve_kcover"]})
+    return launches
+
+
+def phase_faultrun_smoke():
+    """`python -m repro_torch.launch.faultrun --smoke` as a subprocess on
+    the card (the kernels already built): it must exit 0."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.faultrun",
+                          "--smoke"], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "fault smoke OK" in out.stdout, (
+        out.returncode, out.stdout[-2000:], out.stderr[-2000:])
+    SLICE13_SECONDS["faultrun_smoke"] = time.perf_counter() - t0
+    emit({"phase": "faultrun_smoke", "exit": out.returncode,
+          "stdout": out.stdout.strip().splitlines(),
+          "seconds": SLICE13_SECONDS["faultrun_smoke"]})
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -4451,13 +5069,16 @@ def main(argv=None) -> int:
     phase_reference_dispatch(torch)
     phase_reference_stream(torch)
     launches, f32_run = phase_run(torch, x, cfg)
+    _add(launches, phase_supervised_kmedoid(torch, x, cfg, f32_run))
+    _add(launches, phase_serve_kmedoid(torch, x, cfg))
     for dtype in QUANT:
         _add(launches, phase_run_quant(torch, x, cfg, dtype, f32_run))
-    launches["fused_step"] = phase_knapsack(torch, x, cfg, pools)[
-        "fused_step"]
+    _add(launches, {"fused_step": phase_knapsack(torch, x, cfg, pools)[
+        "fused_step"]})
     for dtype in QUANT:
         _add(launches, phase_knapsack_quant(torch, x, cfg, pools, dtype))
-    launches["gains"] = phase_stochastic(torch, x, cfg, pools)["gains"]
+    _add(launches, {"gains": phase_stochastic(torch, x, cfg, pools)[
+        "gains"]})
     _add(launches, phase_stochastic_int8(torch, x, cfg, pools))
     shard_launches, shard_err = phase_sharded_kmedoid(torch, x, cfg, pools,
                                                       args.reps)
@@ -4488,21 +5109,29 @@ def main(argv=None) -> int:
                                                kc, "kcover_run")
     kcover_root = kcover_res.root_value
     launches.update(tree_launches)
+    _add(launches, phase_supervised_kcover(torch, words, kc, kcover_res))
+    _add(launches, phase_serve_kcover(torch, words, kc))
     phase_lazy_kcover(torch, sets, words, kc, kcover_res)
     del sets
-    launches["fused_step[coverage]"] = phase_kcover_knapsack(
-        torch, words, kc, kpools)["fused_step[coverage]"]
-    launches["gains[coverage]"] = phase_kcover_stochastic(
-        torch, words, kc, kpools)["gains[coverage]"]
+    _add(launches, {"fused_step[coverage]": phase_kcover_knapsack(
+        torch, words, kc, kpools)["fused_step[coverage]"]})
+    _add(launches, {"gains[coverage]": phase_kcover_stochastic(
+        torch, words, kc, kpools)["gains[coverage]"]})
     times.update(phase_timing_coverage(torch, words, kc, kpools, args.reps))
     del kpools
     errs.update(phase_parity_stream_coverage(torch, words, kc))
-    _add(launches, phase_stream_kcover(torch, words, kc, kcover_root))
+    stream_launches, stream_sol = phase_stream_kcover(torch, words, kc,
+                                                      kcover_root)
+    _add(launches, stream_launches)
     phase_stream_idle(torch, "kcover", words, kc, kc.k)
     _add(launches, phase_stream_kcover_knapsack(torch, words, kc))
     _add(launches, phase_window_kcover(torch, words, kc))
     cont_launches, continuous = phase_continuous_kcover(torch, words, kc)
     _add(launches, cont_launches)
+    _add(launches, phase_supervised_stream(torch, words, kc, continuous,
+                                           stream_sol))
+    del stream_sol
+    _add(launches, phase_tenant_session(torch, words, kc, continuous))
     times.update(phase_timing_stream_coverage(torch, words, kc, args.reps))
     _add(launches, phase_distributed_stream_kcover(torch, words, kc,
                                                    continuous))
@@ -4511,6 +5140,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     _, kdom_errs, kwords = phase_kdom_run(torch, KDOM, dev, args.reps)
     _add(launches, phase_distributed_kdom(torch, kwords, KDOM))
+    _add(launches, phase_supervised_distributed(torch, kwords, KDOM))
     _add(launches, phase_distributed_nccl(torch, kwords, KDOM))
     del kwords
     gc.collect()
@@ -4522,6 +5152,9 @@ def main(argv=None) -> int:
                             ("kdom", KDOM, None, -(-KDOM.universe // 32))])
     for name, err in [*kdom_errs.items(), *global_errs.items()]:
         errs[name] = max(errs[name], err)
+    phase_faultrun_smoke()
+    emit({"phase": "slice13_total", "phases": SLICE13_SECONDS,
+          "seconds": sum(SLICE13_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -25,8 +25,11 @@ once per level, where the reference vmapped one greedy:
                                            → (state, bests, gains) | None
   replay_batch(state, payloads, valid)     → state
 
-The batched serving path (`megakernel_loop_batched`) waits for the
-serving slice.
+  megakernel_loop_batched(payloads, valid, ks, k_max[, plan, logical,
+                          state])
+                                           → (state, bests, gains) | None
+                                             B serving queries as ONE
+                                             resident dispatch
 """
 from __future__ import annotations
 
@@ -212,6 +215,48 @@ class RuleObjective:
         else:
             return None
         row, bests, gains = out
+        return (dataclasses.replace(state, row=row), bests,
+                gains / state.n_eff.unsqueeze(-1))
+
+    # -- batched serving (many queries, one dispatch) ------------------------
+
+    def megakernel_loop_batched(self, payloads, valid, ks, k_max: int,
+                                plan: Optional[EnginePlan] = None,
+                                logical=None,
+                                state: Optional[RuleState] = None):
+        """B rule-compatible queries as ONE resident dispatch (answers
+        src/repro/core/objective.py:221): the query axis is the batch
+        dimension of the launch grid (a node a query), so an admitted
+        batch costs one counted dispatch.
+
+        payloads (B, C, …) pools stacked on a shared bucket (pad
+        candidates: zero payloads, valid False), valid (B, C), ks (B,)
+        per-query step budgets ≤ k_max (ctl[:, 0]: steps ≥ ks[i] freeze,
+        so a query gives its solo k = ks[i] run's bits), logical (B, 2)
+        each query's real (ground rows, candidates) (ctl[:, 1:3]; default
+        the stacked shape). ``state``: the queries' initial RuleState
+        (default init_state(payloads, valid)). Returns (state, bests
+        (B, k_max) with −1 = rejected or frozen, normalized gains
+        (B, k_max)), or None when the plan is not mega_resident."""
+        bsz, c = valid.shape
+        if self.rule.is_bitmap:
+            n, d = self.words, None
+        else:
+            n, d = c, payloads.shape[-1]
+        if plan is None:
+            plan = plans.select_engine(self.rule, n, c, d, requested="mega",
+                                       replicas=bsz)
+        if plan.engine != "mega_resident":
+            return None
+        if logical is None:
+            logical = torch.tensor([[n, c]] * bsz, dtype=torch.int32)
+        logical = torch.as_tensor(logical, device=valid.device)
+        if state is None:
+            state = self.init_state(payloads, valid)
+        row, bests, gains = ops.greedy_loop_resident(
+            state.ground, payloads, state.row, valid, k_max, self.rule,
+            cache_dtype=plan.dtype, kq=torch.as_tensor(ks),
+            logical=(logical[:, 0], logical[:, 1]))
         return (dataclasses.replace(state, row=row), bests,
                 gains / state.n_eff.unsqueeze(-1))
 

@@ -66,7 +66,7 @@ def _select_on_mesh(algo: str, obj_name: str, block, k: int,
     obj = make_objective(obj_name, device=mesh.device)
     pay = torch.as_tensor(block).to(mesh.device, torch.float32)
     n_l = pay.shape[0]
-    ids = torch.arange(mesh.rank * n_l, (mesh.rank + 1) * n_l,
+    ids = torch.arange(mesh.lane * n_l, (mesh.lane + 1) * n_l,
                        device=mesh.device)
     valid = torch.ones(n_l, dtype=torch.bool, device=mesh.device)
     if algo == "greedyml":

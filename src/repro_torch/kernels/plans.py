@@ -80,8 +80,11 @@ budget, ranked by `core/tree.py::AccumulationTree.cost_model`.
 
 The CUDA kernels mask their ragged edges, so shapes are planned
 unpadded (the TPU tile padding of the reference has no counterpart).
-The autotune cache and `serve_plan` of the reference wait for later
-slices.
+The serving engine (serving/engine.py) still stacks queries on one
+shared candidate bucket, `bucket_len(c, 128)`: `serve_key` says which
+queries stack and `serve_plan` how many, each query's real (n, c)
+riding the resident loop's ``ctl``. The autotune cache of the reference
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -410,6 +413,51 @@ def select_engine(rule: KernelRule, n: int, c: int,
     return EnginePlan(engine, rule, tier=fp["tier"], block_n=fp["block_n"],
                       loop_block_n=fp["loop_block_n"], dtype=fp["dtype"],
                       replicas=replicas)
+
+
+def serve_key(rule: KernelRule, n: int, c: int, d: Optional[int],
+              backend: str) -> str:
+    """Admission-compatibility key of the serving engine (answers
+    `serve_key`, src/repro/kernels/plans.py:420): queries sharing a key
+    stack into ONE resident dispatch. The rule's identity is its name,
+    cap AND λ (they are kernel constants); the candidate axis buckets to
+    `bucket_len(c, 128)`, the stacked width; the trailing axis — features
+    D, or universe WORDS for bitmap rules — must match exactly; the
+    backend is the device type the queries run on."""
+    tail = f"w{n}" if rule.is_bitmap else f"d{d}"
+    return (f"{rule.name}|cap{rule.cap}|lam{rule.lam}"
+            f"|c{bucket_len(c, 128)}|{tail}|{backend}")
+
+
+def serve_plan(rule: KernelRule, n: int, c: int,
+               d: Optional[int]) -> Optional[dict]:
+    """Admission plan of one stacked serving batch over (n, c, d) pools
+    (answers `serve_plan`, src/repro/kernels/plans.py:437), or None when
+    a query of that shape cannot ride the resident tier — the engine then
+    runs it alone through greedy().
+
+    Otherwise ``{'plan': EnginePlan, 'b_max': int, 'bytes_per_query':
+    int}``. A stacked query is one node of the resident loop: its state
+    (`_resident_need`) and its matrix in the plan's storage
+    (`cache_bytes`). b_max caps the batch so B of them fit
+    flags.serve_mem_mb (the card's shared memory, one wave of clusters)
+    and flags.serve_batch, and so B matrices still pass the resident
+    gate's L2 share (`select_engine` with replicas=B)."""
+    plan = select_engine(rule, n, c, d, requested="mega")
+    if plan.engine != "mega_resident":
+        return None
+    stored = "uint32" if rule.is_bitmap else plan.dtype
+    need = _resident_need(n, c, d, rule=rule)
+    if need is None:
+        return None
+    need += cache_bytes(n, c, stored)
+    b_mem = int(flags.serve_mem_mb() * 2 ** 20 // max(need, 1))
+    b_max = max(1, min(flags.serve_batch(), b_mem))
+    while b_max > 1 and select_engine(rule, n, c, d, requested="mega",
+                                      replicas=b_max
+                                      ).engine != "mega_resident":
+        b_max -= 1
+    return {"plan": plan, "b_max": b_max, "bytes_per_query": need}
 
 
 def stream_chunk(n: int) -> int:

@@ -22,6 +22,13 @@ digit (the shard lanes carry replicated machine state up the tree), and
 each machine's ranks form its contiguous shard subgroup
 (``shard_group``). The axis names gain an innermost ``shard``.
 
+A tree may hold fewer lanes than the world (``ranks=``, the degraded
+tree of runtime/supervisor.py, the reference's mesh over the first
+devices): lane i sits on ``ranks[i]``, level subgroups are still created
+on every rank in one order, the ranks outside hold no lane, and
+`broadcast` and `gather_lanes` run over the whole world, so every rank
+gets the root.
+
 The caller's ``init_process_group`` chooses the backend; nothing here
 switches it. Under gloo a CUDA tensor is staged through the host for
 each collective; NCCL carries it in place (a bool as uint8). NCCL takes
@@ -130,28 +137,46 @@ class TreeMesh:
     ranks on one card; else the device given, which NCCL takes only at
     world size 1).
 
+    ``ranks``: the ascending ranks holding lanes 0, 1, … (default: every
+    rank); ``lane`` is this rank's lane, None outside a subset, where
+    ``machine``, ``shard_digit`` and ``coords`` are None too.
+
     ``log``: None, or a list that every collective appends a record to
     ({'op', 'level', 'bytes', 'seconds'}; the rank's device is
     synchronised around the call so the seconds are the collective's)."""
 
     def __init__(self, radices: Sequence[int], *, shard: int = 1,
-                 axis_prefix: str = "lvl", device: DeviceSpec = None):
+                 axis_prefix: str = "lvl", device: DeviceSpec = None,
+                 ranks: Optional[Sequence[int]] = None):
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError("call torch.distributed.init_process_group "
                                "first: the tree's ranks are its processes")
         self.radices = tuple(int(r) for r in radices)
         self.shard = int(shard)
         if (self.radices and min(self.radices) < 1) or self.shard < 1 or (
-                not self.radices and self.shard < 2):
+                not self.radices and self.shard < 2 and ranks is None):
             raise ValueError(f"radices must be positive, shard ≥ 1 (≥ 2 "
                              f"with no level): {radices}, {shard}")
         self.world_size = dist.get_world_size()
         self.rank = dist.get_rank()
         lanes = math.prod(self.radices) * self.shard
-        if lanes != self.world_size:
-            raise ValueError(f"the tree {self.radices} with shard "
-                             f"{self.shard} has {lanes} lanes; the process "
-                             f"group has {self.world_size} ranks")
+        if ranks is None:
+            if lanes != self.world_size:
+                raise ValueError(f"the tree {self.radices} with shard "
+                                 f"{self.shard} has {lanes} lanes; the "
+                                 f"process group has {self.world_size} "
+                                 "ranks")
+            ranks = range(self.world_size)
+        self.ranks = tuple(int(r) for r in ranks)
+        if (len(self.ranks) != lanes or list(self.ranks) != sorted(
+                set(self.ranks)) or self.ranks[0] < 0
+                or self.ranks[-1] >= self.world_size):
+            raise ValueError(f"ranks {self.ranks}: the tree {self.radices} "
+                             f"with shard {self.shard} needs {lanes} "
+                             "distinct ascending ranks of the "
+                             f"{self.world_size}-rank group")
+        self.lane = (self.ranks.index(self.rank) if self.rank in self.ranks
+                     else None)
         self.backend = str(dist.get_backend()).lower()
         self.device = self._place(device)
         self.axis_names = tuple(f"{axis_prefix}{i}"
@@ -161,8 +186,10 @@ class TreeMesh:
         if self.shard > 1:
             self.axis_names += ("shard",)
             self.shape["shard"] = self.shard
-        self.machine, self.shard_digit = divmod(self.rank, self.shard)
-        self.coords = digits(self.machine, self.radices)
+        self.machine = self.shard_digit = self.coords = None
+        if self.member:
+            self.machine, self.shard_digit = divmod(self.lane, self.shard)
+            self.coords = digits(self.machine, self.radices)
         self.group = dist.group.WORLD
         # every rank creates every group of every level, then the shard
         # groups, in one order
@@ -191,10 +218,11 @@ class TreeMesh:
         return devices[self.rank]
 
     def _subgroup(self, partition: List[List[int]]):
-        """Create every group of `partition` (all ranks, one order) and
-        return this rank's."""
+        """Create every group of `partition` (lanes; all ranks, one
+        order) and return this rank's."""
         mine = None
-        for ranks in partition:
+        for lanes in partition:
+            ranks = [self.ranks[lane] for lane in lanes]
             if len(ranks) == self.world_size:
                 g = None                       # the world itself
             else:
@@ -205,7 +233,13 @@ class TreeMesh:
 
     @property
     def lanes(self) -> int:
-        return self.world_size
+        return len(self.ranks)
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank holds a lane (a subset mesh leaves the other
+        ranks without one)."""
+        return self.lane is not None
 
     @property
     def machines(self) -> int:
@@ -219,8 +253,9 @@ class TreeMesh:
 
     def flat(self) -> "TreeMesh":
         """One level over every rank (RandGreedi's tree), same device."""
-        if self.shard > 1:
-            raise ValueError("RandGreedi's flat tree has no shard lanes")
+        if self.shard > 1 or self.lanes != self.world_size:
+            raise ValueError("RandGreedi's flat tree has no shard lanes "
+                             "and spans the world")
         m = TreeMesh.__new__(TreeMesh)
         m.__dict__.update(self.__dict__)
         m.radices = (self.world_size,)
@@ -277,44 +312,67 @@ class TreeMesh:
         return out
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank `src`'s `x` on every rank, in a new tensor (`x` is left
-        as it was)."""
+        """Lane `src`'s `x` on every rank of the world (a rank outside a
+        subset mesh passes a tensor of the same shape and dtype), in a
+        new tensor (`x` is left as it was)."""
         t0 = self._start()
         t = self._wire(x)
         if t.data_ptr() == x.data_ptr():
             t = t.clone()
-        dist.broadcast(t, src=src)
+        dist.broadcast(t, src=self.ranks[src])
         out = self._unwire(t, x)
         if self.log is not None:
             self._record("broadcast", None, t.numel() * t.element_size(),
                          t0)
         return out
 
+    def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every lane's `x` (1, …) stacked (lanes, …) in lane order, on
+        every rank of the world: a rank outside a subset mesh passes a
+        placeholder of the same shape and dtype."""
+        t = self._wire(x)
+        parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        dist.all_gather(parts, t)
+        return self._unwire(torch.cat([parts[r] for r in self.ranks], 0), x)
+
+    def world_max(self, value: float) -> float:
+        """The largest `value` over every rank of the world."""
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
 
 def make_tree_mesh(radices: Sequence[int], shard: int = 1,
-                   axis_prefix: str = "lvl",
-                   device: DeviceSpec = None) -> TreeMesh:
+                   axis_prefix: str = "lvl", device: DeviceSpec = None,
+                   ranks: Optional[Sequence[int]] = None) -> TreeMesh:
     """The tree mesh of a planned tree (`kernels/plans.py::plan_tree` →
     TreePlan) over the default process group: level ℓ gathers over axis
     f"{axis_prefix}{ℓ}"; ``shard`` > 1 adds the innermost axis "shard",
-    the ranks that split each leaf (rank = machine·shard + shard digit)."""
-    if not tuple(radices) and int(shard) <= 1:
+    the ranks that split each leaf (rank = machine·shard + shard digit).
+    ``ranks``: the ascending ranks holding the lanes, lane i on
+    ``ranks[i]`` (default: every rank; a subset leaves the others
+    without a lane, and a single rank may hold an empty tree). Every
+    rank of the world calls this, in one order."""
+    if not tuple(radices) and int(shard) <= 1 and ranks is None:
         raise ValueError("empty tree with no sharding needs no mesh")
     return TreeMesh(radices, shard=shard, axis_prefix=axis_prefix,
-                    device=device)
+                    device=device, ranks=ranks)
 
 
 def make_machine_mesh(m: int, b: int, axis_prefix: str = "lvl",
-                      device: DeviceSpec = None) -> TreeMesh:
-    """The tree T(m, L, b) over the default process group: m = b^L ranks,
-    level ℓ over axis f"{axis_prefix}{ℓ}"."""
+                      device: DeviceSpec = None,
+                      ranks: Optional[Sequence[int]] = None) -> TreeMesh:
+    """The tree T(m, L, b) over the default process group: m = b^L lanes,
+    level ℓ over axis f"{axis_prefix}{ℓ}"; ``ranks`` as make_tree_mesh."""
     if m <= 0 or b <= 1:
         raise ValueError(f"need m>0, b>1; got m={m} b={b}")
     L = int(round(math.log(m, b)))
     if b ** L != m:
         raise ValueError(f"the tree driver needs m=b^L; got m={m} b={b} "
                          f"(use core.simulate for ragged trees)")
-    return make_tree_mesh((b,) * L, axis_prefix=axis_prefix, device=device)
+    return make_tree_mesh((b,) * L, axis_prefix=axis_prefix, device=device,
+                          ranks=ranks)
 
 
 def mesh_devices(mesh: TreeMesh) -> int:
@@ -331,8 +389,10 @@ def factor_tree_axes(mesh: TreeMesh,
 def local_block(x, mesh: TreeMesh):
     """This rank's contiguous block of a global (n, …) array: lane i takes
     block i, as `core/greedyml.py::shard_lanes` cuts it."""
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} holds no lane of this mesh")
     n = x.shape[0]
     if n % mesh.lanes:
         raise ValueError(f"n={n} must divide over {mesh.lanes} lanes")
     per = n // mesh.lanes
-    return x[mesh.rank * per:(mesh.rank + 1) * per]
+    return x[mesh.lane * per:(mesh.lane + 1) * per]

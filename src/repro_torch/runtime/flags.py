@@ -45,6 +45,33 @@ TPU budgets of the reference:
                                 re-anchors once a batch, so the batch
                                 size is part of the output, not a
                                 device budget.
+  REPRO_TORCH_SERVE_BATCH       the serving engine's admission cap:
+                                queries stacked into one resident
+                                dispatch. Default 16, the reference's.
+  REPRO_TORCH_SERVE_QUEUE       the serving engine's request-queue bound
+                                (submit raises QueueFull beyond it).
+                                Default 1,024, the reference's.
+  REPRO_TORCH_SERVE_MEM_MB      on-chip memory the stacked working sets
+                                of one admitted batch may take
+                                (plans.serve_plan). The reference's 64 MB
+                                is a TPU core's VMEM and does not carry
+                                over. A stacked query is one node of the
+                                resident loop: a cluster of 8 blocks
+                                holding its matrix in the plan's storage
+                                in shared memory, beside what
+                                plans._resident_need counts (its state
+                                row, mask, argmax scratch and build
+                                tile). The card runs every cluster of a
+                                launch at once only while all of them fit
+                                its shared memory: 132 SMs × 227 KB
+                                (232,448 B, one resident block an SM) =
+                                30,683,136 B = 29.26 MB, the default.
+                                Past it a batch runs in waves. At the
+                                Tiny-ImageNet node (400 pools bucketed
+                                to 512, f32) a query takes 1,064,192 B
+                                (28 a batch); at kosarak's (128 sets,
+                                1,290 words) 668,200 B (45), so the
+                                admission cap of 16 binds first.
 """
 from __future__ import annotations
 
@@ -55,15 +82,23 @@ FUSED_VMEM_MB_ENV = "REPRO_TORCH_FUSED_VMEM_MB"
 RESIDENT_L2_MB_ENV = "REPRO_TORCH_RESIDENT_L2_MB"
 FUSED_CACHE_DTYPE_ENV = "REPRO_TORCH_FUSED_CACHE_DTYPE"
 STREAM_BATCH_ENV = "REPRO_TORCH_STREAM_BATCH"
+SERVE_BATCH_ENV = "REPRO_TORCH_SERVE_BATCH"
+SERVE_QUEUE_ENV = "REPRO_TORCH_SERVE_QUEUE"
+SERVE_MEM_MB_ENV = "REPRO_TORCH_SERVE_MEM_MB"
 
 H100_HBM_MB = 80 * 1024
 H100_L2_MB = 50.0
 H100_SMEM_PER_BLOCK = 232_448          # bytes, 227 KB
+H100_SMS = 132                         # SMs of the H100 SXM
 
 _FUSED_CACHE_MB_DEFAULT = H100_HBM_MB / 2            # 40,960 MB
 _FUSED_VMEM_MB_DEFAULT = H100_SMEM_PER_BLOCK / 2 ** 20  # 0.2217 MB
 _RESIDENT_L2_MB_DEFAULT = H100_L2_MB / 2             # 25 MB
 _STREAM_BATCH_DEFAULT = 128
+_SERVE_BATCH_DEFAULT = 16
+_SERVE_QUEUE_DEFAULT = 1024
+# every SM's shared memory, one resident block an SM: 29.26 MB
+_SERVE_MEM_MB_DEFAULT = H100_SMS * H100_SMEM_PER_BLOCK / 2 ** 20
 
 
 def _env_float(name: str, default: float) -> float:
@@ -104,3 +139,19 @@ def fused_cache_dtype() -> str:
 def stream_batch() -> int:
     """Default arrival batch size B of the streaming coreset selection."""
     return max(1, _env_int(STREAM_BATCH_ENV, _STREAM_BATCH_DEFAULT))
+
+
+def serve_batch() -> int:
+    """Admission cap: queries stacked into one resident dispatch."""
+    return max(1, _env_int(SERVE_BATCH_ENV, _SERVE_BATCH_DEFAULT))
+
+
+def serve_queue() -> int:
+    """Bound of the serving engine's request queue."""
+    return max(1, _env_int(SERVE_QUEUE_ENV, _SERVE_QUEUE_DEFAULT))
+
+
+def serve_mem_mb() -> float:
+    """On-chip memory (MB) one admitted batch's stacked working sets may
+    take (see the module docstring for the default's derivation)."""
+    return _env_float(SERVE_MEM_MB_ENV, _SERVE_MEM_MB_DEFAULT)

@@ -25,9 +25,13 @@ stacked lanes, or this rank's lane over the mesh) with the evaluation
 set as each level's augmentation and the last merged solution as
 ``carry_prev``; the answer is machine 0's solution.
 
-Not ported: checkpoint/resume (``ckpt_dir``, ``resume``) and the
-supervised merge (``supervisor``) need checkpoint/manager.py and
-runtime/supervisor.py (ROADMAP item 7) and raise NotImplementedError.
+Fault tolerance: `stream_select(ckpt_dir=…, ckpt_every=…, resume=…)`
+saves the sieve state through checkpoint/manager.py (a host copy: the
+state is consumed in place by every batch) and resumes bit-exactly by
+skipping the consumed prefix of the same deterministic stream;
+``supervisor=`` (a runtime/supervisor.py::SelectionSupervisor) runs
+every merge of the stacked continuous mode under
+`SelectionSupervisor.run_merge`.
 """
 from __future__ import annotations
 
@@ -36,33 +40,42 @@ from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.checkpoint import manager
 from repro_torch.core.greedy import Solution
 from repro_torch.core.greedyml import (LaneSampler, accumulate_levels,
                                        check_tree_axes, root_solution)
 from repro_torch.launch.mesh import TreeMesh
 from repro_torch.streaming.sieve import SieveStreamer
 
-ITEM_7 = ("checkpoint/resume and the supervised merge wait for "
-          "checkpoint/manager.py and runtime/supervisor.py: ROADMAP item 7")
-
-
 def stream_select(objective, stream: Iterable, k: int, *, eps: float = 0.1,
                   ground=None, ground_valid=None,
                   ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                   resume: bool = False) -> Solution:
     """Run the sieve over the whole stream; returns the best level's
-    solution. ``ckpt_dir``/``resume`` are not ported (ROADMAP item 7)."""
-    if ckpt_dir or ckpt_every or resume:
-        raise NotImplementedError(ITEM_7)
+    solution. With ``ckpt_dir`` the sieve state is saved every
+    ``ckpt_every`` batches and at the end (``extra={"batches": done}``);
+    ``resume=True`` restores the latest checkpoint into an empty sieve
+    built without a batch (so a one-shot iterator loses nothing) and
+    skips the already-consumed prefix of the same stream."""
     streamer = SieveStreamer(objective, k, eps, ground=ground,
                              ground_valid=ground_valid)
-    state = None
-    for ids, pay, valid in stream:
+    state, done = None, 0
+    if resume and ckpt_dir and manager.latest_step(ckpt_dir) is not None:
+        state, manifest = manager.restore(ckpt_dir, streamer.init())
+        done = int(manifest["extra"]["batches"])
+    for i, (ids, pay, valid) in enumerate(stream):
+        if i < done:
+            continue
         if state is None:
             state = streamer.init(pay)
         state = streamer.process_batch(state, ids, pay, valid)
+        done = i + 1
+        if ckpt_dir and ckpt_every and done % ckpt_every == 0:
+            manager.save(ckpt_dir, done, state, extra={"batches": done})
     if state is None:
         raise ValueError("empty stream")
+    if ckpt_dir:
+        manager.save(ckpt_dir, done, state, extra={"batches": done})
     return streamer.solution(state)
 
 
@@ -78,7 +91,10 @@ class ContinuousSelector:
     rank, the mesh's tree; `lanes` and `branching` are ignored) and
     merges over the ranks. ``sample_level``/``seed``: stochastic greedy
     at the merge nodes, with draws from core/greedyml.LaneSampler (torch
-    cannot reproduce the reference's PRNG stream)."""
+    cannot reproduce the reference's PRNG stream). ``supervisor``: a
+    runtime/supervisor.py::SelectionSupervisor running every merge of
+    the stacked lanes (not over a mesh); info() then carries its
+    events."""
 
     def __init__(self, objective, k: int, *, lanes: int = 4,
                  branching: int = 0, merge_every: int = 4,
@@ -86,8 +102,9 @@ class ContinuousSelector:
                  node_engine: str = "auto", sample_level: int = 0,
                  seed: Optional[int] = None, supervisor=None,
                  mesh: Optional[TreeMesh] = None):
-        if supervisor is not None:
-            raise NotImplementedError(ITEM_7)
+        if supervisor is not None and mesh is not None:
+            raise ValueError("the supervised merge runs the stacked lanes; "
+                             "over a mesh every rank holds one")
         if mesh is not None and not isinstance(mesh, TreeMesh):
             raise TypeError("mesh: a launch/mesh.py TreeMesh over the "
                             f"process group, or None; got {mesh!r}")
@@ -108,7 +125,9 @@ class ContinuousSelector:
         self.sampler = LaneSampler(0 if seed is None else seed)
         self.streamer = SieveStreamer(objective, k, eps, ground=ground,
                                       ground_valid=ground_valid)
+        self.supervisor = supervisor
         self.states: Optional[object] = None
+        self._base = None            # one cold sieve: a lost lane's reset
         self.merged: Optional[Solution] = None
         self.merges, self.batches = [], 0
         self.tier = None
@@ -139,11 +158,13 @@ class ContinuousSelector:
                              "lanes")
         shp = (self.lanes, nb // self.lanes)
         mine = (slice(None) if self.mesh is None
-                else slice(self.mesh.rank, self.mesh.rank + 1))
+                else slice(self.mesh.lane, self.mesh.lane + 1))
         pay = torch.as_tensor(payloads)
         if self.states is None:
             self.states = self.streamer.init(
                 pay, lanes=self.lanes if self.mesh is None else 1)
+            if self.supervisor is not None:
+                self._base = self.streamer.init(pay)
             self.tier = self.streamer.plan(shp[1])["tier"]
         self.states = self.streamer.process_batch(
             self.states, torch.as_tensor(ids).reshape(shp)[mine],
@@ -156,8 +177,14 @@ class ContinuousSelector:
         return self
 
     def merge(self) -> Solution:
-        """One accumulation-tree merge round over the lane states."""
-        self.merged = self._merge_round(self.states, self.merged)
+        """One accumulation-tree merge round over the lane states
+        (supervised when a supervisor is attached)."""
+        if self.supervisor is not None:
+            self.merged, self.states = self.supervisor.run_merge(
+                self._merge_round, self.states, self.merged,
+                len(self.merges), self._base, self.lanes)
+        else:
+            self.merged = self._merge_round(self.states, self.merged)
         self.merges.append(float(self.merged.value))
         self._dirty = False
         return self.merged
@@ -172,9 +199,12 @@ class ContinuousSelector:
         return self.merged
 
     def info(self) -> dict:
-        return {"merges": self.merges, "batches": self.batches,
-                "tree": (self.lanes, self.branching, self.levels),
-                "tier": self.tier}
+        d = {"merges": self.merges, "batches": self.batches,
+             "tree": (self.lanes, self.branching, self.levels),
+             "tier": self.tier}
+        if self.supervisor is not None:
+            d["events"] = list(self.supervisor.events)
+        return d
 
 
 def stream_select_continuous(objective, stream: Iterable, k: int, *,
@@ -190,8 +220,11 @@ def stream_select_continuous(objective, stream: Iterable, k: int, *,
     the final merged Solution and an info dict with the merged-value
     trajectory (``merges``), the batch count and the tree, and the
     stream filter's tier ('kernel' or 'global', plans.stream_tier).
-    ``supervisor`` is not ported (ROADMAP item
-    7)."""
+    ``supervisor``: a runtime/supervisor.py::SelectionSupervisor; every
+    merge then runs under `run_merge` (a transient failure replays the
+    merge, a lost lane's sieve is reset cold, lane states and the merged
+    solution are checkpointed after each merge), and the info dict
+    carries its ``events``."""
     sel = ContinuousSelector(objective, k, lanes=lanes,
                              branching=branching, merge_every=merge_every,
                              eps=eps, ground=ground,

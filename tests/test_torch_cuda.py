@@ -1479,3 +1479,103 @@ def test_cuda_dense_medoid_matches_cpu(cuda):
     cpu = run_greedy_lazy("kmedoid", x, 12, device="cpu")
     assert list(card.ids) == list(cpu.ids)
     assert card.evals_total == cpu.evals_total
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance and serving on the card
+# ---------------------------------------------------------------------------
+
+
+def _cover_data(n=256, universe=512, seed=2):
+    from repro_torch.data.synthetic import gen_kcover, pack_bitmaps
+    sets = gen_kcover(n, universe, seed=seed)
+    return np.arange(n), pack_bitmaps(sets, universe), np.ones(n, bool)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import manager
+    from repro_torch.core.greedyml import empty_lane_solutions
+    sol = empty_lane_solutions(4, 3, torch.zeros(1, 5, device=cuda))
+    sol.ids.copy_(torch.arange(12, device=cuda).reshape(4, 3))
+    sol.payloads.normal_()
+    manager.save(str(tmp_path), 1, sol)
+    want = sol.map(lambda x: x.clone())
+    sol.ids.fill_(-9)                # the checkpoint holds a copy
+    back, _ = manager.restore(str(tmp_path), empty_lane_solutions(
+        4, 3, torch.zeros(1, 5, device=cuda)))
+    for f in ("ids", "payloads", "valid", "value", "evals"):
+        got = getattr(back, f)
+        assert got.device.type == "cuda", f
+        assert torch.equal(got, getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_supervised_tree_equals_the_dispatcher(cuda, tmp_path):
+    """A supervised stacked kcover tree on the card, clean and with a
+    transient failure at level 2, equals the unsupervised dispatcher's
+    root bit for bit; its leaves and levels launch the loop kernels."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedyml import (LevelDispatcher, root_solution,
+                                           shard_lanes)
+    from repro_torch.runtime.supervisor import (LaneFailureInjector,
+                                                SelectionSupervisor)
+    ids, pay, valid = _cover_data()
+    obj = make_objective("kcover", universe=512, device=cuda)
+    disp = LevelDispatcher(obj, 8, (2, 2, 2))
+    state = disp.leaves(*shard_lanes(
+        torch.as_tensor(ids), TR.to_words(pay), torch.as_tensor(valid), 8))
+    for lvl in range(3):
+        state = disp.level(state, lvl)
+    want = root_solution(state)
+    for sub, inj in (("clean", None),
+                     ("replay", LaneFailureInjector(fail_at=((2, 5),)))):
+        counters.reset()
+        sup = SelectionSupervisor(ckpt_dir=str(tmp_path / sub),
+                                  injector=inj)
+        sol, info = sup.select(obj, ids, pay, valid, 8, lanes=8,
+                               branching=2)
+        for f in ("ids", "payloads", "valid", "value", "evals"):
+            assert torch.equal(getattr(sol, f), getattr(want, f)), (sub, f)
+        snap = counters.snapshot()
+        assert snap["greedy_loop_resident[coverage]"]["launches"] >= 3
+        assert all(e["wall_s"] > 0 for e in info["events"]
+                   if e["kind"] == "dispatch")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["facility", "kmedoid", "kcover"])
+def test_cuda_serving_batch_is_one_resident_dispatch(cuda, name):
+    """An admitted batch of heterogeneous pools and k is ONE resident
+    dispatch on the card (the launch counters' delta), and every query
+    equals its solo greedy(engine="mega") run bit for bit."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedy import greedy
+    from repro_torch.data.synthetic import gen_kcover, pack_bitmaps
+    from repro_torch.serving import Query, QueryEngine
+    queries = []
+    for s, (n, k) in enumerate([(90, 5), (128, 12), (110, 8), (70, 3)]):
+        if name == "kcover":
+            pay = pack_bitmaps(gen_kcover(n, 600, seed=s), 600)
+            queries.append(Query(name, k, np.arange(n), pay,
+                                 np.ones(n, bool), universe=600))
+        else:
+            pay = gen_images(n, 48, classes=5, seed=s)
+            queries.append(Query(name, k, np.arange(n), pay,
+                                 np.arange(n) % 9 != 0))
+    eng = QueryEngine(device=cuda)
+    qids = [eng.submit(q) for q in queries]
+    counters.reset()
+    res = eng.drain()
+    counter = ("greedy_loop_resident[coverage]" if name == "kcover"
+               else "greedy_loop_resident")
+    assert counters.counter(counter).launches == 1
+    assert [b["dispatches"] for b in eng.metrics.batches] == [1]
+    for q in qids:
+        r, qq = res[q], queries[q]
+        assert r.batched and r.batch_size == 4
+        obj = make_objective(name, universe=qq.universe, device=cuda)
+        want = greedy(obj, qq.ids, qq.payloads, qq.valid, qq.k,
+                      engine="mega")
+        for f in ("ids", "payloads", "valid", "value", "evals"):
+            assert torch.equal(getattr(r.solution, f), getattr(want, f)), f

@@ -217,3 +217,42 @@ def test_convert_round_trips_words_and_ids():
     ids = np.array([3, -1], np.int32)
     np.testing.assert_array_equal(
         convert.to_numpy(convert.to_torch(ids, "cpu"), np.int32), ids)
+
+
+FAULT_AND_SERVING = ["checkpoint/manager", "checkpoint/reshard",
+                     "runtime/fault", "runtime/straggler", "runtime/elastic",
+                     "runtime/supervisor", "sharding/axes",
+                     "launch/faultrun", "serving/engine", "serving/metrics",
+                     "serving/session"]
+
+
+def test_fault_and_serving_modules_stand_alone():
+    """The fault-tolerance and serving modules import neither jax nor the
+    reference in a fresh interpreter, and their sources name neither."""
+    paths = [PORT / f"{m}.py" for m in FAULT_AND_SERVING]
+    assert all(p.exists() for p in paths)
+    mods = ", ".join("repro_torch." + m.replace("/", ".")
+                     for m in FAULT_AND_SERVING)
+    code = (f"import sys\nimport {mods}\n"
+            "bad = [n for n in sys.modules\n"
+            "       if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
+    for path in paths:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_fault_and_serving_without_device_raise_on_a_machine_without_cuda():
+    _no_cuda()
+    from repro_torch.launch import faultrun
+    from repro_torch.serving import QueryEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QueryEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        faultrun.main(["--n", "64", "--lanes", "2"])
+    assert QueryEngine(device="cpu").device.type == "cpu"

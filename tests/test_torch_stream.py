@@ -623,18 +623,61 @@ def test_stream_stopped_in_reference_continues_in_port(name):
     assert tw.seen == 64 and tw.states.ids.shape[0] == 3
 
 
-def test_unported_drivers_raise_naming_the_roadmap():
+def test_unported_drivers_raise_naming_the_roadmap(tmp_path):
+    """Since the fault-tolerance slice every driver option of the
+    reference is ported: checkpointing writes steps, ``resume`` without
+    a checkpoint runs the stream whole, a supervisor runs the merges.
+    What still raises names what it needs: the supervised merge refuses
+    a mesh, stream_select_distributed needs a TreeMesh."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.runtime.supervisor import SelectionSupervisor
     _, ts = _streams("kcover", n=64)
     _, to = _objectives("kcover")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        stream_select(to, ts, K, ckpt_dir="/nonexistent", ckpt_every=1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        stream_select(to, ts, K, resume=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        stream_select_continuous(to, ts, K, supervisor=object())
+    plain = stream_select(to, ts, K)
+    d = str(tmp_path / "ck")
+    got = stream_select(to, ts, K, ckpt_dir=d, ckpt_every=1)
+    assert manager.list_steps(d) == [1]
+    assert torch.equal(got.ids, plain.ids)
+    assert torch.equal(stream_select(to, ts, K, resume=True).ids, plain.ids)
+    sol, info = stream_select_continuous(
+        to, ts, K, supervisor=SelectionSupervisor(ckpt_dir=""))
+    assert [e["kind"] for e in info["events"]] == ["merge"]
+    with pytest.raises(ValueError, match="stacked"):
+        t_driver.ContinuousSelector(to, K, mesh=object(),
+                                    supervisor=SelectionSupervisor(""))
     # ported (tests/test_torch_distributed.py): it needs a TreeMesh
     with pytest.raises(TypeError, match="TreeMesh"):
         t_driver.stream_select_distributed(to, ts, K, None, ("x",))
+
+
+@pytest.mark.parametrize("name", ["facility", "kmedoid", "kcover"])
+def test_stream_checkpoint_resume_bitexact(tmp_path, name):
+    """tests/test_streaming.py's resume test, in both packages: a stream
+    stopped after two batches (checkpointed every batch) and resumed
+    equals the whole run bit for bit (the port's value too, where the
+    reference allows rtol 1e-6), and the reference's ids; a checkpoint
+    the REFERENCE wrote resumes in the port to the same ids."""
+    js, ts = _streams(name, n=192, batch=48)
+    jo, to = _objectives(name)
+    jg = None if name == "kcover" else jnp.asarray(js.payloads)
+    tg = None if name == "kcover" else _t(ts.payloads)
+    full = stream_select(to, ts, K, ground=tg)
+    half = list(ts.batches())[:2]
+    d = str(tmp_path / "t")
+    stream_select(to, half, K, ground=tg, ckpt_dir=d, ckpt_every=1)
+    resumed = stream_select(to, ts, K, ground=tg, ckpt_dir=d, resume=True)
+    for f in ("ids", "payloads", "valid", "value", "evals"):
+        assert torch.equal(getattr(resumed, f), getattr(full, f)), f
+    want = j_select(jo, js, K, ground=jg, backend="ref")
+    np.testing.assert_array_equal(full.ids.numpy(), _np(want.ids))
+    jd = str(tmp_path / "j")
+    j_select(jo, list(js.batches())[:2], K, ground=jg, backend="ref",
+             ckpt_dir=jd, ckpt_every=1)
+    crossed = stream_select(to, ts, K, ground=tg, ckpt_dir=jd, resume=True)
+    np.testing.assert_array_equal(crossed.ids.numpy(), _np(want.ids))
+    np.testing.assert_array_equal(crossed.valid.numpy(), _np(want.valid))
+    np.testing.assert_allclose(float(crossed.value), float(want.value),
+                               rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
