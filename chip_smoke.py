@@ -275,9 +275,43 @@ seconds printed):
                           == distributed_kdom's root, replay == clean,
                           lane 7 dead → a 4-rank subset mesh equal to the
                           stacked supervised run with that failure
-  faultrun_smoke          (last) `python -m repro_torch.launch.faultrun
+  faultrun_smoke          `python -m repro_torch.launch.faultrun
                           --smoke` on the card exits 0
   slice13_total           the seconds these phases added
+
+and the selection launchers and the measured-plan cache, after them
+(each CLI a subprocess on the card, `--device cuda`, the kernels already
+built):
+
+  summarize               `launch.summarize --compare` at the registry's
+                          paper-kcover, paper-kdom and paper-kmedoid
+                          (dense engine) and paper-kcover --engine lazy:
+                          the GreedyML / RandGreedi / Greedy lines, the
+                          quality ratios, each run's seconds; dense
+                          kcover's and kdom's trees equal to the same
+                          trees run here through run_tree_dense
+  stream_cli              `launch.stream --smoke` exits 0; facility at
+                          the CLI's defaults (n 2,048, d 64, k 32, B 128)
+                          one sieve, --continuous and --distributed (4
+                          gloo ranks on the card): value and arrivals/s,
+                          the distributed run equal to the continuous one
+  qserve                  `launch.qserve --smoke` (one resident launch an
+                          admitted batch); `run` at 8 tenants, n 256,
+                          d 32, k 16, --qps 50 and 200 for 5 s each: p50,
+                          p99, served queries/s, mean batch; the same
+                          `run` again in this (warm) process
+  autotune                autotune.tune_one at the k-medoid leaf (3,125²
+                          × 12,288, k = 200), node (400²) and the kosarak
+                          leaf (30,938 sets × 1,290 words, k = 64): every
+                          candidate's tier, storage, chunk, ms,
+                          dispatches and identity verdict, the winner;
+                          then `run`'s tree (data drawn again) with
+                          REPRO_TORCH_AUTOTUNE_CACHE on those entries:
+                          each stage's engine and storage, the root's ids
+                          equal to `run`'s
+  autotune_smoke          `launch.autotune --smoke` writes its cache; a
+                          following select_engine returns the entry
+  slice14_total           the seconds these phases added
 
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
@@ -295,6 +329,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -5028,6 +5063,341 @@ def phase_faultrun_smoke():
           "seconds": SLICE13_SECONDS["faultrun_smoke"]})
 
 
+# ---------------------------------------------------------------------------
+# the selection launchers and the measured-plan cache (slice 14)
+# ---------------------------------------------------------------------------
+
+# seconds each slice-14 phase took, printed once at the end
+SLICE14_SECONDS = {}
+CLI_TIMEOUT = 300
+# the device the slice-14 phases run on (every CLI gets --device)
+CLI_DEVICE = "cuda"
+_F = r"f=([0-9.]+)"
+
+
+def _cli(module: str, *argv: str, timeout: float = CLI_TIMEOUT):
+    """`python -m repro_torch.launch.<module> argv…` on the card (the
+    kernels already built) → (exit code, stdout lines, seconds); a
+    non-zero exit raises with its output."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          f"repro_torch.launch.{module}", *argv,
+                          "--device", CLI_DEVICE], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, (module, argv, out.returncode,
+                                 out.stdout[-3000:], out.stderr[-3000:])
+    return out.stdout.strip().splitlines(), wall
+
+
+def _field(pattern: str, line: str) -> str:
+    m = re.search(pattern, line)
+    assert m, (pattern, line)
+    return m.group(1)
+
+
+def phase_summarize(torch):
+    """`launch.summarize --compare` at the registry's full paper-kcover,
+    paper-kdom and paper-kmedoid configurations (dense engine), and
+    paper-kcover on the lazy engine: the GreedyML, RandGreedi and Greedy
+    lines, the quality ratios, each run's seconds. Dense kcover's and
+    kdom's trees are run again in this process through run_tree_dense on
+    the same instance: their values equal the CLI's (coverage values are
+    exact integers). Returns the in-process runs' launches."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.core.simulate import run_tree_dense
+    from repro_torch.core.tree import AccumulationTree, randgreedi_tree
+    from repro_torch.kernels import counters
+    from repro_torch.launch.summarize import build_instance
+    t_phase = time.perf_counter()
+    runs, launches = {}, {}
+    for problem, engine in [("paper-kcover", "dense"),
+                            ("paper-kdom", "dense"),
+                            ("paper-kmedoid", "dense"),
+                            ("paper-kcover", "lazy")]:
+        lines, wall = _cli("summarize", "--problem", problem, "--engine",
+                           engine, "--compare")
+        assert len(lines) == 4 and lines[0].startswith("GreedyML"), lines
+        row = {"lines": lines, "process_seconds": wall,
+               "greedyml_seconds": float(_field(r"\[([0-9.]+)s\]",
+                                                lines[0])),
+               "f": [float(_field(_F, ln)) for ln in lines[:3]]}
+        q = re.findall(r"= ([0-9.]+)", lines[3])
+        row["quality"] = {"greedyml_over_greedy": float(q[0]),
+                          "randgreedi_over_greedy": float(q[1])}
+        runs[f"{problem}/{engine}"] = row
+        if engine != "dense" or problem == "paper-kmedoid":
+            continue
+        pcfg = registry.PROBLEMS[problem]
+        _, dense = build_instance(pcfg)
+        counters.reset()
+        kw = dict(seed=pcfg.seed, universe=pcfg.universe,
+                  augment=pcfg.augment, device=CLI_DEVICE)
+        ml = run_tree_dense(pcfg.objective, dense, pcfg.k, AccumulationTree(
+            pcfg.num_machines, pcfg.branching), **kw)
+        rg = run_tree_dense(pcfg.objective, dense, pcfg.k,
+                            randgreedi_tree(pcfg.num_machines), **kw)
+        _add(launches, {n: c["launches"] for n, c in
+                        counters.snapshot().items() if c["launches"]})
+        cli_f = [_field(_F, ln) for ln in lines[:2]]
+        assert cli_f == [f"{ml.value:.2f}", f"{rg.value:.2f}"], (
+            problem, cli_f, ml.value, rg.value)
+        assert ml.value == int(ml.value) and rg.value == int(rg.value)
+        row["in_process_equal"] = True
+        row["config"] = dc.asdict(pcfg)
+    SLICE14_SECONDS["summarize"] = time.perf_counter() - t_phase
+    emit({"phase": "summarize", "runs": runs, "launches": launches,
+          "seconds": SLICE14_SECONDS["summarize"]})
+    return launches
+
+
+def phase_stream_cli(torch):
+    """`launch.stream`: --smoke exits 0; then facility at the CLI's
+    defaults (n 2,048, d 64, k 32, batch 128) one sieve, --continuous and
+    --distributed over 4 gloo ranks on the card, each printing its value
+    and arrivals/s; the distributed run's value and |S| equal the
+    continuous run's (4 lanes, a merge every 4 batches), its merged
+    values within 1e-6 (on the card the two modes' merged f32 values
+    differ in the last bit: 6.6e-8 relative on an H100)."""
+    t_phase = time.perf_counter()
+    smoke, smoke_wall = _cli("stream", "--smoke")
+    assert smoke[-1] == "stream smoke OK", smoke
+    rows = {}
+    strip = re.compile(r" arrivals/s=\d+ \[[0-9.]+s\]")
+    for mode in ("single", "continuous", "distributed"):
+        extra = [] if mode == "single" else [f"--{mode}"]
+        lines, wall = _cli("stream", *extra)
+        ln = lines[0]
+        rows[mode] = {"line": ln, "process_seconds": wall,
+                      "f": float(_field(_F, ln)),
+                      "arrivals_per_s": float(_field(r"arrivals/s=(\d+)",
+                                                     ln)),
+                      "seconds": float(_field(r"\[([0-9.]+)s\]", ln))}
+    # "… f=… |S|=…" and the merged values of the two continuous modes
+    dist, cont = (strip.sub("", rows[m]["line"]).split("] ", 1)[1]
+                  for m in ("distributed", "continuous"))
+    (dist_head, dist_merges), (cont_head, cont_merges) = (
+        (h, json.loads("[" + t)) for h, t in (ln.split(" [", 1)
+                                               for ln in (dist, cont)))
+    same = dist_head == cont_head
+    assert same and len(dist_merges) == len(cont_merges), (dist, cont)
+    merge_diff = max(abs(a - b) / abs(b)
+                     for a, b in zip(dist_merges, cont_merges))
+    assert merge_diff <= 1e-6, (dist_merges, cont_merges)
+    SLICE14_SECONDS["stream_cli"] = time.perf_counter() - t_phase
+    emit({"phase": "stream_cli", "smoke": smoke,
+          "smoke_seconds": smoke_wall, "runs": rows,
+          "distributed_equal_to_continuous": same,
+          "merges_max_rel_diff": merge_diff,
+          "note": "distributed: the slowest rank's stream, spawn left out",
+          "seconds": SLICE14_SECONDS["stream_cli"]})
+
+
+def _qserve_row(head: str) -> dict:
+    """The numbers of qserve's summary line; every submitted query
+    served."""
+    sub = int(_field(r"submitted=(\d+)", head))
+    served = int(_field(r"served=(\d+)", head))
+    assert sub == served > 0, head
+    return {"line": head, "submitted": sub, "served": served,
+            "batches": int(_field(r"batches=(\d+)", head)),
+            "mean_batch": float(_field(r"mean_B=([0-9.]+)", head)),
+            "p50_ms": float(_field(r"p50=([0-9.]+)ms", head)),
+            "p99_ms": float(_field(r"p99=([0-9.]+)ms", head)),
+            "served_qps": float(_field(r"served_qps=([0-9.]+)", head))}
+
+
+def phase_qserve(torch):
+    """`launch.qserve`: --smoke exits 0 with one resident launch per
+    admitted batch; then `run` at the CLI's defaults (8 tenants, n 256,
+    d 32, k 16) at --qps 50 and --qps 200 for 5 s each: p50, p99, served
+    queries/s and the mean admitted batch, every submitted query
+    served. The CLI's percentiles include its fresh process's first
+    drain (the kernels' libraries and the first CUDA launches); the same
+    `run`, called in this warm process at both rates, gives the steady
+    ones. Returns the warm runs' launches."""
+    import contextlib as cl
+    import io
+    from repro_torch.kernels import counters
+    from repro_torch.launch import qserve
+    t_phase = time.perf_counter()
+    smoke, smoke_wall = _cli("qserve", "--smoke")
+    assert smoke[-1] == "qserve smoke OK", smoke
+    disp = json.loads(_field(r"dispatches/batch=(\[[0-9, ]*\])",
+                             smoke[-2]))
+    assert disp and set(disp) == {1}, smoke
+    assert int(_field(r"resident dispatches=(\d+)", smoke[-2])) == len(disp)
+    rates, warm, launches = {}, {}, {}
+    for qps in (50, 200):
+        lines, wall = _cli("qserve", "--qps", str(qps), "--duration", "5")
+        rates[str(qps)] = dict(_qserve_row(lines[0]), tenants=lines[1:],
+                               process_seconds=wall)
+    for qps in (50, 200):
+        out = io.StringIO()
+        counters.reset()
+        with cl.redirect_stdout(out):
+            rc = qserve.main(["--qps", str(qps), "--duration", "5",
+                              "--device", CLI_DEVICE])
+        assert rc == 0, out.getvalue()
+        lines = out.getvalue().strip().splitlines()
+        warm[str(qps)] = dict(_qserve_row(lines[0]), tenants=lines[1:])
+        _add(launches, {n: c["launches"] for n, c in
+                        counters.snapshot().items() if c["launches"]})
+    SLICE14_SECONDS["qserve"] = time.perf_counter() - t_phase
+    emit({"phase": "qserve", "smoke": smoke, "smoke_seconds": smoke_wall,
+          "dispatches_per_batch": disp, "rates": rates,
+          "rates_warm_process": warm, "launches": launches,
+          "seconds": SLICE14_SECONDS["qserve"]})
+    return launches
+
+
+AUTOTUNE_REPS = 2
+
+
+def phase_autotune(torch, cfg, kc, n: int, seed: int, f32_run):
+    """autotune.tune_one on the card, on a temporary cache file, at the
+    k-medoid leaf (3,125² × 12,288, k = 200; TINY_IMAGENET's leaf), the
+    k-medoid node (400² × 12,288) and the kosarak leaf (coverage, 30,938
+    sets over 41,270 items = 1,290 words, k = 64): the static plan, every
+    candidate's tier, storage, chunk, ms, dispatches and identity
+    verdict, the winner and its speedup. Then run_tree_dense at `run`'s
+    configuration on its data (drawn again from the seed) with
+    REPRO_TORCH_AUTOTUNE_CACHE on that file: each stage's engine and
+    storage (the live gates keep the 32 stacked leaves off a tier only
+    one greedy fits), the root ids equal to `run`'s, the root value
+    bit-equal where every stage kept `run`'s storage. The root's ids
+    are compared as a set (a narrower node storage may pick the same
+    elements in another order), their order reported."""
+    import tempfile
+    from repro_torch.core.simulate import partition, run_tree_dense
+    from repro_torch.core.tree import AccumulationTree
+    from repro_torch.data.synthetic import gen_images_on
+    from repro_torch.kernels import counters, plans
+    from repro_torch.kernels.rules import DIST_MIN
+    from repro_torch.launch import autotune
+    t_phase = time.perf_counter()
+    n_leaf = -(-n // cfg.num_machines)          # 3,125 at TINY_IMAGENET
+    shapes = [("kmedoid_leaf", "kmedoid", n_leaf, cfg.feature_dim, cfg.k, 0),
+              ("kmedoid_node", "kmedoid", cfg.branching * cfg.k,
+               cfg.feature_dim, cfg.k, 0),
+              ("kosarak_leaf", "coverage", -(-kc.n // kc.num_machines), 0,
+               kc.k, kc.universe)]
+    launches, tuned, entries = {}, {}, {}
+    for tag, name, nn, d, k, universe in shapes:
+        log = []
+        counters.reset()
+        t0 = time.perf_counter()
+        key, entry = autotune.tune_one(name, nn, d, k, universe=universe,
+                                       device=CLI_DEVICE, reps=AUTOTUNE_REPS,
+                                       verbose=False, log=log)
+        _add(launches, {n_: c["launches"] for n_, c in
+                        counters.snapshot().items() if c["launches"]})
+        entries[key] = entry
+        tuned[tag] = {"key": key, "seconds": time.perf_counter() - t0,
+                      "static": log[0], "candidates": log[1:],
+                      "winner": {f: entry[f] for f in (
+                          "tier", "dtype", "block_n", "loop_block_n",
+                          "dispatches")},
+                      "winner_ms": entry["wall_s"] * 1e3,
+                      "static_ms": entry["static_wall_s"] * 1e3,
+                      "speedup": entry["speedup"]}
+        assert all(row["dispatches"] > 0 for row in log), log
+    t_tree = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = plans.save_autotune_cache(entries,
+                                         path=os.path.join(tmp, "p.json"))
+        x = gen_images_on(n, cfg.feature_dim, classes=20, seed=seed,
+                          device=CLI_DEVICE)
+        tree = AccumulationTree(cfg.num_machines, cfg.branching)
+        leaf_n = int(np.bincount(partition(n, cfg.num_machines,
+                                           cfg.seed)).max())
+        levels = []
+        with _env(REPRO_TORCH_AUTOTUNE_CACHE=path):
+            stages = []
+            for lvl in range(tree.num_levels + 1):
+                ns = leaf_n if lvl == 0 else cfg.branching * cfg.k
+                reps = (cfg.num_machines if lvl == 0
+                        else len(tree.nodes_at_level(lvl)))
+                p = plans.select_engine(DIST_MIN, ns, ns, cfg.feature_dim,
+                                        replicas=reps, device=CLI_DEVICE)
+                static = plans.fused_plan(ns, ns, d=cfg.feature_dim,
+                                          rule=DIST_MIN, replicas=reps)
+                tuned_fp = plans._tuned_plan(DIST_MIN, ns, ns,
+                                             cfg.feature_dim, CLI_DEVICE,
+                                             reps)
+                stages.append({"level": lvl, "n": ns, "replicas": reps,
+                               "engine": p.engine, "dtype": p.dtype,
+                               "block_n": p.block_n,
+                               "static": [static["tier"], static["dtype"]],
+                               "cache_entry_taken": tuned_fp is not None})
+            counters.reset()
+            hook = _level_hook(torch, levels)
+            t0 = time.perf_counter()
+            res = run_tree_dense("kmedoid", x, cfg.k, tree, seed=cfg.seed,
+                                 device=x.device, on_level=hook)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del x
+        gc.collect()
+        torch.cuda.empty_cache()
+    for st, lv in zip(stages, levels):
+        st["launches"] = lv["launches"]
+        st["seconds"] = lv["seconds"]
+        _add(launches, lv["launches"])
+    f32_ids, f32_value, f32_root = f32_run
+    ids = np.asarray(res.ids)
+    same_ids = bool(np.array_equal(np.sort(ids), np.sort(f32_ids)))
+    same_storage = all(st["dtype"] == "float32" for st in stages)
+    row = {"stages": stages, "wall_seconds": wall,
+           "root_ids_equal_to_run": same_ids,
+           "root_ids_in_run_order": bool(np.array_equal(ids, f32_ids)),
+           "every_stage_float32": same_storage,
+           "root_value": res.root_value, "run_root_value": f32_root,
+           "global_value": res.value, "run_global_value": f32_value,
+           "seconds": time.perf_counter() - t_tree}
+    SLICE14_SECONDS["autotune"] = time.perf_counter() - t_phase
+    emit({"phase": "autotune", "reps": AUTOTUNE_REPS, "shapes": tuned,
+          "tree": row, "launches": launches,
+          "seconds": SLICE14_SECONDS["autotune"]})
+    assert stages[0]["engine"] == "mega_stream", stages[0]
+    assert same_ids, (ids.tolist(), f32_ids.tolist())
+    if same_storage:
+        assert np.array_equal(ids, f32_ids), (ids.tolist(), f32_ids.tolist())
+        assert (res.root_value, res.value) == (f32_root, f32_value), row
+    return launches
+
+
+def phase_autotune_smoke(torch):
+    """`launch.autotune --smoke` on the card writes its cache file; a
+    following select_engine at its shape returns the tuned entry."""
+    import tempfile
+    from repro_torch.kernels import plans
+    from repro_torch.kernels.rules import DOT_MAX
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.json")
+        lines, wall = _cli("autotune", "--smoke", "--out", path)
+        with open(path, encoding="utf-8") as f:
+            blob = json.load(f)
+        key = plans.autotune_key(DOT_MAX, 192, 192, 32, CLI_DEVICE)
+        entry = blob["entries"][key]
+        with _env(REPRO_TORCH_AUTOTUNE_CACHE=path):
+            p = plans.select_engine(DOT_MAX, 192, 192, 32,
+                                    device=CLI_DEVICE)
+    got = [p.tier or "step", p.dtype]
+    assert got == [entry["tier"], entry["dtype"]], (got, entry)
+    assert entry["budgets"] == plans.budget_snapshot(), entry
+    SLICE14_SECONDS["autotune_smoke"] = time.perf_counter() - t_phase
+    emit({"phase": "autotune_smoke", "lines": lines,
+          "process_seconds": wall, "key": key, "entry": entry,
+          "select_engine": {"engine": p.engine, "tier": p.tier,
+                            "dtype": p.dtype, "block_n": p.block_n},
+          "seconds": SLICE14_SECONDS["autotune_smoke"]})
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -5155,6 +5525,14 @@ def main(argv=None) -> int:
     phase_faultrun_smoke()
     emit({"phase": "slice13_total", "phases": SLICE13_SECONDS,
           "seconds": sum(SLICE13_SECONDS.values())})
+    _add(launches, phase_summarize(torch))
+    phase_stream_cli(torch)
+    _add(launches, phase_qserve(torch))
+    _add(launches, phase_autotune(torch, cfg, kc, args.n, args.seed,
+                                  f32_run))
+    phase_autotune_smoke(torch)
+    emit({"phase": "slice14_total", "phases": SLICE14_SECONDS,
+          "seconds": sum(SLICE14_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

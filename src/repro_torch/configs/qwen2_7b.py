@@ -1,0 +1,20 @@
+"""qwen2-7b — dense GQA transformer with QKV bias.
+
+[arXiv:2407.10671; hf:Qwen/Qwen2-7B] 28L d_model=3584 28H (kv=4)
+d_ff=18944 vocab=152064. Answers `src/repro/configs/qwen2_7b.py`.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=18_944,
+    vocab_size=152_064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)

@@ -141,7 +141,8 @@ def greedy_batch(objective, ids, payloads, valid, k: int, ground=None,
     plan = plans.select_engine(
         objective.rule, *objective.plan_dims(state, payloads),
         requested=engine, sampling=sampling,
-        constrained=constraint is not None, replicas=b)
+        constrained=constraint is not None, replicas=b,
+        device=objective.device.type)
 
     if plan.engine in ("mega_stream", "mega_resident"):
         mega = objective.megakernel_loop(state, payloads, valid, k,

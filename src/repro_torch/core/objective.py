@@ -166,7 +166,8 @@ class RuleObjective:
         return plans.select_engine(self.rule, n, c, d, requested=requested,
                                    sampling=sampling,
                                    constrained=constrained,
-                                   replicas=state.row.shape[0])
+                                   replicas=state.row.shape[0],
+                                   device=self.device.type)
 
     # -- fused cached-matrix engine ------------------------------------------
 
@@ -245,7 +246,8 @@ class RuleObjective:
             n, d = c, payloads.shape[-1]
         if plan is None:
             plan = plans.select_engine(self.rule, n, c, d, requested="mega",
-                                       replicas=bsz)
+                                       replicas=bsz,
+                                       device=self.device.type)
         if plan.engine != "mega_resident":
             return None
         if logical is None:

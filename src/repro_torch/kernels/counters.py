@@ -8,7 +8,9 @@ wrapper owns one `KernelCounter`:
   launches  CUDA kernel launches only; a wrapper adds one exactly where
             it launches its kernel, and the plain CPU path never does
 
-`reset()` zeroes every counter; `snapshot()` reads them all.
+`reset()` zeroes every counter; `snapshot()` reads them all;
+`dispatches(before, after, device)` counts what ran between two
+snapshots.
 """
 from __future__ import annotations
 
@@ -42,3 +44,14 @@ def reset() -> None:
 def snapshot() -> Dict[str, Dict[str, int]]:
     return {n: {"calls": c.calls, "launches": c.launches}
             for n, c in sorted(_COUNTERS.items())}
+
+
+def dispatches(before: Dict[str, Dict[str, int]],
+               after: Dict[str, Dict[str, int]], device,
+               prefix: str = "") -> int:
+    """Kernel dispatches between two snapshots, over the counters whose
+    name starts with `prefix`: launches on the card, calls on the CPU
+    (the plain path launches nothing). ``device``: a torch.device."""
+    what = "launches" if device.type == "cuda" else "calls"
+    return sum(after[n][what] - before.get(n, {what: 0})[what]
+               for n in after if n.startswith(prefix))

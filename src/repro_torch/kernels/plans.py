@@ -83,19 +83,42 @@ unpadded (the TPU tile padding of the reference has no counterpart).
 The serving engine (serving/engine.py) still stacks queries on one
 shared candidate bucket, `bucket_len(c, 128)`: `serve_key` says which
 queries stack and `serve_plan` how many, each query's real (n, c)
-riding the resident loop's ``ctl``. The autotune cache of the reference
-waits for a later slice.
+riding the resident loop's ``ctl``.
+
+Measured plans (`launch/autotune.py`) outrank the static plan: an
+explicit `plan_override`, then a validated entry of the JSON cache that
+flags.autotune_cache_path names (REPRO_TORCH_AUTOTUNE_CACHE, off by
+default), then `fused_plan`. Three things differ from the reference's
+cache:
+
+  * the key's last field is the device type the entry was measured on
+    ('cuda' or 'cpu'), not a kernel backend: a plan tuned on the CPU's
+    plain path never steers the card;
+  * the budget snapshot records the port's own knobs (fused_cache_mb,
+    fused_vmem_mb, resident_l2_mb), so a reference cache file is
+    ignored, without a crash;
+  * a key buckets (n, c, d) as the reference does, but the port plans
+    unpadded shapes and batches of `replicas` greedies, so one key
+    covers shapes whose gates disagree (a leaf tuned int8-resident alone
+    is 9.8 MB; 32 stacked leaves are 313 MB, past the 25 MB L2 share).
+    `_tuned_plan` holds the entry's tier and dtype to the live gates
+    and ignores an entry they refuse: the static plan stands.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import math
+import os
 from typing import Optional, Tuple
 
 from repro_torch.kernels.rules import KernelRule, cache_itemsize
 from repro_torch.runtime import flags
 
 ENGINES = ("step", "fused", "mega_stream", "mega_resident", "sharded")
+# the storage ladder of a feature rule's caches, widest first
+FEATURE_DTYPES = ("float32", "bfloat16", "int8")
 
 THREADS = 256                       # threads per block of the loop kernels
 # argmax scratch of a loop block: one (value, index) pair per thread
@@ -314,56 +337,238 @@ def quant_chunk(n: int, c: int) -> int:
     return max(1, QUANT_CHUNK_BYTES // max(1, 4 * n * c))
 
 
+def forced_dtype() -> Optional[str]:
+    """The storage REPRO_TORCH_FUSED_CACHE_DTYPE forces on feature rules
+    ('float32' | 'bfloat16' | 'int8'), or None under 'auto'."""
+    return {"f32": "float32", "bf16": "bfloat16",
+            "int8": "int8"}.get(flags.fused_cache_dtype())
+
+
+def tier_admits(rule: Optional[KernelRule], n: int, c: int,
+                d: Optional[int], tier: str, dtype: str,
+                replicas: int = 1) -> bool:
+    """Whether the live gates admit a cached `tier` in `dtype` for
+    `replicas` (n, c, d) greedies: the cache budget for every cached
+    tier, `resident_fits` for 'resident', the loop block's shared memory
+    for 'streaming', a chunk size (feature rules) or the word row
+    (bitmap rules) for 'fused'. `fused_plan` asks them of the ladder's
+    first rung whose cache fits; `_tuned_plan` of a cached entry.
+
+    The bitmap kernels keep the (W,) word row in shared memory; their
+    streaming gate counts the whole (C,) mask beside it (one block a
+    greedy, where the card cannot hold more)."""
+    bitmap = rule is not None and rule.is_bitmap
+    reps = max(1, replicas)
+    if cache_bytes(n, c, dtype, reps) > flags.fused_cache_mb() * 2 ** 20:
+        return False
+    if tier == "resident":
+        return ((bitmap or d is not None)
+                and resident_fits(n, c, d, rule=rule, replicas=reps,
+                                  dtype=dtype))
+    if bitmap:
+        if tier == "streaming":
+            return 4 * (n + c) + REDUCE_BYTES <= _smem_budget()
+        return tier == "fused" and 4 * n + REDUCE_BYTES <= _smem_budget()
+    if fused_block_n(dtype) == 0:
+        return False
+    if tier == "streaming":
+        return loop_block_n(c, dtype) > 0
+    return tier == "fused"
+
+
 def fused_plan(n: int, c: int, d: Optional[int] = None,
                rule: Optional[KernelRule] = None,
                replicas: int = 1) -> Optional[dict]:
     """Memory gate for the cached-matrix engines: None when no (n, c)
     matrix fits the cache budget in any permitted storage dtype, else
-    {'tier', 'block_n', 'loop_block_n', 'dtype'} (see module doc)."""
+    {'tier', 'block_n', 'loop_block_n', 'dtype'} (see module doc): the
+    first of resident, streaming and fused that `tier_admits` in the
+    ladder's first rung whose caches fit."""
     bitmap = rule is not None and rule.is_bitmap
     reps = max(1, replicas)
     cache = flags.fused_cache_mb() * 2 ** 20
-    forced = {"f32": "float32", "bf16": "bfloat16",
-              "int8": "int8"}.get(flags.fused_cache_dtype())
-    dtype = None
-    if bitmap:
-        if cache_bytes(n, c, "uint32", reps) <= cache:
-            dtype = "uint32"
-    else:
-        for cand in ("float32", "bfloat16", "int8"):
-            if forced is not None and cand != forced:
-                continue
-            if cache_bytes(n, c, cand, reps) <= cache:
-                dtype = cand
-                break
+    forced = forced_dtype()
+    ladder = (("uint32",) if bitmap else
+              [t for t in FEATURE_DTYPES if forced in (None, t)])
+    dtype = next((t for t in ladder
+                  if cache_bytes(n, c, t, reps) <= cache), None)
     if dtype is None:
         return None
-    bn = 0 if bitmap else fused_block_n(dtype)
-    if ((bitmap or d is not None)
-            and resident_fits(n, c, d, rule=rule, replicas=reps,
-                              dtype=dtype)):
-        return {"tier": "resident", "block_n": bn, "loop_block_n": 0,
-                "dtype": dtype}
-    if bitmap:
-        # the bitmap kernels keep the (W,) word row in shared memory; the
-        # streaming gate counts the whole (C,) mask beside it (one block
-        # a greedy, where the card cannot hold more)
-        if 4 * n + REDUCE_BYTES > _smem_budget():
-            return None
-        loop = 4 * (n + c) + REDUCE_BYTES <= _smem_budget()
-        return {"tier": "streaming" if loop else "fused", "block_n": 0,
-                "loop_block_n": 0, "dtype": dtype}
-    if bn == 0:
+    for tier in ("resident", "streaming", "fused"):
+        if tier_admits(rule, n, c, d, tier, dtype, reps):
+            return {"tier": tier,
+                    "block_n": 0 if bitmap else fused_block_n(dtype),
+                    "loop_block_n": (loop_block_n(c, dtype)
+                                     if tier == "streaming" and not bitmap
+                                     else 0),
+                    "dtype": dtype}
+    return None
+
+
+# ---------------------------------------------------------------------------
+# measured plans: the on-disk autotune cache (launch/autotune.py; answers
+# src/repro/kernels/plans.py:472-611)
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_VERSION = 1
+
+# mtime-memoised parse of the cache: a steady-state select_engine call
+# costs one os.stat, and a rewritten file is picked up without a restart
+_AUTOTUNE_MEMO: dict = {}
+
+
+def autotune_key(rule: KernelRule, n: int, c: int, d: Optional[int],
+                 device: str) -> str:
+    """Cache key per (rule, bucketed shape, device type): the reference's
+    buckets (n to bucket_len(n, 256), c to bucket_len(c, 128), d up to a
+    multiple of 128, 0 for bitmap rules), so the strings match the
+    reference's up to the last field, which names the device type the
+    entry was measured on ('cuda' or 'cpu')."""
+    n_pad, c_pad = bucket_len(n, 256), bucket_len(c, 128)
+    d_pad = 0 if (rule.is_bitmap or not d) else -(-d // 128) * 128
+    return f"{rule.name}|n{n_pad}|c{c_pad}|d{d_pad}|{device}"
+
+
+def budget_snapshot() -> dict:
+    """The port's budget knobs a tuned entry was measured under: saved
+    with the entry, compared at lookup (a stale snapshot ⇒ the entry is
+    ignored)."""
+    return {"fused_cache_mb": flags.fused_cache_mb(),
+            "fused_vmem_mb": flags.fused_vmem_mb(),
+            "resident_l2_mb": flags.resident_l2_mb()}
+
+
+def load_autotune_cache(path: Optional[str] = None) -> dict:
+    """Entries of the measured-plan cache, or {} when the knob is off,
+    the file is missing, fails to parse or carries another schema
+    version: a corrupt or stale cache never crashes a run."""
+    path = path if path is not None else flags.autotune_cache_path()
+    if not path:
+        return {}
+    ap = os.path.abspath(path)
+    try:
+        st = os.stat(ap)
+    except OSError:
+        return {}
+    memo = _AUTOTUNE_MEMO.get(ap)
+    if memo is not None and memo[0] == st.st_mtime_ns:
+        return memo[1]
+    try:
+        with open(ap, "r", encoding="utf-8") as f:
+            blob = json.load(f)
+        entries = blob["entries"]
+        if blob.get("version") != AUTOTUNE_VERSION \
+                or not isinstance(entries, dict):
+            entries = {}
+    except (OSError, ValueError, KeyError, TypeError):
+        entries = {}
+    _AUTOTUNE_MEMO[ap] = (st.st_mtime_ns, entries)
+    return entries
+
+
+def save_autotune_cache(entries: dict, path: Optional[str] = None) -> str:
+    """Persist tuned entries, merged over any valid existing file: sorted
+    keys, written to a sibling tmp file, fsynced and renamed into place
+    (a crashed tuner leaves the previous cache whole)."""
+    path = path if path is not None else flags.autotune_cache_path()
+    if not path:
+        raise ValueError("save_autotune_cache needs "
+                         f"{flags.AUTOTUNE_CACHE_ENV} or path=")
+    ap = os.path.abspath(path)
+    merged = dict(load_autotune_cache(ap))
+    merged.update(entries)
+    os.makedirs(os.path.dirname(ap) or ".", exist_ok=True)
+    tmp = ap + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump({"version": AUTOTUNE_VERSION, "entries": merged}, f,
+                  indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, ap)
+    return ap
+
+
+def block_n_ladder(dtype: str):
+    """The chunk sizes (ground rows a chunk of the fused and streaming
+    gain sums) the planner hands the CUDA wrappers for a `dtype` cache:
+    fused_block_n(dtype) halved down to LOOP_BLOCK_MIN, largest first.
+    Feature rules only; a bitmap plan's block_n is 0."""
+    bn, out = fused_block_n(dtype), []
+    while bn >= LOOP_BLOCK_MIN:
+        out.append(bn)
+        bn //= 2
+    return out
+
+
+def _tuned_plan(rule: KernelRule, n: int, c: int, d: Optional[int],
+                device: str, replicas: int = 1) -> Optional[dict]:
+    """The validated fused_plan-shaped dict of a tuned entry, or None: no
+    cache, no entry, a stale budget snapshot, malformed fields, a dtype
+    REPRO_TORCH_FUSED_CACHE_DTYPE forced off, or a tier and dtype the
+    live gates refuse at this (n, c, d, replicas) — then the static plan
+    stands, so an entry never moves a run onto a tier its shape does not
+    admit."""
+    entries = load_autotune_cache()
+    if not entries:
         return None
-    bn_loop = loop_block_n(c, dtype)
-    return {"tier": "streaming" if bn_loop else "fused",
-            "block_n": bn, "loop_block_n": bn_loop, "dtype": dtype}
+    e = entries.get(autotune_key(rule, n, c, d, device))
+    if not isinstance(e, dict) or e.get("budgets") != budget_snapshot():
+        return None
+    tier = e.get("tier")
+    if tier == "step":
+        return {"tier": "step", "block_n": 0, "loop_block_n": 0,
+                "dtype": "float32"}
+    dtype = e.get("dtype")
+    allowed = ("uint32",) if rule.is_bitmap else FEATURE_DTYPES
+    forced = forced_dtype()
+    if (tier not in ("resident", "streaming", "fused")
+            or dtype not in allowed
+            or (forced is not None and not rule.is_bitmap
+                and dtype != forced)):
+        return None
+    try:
+        bn, bl = int(e.get("block_n", 0)), int(e.get("loop_block_n", 0))
+    except (TypeError, ValueError):
+        return None
+    if not tier_admits(rule, n, c, d, tier, dtype, replicas):
+        return None
+    if rule.is_bitmap:
+        bn, bl = 0, 0
+    elif tier in ("streaming", "fused"):
+        if bn not in block_n_ladder(dtype):
+            return None
+        if tier == "streaming" and not 0 < bl <= loop_block_n(c, dtype):
+            return None
+        bl = bl if tier == "streaming" else 0
+    else:
+        bn, bl = fused_block_n(dtype), 0
+    return {"tier": tier, "block_n": bn, "loop_block_n": bl,
+            "dtype": dtype}
+
+
+_PLAN_OVERRIDE: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def plan_override(fp: Optional[dict]):
+    """Force select_engine to take this fused_plan-shaped dict verbatim
+    (past both the cache and the static plan) for the calls inside: how
+    launch/autotune.py times each candidate through the real greedy
+    driver. Process-wide, not thread-safe."""
+    global _PLAN_OVERRIDE
+    old = _PLAN_OVERRIDE
+    _PLAN_OVERRIDE = fp
+    try:
+        yield
+    finally:
+        _PLAN_OVERRIDE = old
 
 
 def select_engine(rule: KernelRule, n: int, c: int,
                   d: Optional[int] = None, *, requested: str = "auto",
                   sampling: bool = False, constrained: bool = False,
-                  replicas: int = 1, lanes: int = 1) -> EnginePlan:
+                  replicas: int = 1, lanes: int = 1,
+                  device: str = "cuda") -> EnginePlan:
     """Resolve the selection engine for one batched greedy invocation
     (answers `select_engine`, src/repro/kernels/plans.py:614).
 
@@ -383,6 +588,11 @@ def select_engine(rule: KernelRule, n: int, c: int,
     tier is refused, 'auto'/'mega' with no sampling and no constraint
     escalate to engine 'sharded' with `shard_plan`'s tile_c, where the
     shard gate admits the pool (the reference's branch at :660-673).
+
+    Measured plans come first: a `plan_override`, then the cache entry
+    of (rule, n, c, d, `device`) — the device type the greedies run on —
+    that `_tuned_plan` validates against the live gates at `replicas`;
+    a tuned 'step' entry returns the step engine.
     """
     if requested not in ("auto", "mega", "fused", "step"):
         raise ValueError(f"unknown engine {requested!r}; "
@@ -390,7 +600,13 @@ def select_engine(rule: KernelRule, n: int, c: int,
     step = EnginePlan("step", rule, replicas=replicas)
     if requested == "step":
         return step
-    fp = fused_plan(n, c, d=d, rule=rule, replicas=replicas)
+    fp = _PLAN_OVERRIDE
+    if fp is None:
+        fp = _tuned_plan(rule, n, c, d, device, replicas)
+    if fp is None:
+        fp = fused_plan(n, c, d=d, rule=rule, replicas=replicas)
+    elif fp.get("tier") == "step":
+        return step
     if fp is None:
         if (lanes > 1 and requested in ("auto", "mega")
                 and not sampling and not constrained):
@@ -429,8 +645,8 @@ def serve_key(rule: KernelRule, n: int, c: int, d: Optional[int],
             f"|c{bucket_len(c, 128)}|{tail}|{backend}")
 
 
-def serve_plan(rule: KernelRule, n: int, c: int,
-               d: Optional[int]) -> Optional[dict]:
+def serve_plan(rule: KernelRule, n: int, c: int, d: Optional[int],
+               device: str = "cuda") -> Optional[dict]:
     """Admission plan of one stacked serving batch over (n, c, d) pools
     (answers `serve_plan`, src/repro/kernels/plans.py:437), or None when
     a query of that shape cannot ride the resident tier — the engine then
@@ -442,8 +658,9 @@ def serve_plan(rule: KernelRule, n: int, c: int,
     (`cache_bytes`). b_max caps the batch so B of them fit
     flags.serve_mem_mb (the card's shared memory, one wave of clusters)
     and flags.serve_batch, and so B matrices still pass the resident
-    gate's L2 share (`select_engine` with replicas=B)."""
-    plan = select_engine(rule, n, c, d, requested="mega")
+    gate's L2 share (`select_engine` with replicas=B). ``device``: the
+    device type the queries run on (the autotune cache's key)."""
+    plan = select_engine(rule, n, c, d, requested="mega", device=device)
     if plan.engine != "mega_resident":
         return None
     stored = "uint32" if rule.is_bitmap else plan.dtype
@@ -454,7 +671,7 @@ def serve_plan(rule: KernelRule, n: int, c: int,
     b_mem = int(flags.serve_mem_mb() * 2 ** 20 // max(need, 1))
     b_max = max(1, min(flags.serve_batch(), b_mem))
     while b_max > 1 and select_engine(rule, n, c, d, requested="mega",
-                                      replicas=b_max
+                                      replicas=b_max, device=device
                                       ).engine != "mega_resident":
         b_max -= 1
     return {"plan": plan, "b_max": b_max, "bytes_per_query": need}
@@ -626,7 +843,8 @@ def _radix_options(m: int):
 
 def plan_tree(rule: KernelRule, n: int, d: Optional[int], k: int,
               lanes: int, budget_mb: Optional[float] = None,
-              words: Optional[int] = None) -> Optional[TreePlan]:
+              words: Optional[int] = None,
+              device: str = "cuda") -> Optional[TreePlan]:
     """The accumulation tree's shape for `lanes` lanes, from the byte
     model the engine tiers gate on: every shard ∈ divisors(lanes) and
     every uniform radix stack over the m = lanes / shard machines whose
@@ -642,7 +860,9 @@ def plan_tree(rule: KernelRule, n: int, d: Optional[int], k: int,
     shard, plus interior compute and comm), then fewer levels, then more
     sharding; the model's structure is asserted against the enumerated
     tree. None when no shape fits. ``words``: a bitmap rule plans its
-    ground over universe words (d is None), so it never shards."""
+    ground over universe words (d is None), so it never shards.
+    ``device``: the device type the stages run on (the autotune cache's
+    key)."""
     from repro_torch.core.tree import AccumulationTree   # core → kernels
 
     if rule.is_bitmap and not words:
@@ -658,7 +878,8 @@ def plan_tree(rule: KernelRule, n: int, d: Optional[int], k: int,
     for shard in (s for s in range(1, lanes + 1) if lanes % s == 0):
         m = lanes // shard
         leaf_n = -(-n // m)
-        lp = select_engine(rule, rows(leaf_n), leaf_n, d, lanes=shard)
+        lp = select_engine(rule, rows(leaf_n), leaf_n, d, lanes=shard,
+                           device=device)
         if shard > 1 and lp.engine != "sharded":
             continue        # the solo shapes cover it
         leaf_bytes = engine_hbm_bytes(lp, rows(leaf_n), leaf_n, d)
@@ -668,7 +889,7 @@ def plan_tree(rule: KernelRule, n: int, d: Optional[int], k: int,
             if radices:
                 br = radices[0]
                 nc = br * k
-                np_ = select_engine(rule, rows(nc), nc, d)
+                np_ = select_engine(rule, rows(nc), nc, d, device=device)
                 node_bytes = engine_hbm_bytes(np_, rows(nc), nc, d)
                 if node_bytes > budget:
                     continue

@@ -1,2 +1,3 @@
-"""Process-group meshes and rank launchers (answers `src/repro/launch/`:
-`mesh.py`'s tree helpers; the CLIs wait for ROADMAP item 9)."""
+"""Launchers (answers `src/repro/launch/`): process-group meshes and rank
+spawning (`mesh.py`, `spawn.py`) and the CLIs — `summarize`, `stream`,
+`qserve`, `autotune` and `faultrun`."""

@@ -72,10 +72,21 @@ TPU budgets of the reference:
                                 (28 a batch); at kosarak's (128 sets,
                                 1,290 words) 668,200 B (45), so the
                                 admission cap of 16 binds first.
+  REPRO_TORCH_AUTOTUNE_CACHE    path of the measured-plan JSON cache
+                                that launch/autotune.py writes and
+                                plans.select_engine consults before the
+                                static plan. Off by default (unset, '',
+                                '0', 'off', 'none', 'disabled'): runs
+                                keep the static plans. A file the
+                                reference's tuner wrote is not shared:
+                                its entries carry the reference's budget
+                                snapshot and backend, so the port
+                                ignores them.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 FUSED_CACHE_MB_ENV = "REPRO_TORCH_FUSED_CACHE_MB"
 FUSED_VMEM_MB_ENV = "REPRO_TORCH_FUSED_VMEM_MB"
@@ -85,6 +96,7 @@ STREAM_BATCH_ENV = "REPRO_TORCH_STREAM_BATCH"
 SERVE_BATCH_ENV = "REPRO_TORCH_SERVE_BATCH"
 SERVE_QUEUE_ENV = "REPRO_TORCH_SERVE_QUEUE"
 SERVE_MEM_MB_ENV = "REPRO_TORCH_SERVE_MEM_MB"
+AUTOTUNE_CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 
 H100_HBM_MB = 80 * 1024
 H100_L2_MB = 50.0
@@ -155,3 +167,12 @@ def serve_mem_mb() -> float:
     """On-chip memory (MB) one admitted batch's stacked working sets may
     take (see the module docstring for the default's derivation)."""
     return _env_float(SERVE_MEM_MB_ENV, _SERVE_MEM_MB_DEFAULT)
+
+
+def autotune_cache_path() -> Optional[str]:
+    """Path of the measured-plan cache (launch/autotune.py), or None when
+    the lookup is off (the default)."""
+    v = os.environ.get(AUTOTUNE_CACHE_ENV, "")
+    if v.strip().lower() in ("", "0", "off", "none", "disabled"):
+        return None
+    return v

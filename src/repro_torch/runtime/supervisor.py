@@ -220,7 +220,8 @@ class SelectionSupervisor:
             rule = objective.rule
             d = None if rule.is_bitmap else payloads.shape[1]
             w = payloads.shape[1] if rule.is_bitmap else None
-            tp = plan_tree(rule, ids.shape[0], d, k, lanes, words=w)
+            tp = plan_tree(rule, ids.shape[0], d, k, lanes, words=w,
+                           device=objective.device.type)
             if tp is None:
                 raise ValueError(
                     f"no accumulation tree over {lanes} lanes fits the "

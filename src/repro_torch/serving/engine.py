@@ -88,14 +88,6 @@ class QueryResult:
     latency_s: float
 
 
-def _dispatches(before: dict, after: dict, device: torch.device) -> int:
-    """Kernel dispatches between two counter snapshots: launches on the
-    card, calls on the CPU (the plain path launches nothing)."""
-    what = "launches" if device.type == "cuda" else "calls"
-    return sum(after[n][what] - before.get(n, {what: 0})[what]
-               for n in after)
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -159,7 +151,7 @@ class QueryEngine:
         c_bkt = plans.bucket_len(c, 128)
         n, d = ((obj.words, None) if rule.is_bitmap
                 else (c_bkt, int(q.payloads.shape[-1])))
-        sp = plans.serve_plan(rule, n, c_bkt, d)
+        sp = plans.serve_plan(rule, n, c_bkt, d, device=self.device.type)
         if sp is None:
             return None, None               # off the resident tier → solo
         return plans.serve_key(rule, n, c, d, self.device.type), sp
@@ -265,7 +257,7 @@ class QueryEngine:
             raise RuntimeError(f"serve plan {sp['plan']} is not resident")
         _, bests, gains = mega
         _sync(dev)
-        ndisp = _dispatches(before, counters.snapshot(), dev)
+        ndisp = counters.dispatches(before, counters.snapshot(), dev)
         self.metrics.batch_executed(skey, len(group), ndisp,
                                     time.monotonic() - t_exec)
         out = []

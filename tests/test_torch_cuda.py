@@ -1579,3 +1579,41 @@ def test_cuda_serving_batch_is_one_resident_dispatch(cuda, name):
                       engine="mega")
         for f in ("ids", "payloads", "valid", "value", "evals"):
             assert torch.equal(getattr(r.solution, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_autotune_smoke_grid_writes_a_card_entry(cuda, tmp_path,
+                                                      monkeypatch):
+    """autotune.tune at the --smoke grid (facility, n = 192, d = 32,
+    k = 6, f32 and int8, one rep) on the card: the entry is keyed to
+    'cuda' and carries the port's budget snapshot, its dispatches are
+    CUDA launches (launch counters), and a greedy under the written
+    cache selects the static plan's ids."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedy import greedy
+    from repro_torch.launch import autotune
+    out = tmp_path / "plans.json"
+    counters.reset()
+    entries = autotune.tune(["facility"], [(192, 32, 6)], device=cuda,
+                            reps=1, dtypes=("float32", "int8"),
+                            blocks_per_tier=1, out=str(out), verbose=False)
+    (key, e), = entries.items()
+    assert key == plans.autotune_key(TR.DOT_MAX, 192, 192, 32, "cuda")
+    assert e["budgets"] == plans.budget_snapshot()
+    assert set(e["budgets"]) == {"fused_cache_mb", "fused_vmem_mb",
+                                 "resident_l2_mb"}
+    assert e["dispatches"] >= 1 and e["static_dispatches"] >= 1
+    launched = sum(c["launches"] for c in counters.snapshot().values())
+    assert launched > 0
+    ids, pay, valid = autotune._pool("facility", 192, 32, device=cuda)
+    obj = make_objective("facility", device=cuda)
+    static = plans.fused_plan(192, 192, d=32, rule=TR.DOT_MAX)
+    with plans.plan_override(static):
+        want = greedy(obj, ids, pay, valid, 6)
+        n_static = autotune._dispatches(obj, ids, pay, valid, 6, static)
+    assert n_static == e["static_dispatches"]
+    monkeypatch.setenv(flags.AUTOTUNE_CACHE_ENV, str(out))
+    p = plans.select_engine(TR.DOT_MAX, 192, 192, 32, device="cuda")
+    assert ((p.tier or "step"), p.dtype) == (e["tier"], e["dtype"])
+    got = greedy(obj, ids, pay, valid, 6)
+    assert torch.equal(got.ids, want.ids)
