@@ -294,7 +294,8 @@ built):
                           the CLI's defaults (n 2,048, d 64, k 32, B 128)
                           one sieve, --continuous and --distributed (4
                           gloo ranks on the card): value and arrivals/s,
-                          the distributed run equal to the continuous one
+                          the distributed run equal to the continuous one,
+                          its merged values bit for bit
   qserve                  `launch.qserve --smoke` (one resident launch an
                           admitted batch); `run` at 8 tenants, n 256,
                           d 32, k 16, --qps 50 and 200 for 5 s each: p50,
@@ -313,6 +314,49 @@ built):
                           following select_engine returns the entry
   slice14_total           the seconds these phases added
 
+and the model zoo's serving path (models/, launch/{steps,serve}.py:
+plain PyTorch, no kernel of the port; the kernels line is unchanged),
+last:
+
+  model_parity            the ten architectures at smoke_config (f32):
+                          forward, prefill and 8 greedy decode steps on
+                          the card against the same parameters on the
+                          CPU (logits within 1e-4 max abs, the same
+                          greedy tokens); prefill(S) + decode(token
+                          S) against the forward within 1e-3; h2o-danube's
+                          SWA ring past its window of 16
+  serve_qwen2p5_3b        `launch.serve.main` in process at qwen2.5-3b's
+                          full width and depth: batch 4, prompt 512, 32
+                          greedy tokens after a warm-up round; prefill ms,
+                          decode ms a step beside its bytes bound (the
+                          f32 parameters once a step at 3.35 TB/s),
+                          tokens/s, peak memory, parameters against the
+                          published 3.09 B, a profiled decode step (the
+                          device's busy share, its largest kernels); a
+                          teacher-forced forward over prompt + generation
+                          picks every decoded token but where its top-2
+                          logits lie within 0.05, on this bf16 run and on
+                          a float32 run of the same model
+  serve_mamba2            the same at mamba2-1.3b (48 SSD layers, chunk
+                          256, d_state 128); the check held on the
+                          float32 run (the bf16 chunk scan rounds its
+                          mixing matrix, decode does not), reported for
+                          the bf16 run
+  serve_moe               the same at qwen3-moe-30b-a3b's full width,
+                          depth cut 48 → 4 (128 experts, top-8, d_expert
+                          768, groups of 512 at capacity 40), with the
+                          MoE drop fractions; the check reported for
+                          that run and a bf16 run at capacity factor 16
+                          (no drop; router near-ties still flip); a
+                          bf16 run with top-k = all 128 experts (no
+                          selection) held to a largest logit difference
+                          of 0.3, and the check held on a float32 run at
+                          no drop (the same weights and prompt)
+  serve_cli               `python -m repro_torch.launch.serve --arch
+                          smollm-135m --smoke --prompt-len 32 --gen 8
+                          --batch 2` exits 0 and prints prefill and tok/s
+  slice15_total           the seconds these phases added
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -325,6 +369,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -5159,9 +5204,9 @@ def phase_stream_cli(torch):
     defaults (n 2,048, d 64, k 32, batch 128) one sieve, --continuous and
     --distributed over 4 gloo ranks on the card, each printing its value
     and arrivals/s; the distributed run's value and |S| equal the
-    continuous run's (4 lanes, a merge every 4 batches), its merged
-    values within 1e-6 (on the card the two modes' merged f32 values
-    differ in the last bit: 6.6e-8 relative on an H100)."""
+    continuous run's (4 lanes, a merge every 4 batches), and its merged
+    values equal them bit for bit (each lane's value is summed at the
+    (1, N) shape a rank sums its one lane at: objective.lane_sums)."""
     t_phase = time.perf_counter()
     smoke, smoke_wall = _cli("stream", "--smoke")
     assert smoke[-1] == "stream smoke OK", smoke
@@ -5186,7 +5231,7 @@ def phase_stream_cli(torch):
     assert same and len(dist_merges) == len(cont_merges), (dist, cont)
     merge_diff = max(abs(a - b) / abs(b)
                      for a, b in zip(dist_merges, cont_merges))
-    assert merge_diff <= 1e-6, (dist_merges, cont_merges)
+    assert dist_merges == cont_merges, (dist_merges, cont_merges)
     SLICE14_SECONDS["stream_cli"] = time.perf_counter() - t_phase
     emit({"phase": "stream_cli", "smoke": smoke,
           "smoke_seconds": smoke_wall, "runs": rows,
@@ -5398,6 +5443,346 @@ def phase_autotune_smoke(torch):
           "seconds": SLICE14_SECONDS["autotune_smoke"]})
 
 
+# ---------------------------------------------------------------------------
+# The model zoo's serving path (models/, launch/{steps,serve}.py)
+# ---------------------------------------------------------------------------
+
+SLICE15_SECONDS = {}
+# the full-width serving runs: batch 4, prompt 512 (one attention chunk),
+# 32 generated tokens, greedy
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# qwen3-moe-30b-a3b's depth cut 48 → 4 layers (≈61 GB of f32 parameters
+# at 48 layers; the width, the 128 experts and the routing are whole)
+SERVE_MOE_LAYERS = 4
+SERVE_CHECK_GEN = 8         # tokens of the float32 check run
+MODEL_TOL = 1e-4            # card vs CPU logits, max abs
+CONSISTENCY_TOL = 1e-3      # prefill + decode vs forward (the reference's)
+
+
+def _model_run(torch, params, batch, cfg, n_decode: int, max_len: int):
+    """forward logits, prefill logits and n_decode greedy decode steps'
+    logits of one model on its device."""
+    from repro_torch.models import transformer as T
+    with torch.inference_mode():
+        fwd, _ = T.forward(params, batch, cfg)
+        pre, cache = T.prefill(params, batch, cfg, max_len=max_len)
+        tok, steps = pre.argmax(-1)[:, None], []
+        for _ in range(n_decode):
+            lg, cache = T.decode_step(params, cache, tok, cfg)
+            steps.append(lg)
+            tok = lg.argmax(-1)[:, None]
+    return fwd, pre, torch.stack(steps, 1)
+
+
+def phase_model_parity(torch, dev: str = "cuda"):
+    """Each of the ten architectures at its smoke_config (f32): forward,
+    prefill and 8 greedy decode steps on the card against the same
+    parameters on the CPU (logits within MODEL_TOL max abs; the card's
+    greedy path followed on the CPU); then the reference's own
+    check on the card (prefill(S) + decode(token S) against the forward
+    over S + 1 tokens, within 1e-3); and h2o-danube's SWA ring (window
+    16) decoded past the window against the windowed forward."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dev = torch.device(dev)
+    rows = {}
+    b, s, n_dec = 2, 32, 8
+    for arch in sorted(registry.ARCHS):
+        cfg = registry.smoke_config(arch)
+        params, _ = T.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = api.synth_batch(torch.Generator().manual_seed(1), cfg,
+                                ShapeConfig("p", "prefill", s, b))
+        cpu = _model_run(torch, params, batch, cfg, n_dec, s + n_dec + 1)
+        gpu_params = params.to(dev)
+        gb = {k: v.to(dev) for k, v in batch.items()}
+        gpu = _model_run(torch, gpu_params, gb, cfg, n_dec, s + n_dec + 1)
+        row = {}
+        for name, g, c in zip(("forward", "prefill", "decode"), gpu, cpu):
+            err = float((g.cpu() - c).abs().max())
+            assert err <= MODEL_TOL, (arch, name, err)
+            row[name] = {"max_abs_err": err}
+        # the card's greedy tokens are the CPU's (its own decode path)
+        same = bool(torch.equal(gpu[2].argmax(-1).cpu(), cpu[2].argmax(-1)))
+        assert same, arch
+        extra = torch.randint(0, cfg.vocab_size, (b, 1),
+                              generator=torch.Generator().manual_seed(7))
+        full = dict(gb, tokens=torch.cat([gb["tokens"], extra.to(dev)], 1))
+        with torch.inference_mode():
+            lf, _ = T.forward(gpu_params, full, cfg)
+            lp, cache = T.prefill(gpu_params, gb, cfg, max_len=s + 4)
+            ld, _ = T.decode_step(gpu_params, cache, extra.to(dev), cfg)
+        cons = [float((lp - lf[:, s - 1]).abs().max()),
+                float((ld - lf[:, s]).abs().max())]
+        assert max(cons) < CONSISTENCY_TOL, (arch, cons)
+        row["prefill_decode_vs_forward"] = cons
+        rows[arch] = row
+    cfg = registry.smoke_config("h2o-danube-3-4b")
+    assert cfg.sliding_window == 16
+    params, _ = T.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    sw, gen = 24, 6
+    toks = torch.randint(0, cfg.vocab_size, (1, sw + gen), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.inference_mode():
+        full, _ = T.forward(params, {"tokens": toks}, cfg)
+        _, cache = T.prefill(params, {"tokens": toks[:, :sw]}, cfg,
+                             max_len=sw + gen)
+        ring = []
+        for t in range(sw, sw + gen):
+            lg, cache = T.decode_step(params, cache, toks[:, t:t + 1], cfg)
+            ring.append(float((lg - full[:, t]).abs().max()))
+    assert max(ring) < CONSISTENCY_TOL, ring
+    SLICE15_SECONDS["model_parity"] = time.perf_counter() - t_phase
+    emit({"phase": "model_parity", "archs": rows,
+          "swa_ring": {"window": 16, "prompt": sw, "decoded": gen,
+                       "max_abs_err": ring},
+          "seconds": SLICE15_SECONDS["model_parity"]})
+
+
+def _decode_idle(torch, run, steps: int = 3) -> dict:
+    """Where a decode step's time goes: after a fresh prefill and one
+    untraced step, `steps` steps traced by torch.profiler (each CUDA
+    kernel's device time and launches) and the next `steps` untraced on
+    CUDA events: the device's busy share of a step and its largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    params, cfg = run["params"], run["cfg"]
+    tok = run["tokens"][:, :1]
+    with torch.inference_mode():
+        _, cache = T.prefill(params, run["batch"], cfg,
+                             max_len=SERVE_PROMPT + SERVE_GEN)
+        _, cache = T.decode_step(params, cache, tok, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                _, cache = T.decode_step(params, cache, tok, cfg)
+            torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(steps):
+            _, cache = T.decode_step(params, cache, tok, cfg)
+        t1.record()
+        t1.synchronize()
+    wall = t0.elapsed_time(t1) / steps
+    busy, launches, kernels = 0.0, 0, []
+    for kernel, count, us in _cuda_events(torch, prof):
+        busy += us / 1e3 / steps
+        launches += count
+        kernels.append((us / 1e3 / steps, kernel[:60], count / steps))
+    if busy <= 0:
+        return {"device_busy_ms_per_step": "not measured"}
+    kernels.sort(reverse=True)
+    return {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+            "busy_share": busy / wall, "cuda_launches_per_step":
+            launches / steps,
+            "top_kernels": [{"kernel": k, "ms_per_step": ms,
+                             "launches_per_step": n}
+                            for ms, k, n in kernels[:5]]}
+
+
+def _check_run(torch, arch: str, layers: int, dtype: str, n_gen: int,
+               moe=None) -> dict:
+    """`launch.serve.main`'s greedy run of the arch (its seeds, so its
+    weights and prompt batch) with the compute dtype, and the MoE fields
+    in `moe` where given, replaced in the config; through the model's
+    prefill and decode_step: the run `serve.teacher_forced` takes."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    dev = torch.device(CLI_DEVICE)
+    cfg = registry.get_arch(arch).replace(dtype=dtype)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    if moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+    shape = ShapeConfig("serve", "prefill", SERVE_PROMPT, SERVE_BATCH)
+    with torch.inference_mode():
+        params, _ = T.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg)
+        batch = api.synth_batch(torch.Generator(device=dev).manual_seed(1),
+                                cfg, shape)
+        logits, cache = T.prefill(params, batch, cfg,
+                                  max_len=SERVE_PROMPT + n_gen)
+        toks, steps = [logits.argmax(-1)[:, None]], [logits]
+        for _ in range(n_gen - 1):
+            logits, cache = T.decode_step(params, cache, toks[-1], cfg)
+            toks.append(logits.argmax(-1)[:, None])
+            steps.append(logits)
+    return {"cfg": cfg, "params": params, "batch": batch,
+            "tokens": torch.cat(toks, 1), "logits": torch.stack(steps, 1)}
+
+
+# the teacher-forced check runs of a dense or SSM model: (label, dtype,
+# tokens, MoE fields replaced, what is asserted: "margin" (a mismatch
+# only where the top-2 logits lie within 0.05), a bound on the largest
+# logit difference, or None: reported)
+CHECK_RUNS = (("float32", "float32", SERVE_CHECK_GEN, None, "margin"),)
+# the MoE's bf16 paths without expert selection: the largest logit
+# difference allowed (predicted before its first measurement)
+MOE_UNSELECTED_MAX_DIFF = 0.3
+
+
+def _serve_full(torch, phase: str, arch: str, layers: int = 0,
+                reduced=None, check_bf16: bool = False,
+                checks=CHECK_RUNS) -> dict:
+    """`launch.serve.main` in this process at the arch's full width:
+    batch SERVE_BATCH, prompt SERVE_PROMPT, SERVE_GEN greedy tokens, one
+    warm-up round, the config's bf16; its prefill and decode times (CUDA
+    events), tokens/s, peak memory (above what earlier phases hold) and
+    parameter count, the decode step
+    beside its bytes bound (every f32 parameter read once a step) and
+    its profile (`_decode_idle`). The teacher-forced check (a forward
+    over prompt + generation picks the decoded token at every position
+    but where its top-2 logits lie within 0.05) is reported for that run
+    (asserted with `check_bf16`), and for each of `checks` on a run of
+    the same weights and prompt with the dtype and MoE fields replaced
+    (`_check_run`; asserted where the entry says so)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    argv = ["--arch", arch, "--prompt-len", str(SERVE_PROMPT), "--gen",
+            str(SERVE_GEN), "--batch", str(SERVE_BATCH), "--warmup", "1",
+            "--device", CLI_DEVICE]
+    if layers:
+        argv += ["--layers", str(layers)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # earlier phases' live tensors
+    run = serve.main(argv)
+    peak = torch.cuda.max_memory_allocated() - held
+    cfg = run["cfg"]
+    n_params = sum(p.numel() for p in run["params"].parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in run["params"].parameters())
+    check = serve.teacher_forced(run)
+    assert bool(torch.isfinite(run["logits"]).all()), phase
+    if check_bf16:
+        assert check["mismatches"] == check["within_margin"], (phase, check)
+    prompt_aux = {}
+    if cfg.moe is not None:
+        # the prompt alone routes prefill's groups: prefill's drop share
+        with torch.inference_mode():
+            _, aux = T.forward(run["params"], run["batch"], cfg)
+        prompt_aux = {"moe_drop_fraction_prefill":
+                      float(aux["moe_drop_fraction"]) / cfg.num_layers,
+                      "moe_drop_fraction_teacher_forced":
+                      check["aux"]["moe_drop_fraction"] / cfg.num_layers}
+    step_ms = run["decode_ms"] / run["decode_steps"]
+    row = {"phase": phase, "arch": arch, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": cfg.dtype, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "gen": SERVE_GEN, "prefill_ms": run["prefill_ms"],
+           "decode_ms": run["decode_ms"],
+           "decode_ms_per_step": step_ms,
+           "decode_bound_ms_per_step": param_bytes / PEAK_HBM_BYTES * 1e3,
+           "decode_bound_by": "bytes (f32 parameters once a step)",
+           "tok_per_s": run["tok_per_s"], "peak_memory_gb": peak / 1e9,
+           "held_before_gb": held / 1e9,
+           "params": n_params, "param_count": cfg.param_count(),
+           "param_gb": param_bytes / 1e9, "teacher_forced": check,
+           **prompt_aux, "decode_profile": _decode_idle(torch, run),
+           "reduced": reduced or {},
+           "tokens_row0": run["tokens"][0].tolist()}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, dtype, n_gen, moe, held in checks:
+        check_run = _check_run(torch, arch, layers, dtype, n_gen, moe)
+        got = serve.teacher_forced(check_run)
+        del check_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        if moe:
+            assert got["aux"]["moe_drop_fraction"] == 0, (phase, label, got)
+        if held == "margin":
+            assert got["mismatches"] == got["within_margin"], (phase, label,
+                                                               got)
+        elif held is not None:
+            assert got["max_logit_diff"] <= held, (phase, label, got)
+        row["teacher_forced_" + label] = dict(got, dtype=dtype, gen=n_gen,
+                                              moe=moe, asserted=held)
+    SLICE15_SECONDS[phase] = time.perf_counter() - t_phase
+    row["seconds"] = SLICE15_SECONDS[phase]
+    return row
+
+
+def phase_serve_qwen2p5_3b(torch):
+    """qwen2.5-3b at full width and depth (36 layers, d_model 2,048, 16
+    heads / 2 KV heads, d_ff 11,008, vocab 151,936, QKV bias, tied
+    embeddings): 3.09 B parameters published. The teacher-forced check
+    holds on its bf16 run too."""
+    row = _serve_full(torch, "serve_qwen2p5_3b", "qwen2.5-3b",
+                      check_bf16=True)
+    assert row["layers"] == 36 and row["d_model"] == 2048
+    assert 0.95 < row["param_count"] / 3.09e9 < 1.05, row["param_count"]
+    emit(row)
+
+
+def phase_serve_mamba2(torch):
+    """mamba2-1.3b at full width and depth (48 SSD layers, d_state 128,
+    chunk 256: the prompt is two chunks). Its bf16 forward rounds the
+    chunk's mixing matrix to bf16 (the reference's m.astype(dt)) where
+    decode's recurrence stays f32, so its teacher-forced check is held
+    on the float32 run."""
+    row = _serve_full(torch, "serve_mamba2", "mamba2-1.3b")
+    assert row["layers"] == 48
+    emit(row)
+
+
+def phase_serve_moe(torch):
+    """qwen3-moe-30b-a3b at full width, depth cut 48 → 4: 128 experts,
+    top-8, d_expert 768, groups of 512 tokens at capacity 40, with
+    prefill's drop fraction (a forward over the prompt alone routes the
+    same groups). Capacity drops depend on a group's other tokens, so a
+    forward over prompt + generation drops other tokens than prefill and
+    decode (a group of 4 never drops); and bf16 rounding differs between
+    the paths, so a router near-tie can pick another of the 128 experts.
+    The check is reported for the configured run and for a bf16 run at
+    capacity factor 128 / 8 (no drop); on a bf16 run with the selection
+    taken away (top-k = all experts at capacity factor 1: no drop, no
+    choice to flip) the largest logit difference is held to
+    MOE_UNSELECTED_MAX_DIFF (the dense model's bf16 size); on a float32
+    run at no drop the check is held."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe as X
+    cfg = registry.get_arch("qwen3-moe-30b-a3b")
+    assert X._capacity(512, cfg.moe) == 40
+    experts = cfg.moe.num_experts
+    no_drop = {"capacity_factor": experts / cfg.moe.top_k}
+    row = _serve_full(
+        torch, "serve_moe", "qwen3-moe-30b-a3b", layers=SERVE_MOE_LAYERS,
+        reduced={"num_layers": [cfg.num_layers, SERVE_MOE_LAYERS]},
+        checks=(("no_drop", cfg.dtype, SERVE_GEN, no_drop, None),
+                ("all_experts", cfg.dtype, SERVE_GEN,
+                 {"top_k": experts, "capacity_factor": 1.0},
+                 MOE_UNSELECTED_MAX_DIFF),
+                ("float32", "float32", SERVE_CHECK_GEN, no_drop, "margin")))
+    emit(row)
+
+
+def phase_serve_cli():
+    """`python -m repro_torch.launch.serve --arch smollm-135m --smoke
+    --prompt-len 32 --gen 8 --batch 2` on the card: exits 0 and prints
+    the reference's prefill and tok/s line."""
+    t_phase = time.perf_counter()
+    lines, wall = _cli("serve", "--arch", "smollm-135m", "--smoke",
+                       "--prompt-len", "32", "--gen", "8", "--batch", "2")
+    assert lines[0].startswith("prefill 2×32") and "tok/s" in lines[0], lines
+    SLICE15_SECONDS["serve_cli"] = time.perf_counter() - t_phase
+    emit({"phase": "serve_cli", "lines": lines, "process_seconds": wall,
+          "seconds": SLICE15_SECONDS["serve_cli"]})
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -5533,6 +5918,15 @@ def main(argv=None) -> int:
     phase_autotune_smoke(torch)
     emit({"phase": "slice14_total", "phases": SLICE14_SECONDS,
           "seconds": sum(SLICE14_SECONDS.values())})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_parity(torch)
+    phase_serve_qwen2p5_3b(torch)
+    phase_serve_mamba2(torch)
+    phase_serve_moe(torch)
+    phase_serve_cli()
+    emit({"phase": "slice15_total", "phases": SLICE15_SECONDS,
+          "seconds": sum(SLICE15_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

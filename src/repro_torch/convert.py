@@ -5,7 +5,12 @@ crosses between the packages is numpy: pools (ids, payloads, valid),
 `Solution` fields, `RuleState` rows, constraints (categories,
 capacities, costs, budgets) and streaming state (`SieveState`,
 `WindowState`), so a stream stopped in one package continues in the
-other. `np.asarray` reads the reference's
+other. The model zoo's random weights cross too: the reference's
+parameter pytree and its prefill cache (period-stacked under
+``blocks/pos{i}`` with a leading repeats axis) become the port's
+per-layer modules and cache entries (`model_params_to_torch`,
+`model_cache_to_torch`), so a test holds both packages' models on the
+same weights. `np.asarray` reads the reference's
 arrays without importing its framework, so a test can hand both packages
 the same state mid-run.
 
@@ -19,11 +24,14 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core import constraints as C
 from repro_torch.core.greedy import Solution
 from repro_torch.core.objective import RuleState
 from repro_torch.kernels import rules as R
+from repro_torch.models.layers import Params
+from repro_torch.models.transformer import period_of
 from repro_torch.runtime.device import DeviceLike, resolve_device
 from repro_torch.streaming.sieve import SieveState
 from repro_torch.streaming.window import WindowState
@@ -135,3 +143,62 @@ def window_state_to_torch(wstate: Any, device: DeviceLike = None
     return WindowState(sieve_state_to_torch(wstate.states, device),
                        np.asarray(wstate.ages).astype(np.int64),
                        int(np.asarray(wstate.seen)))
+
+
+def _float(a, device: torch.device) -> torch.Tensor:
+    """A float array (f32, or bf16 as ml_dtypes stores it) → a tensor of
+    the same dtype and values."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                          torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _params_node(tree: Dict, device: torch.device, repeat=None) -> Params:
+    """A nested dict of arrays → a `Params` tree; ``repeat`` takes one
+    entry of every array's leading (stacked) axis."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _params_node(v, device, repeat)
+        else:
+            out[k] = _float(np.asarray(v) if repeat is None
+                            else np.asarray(v)[repeat], device)
+    return Params(**out)
+
+
+def model_params_to_torch(params_np: Dict, cfg, device: DeviceLike = None
+                          ) -> Params:
+    """The reference's model parameters (a pytree of arrays, the blocks
+    stacked per period position) → the port's parameter tree: layer
+    r·P + i takes ``blocks/pos{i}[r]``, encoder layer r
+    ``encoder/blocks/pos0[r]``."""
+    dev = resolve_device(device)
+    period = period_of(cfg)
+    blocks = params_np["blocks"]
+    top = {k: _params_node(params_np[k], dev)
+           for k in ("embed", "final_norm", "projector") if k in params_np}
+    top["blocks"] = nn.ModuleList(
+        _params_node(blocks[f"pos{i % period}"], dev, i // period)
+        for i in range(cfg.num_layers))
+    if "encoder" in params_np:
+        enc = params_np["encoder"]
+        top["encoder"] = Params(
+            blocks=nn.ModuleList(
+                _params_node(enc["blocks"]["pos0"], dev, r)
+                for r in range(cfg.encoder_layers)),
+            final_norm=_params_node(enc["final_norm"], dev))
+    return Params(**top)
+
+
+def model_cache_to_torch(cache_np: Dict, cfg, device: DeviceLike = None
+                         ) -> Dict:
+    """The reference's decode cache (``layers/pos{i}/<buffer>`` stacked
+    over the repeats, an int32 ``index``) → the port's per-layer cache."""
+    dev = resolve_device(device)
+    period = period_of(cfg)
+    layers = [{k: _float(np.asarray(v)[i // period], dev)
+               for k, v in cache_np["layers"][f"pos{i % period}"].items()}
+              for i in range(cfg.num_layers)]
+    return {"layers": layers, "index": int(np.asarray(cache_np["index"]))}

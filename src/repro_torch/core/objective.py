@@ -48,6 +48,23 @@ from repro_torch.runtime.device import DeviceLike, resolve_device
 F32 = torch.float32
 
 
+def lane_sums(x: torch.Tensor) -> torch.Tensor:
+    """(…, N) f32 → (…): each lane's sum taken over a fresh copy of its
+    own (1, N) row. torch chooses a reduction's order by the tensor's
+    shape on the card, so one (B, N) sum can differ in the last bit from
+    the (1, N) sum a rank takes of its one lane; and by the data's
+    alignment (the CUDA reduction sums a head short of 16 bytes apart),
+    so a row view at offset i·N, misaligned where 4 ∤ N, can differ from
+    a rank's own allocation: the copy starts aligned. Summing lane by
+    lane at that shape keeps stacked lanes and ranks equal bit for
+    bit."""
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] <= 1:
+        return x.sum(-1)
+    return torch.cat([rows[i:i + 1].clone().sum(-1)
+                      for i in range(rows.shape[0])]).reshape(x.shape[:-1])
+
+
 @dataclasses.dataclass
 class RuleState:
     """Selection state of B greedies. ground/gvalid are None for bitmap
@@ -93,7 +110,7 @@ class RuleObjective:
                                         device=self.device))
         row = R.empty_row(ground, ground_valid, self.rule)
         n_eff = torch.clamp(ground_valid.to(F32).sum(-1), min=1.0)
-        base = (row.sum(-1) / n_eff if self.rule.fold == "min"
+        base = (lane_sums(row) / n_eff if self.rule.fold == "min"
                 else torch.zeros_like(n_eff))
         return RuleState(ground, ground_valid, row, base, n_eff)
 
@@ -106,8 +123,9 @@ class RuleObjective:
             w = (self.rule.lam * torch.clamp(state.row, max=R.BIG)
                  + (1.0 - self.rule.lam)
                  * (t - t * t / (2.0 * self.rule.cap)))
-            return torch.where(state.gvalid, w, zero).sum(-1) / state.n_eff
-        tot = torch.where(state.gvalid, state.row, zero).sum(-1)
+            return (lane_sums(torch.where(state.gvalid, w, zero))
+                    / state.n_eff)
+        tot = lane_sums(torch.where(state.gvalid, state.row, zero))
         if self.rule.fold == "min":
             return state.base - tot / state.n_eff
         return tot / state.n_eff

@@ -12,14 +12,22 @@ dim: None, an axis name, or a tuple of names; trailing Nones trimmed).
 Where the reference builds NamedShardings, the port maps a spec to
 `torch.distributed.tensor` placements over a `DeviceMesh` with named
 dimensions: ``Shard(d)`` on each mesh dim that splits tensor dim d,
-``Replicate()`` on the others (`placements`, `TensorSharding`). The
-activation rules, profiles, ``constrain`` and ``ParamBuilder`` wait for
-the LLM stack (ROADMAP item 10).
+``Replicate()`` on the others (`placements`, `TensorSharding`).
+
+The model zoo's part (`:30-121, 203-278`): the activation rules, the
+'default' and 'dp_only' profiles, ``ParamBuilder`` (parameters drawn
+from a torch.Generator, each one's logical axes recorded so that a
+trainer can shard them), ``unflatten_axes`` and ``constrain``. Serving
+runs on one device and passes no mesh, where ``constrain`` returns its
+input; a mesh of more than one device raises until the trainer's
+sharded path exists.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
 
 MeshAxes = Union[str, Tuple[str, ...]]
 # logical axis name -> priority list of mesh-axis candidates
@@ -46,6 +54,71 @@ DEFAULT_PARAM_RULES: AxisRules = (
     ("norm", ()),
 )
 
+DEFAULT_ACT_RULES: AxisRules = (
+    ("layers", ()),                        # stacked caches carry this dim
+    ("act_batch", (("pod", "data"), ("data",), ("pod",))),
+    ("act_seq", (("data",), ("model",))),  # sequence parallel (long context)
+    ("act_kv_seq", (("data",), ("model",))),
+    ("act_heads", (("model",),)),
+    ("act_kv_heads", (("model",),)),
+    ("act_embed", ()),
+    ("act_mlp", (("model",),)),
+    ("act_experts", (("model",),)),
+    ("act_vocab", (("model",), ("data",))),
+    ("act_head_dim", ()),
+    ("act_state", ()),
+    ("act_expert_embed", (("data",),)),
+)
+
+# 'dp_only': pure data parallelism, the model axis joining the batch —
+# the shape for small models where tensor parallelism only replicates
+DP_ONLY_PARAM_RULES: AxisRules = tuple(
+    (name, ((("data", "pod"), ("data",)) if name in
+            ("embed", "expert_embed", "vocab") else ()))
+    for name, _ in DEFAULT_PARAM_RULES)
+
+DP_ONLY_ACT_RULES: AxisRules = (
+    ("layers", ()),
+    ("act_batch", (("pod", "data", "model"), ("data", "model"),
+                   ("pod", "data"), ("data",))),
+    ("act_seq", ()),
+    ("act_kv_seq", (("data",), ("model",))),
+    ("act_heads", ()),
+    ("act_kv_heads", ()),
+    ("act_embed", ()),
+    ("act_mlp", ()),
+    ("act_experts", ()),
+    ("act_vocab", ()),
+    ("act_head_dim", ()),
+    ("act_state", ()),
+    ("act_expert_embed", ()),
+)
+
+_PROFILES = {
+    "default": (DEFAULT_PARAM_RULES, DEFAULT_ACT_RULES),
+    "dp_only": (DP_ONLY_PARAM_RULES, DP_ONLY_ACT_RULES),
+}
+_CURRENT = ["default"]
+
+
+def use_profile(name: str) -> None:
+    if name not in _PROFILES:
+        raise KeyError(f"unknown sharding profile {name!r}; known: "
+                       f"{sorted(_PROFILES)}")
+    _CURRENT[0] = name
+
+
+def current_profile() -> str:
+    return _CURRENT[0]
+
+
+def current_param_rules() -> AxisRules:
+    return _PROFILES[_CURRENT[0]][0]
+
+
+def current_act_rules() -> AxisRules:
+    return _PROFILES[_CURRENT[0]][1]
+
 
 def mesh_shape(mesh) -> Dict[str, int]:
     """{axis name: size} of a DeviceMesh with named dims, or of a mapping
@@ -65,8 +138,9 @@ def _axes_tuple(axes: MeshAxes) -> Tuple[str, ...]:
 def resolve_spec(logical: Sequence[Optional[str]], shape: Sequence[int],
                  mesh, rules: Optional[AxisRules] = None) -> Spec:
     """Per-dim logical names → a spec, divisibility-aware (the first free
-    candidate whose size divides the dim and exceeds 1 wins)."""
-    rules = DEFAULT_PARAM_RULES if rules is None else rules
+    candidate whose size divides the dim and exceeds 1 wins).
+    rules=None → the current profile's param rules."""
+    rules = current_param_rules() if rules is None else rules
     if len(logical) != len(shape):
         raise ValueError(f"{tuple(logical)} names {len(logical)} dims of a "
                          f"{len(shape)}-dim shape {tuple(shape)}")
@@ -158,3 +232,79 @@ def tree_shardings(axes_tree, shaped_tree, mesh,
     return _map2(lambda ax, leaf: TensorSharding(
         mesh, resolve_spec(ax, leaf.shape, mesh, rules)),
         axes_tree, shaped_tree)
+
+
+def constrain(x: torch.Tensor, mesh, *logical: Optional[str],
+              rules: Optional[AxisRules] = None) -> torch.Tensor:
+    """The reference's with_sharding_constraint by logical activation
+    axes (``rules``: the current profile's act rules by default): the
+    input itself without a mesh or on a one-device mesh (the serving
+    path); a mesh of more than one device raises until the trainer's
+    sharded path exists."""
+    if len(logical) != x.dim():
+        raise ValueError(f"{logical} names {len(logical)} dims of a "
+                         f"{x.dim()}-dim tensor")
+    if mesh is None or math.prod(mesh_shape(mesh).values()) == 1:
+        return x
+    raise NotImplementedError(
+        "constrain over a mesh of more than one device: the sharded "
+        "model path comes with the trainer")
+
+
+_INITS = ("normal", "zeros", "ones", "uniform")
+
+
+class ParamBuilder:
+    """Creates parameters while recording their logical axes (the
+    reference's ParamBuilder, `:220`). Draws come from ``generator``, a
+    torch.Generator on ``device``, in creation order."""
+
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype: str = "float32", device=None):
+        self.generator = generator
+        self.dtype = getattr(torch, dtype)
+        self.device = device
+        self.axes: Dict[str, Any] = {}
+
+    def param(self, name: str, shape: Tuple[int, ...],
+              axes: Tuple[Optional[str], ...], init: str = "normal",
+              scale: Optional[float] = None, dtype: Optional[str] = None):
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {shape} but axes {axes}")
+        if init not in _INITS:
+            raise ValueError(f"{name}: unknown init {init!r}")
+        dt = getattr(torch, dtype) if dtype else self.dtype
+        self.axes[name] = tuple(axes)
+        kw = dict(dtype=dt, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, **kw)
+        if init == "ones":
+            return torch.ones(shape, **kw)
+        if init == "normal":
+            if scale is None:
+                fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
+                scale = 1.0 / math.sqrt(max(fan_in, 1))
+            return torch.randn(shape, generator=self.generator,
+                               **kw).mul_(scale)
+        r = 1.0 if scale is None else scale
+        return torch.empty(shape, **kw).uniform_(-r, r,
+                                                 generator=self.generator)
+
+    def custom(self, name: str, value: torch.Tensor,
+               axes: Tuple[Optional[str], ...]):
+        """Register a parameter with its own initial value (A_log,
+        dt_bias)."""
+        self.axes[name] = tuple(axes)
+        return value.to(self.device)
+
+
+def unflatten_axes(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'a/b/c': axes} -> nested {'a': {'b': {'c': axes}}}."""
+    out: Dict[str, Any] = {}
+    for path, axes in flat.items():
+        node = out
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = axes
+    return out

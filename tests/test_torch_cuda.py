@@ -16,11 +16,16 @@ variant and the int8-ground gains bit for bit to the f32 kernels on the
 dequantized ground.
 """
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry as model_registry
 from repro_torch.data.synthetic import gen_images
 from repro_torch.kernels import counters, ops, plans
 from repro_torch.kernels import fused_step as TF
@@ -1617,3 +1622,143 @@ def test_cuda_autotune_smoke_grid_writes_a_card_entry(cuda, tmp_path,
     assert ((p.tier or "step"), p.dtype) == (e["tier"], e["dtype"])
     got = greedy(obj, ids, pay, valid, 6)
     assert torch.equal(got.ids, want.ids)
+
+
+# ---------------------------------------------------------------------------
+# stacked lanes against one-lane slices (a stacked lane computes what a
+# rank computes of its one lane, bit for bit), and the model
+# zoo's serving path on the card (chip_smoke's model phases, smoke size)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["facility", "kmedoid", "satcover"])
+def test_cuda_stacked_lane_values_equal_one_lane_slices(cuda, name):
+    """A lane's value, its replayed value and its node greedy's value
+    are the same bits stacked 4 lanes deep as alone in a (1, …) batch —
+    what a rank computes of its one lane — at an N off every vector
+    width."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.greedy import greedy_batch, replay_value
+    obj = make_objective(name, device=cuda)
+    lanes, n, d, k = 4, 4_099, 24, 8
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ground = torch.randn((lanes, n, d), generator=g, device=cuda)
+    gvalid = torch.rand((lanes, n), generator=g, device=cuda) < 0.9
+    pay = ground[:, :k * 8:8]
+    valid = torch.ones((lanes, k), dtype=torch.bool, device=cuda)
+    stacked = replay_value(obj, pay, valid, ground, gvalid)
+    for i in range(lanes):
+        one = replay_value(obj, pay[i:i + 1].clone(), valid[i:i + 1].clone(),
+                           ground[i:i + 1].clone(), gvalid[i:i + 1].clone())
+        assert torch.equal(stacked[i:i + 1], one), (name, i)
+    ids = torch.arange(n, device=cuda).expand(lanes, n).contiguous()
+    same = ground[:1].expand(lanes, n, d).contiguous()
+    sv = gvalid[:1].expand(lanes, n).contiguous()
+    four = greedy_batch(obj, ids, same, sv, k)
+    one = greedy_batch(obj, ids[:1].clone(), same[:1].clone(),
+                       sv[:1].clone(), k)
+    for i in range(lanes):
+        assert torch.equal(four.ids[i], one.ids[0])
+        assert torch.equal(four.value[i], one.value[0]), (name, i)
+
+
+def _model_parts(arch, seed=0, b=2, s=32):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    cfg = model_registry.smoke_config(arch)
+    params, _ = T.init_params(torch.Generator().manual_seed(seed), cfg)
+    batch = api.synth_batch(torch.Generator().manual_seed(seed + 1), cfg,
+                            ShapeConfig("p", "prefill", s, b))
+    return cfg, params, batch
+
+
+def _greedy_logits(params, batch, cfg, n_decode, max_len):
+    from repro_torch.models import transformer as T
+    with torch.inference_mode():
+        fwd, _ = T.forward(params, batch, cfg)
+        pre, cache = T.prefill(params, batch, cfg, max_len=max_len)
+        tok, steps = pre.argmax(-1)[:, None], []
+        for _ in range(n_decode):
+            lg, cache = T.decode_step(params, cache, tok, cfg)
+            steps.append(lg)
+            tok = lg.argmax(-1)[:, None]
+    return fwd, pre, torch.stack(steps, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(model_registry.ARCHS))
+def test_cuda_model_matches_cpu_and_its_own_forward(cuda, arch):
+    """chip_smoke's model_parity at one arch: forward, prefill and 8
+    greedy decode steps on the card against the CPU (1e-4 max abs, the
+    same greedy tokens); prefill(S) + decode(token S) against
+    the forward over S + 1 tokens within 1e-3."""
+    from repro_torch.models import transformer as T
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg, params, batch = _model_parts(arch)
+    s = batch["tokens"].shape[1]
+    cpu = _greedy_logits(params, batch, cfg, 8, s + 9)
+    gp = params.to(cuda)
+    gb = {k: v.to(cuda) for k, v in batch.items()}
+    gpu = _greedy_logits(gp, gb, cfg, 8, s + 9)
+    for g, c in zip(gpu, cpu):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4
+    assert torch.equal(gpu[2].argmax(-1).cpu(), cpu[2].argmax(-1))
+    extra = torch.randint(0, cfg.vocab_size, (2, 1), device=cuda,
+                          generator=torch.Generator(device=cuda)
+                          .manual_seed(7))
+    full = dict(gb, tokens=torch.cat([gb["tokens"], extra], 1))
+    with torch.inference_mode():
+        lf, _ = T.forward(gp, full, cfg)
+        lp, cache = T.prefill(gp, gb, cfg, max_len=s + 4)
+        ld, _ = T.decode_step(gp, cache, extra, cfg)
+    assert float((lp - lf[:, s - 1]).abs().max()) < 1e-3
+    assert float((ld - lf[:, s]).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_swa_ring_decodes_past_the_window(cuda):
+    from repro_torch.models import transformer as T
+    cfg, params, _ = _model_parts("h2o-danube-3-4b")
+    assert cfg.sliding_window == 16
+    params = params.to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 30), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    with torch.inference_mode():
+        full, _ = T.forward(params, {"tokens": toks}, cfg)
+        _, cache = T.prefill(params, {"tokens": toks[:, :24]}, cfg,
+                             max_len=30)
+        for t in range(24, 30):
+            lg, cache = T.decode_step(params, cache, toks[:, t:t + 1], cfg)
+            assert float((lg - full[:, t]).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-1.3b",
+                                  "qwen3-moe-30b-a3b"])
+def test_cuda_serve_main_passes_the_teacher_forced_check(cuda, arch):
+    """chip_smoke's serve_* phases at the smoke size: serve.main on the
+    card, then a forward over prompt + generation picks every decoded
+    token but where its top-2 logits lie within 0.05."""
+    from repro_torch.launch import serve
+    run = serve.main(["--arch", arch, "--smoke", "--prompt-len", "64",
+                      "--gen", "8", "--batch", "4", "--warmup", "1"])
+    assert run["device"] == "cuda" and run["tokens"].is_cuda
+    assert run["prefill_ms"] > 0 and run["decode_ms"] > 0
+    check = serve.teacher_forced(run)
+    assert check["positions"] == 32
+    assert check["mismatches"] == check["within_margin"], check
+    assert bool(torch.isfinite(run["logits"]).all())
+
+
+@pytest.mark.cuda
+def test_cuda_serve_cli_smoke(cuda):
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm-135m", "--smoke", "--prompt-len", "32", "--gen", "8",
+         "--batch", "2"], cwd=root, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0, out.stderr
+    assert "prefill 2×32" in out.stdout and "tok/s" in out.stdout
