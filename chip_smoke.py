@@ -357,6 +357,37 @@ last:
                           --batch 2` exits 0 and prints prefill and tok/s
   slice15_total           the seconds these phases added
 
+and the training path (optim/, data/pipeline.py, the models with
+gradients and remat, launch/{steps,train}.py), fed by the GreedyML
+coreset (its selection's launches join the kernels line):
+
+  train_parity            the ten architectures at smoke_config, 2
+                          AdamW train steps (lr 3e-3 past a 2-step
+                          warm-up) on the card against the CPU, each
+                          from the CPU's state (optim/parity.py): every
+                          moment within 1e-4 of its leaf's largest
+                          entry, every parameter within 1e-4 of the
+                          update its own moments imply, the losses
+                          within 1e-4; a planted TF32 step and a
+                          skipped update must fail those rules
+  train_qwen2p5_3b        qwen2.5-3b at full width and depth (3.09 B
+                          parameters, AdamW with f32 moments, remat
+                          'block'), batch 4 × seq 512 from TokenDataset
+                          over gen_tokens(512, 513, 151,936) with the
+                          coreset chosen on the card by
+                          greedyml:facility (k 256): 1 warm-up and 3
+                          timed steps (CUDA events) beside the step's
+                          bound, tokens/s, peak memory, the losses
+                          (finite, the first near ln 151,936), and one
+                          more step profiled (busy share, top kernels)
+  train_cli               `python -m repro_torch.launch.train` at
+                          smollm-135m's full width (seq 256, batch 8:
+                          cut from 4,096 and 256), 30 steps, checkpoints
+                          every 10, greedyml:facility: a run with
+                          --fail-at 15 and one without, side by side;
+                          their step-30 checkpoints equal bit for bit
+  slice16_total           the seconds these phases added
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -377,6 +408,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -5783,6 +5815,331 @@ def phase_serve_cli():
           "seconds": SLICE15_SECONDS["serve_cli"]})
 
 
+# ---------------------------------------------------------------------------
+# The training path (optim/, data/pipeline.py, launch/{steps,train}.py)
+# ---------------------------------------------------------------------------
+
+SLICE16_SECONDS = {}
+TRAIN_TOL = 1e-4            # card vs CPU state after 2 steps, of scale
+# train_parity's AdamW: past its warm-up by step 2, as the CPU tests
+TRAIN_PARITY_OPTIM = {"lr": 3e-3, "warmup_steps": 2, "total_steps": 10}
+# the full-width train step: the same tokens a step as the serving cells
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_DOCS, TRAIN_K = 512, 256
+# the CLI's cuts of smollm-135m's train shape (seq 4,096, batch 256)
+TRAIN_CLI_SEQ, TRAIN_CLI_BATCH, TRAIN_CLI_STEPS = 256, 8, 30
+TRAIN_CLI_EXTRA = ()        # more CLI flags (a rehearsal's --smoke)
+
+
+def _old_rule_err(got: dict, want: dict) -> float:
+    """The rule this phase used before it held the moments to their own
+    scale: largest |got − want| over max(1, max |want|), every leaf."""
+    return max(float(np.abs(got[k] - w).max()) / max(
+        1.0, float(np.abs(w).max())) for k, w in want.items() if w.size)
+
+
+def phase_train_parity(torch, dev: str = "cuda"):
+    """Each of the ten architectures at its smoke_config: one state on
+    the CPU and its copy on the card, 2 AdamW train steps (batch 2 × 32,
+    TRAIN_PARITY_OPTIM: lr 3e-3 past a 2-step warm-up, as the CPU tests
+    take their steps) on the same batches. After each step
+    (`optim/parity.py`): every moment leaf of the card within TRAIN_TOL
+    of that leaf's largest entry on the CPU; every parameter within one
+    f32 spacing plus TRAIN_TOL of its leaf's largest change of the
+    update the card's own moments imply; the loss within TRAIN_TOL.
+    Then two planted faults at smollm-135m must fail those rules: a
+    card step with TF32 products (the moments), and step 1's state with
+    its parameters left as they were (the update)."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import (OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import parity
+    t_phase = time.perf_counter()
+    ocfg = OptimConfig(**TRAIN_PARITY_OPTIM)
+    shape = ShapeConfig("t", "train", 32, 2)
+    rows, planted = {}, {}
+    for arch in sorted(registry.ARCHS):
+        cfg = registry.smoke_config(arch)
+        cpu, _ = steps.concrete_state(torch.Generator().manual_seed(0), cfg,
+                                      ocfg, device="cpu")
+        fn = steps.make_train_step(cfg, ocfg, TrainConfig(), shape, None)
+        row = {"moments": [], "update": [], "loss": []}
+        for s in range(2):
+            batch = api.synth_batch(torch.Generator().manual_seed(1 + s),
+                                    cfg, shape)
+            # both sides start the step from one state (the CPU's)
+            start = convert.train_state_to_numpy(cpu, cfg, ocfg)
+            card = convert.train_state_to_torch(start, cfg, ocfg, dev)
+            before = parity.flatten(start)
+            cpu, mc = fn(cpu, batch)
+            card, mg = fn(card, {k: v.to(dev) for k, v in batch.items()})
+            got = parity.flatten(convert.train_state_to_numpy(card, cfg,
+                                                              ocfg))
+            want = parity.flatten(convert.train_state_to_numpy(cpu, cfg,
+                                                               ocfg))
+            mom, mom_leaf = parity.moments_error(got, want)
+            upd, upd_leaf = parity.update_error(before, got, ocfg,
+                                                float(mc["lr"]))
+            assert mom <= TRAIN_TOL, (arch, s, mom_leaf, mom)
+            assert upd <= TRAIN_TOL, (arch, s, upd_leaf, upd)
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            assert math.isfinite(lg) and abs(lg - lc) <= TRAIN_TOL * max(
+                1.0, abs(lc)), (arch, s, lg, lc)
+            row["moments"].append({"max_rel": mom, "leaf": mom_leaf})
+            row["update"].append({"max_rel": upd, "leaf": upd_leaf})
+            row["loss"].append({"card": lg, "cpu": lc})
+            if arch == "smollm-135m" and s == 0:
+                planted = _train_parity_planted(
+                    torch, parity, convert, fn, arch, cfg, ocfg, start,
+                    batch, before, got, want, float(mc["lr"]), dev)
+            del card
+        rows[arch] = row
+    SLICE16_SECONDS["train_parity"] = time.perf_counter() - t_phase
+    emit({"phase": "train_parity", "archs": rows, "steps": 2,
+          "batch": [2, 32], "lr": ocfg.lr, "warmup_steps": ocfg.warmup_steps,
+          "tol": TRAIN_TOL, "planted": planted,
+          "seconds": SLICE16_SECONDS["train_parity"]})
+
+
+def _train_parity_planted(torch, parity, convert, fn, arch, cfg, ocfg,
+                          state0, batch, before, got, want, lr, dev) -> dict:
+    """train_parity's planted faults at one arch's step 1 (`got` the
+    card's state after it, `want` the CPU's): both must fail the rules."""
+    tf32 = convert.train_state_to_torch(state0, cfg, ocfg, dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _ = fn(tf32, {k: v.to(dev) for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = parity.flatten(convert.train_state_to_numpy(tf32, cfg, ocfg))
+    mom, leaf = parity.moments_error(tf32, want)
+    assert mom > TRAIN_TOL, ("the moments rule passes a TF32 step", mom)
+    skipped = dict(got, **{k: v for k, v in before.items()
+                           if k.startswith("params/")})
+    upd, _ = parity.update_error(before, skipped, ocfg, lr)
+    assert upd > TRAIN_TOL, ("the update rule passes a skipped update", upd)
+    return {"arch": arch, "tf32_moments_max_rel": mom,
+            "tf32_leaf": leaf, "tf32_old_rule_err": _old_rule_err(tf32, want),
+            "f32_old_rule_err": _old_rule_err(got, want),
+            "skipped_update_max_rel": upd}
+
+
+def _train_profile(torch, fn, state, batch, step_ms: float) -> tuple:
+    """One train step traced by torch.profiler: (state, the device's
+    busy time and its largest kernels). The busy share is taken of an
+    untraced step's time `step_ms` (the tracer slows the host 3×)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the device's activity only: the host's ~50,000 autograd ops would
+    # cost more to trace and to sum than the step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = fn(state, batch)
+        float(metrics["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, launches, kernels = 0.0, 0, []
+    for kernel, count, us in _cuda_events(torch, prof):
+        busy += us / 1e3
+        launches += count
+        kernels.append((us / 1e3, kernel[:60], count))
+    if busy <= 0:
+        return state, {"device_busy_ms": "not measured"}
+    kernels.sort(reverse=True)
+    return state, {"traced_wall_ms": wall, "device_busy_ms": busy,
+                   "busy_share": busy / step_ms, "cuda_launches": launches,
+                   "top_kernels": [{"kernel": k, "ms": ms, "launches": n}
+                                   for ms, k, n in kernels[:6]]}
+
+
+def _train_step_flops(cfg, n_params: int, batch: int, seq: int,
+                      remat: str) -> dict:
+    """The products one train step needs, by pass. A forward pass: 2·N·T
+    over the projections (N the parameters less an untied input
+    embedding, which is a lookup; T the tokens) and 2·B·L·H·hd·S² over
+    the causal half of attention's two products (scores, and the
+    probabilities times the values). The backward pass: twice the
+    forward. The recompute: remat 'block' saves the projections' outputs
+    and recomputes the attention products, 'full' recomputes the whole
+    forward, 'none' nothing."""
+    lookup = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    proj = 2 * (n_params - lookup) * batch * seq
+    attn = (2 * batch * cfg.num_layers * cfg.num_heads
+            * cfg.resolved_head_dim * seq * seq)
+    recompute = {"none": 0, "block": attn, "full": proj + attn}[remat]
+    return {"forward": proj + attn, "backward": 2 * (proj + attn),
+            "recompute": recompute}
+
+
+def phase_train_qwen2p5_3b(torch, dev: str = "cuda"):
+    """qwen2.5-3b at full width and depth (36 layers, d_model 2,048, vocab
+    151,936, tied embeddings): AdamW with f32 moments, remat 'block',
+    no mesh; batch TRAIN_BATCH × TRAIN_SEQ from a TokenDataset over
+    gen_tokens(TRAIN_DOCS, TRAIN_SEQ + 1, vocab) restricted to the
+    greedyml:facility coreset (k TRAIN_K) chosen on the card — its
+    launches are returned for the kernels line. 1 warm-up step, 3 timed
+    (CUDA events, each ended by the loss's read), then 1 profiled. The
+    bound: `_train_step_flops` at the fp32 peak against the state's
+    bytes (parameters, gradients, m, v: 7 passes of N f32) at the HBM
+    peak."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimConfig, ShapeConfig, TrainConfig
+    from repro_torch.data import pipeline, selection, synthetic
+    from repro_torch.kernels import counters
+    from repro_torch.launch import steps
+    from repro_torch.optim.tree import leaves
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cfg = registry.get_arch("qwen2.5-3b")
+    toks = synthetic.gen_tokens(TRAIN_DOCS, TRAIN_SEQ + 1, cfg.vocab_size,
+                                seed=0)
+    emb = selection.embed_documents(toks[:, :TRAIN_SEQ], seed=0)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel = selection.select_coreset(emb, TRAIN_K, spec="greedyml:facility",
+                                   seed=0, device=dev)
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    launches = {n: c["launches"] for n, c in counters.snapshot().items()
+                if c["launches"]}
+    assert len(sel) == TRAIN_K and launches, (len(sel), launches)
+    ds = pipeline.TokenDataset(toks, seed=0, selected=sel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ocfg = OptimConfig(lr=3e-4, warmup_steps=2, total_steps=8)
+    tcfg = TrainConfig(remat="block")
+    shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    state, _ = steps.concrete_state(torch.Generator(device=dev).manual_seed(0),
+                                    cfg, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    state_gb = torch.cuda.memory_allocated() / 1e9 - held / 1e9
+    fn = steps.make_train_step(cfg, ocfg, tcfg, shape, None)
+    losses, ms = [], []
+    for step in range(4):
+        batch = pipeline.place(ds.batch(step, TRAIN_BATCH), None, dev)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, metrics = fn(state, batch)
+        t1.record()
+        losses.append(float(metrics["loss"]))
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    peak = torch.cuda.max_memory_allocated() - held
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.vocab_size)) < 1.0, losses
+    timed = ms[1:]
+    step_ms = sum(timed) / len(timed)
+    state, profile = _train_profile(
+        torch, fn, state, pipeline.place(ds.batch(4, TRAIN_BATCH), None, dev),
+        step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_step_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ,
+                              tcfg.remat)
+    ops_ms = sum(flops.values()) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = 7 * n_params * 4 / PEAK_HBM_BYTES * 1e3
+    del state, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    SLICE16_SECONDS["train_qwen2p5_3b"] = time.perf_counter() - t_phase
+    emit({"phase": "train_qwen2p5_3b", "arch": "qwen2.5-3b",
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": n_params,
+          "param_count": cfg.param_count(), "optimizer": "adamw",
+          "moment_dtype": ocfg.moment_dtype, "remat": tcfg.remat,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "coreset": {"spec": "greedyml:facility", "docs": TRAIN_DOCS,
+                      "k": TRAIN_K, "kept": int(len(sel)),
+                      "seconds": sel_s, "launches": launches},
+          "init_seconds": init_s, "state_gb": state_gb,
+          "step_ms": ms, "warmup_ms": ms[0], "step_ms_mean": step_ms,
+          "bound_ms": max(ops_ms, bytes_ms),
+          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+          "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+          "bound_flops": flops, "step_over_bound": step_ms / max(
+              ops_ms, bytes_ms),
+          "tok_per_s": tokens / (step_ms / 1e3),
+          "peak_memory_gb": peak / 1e9, "held_before_gb": held / 1e9,
+          "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
+          "profile": profile,
+          "seconds": SLICE16_SECONDS["train_qwen2p5_3b"]})
+    return launches
+
+
+def _ckpt_arrays(path: str) -> dict:
+    with np.load(os.path.join(path, f"step_{TRAIN_CLI_STEPS:08d}",
+                              "arrays.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_train_cli():
+    """`python -m repro_torch.launch.train --arch smollm-135m` at its full
+    width (seq and batch cut to TRAIN_CLI_SEQ / TRAIN_CLI_BATCH from
+    4,096 / 256), TRAIN_CLI_STEPS steps, a checkpoint every 10, the
+    greedyml:facility coreset (256 of 512 documents) chosen on the card:
+    one run with --fail-at 15 (recovered from step 10) and one without,
+    two processes side by side (CUBLAS_WORKSPACE_CONFIG=:4096:8); both
+    exit 0 with the reference's lines, and their step-30 checkpoints
+    (parameters, moments, step) are equal bit for bit."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    argv = ["--arch", "smollm-135m", "--seq", str(TRAIN_CLI_SEQ),
+            "--global-batch", str(TRAIN_CLI_BATCH), "--steps",
+            str(TRAIN_CLI_STEPS), "--ckpt-every", "10", "--data-selection",
+            "greedyml:facility", "--device", CLI_DEVICE, *TRAIN_CLI_EXTRA]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {"failed": ["--fail-at", "15"], "clean": []}
+        procs = {}
+        try:
+            for name, extra in runs.items():
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.train", *argv,
+                     *extra, "--ckpt-dir", os.path.join(tmp, name)],
+                    env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            outs = {name: p.communicate(timeout=CLI_TIMEOUT)
+                    for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t_phase
+        lines = {}
+        for name, (out, err) in outs.items():
+            assert procs[name].returncode == 0, (name, out[-3000:],
+                                                 err[-3000:])
+            lines[name] = out.strip().splitlines()
+            assert "kept 256 of 512 documents" in out, (name, out)
+            assert f"done at step {TRAIN_CLI_STEPS}" in out, (name, out)
+        assert "'failure', 'restart'" in lines["failed"][-1], lines
+        assert "'failure'" not in lines["clean"][-1], lines
+        failed = _ckpt_arrays(os.path.join(tmp, "failed"))
+        clean = _ckpt_arrays(os.path.join(tmp, "clean"))
+    assert sorted(failed) == sorted(clean)
+    differing = [k for k in clean
+                 if failed[k].tobytes() != clean[k].tobytes()]
+    assert not differing, differing[:5]
+    SLICE16_SECONDS["train_cli"] = time.perf_counter() - t_phase
+    emit({"phase": "train_cli", "arch": "smollm-135m",
+          "reduced": {"seq": [4096, TRAIN_CLI_SEQ],
+                      "global_batch": [256, TRAIN_CLI_BATCH]},
+          "steps": TRAIN_CLI_STEPS, "lines": lines,
+          "checkpoint_leaves": len(clean),
+          "checkpoint_bytes": sum(a.nbytes for a in clean.values()),
+          "differing_leaves": len(differing), "process_wall_seconds": wall,
+          "seconds": SLICE16_SECONDS["train_cli"]})
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -5927,6 +6284,13 @@ def main(argv=None) -> int:
     phase_serve_cli()
     emit({"phase": "slice15_total", "phases": SLICE15_SECONDS,
           "seconds": sum(SLICE15_SECONDS.values())})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity(torch)
+    _add(launches, phase_train_qwen2p5_3b(torch))
+    phase_train_cli()
+    emit({"phase": "slice16_total", "phases": SLICE16_SECONDS,
+          "seconds": sum(SLICE16_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -13,6 +13,8 @@ their flattened tree path, as the reference flattens its pytrees:
     index (``SieveState.spent`` off knapsack mode);
   * a dict by key, in sorted order (``states/…``, ``merged/0``);
   * a list or tuple by index;
+  * a model's parameter tree (`models/layers.py`): a `Params` node by
+    sorted name, a `LayerStack` by index — ``params/blocks/3/attn/wq``;
 
 joined with ``/``. Leaves are torch tensors (any device), numpy arrays
 or Python scalars. ``save`` copies every leaf to the host before it
@@ -38,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 # steps currently being read by restore(); _cleanup never deletes them
 _RESTORING: Set[Tuple[str, int]] = set()
@@ -56,8 +59,11 @@ def _children(node, strict: bool = True
                 for i, f in enumerate(dataclasses.fields(node))]
     if isinstance(node, dict):
         return [(str(key), node[key]) for key in sorted(node)]
-    if isinstance(node, (list, tuple)):
+    if isinstance(node, (list, tuple, nn.ModuleList)):
         return [(str(i), x) for i, x in enumerate(node)]
+    if isinstance(node, nn.Module) and hasattr(node, "with_children"):
+        names = sorted(list(node._parameters) + list(node._modules))
+        return [(k, getattr(node, k)) for k in names]
     if strict:
         raise TypeError(f"cannot checkpoint a {type(node).__name__}")
     return None
@@ -95,6 +101,9 @@ def _rebuild(tree, fn: Callable[[str, Any], Any], prefix: str = ""):
         return dataclasses.replace(tree, **vals)
     if isinstance(tree, dict):
         return {key: sub(str(key), tree[key]) for key in tree}
+    if hasattr(tree, "with_children"):
+        return tree.with_children({key: sub(key, child)
+                                   for key, child in kids})
     return type(tree)(sub(key, child) for key, child in kids)
 
 

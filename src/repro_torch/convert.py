@@ -10,9 +10,13 @@ parameter pytree and its prefill cache (period-stacked under
 ``blocks/pos{i}`` with a leading repeats axis) become the port's
 per-layer modules and cache entries (`model_params_to_torch`,
 `model_cache_to_torch`), so a test holds both packages' models on the
-same weights. `np.asarray` reads the reference's
-arrays without importing its framework, so a test can hand both packages
-the same state mid-run.
+same weights; and a training state ``{"params", "opt"}`` crosses both
+ways (`train_state_to_torch`, `train_state_to_numpy`): AdamW's moments
+and master copy unstacked into the port's per-layer mirror of the
+parameters, Adafactor's state as the reference keeps it (stacked,
+keyed by its leaf paths; see optim/adafactor.py). `np.asarray` reads
+the reference's arrays without importing its framework, so a test can
+hand both packages the same state mid-run.
 
 Type mapping: uint32 bitmap words ↔ int32 tensors holding the same bit
 patterns (the port's word representation, see kernels/rules.py); int32
@@ -24,14 +28,14 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from repro_torch.core import constraints as C
 from repro_torch.core.greedy import Solution
 from repro_torch.core.objective import RuleState
 from repro_torch.kernels import rules as R
-from repro_torch.models.layers import Params
+from repro_torch.models.layers import LayerStack, Params
 from repro_torch.models.transformer import period_of
+from repro_torch.optim.tree import leaves, set_path, stacked_leaves, tree_map
 from repro_torch.runtime.device import DeviceLike, resolve_device
 from repro_torch.streaming.sieve import SieveState
 from repro_torch.streaming.window import WindowState
@@ -179,13 +183,13 @@ def model_params_to_torch(params_np: Dict, cfg, device: DeviceLike = None
     blocks = params_np["blocks"]
     top = {k: _params_node(params_np[k], dev)
            for k in ("embed", "final_norm", "projector") if k in params_np}
-    top["blocks"] = nn.ModuleList(
-        _params_node(blocks[f"pos{i % period}"], dev, i // period)
-        for i in range(cfg.num_layers))
+    top["blocks"] = LayerStack(
+        (_params_node(blocks[f"pos{i % period}"], dev, i // period)
+         for i in range(cfg.num_layers)), period)
     if "encoder" in params_np:
         enc = params_np["encoder"]
         top["encoder"] = Params(
-            blocks=nn.ModuleList(
+            blocks=LayerStack(
                 _params_node(enc["blocks"]["pos0"], dev, r)
                 for r in range(cfg.encoder_layers)),
             final_norm=_params_node(enc["final_norm"], dev))
@@ -202,3 +206,75 @@ def model_cache_to_torch(cache_np: Dict, cfg, device: DeviceLike = None
                for k, v in cache_np["layers"][f"pos{i % period}"].items()}
               for i in range(cfg.num_layers)]
     return {"layers": layers, "index": int(np.asarray(cache_np["index"]))}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host (bf16 as its exact f32 values)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def stack_to_numpy(tree, layout) -> Dict:
+    """The leaves of `tree` (a parameter tree or its mirror) in the
+    reference's layout: each of `layout`'s leaves (`stacked_leaves` of
+    the parameters) stacked over its repeats."""
+    ls = leaves(tree)
+    out: Dict[str, Any] = {}
+    for leaf in layout:
+        arrs = [_host(ls[i]) for i in leaf.index]
+        set_path(out, leaf.path, np.stack(arrs) if leaf.stacked else arrs[0])
+    return out
+
+
+def model_params_to_numpy(params: Params) -> Dict:
+    """The port's parameter tree → the reference's stacked numpy tree
+    (the inverse of `model_params_to_torch`)."""
+    return stack_to_numpy(params, stacked_leaves(params))
+
+
+def _nested(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _nested(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def train_state_to_torch(state_np: Dict, cfg, ocfg, device: DeviceLike = None
+                         ) -> Dict:
+    """The reference's train state ``{"params", "opt"}`` (numpy) → the
+    port's: the parameters per layer; AdamW's ``m``, ``v`` (and
+    ``master``) as the parameters' mirror (`optim.tree.tree_map`),
+    Adafactor's ``fac`` as it stands; ``step`` an int32 tensor."""
+    dev = resolve_device(device)
+    params = model_params_to_torch(state_np["params"], cfg, dev)
+    opt_np = state_np["opt"]
+    opt: Dict[str, Any] = {"step": torch.tensor(
+        int(np.asarray(opt_np["step"])), dtype=torch.int32, device=dev)}
+    if ocfg.name == "adafactor":
+        opt["fac"] = _nested(opt_np["fac"], lambda a: _float(a, dev))
+    else:
+        for key in ("m", "v", "master"):
+            if key in opt_np:
+                opt[key] = tree_map(
+                    lambda t: t.detach(),
+                    model_params_to_torch(opt_np[key], cfg, dev))
+    return {"params": params, "opt": opt}
+
+
+def train_state_to_numpy(state: Dict, cfg, ocfg) -> Dict:
+    """The port's train state → the reference's layout (numpy, bf16 as
+    f32 values), for a comparison leaf by leaf."""
+    params = state["params"]
+    if len(params["blocks"]) != cfg.num_layers or (
+            params["blocks"].period != period_of(cfg)):
+        raise ValueError(f"the parameters are not {cfg.name}'s layers")
+    layout = stacked_leaves(params)
+    opt = state["opt"]
+    out_opt: Dict[str, Any] = {"step": np.asarray(int(opt["step"]),
+                                                  np.int32)}
+    if ocfg.name == "adafactor":
+        out_opt["fac"] = _nested(opt["fac"], _host)
+    else:
+        for key in ("m", "v", "master"):
+            if key in opt:
+                out_opt[key] = stack_to_numpy(opt[key], layout)
+    return {"params": stack_to_numpy(params, layout), "opt": out_opt}

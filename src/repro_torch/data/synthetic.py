@@ -1,7 +1,8 @@
 """Deterministic synthetic datasets (answers `src/repro/data/synthetic.py`).
 
-`gen_images`, `gen_embeddings`, `gen_kcover`, `gen_graph_road`,
-`gen_graph_social`, `pack_bitmaps` and `gen_stream` are numpy copies of the reference's
+`gen_images`, `gen_embeddings`, `gen_tokens`, `gen_kcover`,
+`gen_graph_road`, `gen_graph_social`, `pack_bitmaps` and `gen_stream`
+are numpy copies of the reference's
 generators: the same seed gives the same arrays and the same arrival
 orders. `gen_images_on` draws the same mixture-of-Gaussians recipe
 directly on a torch device (the card unless the caller names another)
@@ -114,6 +115,14 @@ def gen_embeddings(n: int, d: int, clusters: int = 50, seed: int = 0
                    ) -> np.ndarray:
     """Unit-norm document embeddings (facility-location data selection)."""
     return gen_images(n, d, classes=clusters, seed=seed)
+
+
+def gen_tokens(n_docs: int, seq: int, vocab: int, seed: int = 0
+               ) -> np.ndarray:
+    """Zipf token corpus (n_docs, seq) int32, reserving id 0 as pad."""
+    rng = np.random.default_rng(seed)
+    toks = (rng.zipf(1.2, size=(n_docs, seq)) % (vocab - 1)) + 1
+    return toks.astype(np.int32)
 
 
 def gen_images_on(n: int, d: int, classes: int = 20, seed: int = 0,

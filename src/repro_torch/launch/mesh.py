@@ -33,12 +33,17 @@ The caller's ``init_process_group`` chooses the backend; nothing here
 switches it. Under gloo a CUDA tensor is staged through the host for
 each collective; NCCL carries it in place (a bool as uint8). NCCL takes
 no two ranks on one device: the mesh refuses such a mapping before any
-collective runs. `force_host_devices`, `make_production_mesh` and
-`make_local_mesh` have no counterpart (JAX and the LLM stack only,
-ROADMAP item 10).
+collective runs. `force_host_devices` has no counterpart (JAX only).
+
+The trainer's meshes: `make_local_mesh` names a ("data", "model") grid
+over the ranks this process has — a one-device `LocalMesh` in a plain
+process, a ``DeviceMesh`` over an initialized process group — and
+`make_production_mesh` (256 / 512 chips) raises: the sharded trainer
+over ranks is ROADMAP item 10c.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -46,6 +51,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime.device import resolve_device
 
 DeviceSpec = Union[None, str, torch.device]
 
@@ -396,3 +403,39 @@ def local_block(x, mesh: TreeMesh):
         raise ValueError(f"n={n} must divide over {mesh.lanes} lanes")
     per = n // mesh.lanes
     return x[mesh.lane * per:(mesh.lane + 1) * per]
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalMesh:
+    """A named grid of one device (``shape`` all ones): what
+    `sharding.axes.mesh_shape` reads of a ``DeviceMesh``, and the device
+    its tensors live on."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+    device: torch.device
+
+
+def make_local_mesh(data: int = 1, model: int = 1,
+                    device: DeviceSpec = None):
+    """A ("data", "model") mesh over the ranks this process has (the
+    reference's mesh over its local devices): the world of an
+    initialized process group, else one — then a `LocalMesh` on
+    ``device`` (the card by default)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data = max(1, min(data, n))
+    model = max(1, min(model, n // data))
+    dev = resolve_device(device)
+    if data * model == 1:
+        return LocalMesh((1, 1), ("data", "model"), dev)
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(dev.type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's 16×16 (256 chips) or 2×16×16 (512) mesh: not on
+    this port yet."""
+    shape = "2×16×16" if multi_pod else "16×16"
+    raise NotImplementedError(
+        f"the {shape} production mesh needs the sharded trainer over "
+        "ranks (ROADMAP item 10c); use --mesh none or local")

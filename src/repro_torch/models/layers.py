@@ -39,9 +39,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 class Params(nn.Module):
     """One node of the parameter tree, read like the reference's dicts:
-    ``p["wq"]``, ``"attn" in p``. Tensors become parameters (without
-    gradients: serving runs under inference mode; a trainer turns them
-    on), modules become children."""
+    ``p["wq"]``, ``"attn" in p``. Tensors become parameters that take
+    gradients (the trainer's autograd reads them; serving runs under
+    ``torch.inference_mode()`` and records nothing), modules become
+    children."""
 
     def __init__(self, **entries):
         super().__init__()
@@ -50,13 +51,32 @@ class Params(nn.Module):
                 self.add_module(name, v)
             else:
                 self.register_parameter(
-                    name, nn.Parameter(v, requires_grad=False))
+                    name, nn.Parameter(v, requires_grad=True))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def with_children(self, kids: dict) -> "Params":
+        """A new node of this one's names holding ``kids``."""
+        return Params(**kids)
+
+
+class LayerStack(nn.ModuleList):
+    """The layers in order, one `Params` a layer. ``period`` is the
+    reference's stacking: it keeps layer r·P + i as entry r of
+    ``blocks/pos{i}`` (a leading repeats axis, `_Stacked`), which the
+    optimizers and the converters follow."""
+
+    def __init__(self, layers=(), period: int = 1):
+        super().__init__(layers)
+        self.period = period
+
+    def with_children(self, kids: dict) -> "LayerStack":
+        return LayerStack([kids[str(i)] for i in range(len(kids))],
+                          self.period)
 
 
 def einsum32(eq: str, *xs: torch.Tensor) -> torch.Tensor:
@@ -296,8 +316,11 @@ def embedding_init(b: ParamBuilder, cfg: ModelConfig) -> Params:
 
 def embed_tokens(params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """A gather of the rows (cast to the compute dtype), no scale."""
-    return params["tok"][tokens].to(dtype_of(cfg))
+    """A gather of the rows (cast to the compute dtype), no scale.
+    `F.embedding`'s backward sums each row's gradients in a fixed order
+    on the card, so a train step is a pure function of its state and
+    batch (a resumed run equals an unbroken one bit for bit)."""
+    return F.embedding(tokens, params["tok"]).to(dtype_of(cfg))
 
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -307,12 +330,33 @@ def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return einsum32("bse,ev->bsv", x, params["head"].to(x.dtype))
 
 
+class _TakeLabel(torch.autograd.Function):
+    """logits[..., label]: the reference's one-hot product, as a gather
+    whose backward writes each row's one entry (``scatter_``, no
+    accumulation: one index a row). Gather's own backward adds with
+    atomics on the card, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(labels)
+        ctx.meta = (logits.shape, logits.dtype)
+        return logits.gather(-1, labels[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        labels, = ctx.saved_tensors
+        shape, dtype = ctx.meta
+        out = torch.zeros(shape, dtype=dtype, device=g.device)
+        return out.scatter_(-1, labels[..., None],
+                            g[..., None].to(dtype)), None
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   label_smoothing: float = 0.0) -> torch.Tensor:
     """Mean next-token CE. logits (B,S,V) fp32, labels (B,S) int."""
     lse = torch.logsumexp(logits, dim=-1)              # (B,S)
-    label_logit = logits.gather(-1, labels[..., None].long())[..., 0]
+    label_logit = _TakeLabel.apply(logits, labels.long())
     nll = lse - label_logit
     if label_smoothing > 0.0:
         smooth = lse - logits.mean(-1)

@@ -1,36 +1,49 @@
 """Flexible decoder-only / encoder-decoder LM assembled from per-layer
 mixer ∈ {attn, mamba2} and FFN ∈ {dense, moe, none} patterns (answers
-`src/repro/models/transformer.py`, whole but remat).
+`src/repro/models/transformer.py`, whole).
 
 The reference stacks each period position's parameters over the
 repeats for ``lax.scan``; here every layer is its own `Params` module in
-an ``nn.ModuleList`` and the blocks run in a Python loop, so layer l's
-structure is read from the config at l (the same as at l mod period,
-since the period is a multiple of every pattern's). The decode cache is
-per layer too: ``{"layers": [entry, …], "index": int}``.
+a `LayerStack` (an ``nn.ModuleList`` that keeps the period, the
+reference's stacking, for the optimizers and the converters) and the
+blocks run in a Python loop, so layer l's structure is read from the
+config at l (the same as at l mod period, since the period is a
+multiple of every pattern's). The decode cache is per layer too:
+``{"layers": [entry, …], "index": int}``.
 
 Three entry points mirror the shape kinds:
   * ``loss_fn``      — full causal forward + CE
   * ``prefill``      — forward + KV/SSM cache capture, last-token logits
   * ``decode_step``  — one token against a cache
 
-``remat`` is accepted and ignored: serving runs without gradients, and
-activation checkpointing (torch.utils.checkpoint) comes with the trainer.
+``remat`` maps the reference's ``jax.checkpoint`` of one repeat of the
+period onto non-reentrant ``torch.utils.checkpoint`` over the same P
+layers: ``"full"`` saves only the repeat's input; ``"block"`` (the
+reference's ``dots_with_no_batch_dims_saveable``) also saves the
+products without batch dimensions, the projections', which torch's
+einsum runs as a bmm over a batch of 1, and recomputes the rest (the
+attention's batched products, norms, activations); ``"none"`` saves
+everything. The encoder's layers take a plain checkpoint each under
+either. Without autograd (serving, prefill) nothing is wrapped. The
+gradients do not depend on ``remat``: the recomputation repeats the
+forward's operations on the same inputs.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
-from repro_torch.models.layers import Params, einsum32
+from repro_torch.models.layers import LayerStack, Params, einsum32
 from repro_torch.sharding.axes import ParamBuilder, constrain, unflatten_axes
 
 F32 = torch.float32
@@ -104,7 +117,7 @@ def _enc_block_init(b: ParamBuilder, name: str, cfg: ModelConfig) -> Params:
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
                 device=None) -> Tuple[Params, Dict]:
     """(params, logical axes): the parameter tree (`Params` nodes, the
-    layers an ``nn.ModuleList``) drawn from ``generator`` on ``device``
+    layers a `LayerStack`) drawn from ``generator`` on ``device``
     (the generator's device by default), and the same tree of logical
     axis names."""
     period_of(cfg)
@@ -114,12 +127,12 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     p: Dict[str, Any] = {"embed": L.embedding_init(b, cfg),
                          "final_norm": L.rmsnorm_init(b, "final_norm",
                                                       cfg.d_model)}
-    p["blocks"] = nn.ModuleList(
-        _block_init(b, f"blocks/{i}", cfg, i, cross=cfg.is_encdec)
-        for i in range(cfg.num_layers))
+    p["blocks"] = LayerStack(
+        (_block_init(b, f"blocks/{i}", cfg, i, cross=cfg.is_encdec)
+         for i in range(cfg.num_layers)), period_of(cfg))
     if cfg.is_encdec:
         p["encoder"] = Params(
-            blocks=nn.ModuleList(
+            blocks=LayerStack(
                 _enc_block_init(b, f"encoder/blocks/{i}", cfg)
                 for i in range(cfg.encoder_layers)),
             final_norm=L.rmsnorm_init(b, "encoder/final_norm", cfg.d_model))
@@ -205,39 +218,81 @@ def _block_apply(p, x: torch.Tensor, cfg: ModelConfig, layer: int, *,
     return x, aux, (entry if capture else None)
 
 
+def _saveable(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep a product without batch
+    dimensions (an mm, or einsum's bmm over a batch of 1), recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str, *args):
+    """fn(*args) under the remat policy (plain when nothing is recorded)."""
+    if remat not in ("block", "full") or not torch.is_grad_enabled():
+        return fn(*args)
+    ctx = {}
+    if remat == "block":
+        ctx["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _saveable)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **ctx)
+
+
 def _run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig, *, positions,
-                causal: bool, mesh, memory: Optional[torch.Tensor] = None,
+                causal: bool, mesh, remat: str = "none",
+                memory: Optional[torch.Tensor] = None,
                 capture: bool = False):
-    """Every decoder layer in order → (x, summed aux, entries|None)."""
+    """Every decoder layer in order → (x, summed aux, entries|None);
+    under ``remat`` one checkpoint a repeat of the period."""
     aux: Dict[str, torch.Tensor] = {}
     if cfg.moe is not None:
         aux = {k: torch.zeros((), dtype=F32, device=x.device)
                for k in ("moe_load_balance", "moe_router_z",
                          "moe_drop_fraction")}
     entries: List[Dict[str, Any]] = []
-    for i, p in enumerate(blocks):
-        x, a, entry = _block_apply(p, x, cfg, i, positions=positions,
-                                   causal=causal, mesh=mesh, memory=memory,
-                                   capture=capture)
-        for k, v in a.items():
-            aux[k] = aux[k] + v
-        entries.append(entry)
+    period = period_of(cfg)
+
+    def repeat(r, h, mem):
+        adds, ents = [], []
+        for i in range(r * period, (r + 1) * period):
+            h, a, entry = _block_apply(blocks[i], h, cfg, i,
+                                       positions=positions, causal=causal,
+                                       mesh=mesh, memory=mem,
+                                       capture=capture)
+            adds.append(a)
+            ents.append(entry)
+        return h, adds, ents
+
+    for r in range(len(blocks) // period):
+        x, adds, ents = _remat(functools.partial(repeat, r),
+                               "none" if capture else remat, x, memory)
+        for a in adds:
+            for k, v in a.items():
+                aux[k] = aux[k] + v
+        entries.extend(ents)
     return x, aux, (entries if capture else None)
 
 
 def _encode(params, memory_in: torch.Tensor, cfg: ModelConfig,
-            mesh) -> torch.Tensor:
+            mesh, remat: str = "none") -> torch.Tensor:
     enc = params["encoder"]
     positions = torch.arange(memory_in.shape[1],
                              device=memory_in.device)[None]
-    h = memory_in
-    for p in enc["blocks"]:
+
+    def layer(p, h):
         hn = L.rmsnorm(p["norm1"], h, cfg.rms_eps)
         hn, _ = _self_attention(p["attn"], hn, cfg, 0, positions, False,
                                 mesh)
         h = h + hn
         hn = L.rmsnorm(p["norm2"], h, cfg.rms_eps)
-        h = h + L.mlp_apply(p["mlp"], hn)
+        return h + L.mlp_apply(p["mlp"], hn)
+
+    h = memory_in
+    plain = "full" if remat in ("block", "full") else "none"
+    for p in enc["blocks"]:
+        h = _remat(functools.partial(layer, p), plain, h)
     return L.rmsnorm(enc["final_norm"], h, cfg.rms_eps)
 
 
@@ -260,12 +315,13 @@ def _embed_inputs(params, batch: Dict, cfg: ModelConfig,
     return constrain(x, mesh, "act_batch", None, None)
 
 
-def _maybe_memory(params, batch, cfg: ModelConfig, mesh, dtype):
+def _maybe_memory(params, batch, cfg: ModelConfig, mesh, dtype,
+                  remat: str = "none"):
     """The encoder's output over the projected audio frames (enc-dec)."""
     if not cfg.is_encdec:
         return None
     mem_in = _project_frontend(params, batch["frames"], dtype)
-    return _encode(params, mem_in, cfg, mesh)
+    return _encode(params, mem_in, cfg, mesh, remat)
 
 
 # ---------------------------------------------------------------------------
@@ -278,9 +334,10 @@ def forward(params, batch: Dict, cfg: ModelConfig, mesh=None,
     """Full-sequence forward → (logits (B,S,V) fp32, aux)."""
     x = _embed_inputs(params, batch, cfg, mesh)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    memory = _maybe_memory(params, batch, cfg, mesh, x.dtype)
+    memory = _maybe_memory(params, batch, cfg, mesh, x.dtype, remat)
     x, aux, _ = _run_blocks(params["blocks"], x, cfg, positions=positions,
-                            causal=True, mesh=mesh, memory=memory)
+                            causal=True, mesh=mesh, remat=remat,
+                            memory=memory)
     x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = L.lm_logits(params["embed"], x, cfg)
     logits = constrain(logits, mesh, "act_batch", None, "act_vocab")

@@ -1762,3 +1762,116 @@ def test_cuda_serve_cli_smoke(cuda):
         timeout=300, env=dict(os.environ, PYTHONPATH=str(root / "src")))
     assert out.returncode == 0, out.stderr
     assert "prefill 2×32" in out.stdout and "tok/s" in out.stdout
+
+
+def _train_cpu64(start, cfg, ocfg, shape, batch):
+    """One step of the port on the CPU in float64 (every model, optimizer
+    and step module's F32 patched) from the numpy state `start`: the
+    yardstick for float32 rounding."""
+    from repro_torch import convert
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, mamba, moe, transformer
+    from repro_torch.optim import adafactor, adamw, compress, schedule
+    mods = (layers, mamba, moe, transformer, steps, adamw, adafactor,
+            compress, schedule)
+    saved = [m.F32 for m in mods]
+    for m in mods:
+        m.F32 = torch.float64
+    try:
+        cfg64 = cfg.replace(dtype="float64")
+        state = convert.train_state_to_torch(start, cfg64, ocfg, "cpu")
+        fn = steps.make_train_step(cfg64, ocfg, TrainConfig(), shape, None)
+        state, _ = fn(state, {k: v.double() if v.is_floating_point() else v
+                              for k, v in batch.items()})
+        return convert.train_state_to_numpy(state, cfg64, ocfg)
+    finally:
+        for m, f in zip(mods, saved):
+            m.F32 = f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,name", [("smollm-135m", "adamw"),
+                                       ("smollm-135m", "adafactor"),
+                                       ("qwen3-moe-30b-a3b", "adamw")])
+def test_cuda_train_step_matches_cpu(cuda, arch, name):
+    """chip_smoke's train_parity at one arch: one state on the CPU and
+    its copy on the card, 2 train steps (lr 3e-3 past a 2-step warm-up)
+    on the same batches, each started on both from the CPU's state.
+    Every optimizer-state leaf within 1e-4 of its
+    own largest entry on the CPU (`optim/parity.moments_error`), the
+    losses within 1e-4. AdamW's parameters within one f32 spacing plus
+    1e-4 of the change their own moments imply
+    (`optim/parity.update_error`); Adafactor's, whose update needs the
+    gradient the state does not keep, within 1e-4 of the CPU's largest
+    change, else with an RMS error against the CPU's
+    float64 steps at most 2.5× the CPU float32 steps' own."""
+    from repro_torch import convert
+    from repro_torch.configs.base import (OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import parity
+    cfg = model_registry.smoke_config(arch)
+    ocfg = OptimConfig(name=name, lr=3e-3, warmup_steps=2, total_steps=10)
+    shape = ShapeConfig("t", "train", 32, 2)
+    cpu, _ = steps.concrete_state(torch.Generator().manual_seed(0), cfg,
+                                  ocfg, device="cpu")
+    fn = steps.make_train_step(cfg, ocfg, TrainConfig(), shape, None)
+    for s in range(2):
+        batch = api.synth_batch(torch.Generator().manual_seed(1 + s), cfg,
+                                shape)
+        start = convert.train_state_to_numpy(cpu, cfg, ocfg)
+        card = convert.train_state_to_torch(start, cfg, ocfg, cuda)
+        before = parity.flatten(start)
+        cpu, mc = fn(cpu, batch)
+        card, mg = fn(card, {k: v.to(cuda) for k, v in batch.items()})
+        got = parity.flatten(convert.train_state_to_numpy(card, cfg, ocfg))
+        want = parity.flatten(convert.train_state_to_numpy(cpu, cfg, ocfg))
+        err, leaf = parity.moments_error(got, want)
+        assert err <= 1e-4, (s, leaf, err)
+        if name == "adamw":
+            err, leaf = parity.update_error(before, got, ocfg,
+                                            float(mc["lr"]))
+            assert err <= 1e-4, (s, leaf, err)
+        else:
+            ref64 = parity.flatten(_train_cpu64(start, cfg, ocfg, shape,
+                                                batch))
+            for k, w in want.items():
+                if not k.startswith("params/") or not w.size:
+                    continue
+                scale = float(np.abs(w - before[k]).max())
+                if float(np.abs(got[k] - w).max()) <= 1e-4 * scale:
+                    continue
+                rms_card = float(np.sqrt(np.mean((got[k] - ref64[k]) ** 2)))
+                rms_cpu = float(np.sqrt(np.mean((w - ref64[k]) ** 2)))
+                assert rms_card <= 2.5 * rms_cpu, (s, k, rms_card, rms_cpu)
+        assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * max(
+            1.0, abs(float(mc["loss"])))
+
+
+@pytest.mark.cuda
+def test_cuda_train_cli_resumes_bit_for_bit(cuda, tmp_path):
+    """The train CLI at the smoke size on the card: a run that fails at
+    step 15 and resumes from step 10 ends with the same step-30
+    checkpoint, bit for bit, as one that never failed."""
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "smollm-135m", "--smoke", "--steps", "30", "--ckpt-every", "10",
+            "--data-selection", "greedyml:facility", "--selection-k", "64",
+            "--corpus-docs", "128"]
+    arrays = {}
+    for name, extra in (("failed", ["--fail-at", "15"]), ("clean", [])):
+        out = subprocess.run(argv + extra + ["--ckpt-dir",
+                                             str(tmp_path / name)],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=600, env=env)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "done at step 30" in out.stdout
+        with np.load(tmp_path / name / "step_00000030" / "arrays.npz") as z:
+            arrays[name] = {k: z[k] for k in z.files}
+    assert sorted(arrays["failed"]) == sorted(arrays["clean"])
+    for k, v in arrays["clean"].items():
+        assert arrays["failed"][k].tobytes() == v.tobytes(), k
