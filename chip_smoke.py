@@ -388,6 +388,31 @@ coreset (its selection's launches join the kernels line):
                           their step-30 checkpoints equal bit for bit
   slice16_total           the seconds these phases added
 
+and the sharded trainer over ranks (launch/steps.py over a DeviceMesh,
+sharding/axes.py's constrain and named_sharding, the DTensor models and
+optimizers):
+
+  gloo_probe              2 gloo ranks on the card: which of
+                          all_gather_into_tensor, reduce_scatter_tensor,
+                          all_reduce and all_to_all_single gloo runs on
+                          CUDA tensors in this torch
+  train_sharded           qwen2.5-3b at full width, depth cut 36 → 4
+                          (four ranks' state beside each other), AdamW
+                          f32, remat 'block', batch 4 × seq 512: the
+                          one-device step (two microbatches of 2 rows)
+                          for 3 steps, then 4 gloo ranks on the card, a
+                          (2, 2) ("data", "model") mesh, the same draw
+                          and batches; each rank's shards held by
+                          optim/parity.py (moments within 1e-4 of their
+                          leaf's scale in the one-device run, parameters
+                          within one f32 spacing plus 1e-4 of the update
+                          their own moments imply), the losses equal on
+                          every rank and within 1e-4 of the one-device
+                          run's; per-rank peak memory and state bytes
+                          beside a quarter of the one-device state, step
+                          ms
+  slice17_total           the seconds these phases added
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -6140,6 +6165,518 @@ def phase_train_cli():
           "seconds": SLICE16_SECONDS["train_cli"]})
 
 
+# ---------------------------------------------------------------------------
+# the sharded trainer over ranks (launch/steps.py on a DeviceMesh)
+# ---------------------------------------------------------------------------
+
+SLICE17_SECONDS = {}
+GLOO_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+            "all_to_all_single")
+# qwen2.5-3b at full width, depth cut 36 → 4: four ranks' state and
+# activations at 36 layers do not fit beside each other on one card
+TRAIN_SHARDED_LAYERS = 4
+TRAIN_SHARDED_MESH = (2, 2)
+TRAIN_SHARDED_STEPS = 3
+TRAIN_SHARDED_DEADLINE = 600
+
+
+def _gloo_probe_rank(rank, dev):
+    """Each collective DTensor issues, run through the c10d API by gloo
+    on CUDA tensors of `dev`: 'ok', 'wrong' or the error it raised."""
+    import torch
+    import torch.distributed as dist
+    dev = _rank_device(torch, dev)
+    w = dist.get_world_size()
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 8 * rank
+    out = {}
+    for op in GLOO_OPS:
+        try:
+            if op == "all_gather_into_tensor":
+                y = torch.empty(8 * w, device=dev)
+                dist.all_gather_into_tensor(y, x)
+            elif op == "reduce_scatter_tensor":
+                y = torch.empty(8 // w, device=dev)
+                dist.reduce_scatter_tensor(y, x)
+            elif op == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+            else:
+                y = torch.empty(8, device=dev)
+                dist.all_to_all_single(y, x)
+            _sync(torch, dev)
+            out[op] = ("ok" if torch.equal(y.cpu(), _probe_want(op, rank, w))
+                       else "wrong")
+        except Exception as e:          # a refusal is the probe's answer
+            out[op] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def _probe_want(op, rank, w):
+    import torch
+    xs = [torch.arange(8.) + 8 * r for r in range(w)]
+    per = 8 // w
+    if op == "all_gather_into_tensor":
+        return torch.cat(xs)
+    if op == "reduce_scatter_tensor":
+        return sum(xs)[rank * per:(rank + 1) * per]
+    if op == "all_reduce":
+        return sum(xs)
+    return torch.cat([x[rank * per:(rank + 1) * per] for x in xs])
+
+
+def _gloo_functional_rank(rank, dev, marker):
+    """The same collectives through the functional API DTensor calls
+    (`torch.distributed._functional_collectives` over a DeviceMesh of the
+    world), the op about to run written to `marker` first: a rank that
+    dies of a signal leaves its last op there."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = _rank_device(torch, dev)
+    w = dist.get_world_size()
+    mesh = init_device_mesh(dev.type, (w,), mesh_dim_names=("ranks",))
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 8 * rank
+    out = {}
+    for op in GLOO_OPS:
+        with open(f"{marker}.{rank}", "w") as f:
+            f.write(op)
+        if op == "all_gather_into_tensor":
+            y = funcol.all_gather_tensor(x, 0, mesh)
+        elif op == "reduce_scatter_tensor":
+            y = funcol.reduce_scatter_tensor(x, "sum", 0, mesh)
+        elif op == "all_reduce":
+            y = funcol.all_reduce(x, "sum", mesh)
+        else:
+            y = funcol.all_to_all_single(x, None, None, mesh)
+        y = funcol.wait_tensor(y)
+        _sync(torch, dev)
+        out[op] = ("ok" if torch.equal(y.cpu(), _probe_want(op, rank, w))
+                   else "wrong")
+    return out
+
+
+def phase_gloo_probe(torch, dev: str = "cuda:0") -> dict:
+    """2 gloo ranks on `dev`: which of DTensor's collectives gloo runs on
+    CUDA tensors in this torch — through the c10d API, and through the
+    functional API DTensor itself calls (a rank killed by a signal is
+    reported with the op it was running; the ops after it are not
+    reached)."""
+    from torch.multiprocessing.spawn import ProcessExitedException
+    from repro_torch.launch.spawn import run_ranks
+    t0 = time.perf_counter()
+    res = run_ranks(_gloo_probe_rank, 2, args=(dev,), backend="gloo",
+                    timeout=120)
+    c10d = {op: res[0][op] if all(r[op] == res[0][op] for r in res)
+            else [r[op] for r in res] for op in GLOO_OPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        marker = os.path.join(tmp, "op")
+        try:
+            res = run_ranks(_gloo_functional_rank, 2, args=(dev, marker),
+                            backend="gloo", timeout=120)
+            functional = {op: res[0][op] if all(r[op] == res[0][op]
+                                                for r in res)
+                          else [r[op] for r in res] for op in GLOO_OPS}
+        except ProcessExitedException as e:
+            last = [open(f"{marker}.{r}").read()
+                    for r in range(2) if os.path.exists(f"{marker}.{r}")]
+            dead = max(last, key=GLOO_OPS.index) if last else GLOO_OPS[0]
+            functional = {op: ("ran" if GLOO_OPS.index(op) <
+                               GLOO_OPS.index(dead) else
+                               f"rank died: {e}" if op == dead
+                               else "not reached") for op in GLOO_OPS}
+    out = {"c10d": c10d, "functional": functional}
+    emit({"phase": "gloo_probe", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "ranks": 2, "device": dev,
+          "ops": out, "dtensor_ok": all(v == "ok"
+                                        for v in functional.values()),
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _sharded_setup():
+    """(cut config, AdamW config, TrainConfig, shape, the batches (numpy))
+    of train_sharded's ranks."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimConfig, ShapeConfig, TrainConfig
+    from repro_torch.data import pipeline, synthetic
+    cfg = registry.get_arch("qwen2.5-3b").replace(
+        num_layers=TRAIN_SHARDED_LAYERS)
+    ocfg = OptimConfig(lr=3e-4, warmup_steps=2, total_steps=8)
+    tcfg = TrainConfig(remat="block")
+    shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    toks = synthetic.gen_tokens(TRAIN_DOCS, TRAIN_SEQ + 1, cfg.vocab_size,
+                                seed=0)
+    ds = pipeline.TokenDataset(toks, seed=0)
+    batches = [ds.batch(s, TRAIN_BATCH) for s in range(TRAIN_SHARDED_STEPS)]
+    return cfg, ocfg, tcfg, shape, batches
+
+
+def _flat_state(state) -> dict:
+    """{"params/…", "opt/m/…", "opt/v/…", "opt/step"}: the state's
+    tensors by their port paths (a DTensor as it is)."""
+    from repro_torch.checkpoint import manager
+    return manager._flatten(state)
+
+
+def _train_sharded_rank(rank, want, dev, setup):
+    """One rank of train_sharded's (2, 2) run (`_train_sharded_ranks`) on
+    `dev` (on card `rank` where `dev` is "cuda:rank"): the cut qwen2.5-3b
+    drawn on the card from seed 0 (the one-device run's draw), placed on
+    the mesh, TRAIN_SHARDED_STEPS steps; after each, its shards of the
+    moments measured against the same blocks of the float64 one-device
+    moments (`want`, shared by CUDA IPC; `yardstick_parts` on the card)
+    and its parameters against the update its own moments imply
+    (`optim/parity.py`, per-leaf maxima)."""
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import parity
+    from repro_torch.sharding.axes import is_dtensor
+    if dev == "cuda:rank":
+        dev = f"cuda:{rank}"
+    dev = _rank_device(torch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ocfg, tcfg, shape, batches = setup
+    mesh = make_local_mesh(*TRAIN_SHARDED_MESH, device=dev)
+    state, axes = steps.concrete_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, ocfg)
+    state = steps.place_state(state, steps.state_shardings(axes, state,
+                                                           mesh))
+    gc.collect()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    flat = _flat_state(state)
+    state_bytes = sum((t.to_local() if is_dtensor(t) else t).nbytes
+                      for t in flat.values())
+
+    def host(t):
+        return (t.to_local() if is_dtensor(t) else t).detach().to(
+            torch.float64).cpu().numpy()
+
+    def blocks(key, t):
+        """This rank's block of the float64 yardstick's leaf `key`."""
+        w = want[key]
+        if is_dtensor(t):
+            shp, off = compute_local_shape_and_global_offset(
+                t.shape, t.device_mesh, t.placements)
+            w = w[tuple(slice(o, o + n) for o, n in zip(off, shp))]
+        return w.to(dev)
+
+    fn = steps.make_train_step(cfg, ocfg, tcfg, shape, mesh)
+    ms, losses, moments, updates = [], [], [], []
+    for s in range(TRAIN_SHARDED_STEPS):
+        before = {k: host(t) for k, t in _flat_state(state).items()
+                  if k.startswith("params/")}
+        batch = pipeline.place(batches[s], mesh)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch)
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        flat = _flat_state(state)
+        after = {k: host(t) for k, t in flat.items()}
+        mine = {k: (t.to_local() if is_dtensor(t) else t).to(
+            torch.float64) for k, t in flat.items()
+            if k.startswith("opt/") and k != "opt/step"}
+        moments.append(parity.yardstick_parts(
+            mine, {k: blocks(f"{s}/{k}", flat[k]) for k in mine}))
+        updates.append(parity.update_parts(before, after, ocfg,
+                                           float(metrics["lr"])))
+        del before, after, mine
+    return {"step_ms": ms, "losses": losses, "moments": moments,
+            "updates": updates, "state_bytes": state_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+            else 0,
+            "coordinate": list(mesh.get_coordinate())}
+
+
+class _float64_port:
+    """Every F32 of the port's model, step and optimizer modules set to
+    float64 inside the block: the float64 yardstick step."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import steps
+        from repro_torch.models import layers, mamba, moe, transformer
+        from repro_torch.optim import adafactor, adamw, compress, schedule
+        self.mods = (layers, moe, mamba, transformer, steps, adamw,
+                     adafactor, compress, schedule)
+        self.saved = [m.F32 for m in self.mods]
+        for m in self.mods:
+            m.F32 = torch.float64
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.F32 = f
+
+
+def _widen(tree):
+    """The state's floating tensors in float64 (a `Params` tree in place)."""
+    import torch
+    if isinstance(tree, torch.nn.Module):
+        return tree.double()
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_widen(v) for v in tree]
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def _one_device_steps(torch, dev, setup, keep, f64: bool = False,
+                      yard=None):
+    """The one-device train steps of `setup` on `dev` (a one-device mesh,
+    the sharded run's microbatches: two of 2 rows), in float64 where
+    `f64` (the f32 draw widened, every module's F32 float64): each
+    step's ms and loss; the state's tensors after each step that
+    `keep(key)` selects, cloned on the card ({"step/key": tensor}); with
+    `yard` (a float64 run's kept moments) each step's moments measured
+    against them (`optim/parity.py::yardstick_parts`); the state's
+    parameter count and bytes, a step's peak memory (the kept copies left
+    out). The model is freed."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import parity
+    cfg, ocfg, tcfg, shape, batches = setup
+    one_tcfg = dataclasses.replace(
+        tcfg, microbatch_per_device=TRAIN_SHARDED_MESH[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    state, _ = steps.concrete_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, ocfg)
+    if f64:
+        cfg, state = cfg.replace(dtype="float64"), _widen(state)
+    flat = _flat_state(state)
+    out = {"params": sum(t.numel() for k, t in flat.items()
+                         if k.startswith("params/")),
+           "state_bytes": sum(t.nbytes for t in flat.values()),
+           "ms": [], "losses": [], "kept": {}, "peak_bytes": 0,
+           "ref_parts": []}
+    kept = 0
+    with (_float64_port() if f64 else contextlib.nullcontext()):
+        fn = steps.make_train_step(cfg, ocfg, one_tcfg, shape,
+                                   make_local_mesh(device=dev))
+        for s in range(TRAIN_SHARDED_STEPS):
+            batch = pipeline.place(batches[s], None, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["peak_bytes"] = max(out["peak_bytes"],
+                                    torch.cuda.max_memory_allocated()
+                                    - held - kept)
+            out["losses"].append(float(metrics["loss"]))
+            flat = _flat_state(state)
+            if yard is not None:
+                mom = {k: t.double() for k, t in flat.items()
+                       if k.startswith("opt/") and k != "opt/step"}
+                out["ref_parts"].append(parity.yardstick_parts(
+                    mom, {k: yard[f"{s}/{k}"] for k in mom}))
+                del mom
+            for k, t in flat.items():
+                if keep(k):
+                    out["kept"][f"{s}/{k}"] = t.detach().clone()
+                    kept += t.nbytes
+    del state, metrics, batch, flat, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_sharded_ranks(torch, backend: str, dev: str, setup):
+    """The (2, 2) run over 4 ranks of `backend` (gloo: all on `dev`;
+    NCCL: `dev` "cuda:rank", a card a rank), held shard by shard by
+    `optim/parity.py`: the moments against a float64 one-device step
+    from the same state (within TRAIN_TOL of the leaf's scale, else an
+    RMS error within 2.5× the float32 one-device step's own:
+    `yardstick_error`), the parameters against the update the rank's own
+    moments imply, the losses like the moments."""
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.optim import parity
+    card = "cuda:0" if dev == "cuda:rank" else dev
+    y64 = _one_device_steps(
+        torch, card, setup, lambda k: k.startswith("opt/") and
+        k != "opt/step", f64=True)
+    one = _one_device_steps(torch, card, setup, lambda k: False,
+                            yard=y64["kept"])
+    t0 = time.perf_counter()
+    res = run_ranks(_train_sharded_rank, math.prod(TRAIN_SHARDED_MESH),
+                    args=(y64.pop("kept"), dev, setup), backend=backend,
+                    timeout=TRAIN_SHARDED_DEADLINE)
+    ranks_wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps_out = []
+    for s in range(TRAIN_SHARDED_STEPS):
+        got = parity.combine([r["moments"][s] for r in res])
+        ref = one["ref_parts"][s]
+        ratio, r_leaf = parity.yardstick_error(got, ref, TRAIN_TOL)
+        rel = parity.worst({k: v[:2] for k, v in got.items()})
+        one_rel = parity.worst({k: v[:2] for k, v in ref.items()})
+        u_err, u_leaf = parity.worst([r["updates"][s] for r in res])
+        loss = [r["losses"][s] for r in res]
+        l64, l32 = y64["losses"][s], one["losses"][s]
+        assert len(set(loss)) == 1, loss
+        assert ratio <= 1.0, (s, ratio, r_leaf, rel, one_rel)
+        assert u_err <= TRAIN_TOL, (s, u_err, u_leaf)
+        assert abs(loss[0] - l64) <= max(TRAIN_TOL * abs(l64),
+                                         2.5 * abs(l32 - l64)), (
+            s, loss[0], l32, l64)
+        steps_out.append({"moments_rule": ratio, "moments_rule_leaf": r_leaf,
+                          "moments_vs_f64": rel,
+                          "one_device_moments_vs_f64": one_rel,
+                          "update_err": u_err, "update_leaf": u_leaf,
+                          "loss": loss[0], "one_device_loss": l32,
+                          "float64_loss": l64,
+                          "ms": [r["step_ms"][s] for r in res],
+                          "one_device_ms": one["ms"][s],
+                          "float64_ms": y64["ms"][s]})
+    return {"route": f"{backend}, mesh (2, 2)", "backend": backend,
+            "ranks": len(res), "device": dev,
+            "mesh": {"data": TRAIN_SHARDED_MESH[0],
+                     "model": TRAIN_SHARDED_MESH[1]},
+            "params": one["params"],
+            "one_device_state_bytes": one["state_bytes"],
+            "quarter_state_bytes": one["state_bytes"] / 4,
+            "rank_state_bytes": [r["state_bytes"] for r in res],
+            "rank_peak_bytes": [r["peak_bytes"] for r in res],
+            "one_device_peak_bytes": one["peak_bytes"],
+            "coordinates": [r["coordinate"] for r in res],
+            "rule_tol": TRAIN_TOL, "rule_factor": 2.5, "steps": steps_out,
+            "rank_wall_seconds": ranks_wall}
+
+
+def _world1_rank(rank, want, dev, setup):
+    """The NCCL world-1 run: a real DeviceMesh (1, 1) on `dev`, the state
+    DTensors (Replicate), the step's DTensor path; every leaf after each
+    step against the plain step's (`want`, by CUDA IPC) bit for bit."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.sharding.axes import is_dtensor
+    dev = _rank_device(torch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ocfg, tcfg, shape, batches = setup
+    tcfg = dataclasses.replace(
+        tcfg, microbatch_per_device=TRAIN_SHARDED_MESH[0])
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    state, axes = steps.concrete_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, ocfg)
+    state = steps.place_state(state, steps.state_shardings(axes, state,
+                                                           mesh))
+    gc.collect()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    flat = _flat_state(state)
+    n_dtensor = sum(is_dtensor(t) for t in flat.values())
+    state_bytes = sum((t.to_local() if is_dtensor(t) else t).nbytes
+                      for t in flat.values())
+    fn = steps.make_train_step(cfg, ocfg, tcfg, shape, mesh)
+    ms, losses, differing = [], [], []
+    for s in range(TRAIN_SHARDED_STEPS):
+        batch = pipeline.place(batches[s], None, dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch)
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        differing.append([k for k, t in _flat_state(state).items()
+                          if not torch.equal(
+                              t.to_local() if is_dtensor(t) else t,
+                              want[f"{s}/{k}"])])
+    return {"step_ms": ms, "losses": losses, "differing": differing,
+            "n_leaves": len(flat), "n_dtensor": n_dtensor,
+            "state_bytes": state_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+            else 0}
+
+
+def _train_sharded_world1(torch, dev: str, setup):
+    """The fallback where gloo's collectives under DTensor fail on CUDA
+    tensors: the same cut model and steps through a real DeviceMesh (1,
+    1) under NCCL at world size 1, held bit for bit against the plain
+    step."""
+    from repro_torch.launch.spawn import run_ranks
+    one = _one_device_steps(torch, dev, setup, lambda k: True)
+    t0 = time.perf_counter()
+    res = run_ranks(_world1_rank, 1, args=(one.pop("kept"), dev, setup),
+                    backend="nccl", timeout=TRAIN_SHARDED_DEADLINE)[0]
+    ranks_wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert res["n_dtensor"] == res["n_leaves"], res["n_dtensor"]
+    assert all(not d for d in res["differing"]), res["differing"]
+    assert res["losses"] == one["losses"], (res["losses"], one["losses"])
+    return {"route": "nccl world 1, mesh (1, 1)", "backend": "nccl",
+            "ranks": 1, "device": dev, "mesh": {"data": 1, "model": 1},
+            "params": one["params"],
+            "one_device_state_bytes": one["state_bytes"],
+            "rank_state_bytes": [res["state_bytes"]],
+            "rank_peak_bytes": [res["peak_bytes"]],
+            "one_device_peak_bytes": one["peak_bytes"],
+            "leaves": res["n_leaves"], "dtensor_leaves": res["n_dtensor"],
+            "differing_leaves": [len(d) for d in res["differing"]],
+            "steps": [{"loss": res["losses"][s],
+                       "one_device_loss": one["losses"][s],
+                       "ms": [res["step_ms"][s]],
+                       "one_device_ms": one["ms"][s]}
+                      for s in range(TRAIN_SHARDED_STEPS)],
+            "rank_wall_seconds": ranks_wall}
+
+
+def phase_train_sharded(torch, dev: str = "cuda:0"):
+    """The sharded trainer (launch/steps.py over a DeviceMesh: the state
+    DTensors placed by the reference's axis rules, the batch by its act
+    rules, `constrain` at its sites) on qwen2.5-3b at full width, depth
+    cut 36 → TRAIN_SHARDED_LAYERS (AdamW f32, remat 'block', batch 4 ×
+    512). First the gloo probe. Where gloo runs DTensor's functional
+    collectives on CUDA tensors: the one-device step on the card (a
+    one-device mesh, the same microbatches: two of 2 rows), its moments
+    after each step kept on the card and the model freed; then 4 gloo
+    ranks on `dev`, a (2, 2) ("data", "model") mesh, the same draw,
+    batches and steps, each rank's shards held by `optim/parity.py` —
+    the moments within TRAIN_TOL of their leaf's largest entry in the
+    one-device run, the parameters within one f32 spacing plus
+    TRAIN_TOL of the update the rank's own moments imply — with each
+    rank's peak memory and state bytes beside a quarter of the one-device
+    state, and step ms. Where it does not (a rank dies in them): the
+    same model and steps through a real DeviceMesh (1, 1) under NCCL at
+    world size 1, the state DTensors, every leaf equal to the plain
+    step's bit for bit."""
+    t_phase = time.perf_counter()
+    probe = phase_gloo_probe(torch, dev)
+    setup = _sharded_setup()
+    cfg, ocfg, tcfg, shape, batches = setup
+    if all(v == "ok" for v in probe["functional"].values()):
+        out = _train_sharded_ranks(torch, "gloo", dev, setup)
+    else:
+        out = _train_sharded_world1(torch, dev, setup)
+    SLICE17_SECONDS["train_sharded"] = time.perf_counter() - t_phase
+    emit({"phase": "train_sharded", "arch": "qwen2.5-3b",
+          "reduced": {"layers": [36, TRAIN_SHARDED_LAYERS]},
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "optimizer": "adamw", "remat": tcfg.remat,
+          "batch": shape.global_batch, "seq": shape.seq_len,
+          "microbatches": shape.global_batch // TRAIN_SHARDED_MESH[0],
+          "gloo_probe": probe, **out,
+          "seconds": SLICE17_SECONDS["train_sharded"]})
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -6291,6 +6828,11 @@ def main(argv=None) -> int:
     phase_train_cli()
     emit({"phase": "slice16_total", "phases": SLICE16_SECONDS,
           "seconds": sum(SLICE16_SECONDS.values())})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_sharded(torch)
+    emit({"phase": "slice17_total", "phases": SLICE17_SECONDS,
+          "seconds": sum(SLICE17_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

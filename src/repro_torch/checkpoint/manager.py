@@ -28,6 +28,13 @@ bitmap words uint32, the port's int32 — the same bit patterns) and put
 on the example's device, the card when the example is on the card. A
 step being restored is in a protect-set, so a concurrent keep-N cleanup
 never deletes it mid-read.
+
+A state sharded over ranks (DTensor leaves, `launch/steps.py::
+place_state`) is saved whole: every rank gathers each leaf
+(``full_tensor``), rank 0 writes the same files a one-device save
+writes, and the ranks meet at a barrier before any of them goes on. A
+DTensor example leaf is restored into its own placements, each rank
+keeping its shard.
 """
 from __future__ import annotations
 
@@ -40,7 +47,10 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.sharding.axes import full_tensor, is_dtensor
 
 # steps currently being read by restore(); _cleanup never deletes them
 _RESTORING: Set[Tuple[str, int]] = set()
@@ -108,9 +118,10 @@ def _rebuild(tree, fn: Callable[[str, Any], Any], prefix: str = ""):
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A host copy of one leaf that nothing else aliases."""
+    """A host copy of one leaf that nothing else aliases (a DTensor's
+    whole value: a collective)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = full_tensor(leaf.detach())
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         return t.cpu().numpy().copy()
@@ -128,9 +139,20 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None,
     """Write `tree` as step `step` under `ckpt_dir` (atomic), keeping the
     newest `keep` steps. Returns the step's directory."""
     # the copy comes first: nothing the caller does next can reach it
-    arrays = {key: _host_copy(v) for key, v in _flatten(tree).items()}
-    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = _flatten(tree)
+    arrays = {key: _host_copy(v) for key, v in flat.items()}
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if any(is_dtensor(v) for v in flat.values()):
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, arrays, extra, keep)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, final, step, arrays, extra, keep)
+
+
+def _write(ckpt_dir: str, final: str, step: int, arrays: Dict,
+           extra: Optional[Dict], keep: int) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -183,11 +205,17 @@ def read_manifest(ckpt_dir: str, step: int) -> Dict:
 
 
 def _like(arr: np.ndarray, example):
-    """`arr` as the example leaf: its dtype, and its device for a tensor."""
+    """`arr` as the example leaf: its dtype, and its device for a tensor
+    (a DTensor's placements over its mesh)."""
     if isinstance(example, torch.Tensor):
         host = torch.from_numpy(
             np.array(arr, dtype=_numpy_dtype(example.dtype), order="C"))
-        return host.to(device=example.device, dtype=example.dtype)
+        t = host.to(device=example.device, dtype=example.dtype)
+        if is_dtensor(example):
+            from torch.distributed.tensor import distribute_tensor
+            return distribute_tensor(t, example.device_mesh,
+                                     example.placements, src_data_rank=None)
+        return t
     ex = np.asarray(example)
     return arr.astype(ex.dtype)
 

@@ -37,6 +37,7 @@ from repro_torch.models.layers import LayerStack, Params
 from repro_torch.models.transformer import period_of
 from repro_torch.optim.tree import leaves, set_path, stacked_leaves, tree_map
 from repro_torch.runtime.device import DeviceLike, resolve_device
+from repro_torch.sharding.axes import full_tensor
 from repro_torch.streaming.sieve import SieveState
 from repro_torch.streaming.window import WindowState
 
@@ -209,8 +210,9 @@ def model_cache_to_torch(cache_np: Dict, cfg, device: DeviceLike = None
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's values on the host (bf16 as its exact f32 values)."""
-    t = t.detach().cpu()
+    """A tensor's values on the host (bf16 as its exact f32 values); a
+    DTensor's whole value (a collective: every rank calls it)."""
+    t = full_tensor(t.detach()).cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
@@ -269,8 +271,8 @@ def train_state_to_numpy(state: Dict, cfg, ocfg) -> Dict:
         raise ValueError(f"the parameters are not {cfg.name}'s layers")
     layout = stacked_leaves(params)
     opt = state["opt"]
-    out_opt: Dict[str, Any] = {"step": np.asarray(int(opt["step"]),
-                                                  np.int32)}
+    out_opt: Dict[str, Any] = {"step": np.asarray(
+        int(full_tensor(opt["step"])), np.int32)}
     if ocfg.name == "adafactor":
         out_opt["fac"] = _nested(opt["fac"], _host)
     else:

@@ -5,19 +5,21 @@ indices, and resume-from-step just recomputes the index math — no
 iterator state in checkpoints. The batches are the reference's to the
 bit (the same numpy draws). ``place()`` puts a host batch on the
 device, as int64 token ids (the port's index type); over a one-device
-mesh that is all the reference's sharded ``device_put`` does.
+mesh that is all the reference's sharded ``device_put`` does. Over a
+larger mesh each array becomes a DTensor split on its batch dim by the
+default act rules (`sharding/axes.py::DEFAULT_ACT_RULES`, as the
+reference's ``place``, whatever the profile): each rank keeps its rows.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.runtime.device import DeviceLike, resolve_device
-from repro_torch.sharding.axes import mesh_shape
+from repro_torch.sharding.axes import DEFAULT_ACT_RULES, named_sharding, spans
 
 
 @dataclasses.dataclass
@@ -51,17 +53,23 @@ class TokenDataset:
 
 def place(batch: Dict[str, np.ndarray], mesh=None,
           device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The batch on ``device`` (the card by default); integer arrays
-    become int64. A mesh of more than one device raises until the
-    sharded trainer exists (ROADMAP item 10c)."""
-    if mesh is not None and math.prod(mesh_shape(mesh).values()) > 1:
-        raise NotImplementedError("a batch sharded over a mesh of more "
-                                  "than one device (ROADMAP item 10c)")
-    dev = resolve_device(device)
+    """The batch on ``device`` (the card by default; a DeviceMesh's own
+    device type over a mesh of ranks); integer arrays become int64. Over
+    a mesh of more than one device each array is a DTensor placed by
+    ``("act_batch", None, …)`` under the default act rules."""
+    dev = (torch.device(mesh.device_type) if spans(mesh)
+           else resolve_device(device))
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if t.dtype == torch.int32:
             t = t.long()
-        out[k] = t.to(dev)
+        t = t.to(dev)
+        if spans(mesh):
+            axes = ("act_batch",) + (None,) * (t.dim() - 1)
+            t = named_sharding(mesh, axes, t.shape,
+                               DEFAULT_ACT_RULES).place(t)
+        out[k] = t
     return out

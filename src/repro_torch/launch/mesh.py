@@ -38,8 +38,10 @@ collective runs. `force_host_devices` has no counterpart (JAX only).
 The trainer's meshes: `make_local_mesh` names a ("data", "model") grid
 over the ranks this process has — a one-device `LocalMesh` in a plain
 process, a ``DeviceMesh`` over an initialized process group — and
-`make_production_mesh` (256 / 512 chips) raises: the sharded trainer
-over ranks is ROADMAP item 10c.
+`make_production_mesh` the reference's (16, 16) ("data", "model") or
+(2, 16, 16) ("pod", "data", "model") ``DeviceMesh`` over a world of
+exactly 256 or 512 ranks. The sharded train step runs over either
+(`launch/steps.py`).
 """
 from __future__ import annotations
 
@@ -432,10 +434,24 @@ def make_local_mesh(data: int = 1, model: int = 1,
                             mesh_dim_names=("data", "model"))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16×16 (256 chips) or 2×16×16 (512) mesh: not on
-    this port yet."""
-    shape = "2×16×16" if multi_pod else "16×16"
-    raise NotImplementedError(
-        f"the {shape} production mesh needs the sharded trainer over "
-        "ranks (ROADMAP item 10c); use --mesh none or local")
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceSpec = None):
+    """The reference's 16×16 ("data", "model") mesh of 256 ranks, or its
+    2×16×16 ("pod", "data", "model") mesh of 512, over the initialized
+    process group's world (a rank a device, on ``device``'s type: the
+    card by default). Another world raises, naming it."""
+    shape, names = PRODUCTION_MESHES[bool(multi_pod)]
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n != math.prod(shape):
+        raise ValueError(
+            f"the {'×'.join(map(str, shape))} production mesh needs a "
+            f"world of {math.prod(shape)} ranks; this process has "
+            f"{n} (an initialized process group: "
+            f"{dist.is_initialized()})")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=names)

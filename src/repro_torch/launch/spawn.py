@@ -18,6 +18,7 @@ race one another into nvcc.
 """
 from __future__ import annotations
 
+import faulthandler
 import os
 import tempfile
 import time
@@ -31,6 +32,8 @@ import torch.multiprocessing as mp
 
 def _rank_main(rank: int, fn: Callable, args: Sequence[Any], world: int,
                backend: str, init_file: str, out_dir: str) -> None:
+    # a rank that dies of a signal prints its Python stack first
+    faulthandler.enable()
     # ranks share the host's cores: one intra-op thread each
     torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{init_file}",

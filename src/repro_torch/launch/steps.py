@@ -10,15 +10,26 @@ are the accumulator: the first microbatch's decoded gradient is it
 zero-initialised f32 tree exists; in f32 at ``n_micro`` = 1 under codec
 'none' it is autograd's own tensor. The state's and the batch's
 shardings come from the logical-axis rules over the trainer's mesh
-(`launch/mesh.py::make_local_mesh`); on one device they place nothing.
-The int8 codec scales each of the reference's stacked leaves as one
-tensor (`optim/compress.py`).
+(`launch/mesh.py`); on one device they place nothing. The int8 codec
+scales each of the reference's stacked leaves as one tensor
+(`optim/compress.py`).
+
+Over a DeviceMesh of ranks the state is DTensors (`place_state`:
+each parameter an ``nn.Parameter`` over a DTensor, each moment beside
+it, placed by `state_shardings`) and the step runs the models on them:
+constants the forward makes (positions, masks) count as replicated
+(DTensor's implicit replication), each gradient is redistributed to its
+parameter's placements (the reduce-scatter of the data-parallel sum)
+before the codec, and the metrics come back as plain replicated
+scalars.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 from repro_torch import optim
 from repro_torch.configs.base import (ModelConfig, OptimConfig, ShapeConfig,
@@ -27,7 +38,8 @@ from repro_torch.models import api, transformer as T
 from repro_torch.optim import compress, schedule
 from repro_torch.optim.tree import as_dict, leaves, stacked_leaves
 from repro_torch.sharding.axes import (constrain, current_act_rules,
-                                       mesh_shape, resolve_spec,
+                                       full_tensor, is_device_mesh,
+                                       is_dtensor, mesh_shape, resolve_spec,
                                        tree_shardings)
 
 F32 = torch.float32
@@ -70,6 +82,39 @@ def state_shardings(state_axes, state, mesh):
     return tree_shardings(state_axes, as_dict(state), mesh)
 
 
+def place_state(state, shardings):
+    """The state's tensors distributed by their TensorShardings (a tree
+    like `state_shardings`'): each `Params` node's parameters replaced in
+    place by ``nn.Parameter``s over DTensors, the optimizer's tensors in
+    new dicts. Returns the state."""
+    def walk(node, sh):
+        if isinstance(node, nn.Module):
+            for name in list(node._parameters):
+                t = node._parameters[name].detach()
+                node._parameters[name] = nn.Parameter(sh[name].place(t))
+            for name, child in node._modules.items():
+                walk(child, sh[name])
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v, sh[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, sh[str(i)]) for i, v in enumerate(node)]
+        return sh.place(node)
+    return {"params": walk(state["params"], shardings["params"]),
+            "opt": walk(state["opt"], shardings["opt"])}
+
+
+def sharded_ops(mesh):
+    """The context the models run in over `mesh`: DTensor's implicit
+    replication of plain tensors (the constants a forward makes: the
+    positions, masks, the optimizer's scalars) over a DeviceMesh,
+    nothing otherwise."""
+    if not is_device_mesh(mesh):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh):
     specs, axes = api.input_specs(cfg, shape)
     out = {group: tree_shardings(axes[group], _shaped(specs[group]), mesh,
@@ -108,11 +153,24 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimConfig, tcfg: TrainConfig,
     aux means, grad_norm, lr)."""
     n_micro = num_microbatches(shape, mesh, tcfg)
     acc_dtype = torch.bfloat16 if ocfg.compress_grads == "bf16" else F32
+    sharded = is_device_mesh(mesh)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        with sharded_ops(mesh):
+            params, opt, metr = _step(state, batch)
+        if sharded:
+            metr = {k: full_tensor(v) for k, v in metr.items()}
+        return {"params": params, "opt": opt}, metr
+
+    def _step(state, batch):
         params = state["params"]
         ps = leaves(params)
         stacks = [leaf.index for leaf in stacked_leaves(params)]
+        if sharded:
+            # aten.slice over a sharded batch dim has no local rule: the
+            # (small) id batch is gathered once, each microbatch then
+            # placed by its constraint
+            batch = {k: _replicate(v, mesh) for k, v in batch.items()}
         bsz = batch["tokens"].shape[0]
         mb = bsz // n_micro
         acc = [None] * len(ps)
@@ -125,7 +183,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimConfig, tcfg: TrainConfig,
             loss, metrics = T.loss_fn(params, micro, cfg, mesh, tcfg.remat,
                                       tcfg.label_smoothing)
             grads = torch.autograd.grad(loss, ps, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g
+            grads = [torch.zeros_like(p) if g is None else _like_param(g, p)
                      for p, g in zip(ps, grads)]
             grads = compress.decode(
                 compress.encode(grads, ocfg.compress_grads, groups=stacks),
@@ -139,7 +197,11 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimConfig, tcfg: TrainConfig,
             del grads
             loss_acc = loss_acc + loss.detach()
             for k, v in metrics.items():
-                metr_acc[k] = metr_acc.get(k, 0.0) + v.detach()
+                # the first term as it is (0.0 + v == v): DTensor's
+                # propagation cache confuses add(x, 0.0) with add(x, y)
+                # of a 0-dim y
+                metr_acc[k] = (v.detach() if k not in metr_acc
+                               else metr_acc[k] + v.detach())
         inv = 1.0 / n_micro
         metr = {k: v * inv for k, v in metr_acc.items()}
         lr = schedule.learning_rate(ocfg, state["opt"]["step"] + 1)
@@ -149,9 +211,26 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimConfig, tcfg: TrainConfig,
         del acc
         metr.update(stats)
         metr["loss"] = loss_acc * inv
-        return {"params": params, "opt": opt}, metr
+        return params, opt, metr
 
     return train_step
+
+
+def _replicate(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * mesh.ndim
+    if is_dtensor(t):
+        return t.redistribute(mesh, rep)
+    return DTensor.from_local(t, mesh, rep, run_check=False)
+
+
+def _like_param(g, p):
+    """A gradient in its parameter's placements (a DTensor's gradient may
+    come back partial or replicated: its sum over the data ranks, then
+    this rank's shard)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,17 @@ reduced config; ``--device`` (default ``cuda``; ``cpu`` runs here)
 places the model, the batches and the selection; without a GPU,
 ``cuda`` raises. ``--mesh local`` trains on a one-device
 ("data", "model") mesh (microbatches of one, as the reference's local
-mesh gives); ``single`` and ``multi`` raise (ROADMAP item 10c).
+mesh gives); ``single`` and ``multi`` train over the reference's
+production meshes, (16, 16) ("data", "model") and (2, 16, 16) ("pod",
+"data", "model"): each process is one rank of a process group that
+this driver initializes from the environment (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``, as ``torchrun`` sets them; NCCL on
+the card, ``LOCAL_RANK`` choosing it, gloo on the CPU), and the state
+is DTensors placed by the logical-axis rules (`launch/steps.py::
+place_state`). There ``--data-selection`` runs the distributed tree
+over a `TreeMesh` whose levels are the trainer mesh's axes, innermost
+first (the reference's ``factor_tree_axes``), each rank selecting from its block of
+the corpus, as the reference's ``select_coreset(mesh=…)`` does.
 
 The weights are drawn from a `torch.Generator` seeded with ``--seed``
 (the reference's come from ``jax.random``, which torch cannot
@@ -30,19 +40,23 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import OptimConfig, ShapeConfig, TrainConfig
 from repro_torch.data import pipeline, selection, synthetic
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import (local_block, make_local_mesh,
+                                     make_production_mesh, make_tree_mesh)
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.fault import FailureInjector, Supervisor
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.sharding.axes import mesh_shape, spans
 
 
 def main(argv=None) -> dict:
@@ -71,14 +85,65 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     with contextlib.ExitStack() as stack:
+        if args.mesh in ("single", "multi"):
+            _init_world(args.device)
         if args.ckpt_dir is None:
-            args.ckpt_dir = stack.enter_context(
-                tempfile.TemporaryDirectory(prefix="repro_train_"))
+            args.ckpt_dir = _fresh_ckpt_dir(stack)
         return _run(args)
 
 
+def _fresh_ckpt_dir(stack: contextlib.ExitStack) -> str:
+    """A fresh temporary directory, removed when the run ends; over ranks
+    rank 0's, its path sent to the others (every rank restores from the
+    checkpoints rank 0 writes), removed after every rank is done."""
+    multi = dist.is_initialized() and dist.get_world_size() > 1
+    path = [None]
+    if not multi or dist.get_rank() == 0:
+        path[0] = stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="repro_train_"))
+    if multi:
+        dist.broadcast_object_list(path, src=0)
+        stack.callback(dist.barrier)
+    return path[0]
+
+
+def _init_world(device: str) -> torch.device:
+    """This process's rank of the environment's process group (initialized
+    here if it is not yet and ``WORLD_SIZE`` is set; without it the
+    process is a world of one, which the production meshes refuse) and
+    its device: the card ``LOCAL_RANK`` names under NCCL, the CPU under
+    gloo."""
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+    else:
+        dev = resolve_device(device)
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://")
+    return dev
+
+
+def select_on_mesh(emb, k: int, spec: str, mesh, seed: int, device):
+    """The coreset over a trainer mesh of ranks: the distributed tree over
+    a `TreeMesh` whose levels are the mesh's axes of more than one rank,
+    innermost first (a rank's lane is its rank, as the trainer mesh's
+    row-major coordinates give it); each rank selects from its block of
+    `emb`. Returns the global indices (alike on every rank)."""
+    sizes = mesh_shape(mesh)
+    # factor_tree_axes' order (the mesh's axes reversed), one-rank axes out
+    levels = [a for a in reversed(tuple(sizes)) if sizes[a] > 1]
+    tm = make_tree_mesh(tuple(sizes[a] for a in levels), device=device)
+    return selection.select_coreset(local_block(emb, tm), k, spec=spec,
+                                    mesh=tm, seed=seed, device=device)
+
+
 def _run(args) -> dict:
-    dev = resolve_device(None if args.device == "cuda" else args.device)
+    if args.mesh in ("single", "multi"):
+        dev = _init_world(args.device)
+    else:
+        dev = resolve_device(None if args.device == "cuda" else args.device)
 
     cfg = (registry.smoke_config(args.arch) if args.smoke
            else registry.get_arch(args.arch))
@@ -95,7 +160,8 @@ def _run(args) -> dict:
     if args.mesh == "local":
         mesh = make_local_mesh(device=dev)
     elif args.mesh in ("single", "multi"):
-        mesh = make_production_mesh(multi_pod=args.mesh == "multi")
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=dev)
 
     # ---- corpus + GreedyML data selection --------------------------------
     toks = synthetic.gen_tokens(args.corpus_docs, seq + 1, cfg.vocab_size,
@@ -104,19 +170,26 @@ def _run(args) -> dict:
     sel = None
     if args.data_selection != "none":
         emb = selection.embed_documents(toks[:, :seq], seed=args.seed)
-        # one rank: the single-device tree on the device (mesh=None). The
-        # reference hands its local mesh to select_coreset, which then
-        # runs its distributed driver over that one device instead.
-        sel = selection.select_coreset(
-            emb, args.selection_k, spec=args.data_selection, mesh=None,
-            seed=args.seed, device=dev)
+        if spans(mesh):
+            sel = select_on_mesh(emb, args.selection_k, args.data_selection,
+                                 mesh, args.seed, dev)
+        else:
+            # one rank: the single-device tree on the device (mesh=None).
+            # The reference hands its local mesh to select_coreset, which
+            # then runs its distributed driver over that one device.
+            sel = selection.select_coreset(
+                emb, args.selection_k, spec=args.data_selection, mesh=None,
+                seed=args.seed, device=dev)
         ds.selected = sel
         print(f"[data-selection] {args.data_selection}: kept {len(sel)} of "
               f"{args.corpus_docs} documents", flush=True)
 
     # ---- build step -------------------------------------------------------
-    state, _ = steps.concrete_state(
+    state, state_axes = steps.concrete_state(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, ocfg)
+    if spans(mesh):
+        state = steps.place_state(
+            state, steps.state_shardings(state_axes, state, mesh))
     step_fn = steps.make_train_step(cfg, ocfg, tcfg, shape, mesh)
 
     monitor = StragglerMonitor()

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.axes import ParamBuilder
+from repro_torch.sharding.axes import ParamBuilder, is_dtensor
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -79,9 +79,78 @@ class LayerStack(nn.ModuleList):
                           self.period)
 
 
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor parameter gathered over the mesh dims other than
+    "model" (its FSDP dims: "data", "pod"), its tensor-parallel split
+    kept: FSDP's gather at use, so a product never splits its contracted
+    embed dim into partial sums over the data ranks (which round the
+    gradients further from the one-device step's). Its backward
+    reduce-scatters the gradient over those dims. Anything else as it
+    is."""
+    if not (isinstance(w, nn.Parameter) and is_dtensor(w)):
+        return w
+    from torch.distributed.tensor import Replicate
+    want = [p if name == "model" else Replicate()
+            for name, p in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    if want == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
 def einsum32(eq: str, *xs: torch.Tensor) -> torch.Tensor:
-    """einsum with float32 accumulation: every operand widened to f32."""
+    """einsum with float32 accumulation: every operand widened to f32.
+    Over a mesh (a DTensor operand) the product runs on each rank's
+    shards (`local_einsum`), a parameter gathered over its FSDP dims
+    first."""
+    if any(is_dtensor(x) for x in xs):
+        return local_einsum(eq, *(gather_fsdp(x).to(F32) for x in xs))
     return torch.einsum(eq, *(x.to(F32) for x in xs))
+
+
+def local_einsum(eq: str, *xs):
+    """torch.einsum of DTensors as one local einsum a rank. On each mesh
+    dim one subscript is split: the first operand's, else the first
+    split operand's. Every operand holding that subscript is split on it
+    there, every other one is whole (redistributed where it is not; a
+    partial sum is reduced first), so the local products are the global
+    one's blocks: split along the output where the subscript is kept,
+    partial sums where it is summed over. An operand whole on a dim
+    where the others are split gets a partial gradient back. (A strided
+    shard, the multi-pod FSDP split, counts as no split: it is gathered.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    mesh = next(x for x in xs if is_dtensor(x)).device_mesh
+    xs = [x if is_dtensor(x) else DTensor.from_local(
+        x, mesh, [Replicate()] * mesh.ndim, run_check=False) for x in xs]
+    chosen = []
+    for d in range(mesh.ndim):
+        pick = None
+        for x, sub in zip(xs, subs):
+            p = x.placements[d]
+            if type(p) is Shard:
+                pick = sub[p.dim]
+                break
+        chosen.append(pick)
+    local = []
+    for x, sub in zip(xs, subs):
+        want = [Shard(sub.index(c)) if c is not None and c in sub
+                else Replicate() for c in chosen]
+        if list(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        grad = [w if isinstance(w, Shard) else (
+            Partial() if c is not None else Replicate())
+            for w, c in zip(want, chosen)]
+        local.append(x.to_local(grad_placements=grad))
+    # contiguous: the DTensor takes the global shape's row-major strides
+    res = torch.einsum(eq, *local).contiguous()
+    sizes = {c: x.shape[i] for x, sub in zip(xs, subs)
+             for i, c in enumerate(sub)}
+    shape = tuple(sizes[c] for c in out)
+    return from_shard(res, mesh, [
+        Replicate() if c is None else (Shard(out.index(c)) if c in out
+                                       else Partial()) for c in chosen],
+        shape)
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +388,12 @@ def embed_tokens(params, tokens: torch.Tensor,
     """A gather of the rows (cast to the compute dtype), no scale.
     `F.embedding`'s backward sums each row's gradients in a fixed order
     on the card, so a train step is a pure function of its state and
-    batch (a resumed run equals an unbroken one bit for bit)."""
-    return F.embedding(tokens, params["tok"]).to(dtype_of(cfg))
+    batch (a resumed run equals an unbroken one bit for bit). A DTensor
+    table takes the vocab-parallel lookup (`vocab_embedding`)."""
+    tab = params["tok"]
+    if is_dtensor(tab):
+        return vocab_embedding(tab, tokens).to(dtype_of(cfg))
+    return F.embedding(tokens, tab).to(dtype_of(cfg))
 
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -328,6 +401,128 @@ def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return einsum32("bse,ve->bsv", x, params["tok"].to(x.dtype))
     return einsum32("bse,ev->bsv", x, params["head"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel pieces (a DTensor table or logits sharded on the vocab)
+# ---------------------------------------------------------------------------
+#
+# DTensor's own embedding of a vocab-sharded table returns a mask-partial
+# tensor whose first redistribution fails (its mask keeps the shard's
+# shape, not the output's), and its gather along a sharded dim
+# all-gathers the operand. These three functions work on each rank's
+# rows instead: this rank's vocab range, ids outside it masked, a local
+# op, then a sum (or max) over the mesh dims that hold the vocab.
+
+
+def _vocab_dims(t, vdim: int) -> list:
+    """The mesh dims over which DTensor `t` splits its dim `vdim` (the
+    vocab: a table's first, the logits' last)."""
+    return [i for i, p in enumerate(t.placements)
+            if p.is_shard() and p.dim == vdim]
+
+
+def _local_rows(t, vdim: int) -> Tuple[int, int]:
+    """(offset, size) of this rank's block of DTensor `t`'s dim `vdim`."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return offset[vdim], shape[vdim]
+
+
+def from_shard(local, mesh, placements, shape):
+    """DTensor.from_local of a contiguous shard of a global ``shape``."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _follow(x, placements_for):
+    """DTensor `x` redistributed to ``placements_for(i, p)`` on each mesh
+    dim i (p its current placement)."""
+    want = [placements_for(i, p) for i, p in enumerate(x.placements)]
+    return x if want == list(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def vocab_embedding(table, tokens):
+    """F.embedding of a DTensor (V, E) table. The table is gathered over
+    the mesh dims that do not split its vocab (its FSDP dim), never over
+    those that do; each rank looks up the ids in its rows and the
+    results are summed over the vocab dims. Its backward is the local
+    `F.embedding` backward on the rank's rows, summed over the ranks
+    that saw other tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    vdims = _vocab_dims(table, 0)
+    tab = _follow(table, lambda i, p: p if i in vdims else Replicate())
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim)
+    tok = _follow(tokens, lambda i, p: Replicate() if i in vdims else p)
+    lo, rows = _local_rows(tab, 0)
+    ids = tok.to_local() - lo
+    inside = (ids >= 0) & (ids < rows)
+    w = tab.to_local(grad_placements=[
+        tab.placements[i] if i in vdims
+        else (Partial() if tok.placements[i].is_shard() else Replicate())
+        for i in range(mesh.ndim)])
+    out = F.embedding(torch.where(inside, ids, 0), w)
+    out = out * inside[..., None].to(out.dtype)
+    out = from_shard(out, mesh, [Partial() if i in vdims
+                                  else tok.placements[i]
+                                  for i in range(mesh.ndim)],
+                      tuple(tokens.shape) + (table.shape[1],))
+    return _follow(out, lambda i, p: tokens.placements[i] if i in vdims
+                   else p)
+
+
+def _vocab_reduce(local, logits, vdims, op: str):
+    """A (…,) per-row value from `logits`' rows, reduced (``op``: 'sum'
+    or 'max') over the vocab dims: a DTensor replicated there."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = logits.device_mesh
+    part = from_shard(local, mesh, [Partial(op) if i in vdims
+                                     else logits.placements[i]
+                                     for i in range(mesh.ndim)],
+                       logits.shape[:-1])
+    return _follow(part, lambda i, p: Replicate() if i in vdims else p)
+
+
+def vocab_logsumexp(logits):
+    """logsumexp over the vocab of DTensor logits split on it: the max
+    and the sum of exponentials reduced over the vocab dims."""
+    vdims = _vocab_dims(logits, logits.dim() - 1)
+    if not vdims:
+        return torch.logsumexp(logits, dim=-1)
+    loc = logits.to_local()
+    m = _vocab_reduce(loc.detach().amax(-1), logits, vdims, "max")
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    s = _vocab_reduce(torch.exp(loc - m.to_local()[..., None]).sum(-1),
+                      logits, vdims, "sum")
+    return torch.log(s) + m
+
+
+def vocab_take(logits, labels):
+    """logits[..., label] of DTensor logits split on the vocab: each rank
+    takes the labels in its columns (`_TakeLabel` on its shard), summed
+    over the vocab dims."""
+    from torch.distributed.tensor import DTensor, Replicate
+    vdims = _vocab_dims(logits, logits.dim() - 1)
+    mesh = logits.device_mesh
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim)
+    lab = _follow(labels, lambda i, p: Replicate() if i in vdims
+                  else logits.placements[i])
+    lo, cols = _local_rows(logits, logits.dim() - 1)
+    ids = lab.to_local() - lo
+    inside = (ids >= 0) & (ids < cols)
+    got = _TakeLabel.apply(logits.to_local(), torch.where(inside, ids, 0))
+    got = got * inside.to(got.dtype)
+    return _vocab_reduce(got, logits, vdims, "sum")
 
 
 class _TakeLabel(torch.autograd.Function):
@@ -354,9 +549,15 @@ class _TakeLabel(torch.autograd.Function):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   label_smoothing: float = 0.0) -> torch.Tensor:
-    """Mean next-token CE. logits (B,S,V) fp32, labels (B,S) int."""
-    lse = torch.logsumexp(logits, dim=-1)              # (B,S)
-    label_logit = _TakeLabel.apply(logits, labels.long())
+    """Mean next-token CE. logits (B,S,V) fp32, labels (B,S) int. DTensor
+    logits split on the vocab take the vocab-parallel logsumexp and
+    label gather."""
+    if is_dtensor(logits):
+        lse = vocab_logsumexp(logits)
+        label_logit = vocab_take(logits, labels.long())
+    else:
+        lse = torch.logsumexp(logits, dim=-1)              # (B,S)
+        label_logit = _TakeLabel.apply(logits, labels.long())
     nll = lse - label_logit
     if label_smoothing > 0.0:
         smooth = lse - logits.mean(-1)

@@ -174,8 +174,8 @@ def _mamba_forward(params, u: torch.Tensor, cfg: ModelConfig,
     st = torch.zeros((bsz, h, n, p), dtype=F32, device=u.device)
     ys = []
     for c in range(nc):
-        ys.append(torch.einsum("bshn,bsh,bhnp->bshp", cr_h[:, c],
-                               torch.exp(cum[:, c]), st))
+        ys.append(einsum32("bshn,bsh,bhnp->bshp", cr_h[:, c],
+                           torch.exp(cum[:, c]), st))
         st = (torch.exp(last[:, c, 0])[:, :, None, None] * st
               + chunk_state[:, c])
     y_inter = torch.stack(ys, dim=1)                              # b,c,q,h,p

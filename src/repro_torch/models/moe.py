@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import Params, einsum32, mlp_apply, mlp_init
-from repro_torch.sharding.axes import ParamBuilder, constrain
+from repro_torch.sharding.axes import ParamBuilder, constrain, is_dtensor
 
 F32 = torch.float32
 
@@ -99,35 +99,62 @@ def _route(params, xg: torch.Tensor, mcfg: MoEConfig, cap: int):
     return logits, probs, onehot, gates, idx, slot, keep
 
 
+def _replicated(t):
+    """(DTensor `t` gathered whole on every rank, its local tensor); a
+    plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh,
+                          [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def _as_mesh(local: torch.Tensor, like):
+    """`local`, identical on every rank, as a replicated DTensor over
+    `like`'s mesh (a plain tensor when `like` is plain)."""
+    if not is_dtensor(like):
+        return local
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(local, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mcfg: MoEConfig,
               group_size: int = 512, mesh=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B,S,E) → (B,S,E), aux-loss dict."""
+    """x: (B,S,E) → (B,S,E), aux-loss dict. Over a mesh (DTensor `x`)
+    the routing, the dispatch and the combine run on the whole groups on
+    every rank: aten.index.Tensor with a boolean mask (and the scatter
+    of the kept rows) has no DTensor sharding rule, its output shape
+    depending on the data. The expert products run on DTensors, the
+    slots placed by `constrain` on act_experts under token_exchange."""
     dt = x.dtype
     bsz, seq, d = x.shape
     tokens = bsz * seq
     g_t = min(group_size, tokens)
     pad = (-tokens) % g_t
-    xf = x.reshape(tokens, d)
+    xl = _replicated(x)
+    xf = xl.reshape(tokens, d)
     if pad:
         xf = F.pad(xf, (0, 0, 0, pad))
     ng = xf.shape[0] // g_t
     xg = xf.reshape(ng, g_t, d)                        # (G,T,E)
     nx, k = mcfg.num_experts, mcfg.top_k
     cap = _capacity(g_t, mcfg)
-    logits, probs, onehot, gates, idx, slot, keep = _route(params, xg, mcfg,
-                                                           cap)
+    logits, probs, onehot, gates, idx, slot, keep = _route(
+        {"router": _replicated(params["router"])}, xg, mcfg, cap)
 
     # dispatch: each kept decision's token row into its (expert, slot)
     # row of the flattened (G·X·C, E) slots (a dropped one points at
     # slot 0 and is masked out)
-    g_ix = torch.arange(ng, device=x.device)[:, None, None]
-    t_ix = torch.arange(g_t, device=x.device)[None, :, None]
+    g_ix = torch.arange(ng, device=xl.device)[:, None, None]
+    t_ix = torch.arange(g_t, device=xl.device)[None, :, None]
     row_of = (g_ix * nx + idx) * cap + torch.where(keep, slot, 0)
     src = xg[g_ix.expand_as(idx)[keep], t_ix.expand_as(idx)[keep]]
-    xs = torch.zeros((ng * nx * cap, d), dtype=dt, device=x.device)
+    xs = torch.zeros((ng * nx * cap, d), dtype=dt, device=xl.device)
     xs[row_of[keep]] = src
-    xs = xs.reshape(ng, nx, cap, d)                    # (G,X,C,E)
+    xs = _as_mesh(xs.reshape(ng, nx, cap, d), x)       # (G,X,C,E)
     if mcfg.token_exchange:
         xs = constrain(xs, mesh, None, "act_experts", None,
                        "act_expert_embed")
@@ -140,13 +167,13 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mcfg: MoEConfig,
                        "act_expert_embed")
     # combine: each decision's expert output, weighted by its gate (in
     # the compute dtype, as the reference's combine tensor), dropped → 0
-    rows = ys.reshape(ng * nx * cap, d)[row_of]              # (G,T,K,E)
+    rows = _replicated(ys).reshape(ng * nx * cap, d)[row_of]  # (G,T,K,E)
     wgt = torch.where(keep, gates, 0.0).to(dt).to(F32)
     out = (rows.to(F32) * wgt[..., None]).sum(2).to(dt)     # (G,T,E)
     if mcfg.token_exchange:
         out = _grad_bf16(out)
 
-    out = out.reshape(-1, d)[:tokens].reshape(bsz, seq, d)
+    out = _as_mesh(out.reshape(-1, d)[:tokens].reshape(bsz, seq, d), x)
     if mcfg.num_shared_experts:
         out = out + mlp_apply(params["shared"], x)
 
@@ -156,9 +183,9 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mcfg: MoEConfig,
     lb = nx * (density * mean_prob).sum(-1).mean() / k
     z = torch.logsumexp(logits, dim=-1).square().mean()
     aux = {
-        "moe_load_balance": lb.to(F32),
-        "moe_router_z": z.to(F32),
-        "moe_drop_fraction": 1.0 - keep.to(F32).mean(),
+        "moe_load_balance": _as_mesh(lb.to(F32), x),
+        "moe_router_z": _as_mesh(z.to(F32), x),
+        "moe_drop_fraction": _as_mesh(1.0 - keep.to(F32).mean(), x),
     }
     return out, aux
 

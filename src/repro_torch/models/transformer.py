@@ -44,7 +44,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
 from repro_torch.models.layers import LayerStack, Params, einsum32
-from repro_torch.sharding.axes import ParamBuilder, constrain, unflatten_axes
+from repro_torch.sharding.axes import (ParamBuilder, constrain,
+                                       current_act_rules, is_dtensor,
+                                       placements, resolve_spec,
+                                       unflatten_axes)
 
 F32 = torch.float32
 
@@ -155,19 +158,43 @@ def _self_attention(p, x, cfg: ModelConfig, layer: int, positions,
     q = constrain(q, mesh, "act_batch", None, "act_heads", None)
     window = cfg.sliding_window if cfg.layer_is_swa(layer) else 0
     c = attn_chunk(x.shape[1])
-    o = L.chunked_attention(q, k, v, causal=causal, window=window,
-                            q_chunk=c, kv_chunk=c)
+    o = _local_heads(functools.partial(
+        L.chunked_attention, causal=causal, window=window, q_chunk=c,
+        kv_chunk=c), q, k, v)
     o = L.out_project(p, o)
     return o, ((k, v) if capture else None)
+
+
+def _local_heads(attn, q, k, v):
+    """attn(q, k, v) on each rank's own rows and heads. Attention mixes
+    no batch rows and no heads (a query head reads its group's key
+    head), so over a mesh each rank runs it on its shard — the batch as
+    act_batch splits it, the heads on "model" where both the query and
+    the key heads divide it, else whole — with no collective, and the
+    gradients stay each rank's own. Plain tensors go straight through."""
+    if not is_dtensor(q):
+        return attn(q, k, v)
+    mesh, rules = q.device_mesh, current_act_rules()
+
+    def layout(t, heads):
+        return placements(resolve_spec(("act_batch", None, heads, None),
+                                       t.shape, mesh, rules), mesh)
+    want = layout(q, "act_heads")
+    if want != layout(k, "act_kv_heads"):
+        want = layout(q, None)
+    q, k, v = (t if tuple(t.placements) == want
+               else t.redistribute(mesh, want) for t in (q, k, v))
+    o = attn(q.to_local(), k.to_local(), v.to_local())
+    return L.from_shard(o.contiguous(), mesh, want, q.shape)
 
 
 def _cross_attention(p, h, ck, cv, cfg: ModelConfig):
     q = einsum32("bse,ehd->bshd", h, p["wq"]).to(h.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(h.dtype)
-    o = L.chunked_attention(q, ck, cv, causal=False,
-                            q_chunk=attn_chunk(h.shape[1]),
-                            kv_chunk=attn_chunk(ck.shape[1]))
+    o = _local_heads(functools.partial(
+        L.chunked_attention, causal=False, q_chunk=attn_chunk(h.shape[1]),
+        kv_chunk=attn_chunk(ck.shape[1])), q, ck, cv)
     return L.out_project(p, o)
 
 

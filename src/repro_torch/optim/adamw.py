@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import OptimConfig
 from repro_torch.optim.tree import leaves, tree_map
+from repro_torch.sharding.axes import full_tensor
 
 F32 = torch.float32
 
@@ -53,7 +54,9 @@ def opt_state_axes(param_axes, ocfg: OptimConfig, params=None
 
 
 def _sq_sum(g: torch.Tensor) -> torch.Tensor:
-    return torch.sum(torch.square(g.to(F32)))
+    """A leaf's sum of squares; of a DTensor, its whole sum on every rank
+    (the shards' partial sums reduced), a plain scalar."""
+    return full_tensor(torch.sum(torch.square(g.to(F32))))
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -24,6 +24,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.axes import full_tensor
+
 F32 = torch.float32
 
 
@@ -46,8 +48,7 @@ def encode(grads, method: str, generator: Optional[torch.Generator] = None,
             return _map(lambda g: _quantize_sr(g, generator), grads)
         out = [None] * len(grads)
         for group in groups:
-            amax = torch.stack([grads[i].to(F32).abs().max()
-                                for i in group]).max()
+            amax = torch.stack([_absmax(grads[i]) for i in group]).max()
             for i in group:
                 out[i] = _quantize_sr(grads[i], generator, amax)
         return out
@@ -64,13 +65,19 @@ def decode(grads, method: str):
     raise ValueError(method)
 
 
+def _absmax(g: torch.Tensor) -> torch.Tensor:
+    """max |g| in f32; of a DTensor, the max over its shards on every
+    rank (a plain scalar)."""
+    return full_tensor(g.to(F32).abs().max())
+
+
 def _quantize_sr(g: torch.Tensor, generator: Optional[torch.Generator],
                  amax: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q, scale) of one tensor; ``amax``: its stack's absmax."""
     gf = g.to(F32)
     if amax is None:
-        amax = gf.abs().max()
+        amax = _absmax(g)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     x = gf / scale
     if generator is not None:

@@ -14,13 +14,20 @@ Where the reference builds NamedShardings, the port maps a spec to
 dimensions: ``Shard(d)`` on each mesh dim that splits tensor dim d,
 ``Replicate()`` on the others (`placements`, `TensorSharding`).
 
-The model zoo's part (`:30-121, 203-278`): the activation rules, the
+A multi-axis entry keeps the reference's order: ``("data", "pod")``
+splits a dim data-major, pod-minor. Where that order is not the mesh's
+(the mesh is ("pod", "data", "model")), the earlier mesh dim takes a
+``_StridedShard`` whose split factor is the later dims' size, so each
+rank holds the rows the reference's device holds.
+
+The model zoo's part (`:30-121, 160-278`): the activation rules, the
 'default' and 'dp_only' profiles, ``ParamBuilder`` (parameters drawn
 from a torch.Generator, each one's logical axes recorded so that a
-trainer can shard them), ``unflatten_axes`` and ``constrain``. Serving
-runs on one device and passes no mesh, where ``constrain`` returns its
-input; a mesh of more than one device raises until the trainer's
-sharded path exists.
+trainer can shard them), ``unflatten_axes``, ``named_sharding`` and
+``constrain``. Serving runs on one device and passes no mesh, where
+``constrain`` returns its input; over a mesh of more than one device it
+redistributes a DTensor to the act rules' placements (the reference's
+``with_sharding_constraint``).
 """
 from __future__ import annotations
 
@@ -199,31 +206,60 @@ def tree_pspecs(axes_tree: Any, shaped_tree: Any, mesh,
 def placements(spec: Spec, mesh) -> tuple:
     """The DTensor placements of `spec` over `mesh`'s named dims:
     Shard(d) on each mesh dim that splits tensor dim d, Replicate()
-    elsewhere."""
+    elsewhere. An entry of several axes splits its dim in the entry's
+    order, major first: a pair whose minor axis comes first in the mesh
+    gives that axis ``_StridedShard(d, split_factor=`` the major's
+    size ``)``."""
     from torch.distributed.tensor import Replicate, Shard
-    owner = {}
+    from torch.distributed.tensor.placement_types import _StridedShard
+    names = tuple(mesh.mesh_dim_names)
+    sizes = mesh_shape(mesh)
+    out = {a: Replicate() for a in names}
     for d, entry in enumerate(spec):
-        if entry is not None:
-            for a in _axes_tuple(entry):
-                owner[a] = d
-    return tuple(Shard(owner[a]) if a in owner else Replicate()
-                 for a in mesh.mesh_dim_names)
+        if entry is None:
+            continue
+        axes = _axes_tuple(entry)
+        if list(axes) == sorted(axes, key=names.index):
+            for a in axes:
+                out[a] = Shard(d)
+        elif len(axes) == 2:
+            # (major, minor) with the minor axis first in the mesh: the
+            # mesh's left-to-right split would make it major
+            major, minor = axes
+            out[minor] = _StridedShard(d, split_factor=sizes[major])
+            out[major] = Shard(d)
+        else:
+            raise ValueError(f"no placements for {axes} out of the mesh's "
+                             f"order {names}")
+    return tuple(out[a] for a in names)
 
 
 class TensorSharding:
-    """A resolved spec over a DeviceMesh: ``place(t)`` distributes a
-    whole tensor by it (torch.distributed.tensor.distribute_tensor)."""
+    """A resolved spec over a DeviceMesh (the reference's NamedSharding):
+    ``place(t)`` distributes a whole tensor by it
+    (torch.distributed.tensor.distribute_tensor)."""
 
     def __init__(self, mesh, spec: Spec):
         self.mesh, self.spec = mesh, spec
         self.placements = placements(spec, mesh)
 
     def place(self, t):
+        """The whole tensor `t`, which every rank holds alike, as a
+        DTensor: each rank keeps its own shard (no collective)."""
         from torch.distributed.tensor import distribute_tensor
-        return distribute_tensor(t, self.mesh, list(self.placements))
+        return distribute_tensor(t, self.mesh, list(self.placements),
+                                 src_data_rank=None)
 
     def __repr__(self) -> str:
         return f"TensorSharding({self.spec}, {self.placements})"
+
+
+def named_sharding(mesh, logical: Sequence[Optional[str]],
+                   shape: Sequence[int],
+                   rules: Optional[AxisRules] = None) -> TensorSharding:
+    """The TensorSharding of a tensor of ``shape`` with per-dim logical
+    names (the reference's NamedSharding of `resolve_spec`)."""
+    return TensorSharding(mesh, resolve_spec(logical, shape, mesh, rules))
 
 
 def tree_shardings(axes_tree, shaped_tree, mesh,
@@ -234,21 +270,52 @@ def tree_shardings(axes_tree, shaped_tree, mesh,
         axes_tree, shaped_tree)
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def spans(mesh) -> bool:
+    """Whether `mesh` holds more than one device (a sharded path)."""
+    return mesh is not None and math.prod(mesh_shape(mesh).values()) > 1
+
+
+def is_device_mesh(mesh) -> bool:
+    """Whether `mesh` is a torch DeviceMesh over a process group (the
+    state on it is DTensors, even where it holds one device)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
+
+
+def full_tensor(t):
+    """A DTensor's whole value on every rank (a collective: every rank
+    calls it); any other tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def constrain(x: torch.Tensor, mesh, *logical: Optional[str],
               rules: Optional[AxisRules] = None) -> torch.Tensor:
     """The reference's with_sharding_constraint by logical activation
     axes (``rules``: the current profile's act rules by default): the
     input itself without a mesh or on a one-device mesh (the serving
-    path); a mesh of more than one device raises until the trainer's
-    sharded path exists."""
+    path); over a larger mesh a DTensor redistributed to the resolved
+    placements (its values unchanged). A plain tensor there raises: it
+    has left the sharded path."""
     if len(logical) != x.dim():
         raise ValueError(f"{logical} names {len(logical)} dims of a "
                          f"{x.dim()}-dim tensor")
-    if mesh is None or math.prod(mesh_shape(mesh).values()) == 1:
+    if not spans(mesh):
         return x
-    raise NotImplementedError(
-        "constrain over a mesh of more than one device: the sharded "
-        "model path comes with the trainer")
+    if not is_dtensor(x):
+        raise TypeError(f"constrain{tuple(logical)} over a mesh of "
+                        f"{mesh_shape(mesh)} got a plain "
+                        f"{type(x).__name__}: a value left the sharded "
+                        "path")
+    rules = current_act_rules() if rules is None else rules
+    want = placements(resolve_spec(logical, x.shape, mesh, rules), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
 
 
 _INITS = ("normal", "zeros", "ones", "uniform")

@@ -485,7 +485,8 @@ def test_sharding_rules_and_profiles_equal_reference():
     x = torch.ones(2, 3)
     assert TA.constrain(x, None, "act_batch", None) is x
     assert TA.constrain(x, {"data": 1, "model": 1}, "act_batch", None) is x
-    with pytest.raises(NotImplementedError):
+    # past one device a plain tensor has left the sharded path
+    with pytest.raises(TypeError, match="sharded path"):
         TA.constrain(x, {"data": 2}, "act_batch", None)
     flat = {"a/b/c": ("embed",), "a/d": (None,)}
     assert TA.unflatten_axes(flat) == JA.unflatten_axes(flat)

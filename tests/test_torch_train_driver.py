@@ -108,8 +108,10 @@ def test_local_mesh_trains_and_production_meshes_refuse(tmp_path):
                       "--steps", "2", "--global-batch", "2", "--seq", "16",
                       "--mesh", "local", "--ckpt-dir", str(tmp_path / "l")])
     assert run["step"] == 2 and all(np.isfinite(list(run["losses"].values())))
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="10c"):
+    # a process outside a launcher's environment is a world of one rank
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError, match=f"{ranks} ranks; this "
+                                             "process has 1"):
             train.main(["--smoke", "--device", "cpu", "--mesh", mesh,
                         "--ckpt-dir", str(tmp_path / mesh)])
 

@@ -5,8 +5,8 @@ gradient codecs, held against the reference's as
 `test_torch_train_steps.py` holds the unsharded cases (the int8 case's
 second step from the reference's state, see `_run` there); the int8
 codec scales each stacked leaf of the reference as one tensor. Also the
-abstract state, the state's and the batch's shardings over the mesh,
-and the production meshes' refusal (ROADMAP item 10c).
+abstract state, and the state's and the batch's shardings over the
+mesh. The production meshes are built in `test_torch_train_specs.py`.
 """
 import jax
 import pytest
@@ -51,8 +51,3 @@ def test_abstract_state_and_shardings_match_reference():
     assert set(bsh["batch"]) == {"tokens", "labels"}
     assert bsh["batch"]["tokens"].spec == ()
 
-
-def test_production_meshes_raise():
-    for multi in (False, True):
-        with pytest.raises(NotImplementedError, match="10c"):
-            TM.make_production_mesh(multi_pod=multi)
