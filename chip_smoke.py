@@ -413,6 +413,26 @@ optimizers):
                           ms
   slice17_total           the seconds these phases added
 
+and the compile-and-cost launchers (launch/dryrun.py, hillclimb.py: the
+steps traced on the meta device over a fake world of 256 / 512 ranks,
+counted a device by dryrun.CostMode, the kernels' declared costs):
+
+  dryrun                  (a) both technique cells at full size on the
+                          card in the single mesh's fake world: every
+                          kernel call declared its cost; at n cut to
+                          65,536 (k cut to 32) the same cells give
+                          equal calls and declared costs on the card and
+                          on the CPU; (b) qwen2.5-3b:train_4k on both
+                          meshes; (c) train_qwen2p5_3b's own step (world
+                          1, no mesh, f32, AdamW, remat 'block', 4 × 512,
+                          36 layers) against what that phase measured:
+                          dot flops against `_train_step_flops` (the
+                          masked half of attention's products named),
+                          total bytes against its peak memory, the
+                          compute term at 67e12 FLOP/s against its step;
+                          (d) hillclimb's smollm_dp_only and its terms
+  slice18_total           the seconds these phases added
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -6096,7 +6116,10 @@ def phase_train_qwen2p5_3b(torch, dev: str = "cuda"):
           "losses": losses, "ln_vocab": math.log(cfg.vocab_size),
           "profile": profile,
           "seconds": SLICE16_SECONDS["train_qwen2p5_3b"]})
-    return launches
+    figures = {"train_step_flops": flops, "n_params": n_params,
+               "peak_memory_gb": peak / 1e9, "step_ms_mean": step_ms,
+               "cfg": cfg, "ocfg": ocfg, "tcfg": tcfg, "shape": shape}
+    return launches, figures
 
 
 def _ckpt_arrays(path: str) -> dict:
@@ -6677,6 +6700,164 @@ def phase_train_sharded(torch, dev: str = "cuda:0"):
           "seconds": SLICE17_SECONDS["train_sharded"]})
 
 
+SLICE18_SECONDS = {}
+# the card-vs-CPU comparison of the technique cells' declared costs: n
+# cut 2^20 / 2^19 → 65,536, k 256 → 32 (the CPU's plain path in time)
+DRYRUN_CMP_N, DRYRUN_CMP_K = 65536, 32
+DRYRUN_FLOPS_TOL = 0.05      # (c): dot flops beside _train_step_flops
+DRYRUN_BYTES_TOL = 0.10      # (c): total bytes beside the measured peak
+
+
+def _declared(counters) -> dict:
+    """{kernel: (calls, declared costs, launches, flops, bytes)} of the
+    counters that ran."""
+    snap, costs = counters.snapshot(), counters.costs()
+    return {n: (snap[n]["calls"], costs[n]["cost"], snap[n]["launches"],
+                costs[n]["flops"], costs[n]["bytes"])
+            for n in snap if snap[n]["calls"]}
+
+
+def _dryrun_technique(torch, DR, counters, device, **kw) -> dict:
+    """Both technique cells, rank 0 of the single mesh's fake world on
+    `device`: {cell: (record, declared)}."""
+    out = {}
+    with DR.fake_world(DR.MESH_DEVICES["single"]):
+        for name in DR.TECHNIQUE_CELLS:
+            spec = dict(DR.TECHNIQUE_CELLS[name], **kw.get(name, {}))
+            counters.reset()
+            res = DR.run_technique(name, "single", device, spec=spec)
+            out[name] = (res, _declared(counters))
+    counters.reset()
+    return out
+
+
+def phase_dryrun(torch, train_figures, dev: str = "cuda"):
+    """The dry run (launch/dryrun.py) on this machine: (a) the technique
+    cells on the card, every kernel call with its declared cost, and the
+    same cells at n DRYRUN_CMP_N on the card and the CPU; (b) qwen2.5-3b:
+    train_4k over both production meshes; (c) `phase_train_qwen2p5_3b`'s
+    step traced at world 1 against that phase's measured figures; (d)
+    hillclimb's smollm_dp_only."""
+    from repro_torch.kernels import counters
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hillclimb as HC
+    t_phase = time.perf_counter()
+    out = {}
+    # (b) qwen2.5-3b:train_4k on both meshes: a CPU-only trace, in a
+    # process of its own beside (a), (c) and (d)
+    tmp = tempfile.TemporaryDirectory()
+    log = open(os.path.join(tmp.name, "log"), "w+")
+    t_b = time.perf_counter()
+    sweep = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--only",
+         "qwen2.5-3b:train_4k", "--mesh", "both", "--out", tmp.name],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=log,
+        stderr=subprocess.STDOUT)
+    try:
+        # (a) full size on the card
+        cells = {}
+        for name, (res, decl) in _dryrun_technique(
+                torch, DR, counters, dev).items():
+            assert decl and all(c == n and l <= n for n, c, l, _, _ in
+                                decl.values()), (name, decl)
+            assert dev == "cpu" or any(l for _, _, l, _, _ in
+                                       decl.values()), (name, decl)
+            rec = {"devices": 256, "per_device": DR._per_device(res),
+                   "estimated": DR.technique_estimate(res)}
+            cells[name] = {"seconds": res["seconds"], "k": res["k"],
+                           "flops": res["flops"],
+                           "kernel_flops": res["kernel_flops"],
+                           "bytes_accessed": res["bytes_accessed"],
+                           "collective_moved_bytes":
+                               res["collectives"]["moved_bytes"],
+                           "memory": res["memory"], "terms": HC.terms(rec),
+                           "declared": {n: list(v) for n, v in
+                                        decl.items()}}
+        out["technique"] = cells
+        # (a) the card against the CPU at n cut
+        cut = {name: {"n": DRYRUN_CMP_N, "k": DRYRUN_CMP_K}
+               for name in DR.TECHNIQUE_CELLS}
+        card = _dryrun_technique(torch, DR, counters, dev, **cut)
+        cpu = _dryrun_technique(torch, DR, counters, "cpu", **cut)
+        cmp = {}
+        for name in DR.TECHNIQUE_CELLS:
+            a, b = card[name][1], cpu[name][1]
+            same = ({n: v[:2] + v[3:] for n, v in a.items()}
+                    == {n: v[:2] + v[3:] for n, v in b.items()})
+            cmp[name] = {"card": {n: list(v) for n, v in a.items()},
+                         "cpu": {n: list(v) for n, v in b.items()},
+                         "equal": same}
+            assert same, (name, a, b)
+        out["card_vs_cpu"] = {"n": DRYRUN_CMP_N, "k": DRYRUN_CMP_K, **cmp}
+        out.update(_dryrun_card_check(torch, DR, train_figures))
+        # (d) hillclimb's smollm_dp_only
+        t0 = time.perf_counter()
+        hc = HC.run_experiment("smollm_dp_only")
+        out["smollm_dp_only"] = {k: HC.terms(v) for k, v in hc.items()}
+        out["smollm_dp_only_seconds"] = time.perf_counter() - t0
+        # (b)'s records
+        sweep.wait(timeout=300)
+        log.seek(0)
+        assert sweep.returncode == 0, log.read()[-3000:]
+        recs = []
+        for mesh_kind in ("single", "multi"):
+            with open(os.path.join(tmp.name, f"qwen2.5-3b__train_4k__"
+                                   f"{mesh_kind}.json")) as fh:
+                recs.append(json.load(fh))
+    finally:
+        if sweep.poll() is None:
+            sweep.kill()
+            sweep.wait()
+        log.close()
+        tmp.cleanup()
+    assert all(r["ok"] for r in recs), recs
+    out["qwen2p5_3b_train_4k"] = {
+        r["mesh"]: {"memory": r["per_device"]["memory"],
+                    "flops_full_pass": r["per_device"]["flops_hlo_static"],
+                    "estimated": {k: v for k, v in r.get(
+                        "estimated", {}).items() if k != "points"},
+                    "seconds": r["seconds"]} for r in recs}
+    out["qwen2p5_3b_train_4k_seconds"] = time.perf_counter() - t_b
+    SLICE18_SECONDS["dryrun"] = time.perf_counter() - t_phase
+    emit({"phase": "dryrun", **out, "seconds": SLICE18_SECONDS["dryrun"]})
+
+
+def _dryrun_card_check(torch, DR, train_figures) -> dict:
+    """(c): `phase_train_qwen2p5_3b`'s step traced at world 1 (no mesh)
+    against what that phase measured."""
+    f = train_figures
+    t0 = time.perf_counter()
+    res = DR.trace_cell(f["cfg"], f["ocfg"], f["shape"], None,
+                        f["tcfg"].remat)
+    want = sum(f["train_step_flops"].values())
+    cfg = f["cfg"]
+    # eager attention computes the masked half of its two products too:
+    # forward, backward (twice) and remat 'block''s recompute
+    attn = (2.0 * f["shape"].global_batch * cfg.num_layers * cfg.num_heads
+            * cfg.resolved_head_dim * f["shape"].seq_len ** 2)
+    masked = attn * (3 + (f["tcfg"].remat != "none"))
+    resid = (res["dot_flops"] - masked - want) / want
+    total_gb = res["memory"]["total_bytes"] / 1e9
+    compute_ms = res["flops"] / PEAK_FP32_FLOPS * 1e3
+    check = {"dot_flops": res["dot_flops"], "flops": res["flops"],
+             "train_step_flops": want, "attention_masked_half": masked,
+             "dot_over_train_step_flops": res["dot_flops"] / want,
+             "residual_after_masked_half": resid,
+             "memory": res["memory"], "total_gb": total_gb,
+             "peak_memory_gb": f["peak_memory_gb"],
+             "total_over_peak": total_gb / f["peak_memory_gb"],
+             "compute_ms_at_67e12": compute_ms,
+             "step_ms_mean": f["step_ms_mean"],
+             "top_ops": sorted(res["by_op"].items(),
+                               key=lambda kv: -kv[1])[:8],
+             "seconds": time.perf_counter() - t0}
+    assert abs(res["dot_flops"] / want - 1) <= DRYRUN_FLOPS_TOL, check
+    assert abs(resid) <= DRYRUN_FLOPS_TOL, check
+    assert abs(total_gb / f["peak_memory_gb"] - 1) <= DRYRUN_BYTES_TOL, check
+    assert compute_ms <= f["step_ms_mean"], check
+    return {"card_check": check}
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -6824,7 +7005,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity(torch)
-    _add(launches, phase_train_qwen2p5_3b(torch))
+    train_launches, train_figures = phase_train_qwen2p5_3b(torch)
+    _add(launches, train_launches)
     phase_train_cli()
     emit({"phase": "slice16_total", "phases": SLICE16_SECONDS,
           "seconds": sum(SLICE16_SECONDS.values())})
@@ -6833,6 +7015,11 @@ def main(argv=None) -> int:
     phase_train_sharded(torch)
     emit({"phase": "slice17_total", "phases": SLICE17_SECONDS,
           "seconds": sum(SLICE17_SECONDS.values())})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, train_figures)
+    emit({"phase": "slice18_total", "phases": SLICE18_SECONDS,
+          "seconds": sum(SLICE18_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -33,9 +33,10 @@ import torch
 
 from repro_torch.kernels import build, counters, ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.pairwise import (FOLDS, check_feature_rule,
-                                          check_operand, check_storage,
-                                          check_words, storage_counters)
+from repro_torch.kernels.pairwise import (FOLDS, bits_cost,
+                                          check_feature_rule, check_operand,
+                                          check_storage, check_words,
+                                          steps_cost, storage_counters)
 from repro_torch.kernels.plans import (BITS_BLOCK_C, FUSED_BLOCK_N,
                                        FUSED_CLUSTER_MAX, FUSED_SPAN,
                                        fused_cluster_fits)
@@ -68,6 +69,14 @@ def _lib():
     return lib
 
 
+def _step_out(row, mask) -> float:
+    """A step's bytes besides the operands: the row written, and a
+    greedy's prev read, best and gain written."""
+    return 4.0 * row.numel() + 20.0 * (mask.numel()
+                                       // max(1, mask.shape[-1]))
+
+
+@counters.wrapper
 def fused_step(mat, row, mask, prev, rule: KernelRule,
                block_n: int = FUSED_BLOCK_N, scale=None,
                reference: bool = False):
@@ -82,7 +91,9 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
         return fused_step_bits(mat, row, mask, prev, rule)
     counter = COUNTERS.get(mat.dtype, COUNTERS[F32])
     if not reference:
-        counter.calls += 1
+        # the row out, prev in, best and gain out
+        counter.declare(*steps_cost(mat, scale, row, mask,
+                                    _step_out(row, mask)))
     if not mat.is_cuda:
         return fused_step_plain(mat, row, mask, prev, rule, scale)
     check_feature_rule(rule, "fused_step")
@@ -129,6 +140,7 @@ def fused_step(mat, row, mask, prev, rule: KernelRule,
     return row_out, best, gain
 
 
+@counters.wrapper
 def fused_step_bits(mat, row, mask, prev, rule: KernelRule,
                     block_c: int = BITS_BLOCK_C):
     """The bitmap rule's step: mat (B, W, C) is the transposed view of
@@ -136,7 +148,8 @@ def fused_step_bits(mat, row, mask, prev, rule: KernelRule,
     int32, mask (B, C) 0/1 f32, prev (B,) int. CPU tensors take the plain
     version; CUDA tensors launch the kernel (`block_c` candidates per
     block) or raise."""
-    BITS_COUNTER.calls += 1
+    BITS_COUNTER.declare(*bits_cost(mat.transpose(-1, -2), row, mask,
+                                    _step_out(row, mask)))
     if not mat.is_cuda:
         return fused_step_plain(mat, row, mask, prev, rule)
     if mat.dim() != 3:

@@ -49,7 +49,8 @@ import torch
 
 from repro_torch.kernels import build, counters, plans, ref
 from repro_torch.kernels import rules as R
-from repro_torch.kernels.pairwise import (DTYPES, FOLDS, MODES,
+from repro_torch.kernels.pairwise import (DTYPES, FOLDS, MODES, bits_cost,
+                                          pairwise_cost, steps_cost,
                                           STORAGES, check_feature_rule,
                                           check_operand, check_storage,
                                           check_words, storage_counters)
@@ -213,6 +214,14 @@ def loop_plan(mat, block_n: int = FUSED_BLOCK_N) -> dict:
     return {"blocks": plan[0]}
 
 
+def _loop_out(row, mask, k: int) -> float:
+    """A loop's bytes besides the operands: the row written, each
+    greedy's k bests and gains."""
+    return 4.0 * row.numel() + 8.0 * k * (mask.numel()
+                                          // max(1, mask.shape[-1]))
+
+
+@counters.wrapper
 def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
                 block_n: int = FUSED_BLOCK_N, scale=None):
     """STREAMING tier over cached matrices. mat (B, N, C) f32, bf16 or
@@ -225,7 +234,8 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     if rule.is_bitmap:
         return greedy_loop_bits(mat, row, mask, k, rule)
     counter = STREAM_COUNTERS.get(mat.dtype, STREAM_COUNTERS[F32])
-    counter.calls += 1
+    counter.declare(*steps_cost(mat, scale, row, mask,
+                                _loop_out(row, mask, k), steps=k))
     if not mat.is_cuda:
         return greedy_loop_plain(mat, row, mask, k, rule, scale=scale)
     check_feature_rule(rule, "greedy_loop")
@@ -262,6 +272,7 @@ def greedy_loop(mat, row, mask, k: int, rule: KernelRule,
     return row_out, bests.long(), gains
 
 
+@counters.wrapper
 def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
                          rule: KernelRule, cache_dtype: str = "float32",
                          scratch=None, block_n: int = FUSED_BLOCK_N):
@@ -281,7 +292,13 @@ def greedy_loop_resident(ground, cands, row, mask, ctl, k: int,
     if cache_dtype not in DTYPES:
         raise ValueError(f"unknown cache dtype {cache_dtype!r}")
     counter = RESIDENT_COUNTERS[DTYPES[cache_dtype]]
-    counter.calls += 1
+    # the build (the pairwise products, no matrix written) and k steps
+    build_flops = pairwise_cost(ground, cands, rule.pairwise)[0]
+    n, c = ground.shape[-2], cands.shape[-2]
+    step_flops = 3.0 * k * (row.numel() // max(1, n)) * n * c
+    counter.declare(build_flops + step_flops,
+                    counters.nbytes(ground, cands, row, mask, ctl)
+                    + _loop_out(row, mask, k))
     if not cands.is_cuda:
         if scratch is not None:
             scratch.copy_(resident_matrix(ground, cands, rule, ctl,
@@ -385,6 +402,7 @@ def bits_blocks_per_greedy(lib, b: int, c: int, w: int,
         p = max(1, min(p - 1, cap // b))
 
 
+@counters.wrapper
 def greedy_loop_bits(mat, row, mask, k: int, rule: KernelRule,
                      block_c: int = BITS_LOOP_BLOCK_C):
     """The bitmap rule's STREAMING tier: mat (B, W, C) is the transposed
@@ -392,7 +410,8 @@ def greedy_loop_bits(mat, row, mask, k: int, rule: KernelRule,
     row (B, W) int32, mask (B, C) 0/1 f32, `block_c` the target
     candidates per block. CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise."""
-    STREAM_BITS_COUNTER.calls += 1
+    STREAM_BITS_COUNTER.declare(*bits_cost(
+        mat.transpose(-1, -2), row, mask, _loop_out(row, mask, k), steps=k))
     if not mat.is_cuda:
         return greedy_loop_plain(mat, row, mask, k, rule)
     if mat.dim() != 3:
@@ -433,6 +452,7 @@ def _bits_operands(cands, row, mask, k: int, what: str):
             torch.empty((b, k), dtype=F32, device=dev))
 
 
+@counters.wrapper
 def greedy_loop_resident_bits(cands, row, mask, ctl, k: int,
                               rule: KernelRule):
     """The bitmap rule's RESIDENT tier: cands (B, C, W) int32 words, read
@@ -442,7 +462,9 @@ def greedy_loop_resident_bits(cands, row, mask, ctl, k: int,
     launch csrc/greedy_loop_resident.cu's cluster kernel or raise: a
     cluster a node on the tier and cluster size `resident_bits_plan`
     picks."""
-    RESIDENT_BITS_COUNTER.calls += 1
+    flops, nbytes = bits_cost(cands, row, mask, _loop_out(row, mask, k),
+                              steps=k)
+    RESIDENT_BITS_COUNTER.declare(flops, nbytes + counters.nbytes(ctl))
     if not cands.is_cuda:
         return greedy_loop_resident_plain(None, cands, row, mask, ctl, k,
                                           rule)

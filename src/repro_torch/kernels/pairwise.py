@@ -133,6 +133,26 @@ def _lib():
     return lib
 
 
+def _bnc(ground, cands):
+    """(B, N, C, D) of a (…, N, D) ground against (…, C, D) candidates."""
+    n, d = ground.shape[-2:]
+    c = cands.shape[-2]
+    return ground.numel() // max(1, n * d), n, c, d
+
+
+def pairwise_cost(ground, cands, mode: str, out_dtype=F32):
+    """(flops, bytes) of one pairwise call: the products, and for 'dist'
+    both sides' norms and the combination; the operands read once, the
+    matrix written once."""
+    b, n, c, d = _bnc(ground, cands)
+    flops = 2.0 * b * n * c * d
+    if mode == "dist":
+        flops += 2.0 * b * (n + c) * d + 4.0 * b * n * c
+    return flops, (counters.nbytes(ground, cands)
+                   + out_dtype.itemsize * b * n * c)
+
+
+@counters.wrapper
 def pairwise(ground, cands, mode: str, out_dtype=F32):
     """ground (B, N, D), cands (B, C, D) → (B, N, C) in `out_dtype` (f32,
     or bf16: each f32 entry rounded to nearest even). CPU tensors take
@@ -143,7 +163,7 @@ def pairwise(ground, cands, mode: str, out_dtype=F32):
     if out_dtype not in (F32, BF16):
         raise ValueError(f"pairwise stores f32 or bf16, not {out_dtype}")
     counter = COUNTERS[out_dtype]
-    counter.calls += 1
+    counter.declare(*pairwise_cost(ground, cands, mode, out_dtype))
     if not ground.is_cuda:
         return pairwise_plain(ground, cands, mode).to(out_dtype)
     if ground.dim() != 3 or cands.dim() != 3:
@@ -213,6 +233,7 @@ def _check_ground(ground, gscale, b, n, d, dev):
         check_operand(gscale, (b, 1, n), F32, "gscale", dev)
 
 
+@counters.wrapper
 def ground_norms(ground, gscale=None):
     """(B, N) f32 squared norms of the ground rows ((B, N, D) f32, or
     int8 with its (B, 1, N) row scales: the dequantized rows), each one
@@ -221,7 +242,9 @@ def ground_norms(ground, gscale=None):
     not change over a greedy, so the step engine takes them once. On the
     card one launch, counted as `gains_norms`; CPU tensors get the plain
     float64 sum (the plain gains need no norms)."""
-    NORMS_COUNTER.calls += 1
+    rows = ground.numel() // max(1, ground.shape[-1])
+    NORMS_COUNTER.declare(2.0 * ground.numel(),
+                          counters.nbytes(ground, gscale) + 4.0 * rows)
     if not ground.is_cuda:
         g = R.dequant(ground, gscale) if gscale is not None else ground
         return g.double().square().sum(-1).to(F32)
@@ -244,6 +267,21 @@ def ground_norms(ground, gscale=None):
     return out
 
 
+def gains_cost(ground, row, cands, cand_valid, rule: R.KernelRule,
+               gscale=None):
+    """(flops, bytes) of one feature gains call: the products, the gain
+    parts and folds (4 an entry), for 'dist' the candidates' norms; the
+    ground, its scales and norms, the row, the candidates and their
+    validity read once, the sums written once."""
+    b, n, c, d = _bnc(ground, cands)
+    dist = rule.pairwise == "dist"
+    flops = 2.0 * b * n * c * d + 4.0 * b * n * c + (
+        2.0 * b * c * d if dist else 0.0)
+    return flops, (counters.nbytes(ground, gscale, row, cands, cand_valid)
+                   + 4.0 * b * c + (4.0 * b * n if dist else 0.0))
+
+
+@counters.wrapper
 def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
           gscale=None, gnorm=None, reference: bool = False):
     """ground (B, N, D), row (B, N), cands (B, C, D), cand_valid (B, C)
@@ -260,7 +298,8 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
         return _gains_bits(row, cands, cand_valid, rule)
     counter = GAINS_COUNTERS[INT8 if gscale is not None else F32]
     if not reference:
-        counter.calls += 1
+        counter.declare(*gains_cost(ground, row, cands, cand_valid, rule,
+                                    gscale))
     if not cands.is_cuda:
         return gains_plain(ground, row, cands, cand_valid, rule, gscale)
     check_feature_rule(rule, "gains")
@@ -308,11 +347,34 @@ def gains(ground, row, cands, cand_valid, rule: R.KernelRule,
     return torch.where(cand_valid, raw, torch.full_like(raw, float("-inf")))
 
 
+def steps_cost(mat, scale, row, mask, out, steps: int = 1):
+    """(flops, bytes) of `steps` greedy steps over a (…, N, C) cached
+    matrix: a gain part, a fold and a sum an entry a step; the matrix
+    (its row scales), the row and the mask read once, ``out`` bytes
+    written."""
+    n, c = mat.shape[-2:]
+    b = mat.numel() // max(1, n * c)
+    return (3.0 * steps * b * n * c,
+            counters.nbytes(mat, scale, row, mask) + out)
+
+
+def bits_cost(cands, row, mask, out, steps: int = 1):
+    """(flops, bytes) of `steps` bitmap greedy steps over (…, C, W)
+    candidate words: an and-not, a popcount and an add a word a step; the
+    words, the row and the mask read once, ``out`` bytes written."""
+    c, w = cands.shape[-2:]
+    b = cands.numel() // max(1, c * w)
+    return (3.0 * steps * b * c * w,
+            counters.nbytes(cands, row, mask) + out)
+
+
+@counters.wrapper
 def _gains_bits(row, cands, cand_valid, rule: R.KernelRule):
     """The bitmap rule's gains: cands (B, C, W) and row (B, W) int32
     words → raw popcount sums (B, C) f32, −inf at invalid candidates; the
     ground is not read. CPU tensors take the plain version."""
-    GAINS_BITS_COUNTER.calls += 1
+    GAINS_BITS_COUNTER.declare(*bits_cost(
+        cands, row, cand_valid, 4.0 * cand_valid.numel()))
     if not cands.is_cuda:
         return gains_plain(None, row, cands, cand_valid, rule)
     if cands.dim() != 3:

@@ -228,6 +228,26 @@ def _check_state(rows, values, counts, expos, m_max, row_dtype, dev):
     return g, l, n
 
 
+def filter_cost(ground, batch, rows, rule: R.KernelRule, gscale=None):
+    """(flops, bytes) of one arrival batch against every level: for a
+    feature rule the slab's products (and 'dist' norms) and each level's
+    gain part and fold an entry, for a bitmap rule an and-not, a popcount
+    and an add a word a level; the ground (its scales), the arrivals and
+    the rows read once, the rows written once."""
+    a, b = batch.shape[:2]
+    g, l, n = rows.shape
+    if rule.is_bitmap:
+        flops = 3.0 * g * l * b * batch.shape[-1]
+    else:
+        d = batch.shape[-1]
+        flops = 2.0 * a * n * b * d + 4.0 * g * l * n * b
+        if rule.pairwise == "dist":
+            flops += 2.0 * a * (n + b) * d
+    return flops, (counters.nbytes(ground, gscale, batch) + 2.0
+                   * counters.nbytes(rows))
+
+
+@counters.wrapper
 def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
                   bvalid, k: int, eps_log: float, rule: R.KernelRule,
                   gscale=None, costs=None, spent=None, budget=None,
@@ -243,7 +263,7 @@ def stream_filter(ground, batch, rows, row0, values, counts, expos, m_max,
     needs none)."""
     counter = COUNTERS["uint32" if rule.is_bitmap else (
         "int8" if ground.dtype == torch.int8 else "float32")]
-    counter.calls += 1
+    counter.declare(*filter_cost(ground, batch, rows, rule, gscale))
     cost_mode = costs is not None
     if not (costs is None) == (spent is None) == (budget is None):
         raise ValueError("costs, spent and budget go together")
@@ -361,6 +381,7 @@ def scatter_slots_plain(ids, payloads, counts_before, expired, admits,
     return new_ids, torch.where(keep, gathered, payloads)
 
 
+@counters.wrapper
 def scatter_slots(ids, payloads, counts_before, expired, admits, batch_ids,
                   batch_pay, k: int):
     """The solution slots after a batch (shapes as scatter_slots_plain,
@@ -369,7 +390,11 @@ def scatter_slots(ids, payloads, counts_before, expired, admits, batch_ids,
     to is consumed. On the card the kernel writes only the admitted rows
     and the expired levels; CPU tensors take the plain version, copied
     back."""
-    SCATTER_COUNTER.calls += 1
+    # no arithmetic; the slots read and written, the batch and the
+    # decisions read
+    SCATTER_COUNTER.declare(0.0, 2.0 * counters.nbytes(ids, payloads)
+                            + counters.nbytes(counts_before, expired, admits,
+                                              batch_ids, batch_pay))
     if not ids.is_cuda:
         new_ids, new_pay = scatter_slots_plain(
             ids, payloads, counts_before, expired, admits, batch_ids,

@@ -72,6 +72,8 @@ def _shaped(tree):
     spec's (shape, dtype) as a meta tensor."""
     if isinstance(tree, dict):
         return {k: _shaped(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shaped(v) for v in tree]
     if isinstance(tree, tuple):
         return torch.empty(tree[0], dtype=tree[1], device="meta")
     return tree
@@ -241,11 +243,13 @@ def _like_param(g, p):
 def make_prefill_step(cfg: ModelConfig, mesh=None,
                       max_len: Optional[int] = None):
     def prefill_step(params, batch):
-        return T.prefill(params, batch, cfg, mesh, max_len=max_len)
+        with sharded_ops(mesh):
+            return T.prefill(params, batch, cfg, mesh, max_len=max_len)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None):
     def decode_step(params, cache, batch):
-        return T.decode_step(params, cache, batch["tokens"], cfg, mesh)
+        with sharded_ops(mesh):
+            return T.decode_step(params, cache, batch["tokens"], cfg, mesh)
     return decode_step

@@ -125,10 +125,10 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mcfg: MoEConfig,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,S,E) → (B,S,E), aux-loss dict. Over a mesh (DTensor `x`)
     the routing, the dispatch and the combine run on the whole groups on
-    every rank: aten.index.Tensor with a boolean mask (and the scatter
-    of the kept rows) has no DTensor sharding rule, its output shape
-    depending on the data. The expert products run on DTensors, the
-    slots placed by `constrain` on act_experts under token_exchange."""
+    every rank: the gather of the decisions' rows and their scatter into
+    the slots have no DTensor sharding rule. The expert products run on
+    DTensors, the slots placed by `constrain` on act_experts under
+    token_exchange."""
     dt = x.dtype
     bsz, seq, d = x.shape
     tokens = bsz * seq
@@ -146,15 +146,18 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, mcfg: MoEConfig,
         {"router": _replicated(params["router"])}, xg, mcfg, cap)
 
     # dispatch: each kept decision's token row into its (expert, slot)
-    # row of the flattened (G·X·C, E) slots (a dropped one points at
-    # slot 0 and is masked out)
+    # row of the flattened (G·X·C, E) slots; a dropped one is written to
+    # one spare row past them, cut off after (no shape depends on the
+    # data: the dry run traces this on meta tensors). The combine reads
+    # a dropped decision at slot 0, masked out by its zero weight.
     g_ix = torch.arange(ng, device=xl.device)[:, None, None]
     t_ix = torch.arange(g_t, device=xl.device)[None, :, None]
     row_of = (g_ix * nx + idx) * cap + torch.where(keep, slot, 0)
-    src = xg[g_ix.expand_as(idx)[keep], t_ix.expand_as(idx)[keep]]
-    xs = torch.zeros((ng * nx * cap, d), dtype=dt, device=xl.device)
-    xs[row_of[keep]] = src
-    xs = _as_mesh(xs.reshape(ng, nx, cap, d), x)       # (G,X,C,E)
+    spare = ng * nx * cap
+    src = xg[g_ix.expand_as(idx), t_ix.expand_as(idx)]  # (G,T,K,E)
+    xs = torch.zeros((spare + 1, d), dtype=dt, device=xl.device)
+    xs[torch.where(keep, row_of, spare)] = src
+    xs = _as_mesh(xs[:spare].reshape(ng, nx, cap, d), x)  # (G,X,C,E)
     if mcfg.token_exchange:
         xs = constrain(xs, mesh, None, "act_experts", None,
                        "act_expert_embed")

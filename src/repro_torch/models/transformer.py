@@ -169,22 +169,45 @@ def _local_heads(attn, q, k, v):
     """attn(q, k, v) on each rank's own rows and heads. Attention mixes
     no batch rows and no heads (a query head reads its group's key
     head), so over a mesh each rank runs it on its shard — the batch as
-    act_batch splits it, the heads on "model" where both the query and
-    the key heads divide it, else whole — with no collective, and the
-    gradients stay each rank's own. Plain tensors go straight through."""
+    act_batch splits it, the query heads as act_heads splits them — with
+    no collective. Where the key heads do not divide the ranks that
+    split the query heads (2 key heads over 16), the keys and values
+    stay whole there and each rank takes the one key head its query
+    heads read; their gradients come back as partial sums over those
+    ranks. Where a group of query heads would straddle two ranks, or the
+    query heads do not divide the ranks, every head runs whole on every
+    rank. Plain tensors go straight through."""
     if not is_dtensor(q):
         return attn(q, k, v)
+    from torch.distributed.tensor import Partial, Shard
     mesh, rules = q.device_mesh, current_act_rules()
 
     def layout(t, heads):
         return placements(resolve_spec(("act_batch", None, heads, None),
                                        t.shape, mesh, rules), mesh)
-    want = layout(q, "act_heads")
-    if want != layout(k, "act_kv_heads"):
-        want = layout(q, None)
-    q, k, v = (t if tuple(t.placements) == want
-               else t.redistribute(mesh, want) for t in (q, k, v))
-    o = attn(q.to_local(), k.to_local(), v.to_local())
+    want, kv_want = layout(q, "act_heads"), layout(k, "act_kv_heads")
+    split = [d for d, (a, b) in enumerate(zip(want, kv_want)) if a != b]
+    shard = 0
+    for d in range(mesh.ndim):
+        if want[d] == Shard(2):
+            shard = shard * mesh.size(d) + mesh.get_coordinate()[d]
+    hq = q.shape[2] // math.prod(mesh.size(d) for d in range(mesh.ndim)
+                                 if want[d] == Shard(2))
+    group = q.shape[2] // k.shape[2]
+    if split and (Shard(2) in kv_want or group % hq
+                  or any(want[d] != Shard(2) for d in split)):
+        want = kv_want = layout(q, None)
+        split = []
+    q = q if tuple(q.placements) == want else q.redistribute(mesh, want)
+    k, v = (t if tuple(t.placements) == kv_want
+            else t.redistribute(mesh, kv_want) for t in (k, v))
+    grads = [Partial() if d in split else p for d, p in enumerate(kv_want)]
+    ql, kl, vl = (q.to_local(), k.to_local(grad_placements=grads),
+                  v.to_local(grad_placements=grads))
+    if split:
+        head = shard * hq // group
+        kl, vl = kl[:, :, head:head + 1], vl[:, :, head:head + 1]
+    o = attn(ql, kl, vl)
     return L.from_shard(o.contiguous(), mesh, want, q.shape)
 
 
@@ -464,9 +487,9 @@ def _attn_decode(p, h, cfg: ModelConfig, layer: int, entry: Dict,
     kc = constrain(kc, mesh, "act_batch", "act_kv_seq", "act_kv_heads", None)
     vc = constrain(vc, mesh, "act_batch", "act_kv_seq", "act_kv_heads", None)
     count = min(index + 1, buf)
-    valid = (torch.arange(buf, device=h.device) < count)[None].expand(bsz,
-                                                                      buf)
-    o = L.decode_attention(q, kc, vc, valid)
+    valid = (torch.arange(buf, device=h.device) < count)[None]
+    o = _local_heads(lambda q_, k_, v_: L.decode_attention(
+        q_, k_, v_, valid.expand(q_.shape[0], buf)), q, kc, vc)
     return L.out_project(p, o), {"k": kc, "v": vc}
 
 
