@@ -6198,6 +6198,8 @@ GLOO_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
 # qwen2.5-3b at full width, depth cut 36 → 4: four ranks' state and
 # activations at 36 layers do not fit beside each other on one card
 TRAIN_SHARDED_LAYERS = 4
+TRAIN_SHARDED_MOE = "qwen3-moe-30b-a3b"
+TRAIN_SHARDED_MOE_LAYERS = 48        # its depth, cut to TRAIN_SHARDED_LAYERS
 TRAIN_SHARDED_MESH = (2, 2)
 TRAIN_SHARDED_STEPS = 3
 TRAIN_SHARDED_DEADLINE = 600
@@ -6317,14 +6319,14 @@ def phase_gloo_probe(torch, dev: str = "cuda:0") -> dict:
     return out
 
 
-def _sharded_setup():
+def _sharded_setup(arch: str = "qwen2.5-3b"):
     """(cut config, AdamW config, TrainConfig, shape, the batches (numpy))
-    of train_sharded's ranks."""
+    of train_sharded's ranks: `arch` at full width, depth cut to
+    TRAIN_SHARDED_LAYERS."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import OptimConfig, ShapeConfig, TrainConfig
     from repro_torch.data import pipeline, synthetic
-    cfg = registry.get_arch("qwen2.5-3b").replace(
-        num_layers=TRAIN_SHARDED_LAYERS)
+    cfg = registry.get_arch(arch).replace(num_layers=TRAIN_SHARDED_LAYERS)
     ocfg = OptimConfig(lr=3e-4, warmup_steps=2, total_steps=8)
     tcfg = TrainConfig(remat="block")
     shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
@@ -6452,8 +6454,21 @@ def _widen(tree):
     return tree.double() if tree.is_floating_point() else tree
 
 
+def _bits(t):
+    """A digest of a leaf's bits: two int64 sums of its words, plain and
+    weighted by position (1, 2, …, n; the sums wrap modulo 2^64, which
+    no order of summation changes). Equal leaves give equal digests; a
+    digest stands in for a leaf that the card cannot hold twice."""
+    import torch
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    b = t.detach().contiguous().view(words[t.element_size()]).flatten().to(
+        torch.int64)
+    w = torch.arange(1, b.numel() + 1, device=b.device, dtype=torch.int64)
+    return torch.stack([b.sum(), (b * w).sum()])
+
+
 def _one_device_steps(torch, dev, setup, keep, f64: bool = False,
-                      yard=None):
+                      yard=None, digest: bool = False):
     """The one-device train steps of `setup` on `dev` (a one-device mesh,
     the sharded run's microbatches: two of 2 rows), in float64 where
     `f64` (the f32 draw widened, every module's F32 float64): each
@@ -6462,7 +6477,7 @@ def _one_device_steps(torch, dev, setup, keep, f64: bool = False,
     `yard` (a float64 run's kept moments) each step's moments measured
     against them (`optim/parity.py::yardstick_parts`); the state's
     parameter count and bytes, a step's peak memory (the kept copies left
-    out). The model is freed."""
+    out). With `digest` a kept leaf is its `_bits`. The model is freed."""
     from repro_torch.data import pipeline
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_local_mesh
@@ -6508,8 +6523,9 @@ def _one_device_steps(torch, dev, setup, keep, f64: bool = False,
                 del mom
             for k, t in flat.items():
                 if keep(k):
-                    out["kept"][f"{s}/{k}"] = t.detach().clone()
-                    kept += t.nbytes
+                    c = _bits(t) if digest else t.detach().clone()
+                    out["kept"][f"{s}/{k}"] = c
+                    kept += c.nbytes
     del state, metrics, batch, flat, fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -6579,10 +6595,11 @@ def _train_sharded_ranks(torch, backend: str, dev: str, setup):
             "rank_wall_seconds": ranks_wall}
 
 
-def _world1_rank(rank, want, dev, setup):
+def _world1_rank(rank, want, dev, setup, digest: bool = False):
     """The NCCL world-1 run: a real DeviceMesh (1, 1) on `dev`, the state
     DTensors (Replicate), the step's DTensor path; every leaf after each
-    step against the plain step's (`want`, by CUDA IPC) bit for bit."""
+    step against the plain step's (`want`, by CUDA IPC) bit for bit; with
+    `digest` its digest (`_bits`) against the plain leaf's."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.data import pipeline
@@ -6609,6 +6626,7 @@ def _world1_rank(rank, want, dev, setup):
     state_bytes = sum((t.to_local() if is_dtensor(t) else t).nbytes
                       for t in flat.values())
     fn = steps.make_train_step(cfg, ocfg, tcfg, shape, mesh)
+    leaf = _bits if digest else (lambda t: t)
     ms, losses, differing = [], [], []
     for s in range(TRAIN_SHARDED_STEPS):
         batch = pipeline.place(batches[s], None, dev)
@@ -6620,8 +6638,12 @@ def _world1_rank(rank, want, dev, setup):
         losses.append(float(metrics["loss"]))
         differing.append([k for k, t in _flat_state(state).items()
                           if not torch.equal(
-                              t.to_local() if is_dtensor(t) else t,
+                              leaf(t.to_local() if is_dtensor(t) else t),
                               want[f"{s}/{k}"])])
+    # release the plain step's leaves (CUDA IPC) so that the parent's
+    # `ipc_collect` frees their blocks
+    want.clear()
+    gc.collect()
     return {"step_ms": ms, "losses": losses, "differing": differing,
             "n_leaves": len(flat), "n_dtensor": n_dtensor,
             "state_bytes": state_bytes,
@@ -6629,18 +6651,24 @@ def _world1_rank(rank, want, dev, setup):
             else 0}
 
 
-def _train_sharded_world1(torch, dev: str, setup):
+def _train_sharded_world1(torch, dev: str, setup, digest: bool = False):
     """The fallback where gloo's collectives under DTensor fail on CUDA
     tensors: the same cut model and steps through a real DeviceMesh (1,
     1) under NCCL at world size 1, held bit for bit against the plain
-    step."""
+    step (with `digest`, each leaf's digest, `_bits`, equal to the plain
+    step's: a model whose two states do not fit the card together)."""
     from repro_torch.launch.spawn import run_ranks
-    one = _one_device_steps(torch, dev, setup, lambda k: True)
+    one = _one_device_steps(torch, dev, setup, lambda k: True,
+                            digest=digest)
     t0 = time.perf_counter()
-    res = run_ranks(_world1_rank, 1, args=(one.pop("kept"), dev, setup),
+    res = run_ranks(_world1_rank, 1, args=(one.pop("kept"), dev, setup,
+                                           digest),
                     backend="nccl", timeout=TRAIN_SHARDED_DEADLINE)[0]
     ranks_wall = time.perf_counter() - t0
     gc.collect()
+    # the kept leaves went to the rank by CUDA IPC: their blocks stay
+    # allocated here until collected
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     assert res["n_dtensor"] == res["n_leaves"], res["n_dtensor"]
     assert all(not d for d in res["differing"]), res["differing"]
@@ -6680,7 +6708,9 @@ def phase_train_sharded(torch, dev: str = "cuda:0"):
     state, and step ms. Where it does not (a rank dies in them): the
     same model and steps through a real DeviceMesh (1, 1) under NCCL at
     world size 1, the state DTensors, every leaf equal to the plain
-    step's bit for bit."""
+    step's bit for bit. Then qwen3-moe-30b-a3b at full width, depth cut
+    48 → TRAIN_SHARDED_LAYERS, through the world-1 route alike (each
+    leaf's digest, `_bits`, equal to the plain step's)."""
     t_phase = time.perf_counter()
     probe = phase_gloo_probe(torch, dev)
     setup = _sharded_setup()
@@ -6689,6 +6719,19 @@ def phase_train_sharded(torch, dev: str = "cuda:0"):
         out = _train_sharded_ranks(torch, "gloo", dev, setup)
     else:
         out = _train_sharded_world1(torch, dev, setup)
+    # qwen3-moe at full width, depth cut 48 → TRAIN_SHARDED_LAYERS: the
+    # MoE's routing, dispatch and combine through the DTensor path at
+    # world 1, each leaf's digest equal to the plain step's (two states
+    # do not fit the card together)
+    t_moe = time.perf_counter()
+    moe_setup = _sharded_setup(TRAIN_SHARDED_MOE)
+    out["qwen3_moe_world1"] = dict(
+        _train_sharded_world1(torch, dev, moe_setup, digest=True),
+        arch=TRAIN_SHARDED_MOE,
+        reduced={"layers": [TRAIN_SHARDED_MOE_LAYERS,
+                            TRAIN_SHARDED_LAYERS]},
+        experts=moe_setup[0].moe.num_experts, top_k=moe_setup[0].moe.top_k,
+        seconds=time.perf_counter() - t_moe)
     SLICE17_SECONDS["train_sharded"] = time.perf_counter() - t_phase
     emit({"phase": "train_sharded", "arch": "qwen2.5-3b",
           "reduced": {"layers": [36, TRAIN_SHARDED_LAYERS]},
@@ -6705,6 +6748,10 @@ SLICE18_SECONDS = {}
 # cut 2^20 / 2^19 → 65,536, k 256 → 32 (the CPU's plain path in time)
 DRYRUN_CMP_N, DRYRUN_CMP_K = 65536, 32
 DRYRUN_FLOPS_TOL = 0.05      # (c): dot flops beside _train_step_flops
+# (b): cells whose paths need DTensor rules that torch 2.11 lacked before
+# the models ran each rank's own rows, heads and groups locally
+DRYRUN_GUARD_CELLS = ("mamba2-1.3b:decode_32k", "h2o-danube-3-4b:prefill_32k",
+                      "qwen3-moe-30b-a3b:prefill_32k")
 DRYRUN_BYTES_TOL = 0.10      # (c): total bytes beside the measured peak
 
 
@@ -6731,28 +6778,61 @@ def _dryrun_technique(torch, DR, counters, device, **kw) -> dict:
     return out
 
 
-def phase_dryrun(torch, train_figures, dev: str = "cuda"):
+def _start_dryrun_traces() -> dict:
+    """Phase dryrun's (b): qwen2.5-3b:train_4k on both meshes and
+    DRYRUN_GUARD_CELLS on the single mesh (this machine's torch guards
+    the DTensor rules their paths need), CPU-only traces, a process
+    each, started before `train_sharded` so that they run beside it and
+    beside (a), (c) and (d)."""
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    traces = {"tmp": tmp, "log": open(os.path.join(tmp.name, "log"), "w+"),
+              "t0": time.perf_counter()}
+    traces["sweep"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--only",
+         "qwen2.5-3b:train_4k", "--mesh", "both", "--out", tmp.name],
+        env=env, stdout=traces["log"], stderr=subprocess.STDOUT)
+    traces["guard_logs"] = {c: open(os.path.join(
+        tmp.name, c.replace(":", "__") + ".log"), "w+")
+        for c in DRYRUN_GUARD_CELLS}
+    traces["guards"] = {c: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--only", c,
+         "--mesh", "single", "--out", tmp.name], env=env,
+        stdout=traces["guard_logs"][c], stderr=subprocess.STDOUT)
+        for c in DRYRUN_GUARD_CELLS}
+    return traces
+
+
+def _stop_dryrun_traces(traces: dict) -> None:
+    """Every process `_start_dryrun_traces` started stopped, its files
+    removed."""
+    for proc in [traces["sweep"], *traces["guards"].values()]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for f in [traces["log"], *traces["guard_logs"].values()]:
+        f.close()
+    traces["tmp"].cleanup()
+
+
+def phase_dryrun(torch, train_figures, dev: str = "cuda", traces=None):
     """The dry run (launch/dryrun.py) on this machine: (a) the technique
     cells on the card, every kernel call with its declared cost, and the
     same cells at n DRYRUN_CMP_N on the card and the CPU; (b) qwen2.5-3b:
-    train_4k over both production meshes; (c) `phase_train_qwen2p5_3b`'s
-    step traced at world 1 against that phase's measured figures; (d)
-    hillclimb's smollm_dp_only."""
+    train_4k over both production meshes and DRYRUN_GUARD_CELLS over the
+    single one (each one's memory a device printed; `traces`: these
+    traces as `_start_dryrun_traces` started them); (c)
+    `phase_train_qwen2p5_3b`'s step traced at world 1 against that
+    phase's measured figures; (d) hillclimb's smollm_dp_only."""
     from repro_torch.kernels import counters
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import hillclimb as HC
     t_phase = time.perf_counter()
     out = {}
-    # (b) qwen2.5-3b:train_4k on both meshes: a CPU-only trace, in a
-    # process of its own beside (a), (c) and (d)
-    tmp = tempfile.TemporaryDirectory()
-    log = open(os.path.join(tmp.name, "log"), "w+")
-    t_b = time.perf_counter()
-    sweep = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--only",
-         "qwen2.5-3b:train_4k", "--mesh", "both", "--out", tmp.name],
-        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=log,
-        stderr=subprocess.STDOUT)
+    if traces is None:
+        traces = _start_dryrun_traces()
+    tmp, log, t_b = traces["tmp"], traces["log"], traces["t0"]
+    sweep, guards = traces["sweep"], traces["guards"]
     try:
         # (a) full size on the card
         cells = {}
@@ -6804,12 +6884,28 @@ def phase_dryrun(torch, train_figures, dev: str = "cuda"):
             with open(os.path.join(tmp.name, f"qwen2.5-3b__train_4k__"
                                    f"{mesh_kind}.json")) as fh:
                 recs.append(json.load(fh))
+        guard = {}
+        for c, proc in guards.items():
+            proc.wait(timeout=300)
+            glog = traces["guard_logs"][c]
+            glog.seek(0)
+            assert proc.returncode == 0, (c, glog.read()[-3000:])
+            with open(os.path.join(tmp.name, c.replace(":", "__")
+                                   + "__single.json")) as fh:
+                r = json.load(fh)
+            assert r["ok"], (c, r)
+            guard[c] = {"memory": r["per_device"]["memory"],
+                        "memory_gb": r["per_device"]["memory"][
+                            "total_bytes"] / 1e9,
+                        "flops": r["estimated"]["flops"],
+                        "collective_moved_bytes": r["estimated"][
+                            "collective_moved_bytes"],
+                        "seconds": r["seconds"]}
+            print(f"dryrun {c} single: "
+                  f"{guard[c]['memory_gb']:.2f} GB a device")
+        out["guard_cells"] = guard
     finally:
-        if sweep.poll() is None:
-            sweep.kill()
-            sweep.wait()
-        log.close()
-        tmp.cleanup()
+        _stop_dryrun_traces(traces)
     assert all(r["ok"] for r in recs), recs
     out["qwen2p5_3b_train_4k"] = {
         r["mesh"]: {"memory": r["per_device"]["memory"],
@@ -7012,12 +7108,17 @@ def main(argv=None) -> int:
           "seconds": sum(SLICE16_SECONDS.values())})
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_sharded(torch)
+    traces = _start_dryrun_traces()
+    try:
+        phase_train_sharded(torch)
+    except BaseException:
+        _stop_dryrun_traces(traces)
+        raise
     emit({"phase": "slice17_total", "phases": SLICE17_SECONDS,
           "seconds": sum(SLICE17_SECONDS.values())})
     gc.collect()
     torch.cuda.empty_cache()
-    phase_dryrun(torch, train_figures)
+    phase_dryrun(torch, train_figures, traces=traces)
     emit({"phase": "slice18_total", "phases": SLICE18_SECONDS,
           "seconds": sum(SLICE18_SECONDS.values())})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

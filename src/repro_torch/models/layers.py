@@ -79,31 +79,51 @@ class LayerStack(nn.ModuleList):
                           self.period)
 
 
-def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+def gather_fsdp(w: torch.Tensor, dims=None) -> torch.Tensor:
     """A DTensor parameter gathered over the mesh dims other than
     "model" (its FSDP dims: "data", "pod"), its tensor-parallel split
     kept: FSDP's gather at use, so a product never splits its contracted
     embed dim into partial sums over the data ranks (which round the
-    gradients further from the one-device step's). Its backward
-    reduce-scatters the gradient over those dims. Anything else as it
-    is."""
+    gradients further from the one-device step's). ``dims``: gather on
+    these mesh dims only (the others keep their split), but over every
+    FSDP dim where a ``_StridedShard`` (the multi-pod FSDP split) would
+    lose its partner. Its backward reduce-scatters the gradient over
+    those dims. Anything else as it is."""
     if not (isinstance(w, nn.Parameter) and is_dtensor(w)):
         return w
     from torch.distributed.tensor import Replicate
-    want = [p if name == "model" else Replicate()
-            for name, p in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if any(isinstance(p, _StridedShard) for p in w.placements):
+        dims = None
+    want = [p if name == "model" or (dims is not None and i not in dims)
+            else Replicate()
+            for i, (name, p) in enumerate(zip(w.device_mesh.mesh_dim_names,
+                                              w.placements))]
     if want == list(w.placements):
         return w
     return w.redistribute(w.device_mesh, want)
 
 
+def _split_dims(xs) -> set:
+    """The mesh dims on which an activation (a DTensor that is not a
+    parameter) among `xs` is split."""
+    return {d for x in xs if is_dtensor(x) and not isinstance(x, nn.Parameter)
+            for d, p in enumerate(x.placements) if p.is_shard()}
+
+
 def einsum32(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     """einsum with float32 accumulation: every operand widened to f32.
     Over a mesh (a DTensor operand) the product runs on each rank's
-    shards (`local_einsum`), a parameter gathered over its FSDP dims
-    first."""
+    shards (`local_einsum`), a parameter gathered first over the FSDP
+    dims that split an activation (the batch's data-parallel dims).
+    Where no activation is split on an FSDP dim (a batch that does not
+    divide "data"), the parameter keeps its split there and the product
+    contracts it into partial sums over those ranks, as XLA's partitioner
+    does (ROADMAP §C W2)."""
     if any(is_dtensor(x) for x in xs):
-        return local_einsum(eq, *(gather_fsdp(x).to(F32) for x in xs))
+        split = _split_dims(xs)
+        return local_einsum(eq, *(gather_fsdp(x, split).to(F32)
+                                  for x in xs))
     return torch.einsum(eq, *(x.to(F32) for x in xs))
 
 

@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Params, einsum32, rmsnorm
-from repro_torch.sharding.axes import ParamBuilder
+from repro_torch.models.layers import Params, einsum32, from_shard, rmsnorm
+from repro_torch.sharding.axes import ParamBuilder, is_dtensor
 
 F32 = torch.float32
 
@@ -90,6 +90,128 @@ def _project(params, u: torch.Tensor, cfg: ModelConfig):
     return z, x, bb, cc, dt_raw
 
 
+# ---------------------------------------------------------------------------
+# Over a mesh: the scan on each rank's own rows and heads
+# ---------------------------------------------------------------------------
+#
+# The SSD scan and its decode step mix no batch rows and no heads (the B/C
+# projections are shared by every head), so over a mesh each rank runs them
+# on its local tensors — the rows as act_batch splits them, d_inner and the
+# heads as act_mlp / act_heads split them — as `transformer._local_heads`
+# does for attention: no collective inside the scan, and no DTensor rule
+# for its pads, views and loops. The gated RMSNorm runs there too, its sum
+# of squares summed over the head ranks; the out-projection runs on
+# DTensors again (a partial sum over the head ranks).
+
+_VEC = ("dt_bias", "A_log", "D")
+
+
+class _Local:
+    """The layout of one mixer call over `u`'s mesh: ``bdims`` (the mesh
+    dims that split the rows evenly), ``hdims`` (those that split
+    d_inner and the SSM heads alike)."""
+
+    def __init__(self, u, z, dt_raw):
+        from repro_torch.sharding.axes import (current_act_rules,
+                                               resolve_spec)
+        from torch.distributed.tensor import Shard
+        self.mesh = mesh = u.device_mesh
+        rules = current_act_rules()
+        bdims = [d for d, p in enumerate(u.placements)
+                 if type(p) is Shard and p.dim == 0]
+        if u.shape[0] % math.prod(mesh.size(d) for d in bdims):
+            bdims = []
+        self.bdims = bdims
+
+        def split(t, name):
+            spec = resolve_spec(("act_batch", None, name), t.shape, mesh,
+                                rules)
+            entry = spec[2] if len(spec) > 2 else None
+            names = () if entry is None else (
+                (entry,) if isinstance(entry, str) else entry)
+            return [d for d, n in enumerate(mesh.mesh_dim_names)
+                    if n in names and d not in bdims]
+        hd = split(dt_raw, "act_heads")
+        self.hdims = hd if hd == split(z, "act_mlp") else []
+
+    def placements(self, dim):
+        """Rows on the batch dims, tensor dim `dim` (None: none) on the
+        head dims."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [Shard(0) if d in self.bdims else
+                (Shard(dim) if dim is not None and d in self.hdims
+                 else Replicate()) for d in range(self.mesh.ndim)]
+
+    def local(self, t, dim, rows: bool = True):
+        """DTensor `t` laid out by `placements` (its rows on the batch
+        dims where ``rows``), as this rank's tensor. Its gradient is a
+        partial sum on a batch dim where it has no rows and on a head dim
+        where it has no head dim (every head reads it)."""
+        from torch.distributed.tensor import Partial, Replicate
+        want = self.placements(dim)
+        if not rows:
+            want = [Replicate() if d in self.bdims else p
+                    for d, p in enumerate(want)]
+        if list(t.placements) != want:
+            t = t.redistribute(self.mesh, want)
+        grads = [Partial() if (d in self.bdims and not rows)
+                 or (d in self.hdims and dim is None) else p
+                 for d, p in enumerate(want)]
+        return t.to_local(grad_placements=grads)
+
+    def wrap(self, t, dim, shape):
+        """This rank's `t` as the DTensor of global ``shape``."""
+        return from_shard(t.contiguous(), self.mesh, self.placements(dim),
+                          shape)
+
+    def norm(self, y, scale, eps: float, rows_seq):
+        """The gated output's RMSNorm over d_inner on this rank's
+        channels, its sum of squares summed over the head ranks: the
+        normed (B, S, d_inner) DTensor."""
+        from torch.distributed.tensor import Partial
+        dt_ = y.dtype
+        yf = y.to(F32)
+        ss = yf.square().sum(-1, keepdim=True)
+        if self.hdims:
+            ss = from_shard(ss, self.mesh, [
+                Partial() if d in self.hdims else p
+                for d, p in enumerate(self.placements(None))],
+                tuple(rows_seq) + (1,))
+            # each rank's channels read the sum: its gradient is a
+            # partial sum over the head ranks
+            ss = ss.redistribute(self.mesh, self.placements(None)).to_local(
+                grad_placements=[Partial() if d in self.hdims else p
+                                 for d, p in enumerate(
+                                     self.placements(None))])
+        di = yf.shape[-1] * math.prod(self.mesh.size(d) for d in self.hdims)
+        out = yf * torch.rsqrt(ss / di + eps)
+        out = (out * self.local(scale, 0, rows=False).to(F32)).to(dt_)
+        return self.wrap(out, 2, tuple(rows_seq) + (di,))
+
+    def head0(self, t) -> int:
+        """The first SSM head of this rank's local (…, H) tensor `t`."""
+        k = 0
+        for d in self.hdims:
+            k = k * self.mesh.size(d) + self.mesh.get_coordinate()[d]
+        return k * t.shape[-1]
+
+    def inputs(self, z, x, bb, cc, dt_raw):
+        """The projections on this rank: z, x and dt on its rows and
+        heads, B and C on its rows."""
+        return (*(self.local(t, 2) for t in (z, x)),
+                *(self.local(t, None) for t in (bb, cc)),
+                self.local(dt_raw, 2))
+
+    def params(self, params):
+        """The scan's parameters on this rank (conv_x's channels and the
+        per-head vectors of its heads)."""
+        out = {"conv_x": self.local(params["conv_x"], 1, rows=False),
+               "conv_B": self.local(params["conv_B"], None, rows=False),
+               "conv_C": self.local(params["conv_C"], None, rows=False)}
+        out.update({k: self.local(params[k], 0, rows=False) for k in _VEC})
+        return out
+
+
 def mamba_apply(params, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Training forward. u: (B,S,E) → (B,S,E)."""
     y, _ = _mamba_forward(params, u, cfg, return_state=False)
@@ -113,20 +235,55 @@ def _mamba_forward(params, u: torch.Tensor, cfg: ModelConfig,
                    return_state: bool):
     s_cfg = cfg.ssm
     bsz, seq0, _ = u.shape
-    h, g, n, p = (s_cfg.n_heads(cfg.d_model), s_cfg.n_groups, s_cfg.d_state,
-                  s_cfg.head_dim)
     q = min(s_cfg.chunk_size, seq0)
     # left-pad to a chunk multiple: zero inputs contribute nothing to the
     # state (dt·x·B = 0) and the initial state is zero, so outputs for the
-    # real positions are exact.
+    # real positions are exact. (Over a mesh the projections of the zero
+    # rows, zeros, are padded on each rank.)
     pad = (-seq0) % q
-    if pad:
+    if pad and not is_dtensor(u):
         u = F.pad(u, (0, 0, pad, 0))
-    seq = seq0 + pad
-    nc = seq // q
     dt_ = u.dtype
 
     z, x, bb, cc, dt_raw = _project(params, u, cfg)
+    lay, p = None, params
+    if is_dtensor(u):
+        lay = _Local(u, z, dt_raw)
+        p = lay.params(params)
+        z, x, bb, cc, dt_raw = lay.inputs(z, x, bb, cc, dt_raw)
+        if pad:
+            z, x, bb, cc, dt_raw = (F.pad(t, (0, 0, pad, 0))
+                                    for t in (z, x, bb, cc, dt_raw))
+    y, state_entry = _scan(p, z, x, bb, cc, dt_raw, cfg, q, return_state,
+                           lay.head0(dt_raw) if lay else 0)
+    if lay is not None:
+        y = lay.norm(y, params["norm_scale"], cfg.rms_eps,
+                     (bsz, seq0 + pad))
+        if return_state:
+            state_entry = _wrap_cache(lay, state_entry, bsz, cfg)
+    else:
+        y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.rms_eps)
+    # out-projection (over a mesh a partial sum over the head ranks)
+    out = einsum32("bsi,ie->bse", y, params["out_proj"]).to(dt_)
+    if pad:
+        out = out[:, pad:]
+    if return_state:
+        return out, state_entry
+    return out, None
+
+
+def _scan(params, z, x, bb, cc, dt_raw, cfg: ModelConfig, q: int,
+          return_state: bool, h0: int = 0):
+    """The SSD scan of (B,S,·) projections (S a multiple of the chunk
+    `q`), gated by silu(z): (y (B,S,H·P), the decode-cache entry or
+    None). H is the heads `x` holds, from head `h0` (a rank's own over a
+    mesh)."""
+    s_cfg = cfg.ssm
+    bsz, seq, _ = x.shape
+    g, n, p = s_cfg.n_groups, s_cfg.d_state, s_cfg.head_dim
+    h = dt_raw.shape[-1]
+    nc = seq // q
+    dt_ = x.dtype
     state_entry = None
     if return_state:
         w = s_cfg.conv_width
@@ -150,12 +307,12 @@ def _mamba_forward(params, u: torch.Tensor, cfg: ModelConfig,
 
     # ---- intra-chunk (dense, masked) --------------------------------------
     # scores[l,s] = C_l · B_s per group, broadcast to that group's heads
-    heads_per_g = h // g
+    heads_per_g = s_cfg.n_heads(cfg.d_model) // g
     scores = einsum32("bclgn,bcsgn->bcgls", cr, br)
-    scores = torch.repeat_interleave(scores, heads_per_g, dim=2)  # b,c,h,l,s
+    scores = _group_heads(scores, heads_per_g, h0, h, 2)  # b,c,h,l,s
     # decay[l,s] = exp(cum[l] - cum[s]) for l ≥ s, the exponent masked
     # BEFORE exp (for l < s it is positive and exp would overflow)
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # b,c,l,s,h
     diff = torch.where(mask[None, None, :, :, None], diff, -1e30)
     decay = torch.exp(diff).movedim(-1, 2)                        # b,c,h,l,s
@@ -166,12 +323,12 @@ def _mamba_forward(params, u: torch.Tensor, cfg: ModelConfig,
     # ---- chunk states ------------------------------------------------------
     last = cum[:, :, -1:, :]                                       # (b,c,1,h)
     w_s = torch.exp(last - cum) * dtr                              # (b,c,q,h)
-    br_h = torch.repeat_interleave(br, heads_per_g, dim=3)        # b,c,q,h,n
+    br_h = _group_heads(br, heads_per_g, h0, h, 3)        # b,c,q,h,n
     chunk_state = einsum32("bcshn,bcsh,bcshp->bchnp", br_h, w_s, xr)
 
     # ---- inter-chunk sequential scan --------------------------------------
-    cr_h = torch.repeat_interleave(cr, heads_per_g, dim=3).to(F32)
-    st = torch.zeros((bsz, h, n, p), dtype=F32, device=u.device)
+    cr_h = _group_heads(cr, heads_per_g, h0, h, 3).to(F32)
+    st = torch.zeros((bsz, h, n, p), dtype=F32, device=x.device)
     ys = []
     for c in range(nc):
         ys.append(einsum32("bshn,bsh,bhnp->bshp", cr_h[:, c],
@@ -184,17 +341,19 @@ def _mamba_forward(params, u: torch.Tensor, cfg: ModelConfig,
     y = y + params["D"].to(F32)[None, None, :, None] * x.reshape(
         bsz, seq, h, p).to(F32)
     y = y.reshape(bsz, seq, h * p).to(dt_)
-
-    # gated RMSNorm + out-projection
     y = y * F.silu(z.to(F32)).to(dt_)
-    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.rms_eps)
-    out = einsum32("bsi,ie->bse", y, params["out_proj"]).to(dt_)
-    if pad:
-        out = out[:, pad:]
     if return_state:
         state_entry["state"] = st
-        return out, state_entry
-    return out, None
+    return y, state_entry
+
+
+def _group_heads(t, heads_per_g: int, h0: int, h: int, dim: int):
+    """(…, G, …) per-group values repeated for each group's heads along
+    `dim`: heads h0 … h0 + h − 1 (a rank's own over a mesh)."""
+    if h0 == 0 and t.shape[dim] * heads_per_g == h:
+        return torch.repeat_interleave(t, heads_per_g, dim=dim)
+    idx = (torch.arange(h, device=t.device) + h0) // heads_per_g
+    return t.index_select(dim, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -232,17 +391,54 @@ def mamba_cache_axes(cfg: ModelConfig) -> Dict:
     }
 
 
+def _wrap_cache(lay: _Local, e: Dict, bsz: int, cfg: ModelConfig) -> Dict:
+    """A rank's cache entry as DTensors laid out by `mamba_cache_axes`:
+    rows on the batch dims, conv_x's channels and the state's heads on
+    the head dims."""
+    spec = mamba_cache_spec(cfg, bsz, e["conv_x"].dtype)
+    dims = {"conv_x": 2, "conv_B": None, "conv_C": None, "state": 1}
+    return {k: lay.wrap(v, dims[k], spec[k][0]) for k, v in e.items()}
+
+
 def mamba_decode_step(params, cache: Dict, ut: torch.Tensor,
                       cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """ut: (B,1,E) one token → (yt (B,1,E), new cache)."""
-    s_cfg = cfg.ssm
-    h, g, n, p = (s_cfg.n_heads(cfg.d_model), s_cfg.n_groups, s_cfg.d_state,
-                  s_cfg.head_dim)
+    """ut: (B,1,E) one token → (yt (B,1,E), new cache). Over a mesh the
+    step runs on each rank's rows and heads of the cache."""
     dt_ = ut.dtype
-    bsz = ut.shape[0]
-    heads_per_g = h // g
-
     z, x, bb, cc, dt_raw = _project(params, ut, cfg)
+    lay, p = None, params
+    if is_dtensor(ut):
+        lay = _Local(ut, z, dt_raw)
+        p = lay.params(params)
+        z, x, bb, cc, dt_raw = lay.inputs(z, x, bb, cc, dt_raw)
+        cache = {"conv_x": lay.local(cache["conv_x"], 2),
+                 "conv_B": lay.local(cache["conv_B"], None),
+                 "conv_C": lay.local(cache["conv_C"], None),
+                 "state": lay.local(cache["state"], 1)}
+    y, new_cache = _decode_core(p, cache, z, x, bb, cc, dt_raw, cfg,
+                                lay.head0(dt_raw) if lay else 0)
+    if lay is not None:
+        bsz = ut.shape[0]
+        y = lay.norm(y, params["norm_scale"], cfg.rms_eps, (bsz, 1))
+        new_cache = _wrap_cache(lay, new_cache, bsz, cfg)
+    else:
+        y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.rms_eps)
+    yt = einsum32("bsi,ie->bse", y, params["out_proj"]).to(dt_)
+    return yt, new_cache
+
+
+def _decode_core(params, cache: Dict, z, x, bb, cc, dt_raw,
+                 cfg: ModelConfig, h0: int = 0):
+    """The one-step recurrence on (B,1,·) projections and the cache of
+    the heads `x` holds (from head `h0`), gated by silu(z): (y (B,1,H·P),
+    the new cache)."""
+    s_cfg = cfg.ssm
+    g, n, p = s_cfg.n_groups, s_cfg.d_state, s_cfg.head_dim
+    h = dt_raw.shape[-1]
+    dt_ = x.dtype
+    bsz = x.shape[0]
+    heads_per_g = s_cfg.n_heads(cfg.d_model) // g
+
     conv_x, xt = _conv_step(cache["conv_x"], x[:, 0], params["conv_x"])
     conv_B, bt = _conv_step(cache["conv_B"], bb[:, 0], params["conv_B"])
     conv_C, ct = _conv_step(cache["conv_C"], cc[:, 0], params["conv_C"])
@@ -255,18 +451,15 @@ def mamba_decode_step(params, cache: Dict, ut: torch.Tensor,
     decay = torch.exp(dt * a)                                      # (B,H)
 
     xh = xt.reshape(bsz, h, p)
-    bh = torch.repeat_interleave(bt, heads_per_g, dim=1)           # (B,H,N)
-    ch = torch.repeat_interleave(ct, heads_per_g, dim=1)
+    bh = _group_heads(bt, heads_per_g, h0, h, 1)                   # (B,H,N)
+    ch = _group_heads(ct, heads_per_g, h0, h, 1)
     st = cache["state"]                                            # (B,H,N,P)
     st = decay[:, :, None, None] * st + torch.einsum(
         "bhn,bh,bhp->bhnp", bh, dt, xh)
     y = torch.einsum("bhn,bhnp->bhp", ch, st)                      # (B,H,P)
     y = y + params["D"].to(F32)[None, :, None] * xh
     y = y.reshape(bsz, 1, h * p).to(dt_)
-
     y = y * F.silu(z.to(F32)).to(dt_)
-    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.rms_eps)
-    yt = einsum32("bsi,ie->bse", y, params["out_proj"]).to(dt_)
     new_cache = {"conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C,
                  "state": st}
-    return yt, new_cache
+    return y, new_cache

@@ -46,7 +46,7 @@ from repro_torch.models import moe as X
 from repro_torch.models.layers import LayerStack, Params, einsum32
 from repro_torch.sharding.axes import (ParamBuilder, constrain,
                                        current_act_rules, is_dtensor,
-                                       placements, resolve_spec,
+                                       mesh_shape, placements, resolve_spec,
                                        unflatten_axes)
 
 F32 = torch.float32
@@ -165,6 +165,36 @@ def _self_attention(p, x, cfg: ModelConfig, layer: int, positions,
     return o, ((k, v) if capture else None)
 
 
+def _uneven_spec(logical, shape, mesh, rules):
+    """`resolve_spec`, and for a dim it leaves whole the first free
+    candidate of its rule that is one mesh axis of more than one rank and
+    leaves a rank less than the whole dim: that dim split unevenly,
+    DTensor's chunks (the first ranks hold ⌈n / size⌉ entries, the last
+    ones fewer or none) — XLA's partitioner pads such a dim to a multiple
+    of the axis (ROADMAP §C W2). A single row stays whole (its rank would
+    hold it all), as do splits over two axes (DTensor nests uneven
+    chunks on neither torch). (spec, the dims split unevenly)."""
+    spec = list(resolve_spec(logical, shape, mesh, rules))
+    spec += [None] * (len(logical) - len(spec))
+    sizes = mesh_shape(mesh)
+    used = {a for e in spec if e is not None
+            for a in ((e,) if isinstance(e, str) else e)}
+    table, uneven = dict(rules), []
+    for d, name in enumerate(logical):
+        if name is None or spec[d] is not None:
+            continue
+        for cand in table[name]:
+            axes = (cand,) if isinstance(cand, str) else tuple(cand)
+            if (len(axes) == 1 and axes[0] in sizes
+                    and axes[0] not in used and sizes[axes[0]] > 1
+                    and -(-shape[d] // sizes[axes[0]]) < shape[d]):
+                spec[d] = axes[0]
+                used.add(axes[0])
+                uneven.append(d)
+                break
+    return tuple(spec), uneven
+
+
 def _local_heads(attn, q, k, v):
     """attn(q, k, v) on each rank's own rows and heads. Attention mixes
     no batch rows and no heads (a query head reads its group's key
@@ -174,19 +204,34 @@ def _local_heads(attn, q, k, v):
     split the query heads (2 key heads over 16), the keys and values
     stay whole there and each rank takes the one key head its query
     heads read; their gradients come back as partial sums over those
-    ranks. Where a group of query heads would straddle two ranks, or the
-    query heads do not divide the ranks, every head runs whole on every
-    rank. Plain tensors go straight through."""
+    ranks. Where a group of query heads would straddle two ranks, every
+    head runs whole on every rank. A batch or query heads that do not
+    divide their ranks (4 rows over 16, 40 heads over 16) are split
+    unevenly, as XLA pads them (§C W2): a rank takes the key heads its
+    query heads read, one a query head, and a rank with no rows or no
+    heads computes nothing. Plain tensors go straight through."""
     if not is_dtensor(q):
         return attn(q, k, v)
-    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
     mesh, rules = q.device_mesh, current_act_rules()
 
-    def layout(t, heads):
-        return placements(resolve_spec(("act_batch", None, heads, None),
-                                       t.shape, mesh, rules), mesh)
-    want, kv_want = layout(q, "act_heads"), layout(k, "act_kv_heads")
-    split = [d for d, (a, b) in enumerate(zip(want, kv_want)) if a != b]
+    spec, uneven = _uneven_spec(("act_batch", None, "act_heads", None),
+                                q.shape, mesh, rules)
+    want = placements(spec, mesh)
+    rows = [p if p == Shard(0) else Replicate() for p in want]
+    if 2 in uneven:
+        # query heads split unevenly: keys and values whole on the head
+        # dims, expanded locally to the key head of each query head
+        kv_want, split = tuple(rows), []
+    else:
+        kv_want = placements(resolve_spec(
+            ("act_batch", None, "act_kv_heads", None), k.shape, mesh,
+            rules), mesh)
+        kv_want = tuple(Shard(0) if r == Shard(0) else p
+                        for r, p in zip(rows, kv_want))
+        split = [d for d, (a, b) in enumerate(zip(want, kv_want)) if a != b]
     shard = 0
     for d in range(mesh.ndim):
         if want[d] == Shard(2):
@@ -196,18 +241,29 @@ def _local_heads(attn, q, k, v):
     group = q.shape[2] // k.shape[2]
     if split and (Shard(2) in kv_want or group % hq
                   or any(want[d] != Shard(2) for d in split)):
-        want = kv_want = layout(q, None)
+        want = kv_want = tuple(rows)
         split = []
     q = q if tuple(q.placements) == want else q.redistribute(mesh, want)
     k, v = (t if tuple(t.placements) == kv_want
             else t.redistribute(mesh, kv_want) for t in (k, v))
-    grads = [Partial() if d in split else p for d, p in enumerate(kv_want)]
+    partial = [d for d in range(mesh.ndim)
+               if d in split or (2 in uneven and want[d] == Shard(2))]
+    grads = [Partial() if d in partial else p for d, p in enumerate(kv_want)]
     ql, kl, vl = (q.to_local(), k.to_local(grad_placements=grads),
                   v.to_local(grad_placements=grads))
     if split:
         head = shard * hq // group
         kl, vl = kl[:, :, head:head + 1], vl[:, :, head:head + 1]
-    o = attn(ql, kl, vl)
+    elif 2 in uneven:
+        _, off = compute_local_shape_and_global_offset(q.shape, mesh, want)
+        idx = (torch.arange(ql.shape[2], device=ql.device) + off[2]) // group
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    if ql.numel() == 0:
+        # no rows or no heads here: an empty output that still takes
+        # (zero) gradients, so every rank runs the same backward
+        o = ql + 0.0 * (kl.sum() + vl.sum()).to(ql.dtype)
+    else:
+        o = attn(ql, kl, vl)
     return L.from_shard(o.contiguous(), mesh, want, q.shape)
 
 
@@ -440,17 +496,14 @@ def prefill(params, batch: Dict, cfg: ModelConfig, mesh=None,
             buf = _cache_len(cfg, i, max_len)
             k, v = e["k"], e["v"]
             if cfg.layer_is_swa(i) and buf < seq:
-                # SWA ring: token p → slot p % W
-                slots = torch.arange(seq - buf, seq, device=k.device) % buf
-                ring = torch.zeros(k.shape[:1] + (buf,) + k.shape[2:],
-                                   dtype=k.dtype, device=k.device)
-                out["k"] = ring.index_copy(1, slots, k[:, -buf:])
-                out["v"] = torch.zeros_like(ring).index_copy(1, slots,
-                                                            v[:, -buf:])
+                # SWA ring: token p → slot p % W, i.e. the last W tokens
+                # rotated by (seq − W) % W (slices and a concatenation:
+                # DTensor has rules for them, not for index_copy)
+                out["k"], out["v"] = (_ring(t[:, -buf:], (seq - buf) % buf)
+                                      for t in (k, v))
             elif buf > seq:                    # headroom for decode steps
-                pad = (0, 0, 0, 0, 0, buf - seq)
-                out["k"] = F.pad(k, pad)
-                out["v"] = F.pad(v, pad)
+                out["k"], out["v"] = (_pad_positions(t, buf - seq)
+                                      for t in (k, v))
             else:
                 out["k"], out["v"] = k, v
             out["k"] = constrain(out["k"], mesh, "act_batch", "act_kv_seq",
@@ -462,6 +515,27 @@ def prefill(params, batch: Dict, cfg: ModelConfig, mesh=None,
                 out[key] = e[key]
         cache_layers.append(out)
     return logits, {"layers": cache_layers, "index": seq}
+
+
+def _pad_positions(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, …) `t` with n zero positions after its last. Over a mesh the
+    pad runs on each rank's shard (no mesh dim splits the positions here):
+    torch 2.11's DTensor cannot plan ``F.pad``'s redistribution."""
+    pad = (0, 0) * (t.dim() - 2) + (0, n)
+    if not is_dtensor(t) or any(p.is_shard(1) for p in t.placements):
+        return F.pad(t, pad)
+    shape = (t.shape[0], t.shape[1] + n) + tuple(t.shape[2:])
+    return L.from_shard(F.pad(t.to_local(), pad), t.device_mesh,
+                        t.placements, shape)
+
+
+def _ring(last: torch.Tensor, shift: int) -> torch.Tensor:
+    """The ring buffer holding `last` (B, W, …), token j at slot
+    (shift + j) % W."""
+    if shift == 0:
+        return last
+    w = last.shape[1]
+    return torch.cat([last[:, w - shift:], last[:, :w - shift]], dim=1)
 
 
 # ---------------------------------------------------------------------------

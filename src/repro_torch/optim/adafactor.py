@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import OptimConfig
 from repro_torch.optim.tree import get_path, leaves, set_path, stacked_leaves
+from repro_torch.sharding.axes import select0
 
 F32 = torch.float32
 _EPS1 = 1e-30
@@ -93,10 +94,11 @@ def _leaf_updates(st: Dict, gfs: List[torch.Tensor], stacked: bool,
         out = []
         for r, gf in enumerate(gfs):
             g2 = torch.square(gf) + _EPS1
-            vr = beta2 * st["vr"][r] + (1 - beta2) * g2.mean(-1)
-            vc = beta2 * st["vc"][r] + (1 - beta2) * g2.mean(-2)
-            st["vr"][r].copy_(vr)
-            st["vc"][r].copy_(vc)
+            vr_r, vc_r = select0(st["vr"], r), select0(st["vc"], r)
+            vr = beta2 * vr_r + (1 - beta2) * g2.mean(-1)
+            vc = beta2 * vc_r + (1 - beta2) * g2.mean(-2)
+            vr_r.copy_(vr)
+            vc_r.copy_(vc)
             out.append(gf / torch.sqrt(_vhat(vr, vc) + 1e-30))
         return out
     gf = torch.stack(gfs) if stacked else gfs[0]

@@ -293,6 +293,30 @@ def full_tensor(t):
     return t.full_tensor() if is_dtensor(t) else t
 
 
+def select0(t, i: int):
+    """``t[i]``, a view of `t`'s storage, for a tensor whose dim 0 no
+    mesh dim splits (a stack's layers). A DTensor's view is built from
+    its local tensor, each split moved down one dim: torch 2.11's rule
+    for ``select`` leaves a ``_StridedShard``'s dim where it was (the
+    multi-pod FSDP split), which no later op can redistribute."""
+    if not is_dtensor(t):
+        return t[i]
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import Shard, _StridedShard
+    moved = []
+    for p in t.placements:
+        if isinstance(p, _StridedShard):
+            p = _StridedShard(p.dim - 1, split_factor=p.split_factor)
+        elif isinstance(p, Shard):
+            p = Shard(p.dim - 1)
+        moved.append(p)
+    local = t.to_local()[i]
+    shape = tuple(t.shape[1:])
+    stride = tuple(math.prod(shape[j + 1:]) for j in range(len(shape)))
+    return DTensor.from_local(local, t.device_mesh, moved, run_check=False,
+                              shape=shape, stride=stride)
+
+
 def constrain(x: torch.Tensor, mesh, *logical: Optional[str],
               rules: Optional[AxisRules] = None) -> torch.Tensor:
     """The reference's with_sharding_constraint by logical activation

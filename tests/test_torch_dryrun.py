@@ -54,14 +54,20 @@ CELLS = LM_SHAPES + tuple(TECH_CUT)
 # the ways of counting (eager ops against XLA's HloCostAnalysis: products
 # alike, elementwise ops without fusion, transcendentals apart in both)
 BAND = (0.5, 2.0)
-# ROADMAP §C W2: the smoke LM cells over the 256-rank mesh. The port's
-# sharded step gathers each FSDP weight at use and runs a batch of 4
-# (which does not divide the 16 data ranks) whole on every data rank, its
-# 4 heads (which do not divide 16) whole on every model rank, where
-# XLA's partitioner splits the contracted embed dim into partial sums:
-# the products (aten.bmm of the projections and attention) run 2.6–20×
-# the reference's flops a device. At world 1 the two counts agree.
-REPLICATED_ON_THE_MESH = LM_SHAPES
+# ROADMAP §C W2 (repaired): the smoke LM cells over the 256-rank mesh. A
+# batch of 4 (which does not divide the 16 data ranks) contracts each FSDP
+# weight's embed dim into partial sums over the data ranks, as XLA's
+# partitioner does, and attention splits the 4 rows over "data" and the 4
+# query heads (which do not divide 16) over "model" unevenly, as XLA pads
+# them: no cell runs above the band's top.
+REPLICATED_ON_THE_MESH = ()
+# ... nor below its bottom, but train_4k: its microbatches hold one row,
+# whose 4 heads the reference runs whole on every model rank, where the
+# port keeps one head a rank. The reference's own count shows it: the
+# same cell with 16 query heads (`WIDE`), which "model" divides, counts
+# fewer flops a device than with 4.
+WHOLE_IN_THE_REFERENCE = ("train_4k",)
+WIDE = "qwen2.5-3b-16-heads"
 # The same cells with a batch and query heads that the mesh divides
 # (16 rows over 16 data ranks, 16 query heads over 16 model ranks) and
 # qwen2.5-3b's 2 key heads, which do not, at 2 layers: each rank's
@@ -112,6 +118,13 @@ if inp["part"] == "split":
         with mesh:
             est = D.probe_lm_cell(inp["split"], s, mesh, 256)
         res[f"{inp['split']}:{s}"] = {"flops": est["flops"]}
+    # the smoke train cell with 16 query heads, which "model" divides
+    R.get_arch = {inp["wide"]: dataclasses.replace(
+        base, num_heads=16)}.__getitem__
+    R.get_shape = {"train_4k": R.smoke_shape("train_4k")}.__getitem__
+    with mesh:
+        est = D.probe_lm_cell(inp["wide"], "train_4k", mesh, 256)
+    res[f"{inp['wide']}:train_4k"] = {"flops": est["flops"]}
     with open(inp["out"], "w") as f:
         json.dump({"cells_res": res}, f)
     sys.exit(0)
@@ -204,7 +217,7 @@ class _Reference:
                    "records": COLL_RECORDS, "hw": HC.HW, "rec": TERMS_REC,
                    "arch": ARCH, "shapes": LM_SHAPES, "technique": TECH_CUT,
                    "split": SPLIT, "split_cfg": SPLIT_CFG,
-                   "split_batch": SPLIT_BATCH,
+                   "split_batch": SPLIT_BATCH, "wide": WIDE,
                    "out": os.path.join(self.dir.name, f"{part}.json")}
             self.procs[part] = subprocess.Popen(
                 [sys.executable, "-c", REF_SCRIPT, json.dumps(inp)], env=env,
@@ -398,6 +411,28 @@ def _cpu_step_peak(device):
     if device == "cpu":
         assert math.isfinite(float(out[1]["loss"]))
     return mode
+
+
+def _moe_prefill_peak(mesh):
+    cfg = TR.smoke_config("qwen3-moe-30b-a3b").replace(
+        param_dtype="bfloat16")
+    shape = ShapeConfig("prefill_32k", "prefill", 512, 16)
+    step, args = DR.build_cell(cfg, OptimConfig(), shape, mesh, "block")
+    _, mode = DR.count(step, *args, groups=DR.mesh_groups(mesh))
+    return mode.peak
+
+
+def test_moe_prefill_peak_a_device_is_its_groups_share():
+    """qwen3-moe's smoke prefill, 16 rows × 512 positions (16 groups of
+    512 tokens, one a data rank), on the 256-rank fake world: each rank
+    routes, dispatches and combines its own group, so its peak of live
+    bytes is at most an eighth of the same cell's at world 1."""
+    with DR.fake_world(256):
+        sharded = _moe_prefill_peak(DR.production_mesh("single"))
+    whole = _moe_prefill_peak(TMESH.make_local_mesh(1, 1, device="cpu"))
+    print(f"qwen3-moe smoke prefill peak: {sharded} B a rank of 256, "
+          f"{whole} B at world 1 ({whole / sharded:.1f}×)")
+    assert 0 < sharded <= whole / 8, (sharded, whole)
 
 
 def test_live_bytes_peak_of_a_cpu_step_equals_the_meta_steps():
@@ -672,6 +707,14 @@ def test_flops_a_device_against_reference(ref, cell):
     print(f"{cell}: port/reference {ratio1:.3f} at world 1, {ratio:.3f} "
           f"a device of the 16×16 mesh")
     assert BAND[0] <= ratio1 <= BAND[1], (cell, ratio1)
-    # the finding: outside the band over the mesh, above it (W2)
+    # W2 repaired: inside the band over the mesh, below it only where the
+    # reference runs whole what the port splits
     assert (cell in REPLICATED_ON_THE_MESH) == (ratio > BAND[1]), (cell,
                                                                    ratio)
+    assert (cell in WHOLE_IN_THE_REFERENCE) == (ratio < BAND[0]), (cell,
+                                                                   ratio)
+    if cell in WHOLE_IN_THE_REFERENCE:
+        wide = ref.data()["cells_res"][f"{WIDE}:{cell}"]["flops"]
+        print(f"{cell}: the reference's flops a device with 16 heads "
+              f"{wide:.4g}, with 4 {res['flops']:.4g}")
+        assert wide < res["flops"], (wide, res["flops"])
