@@ -433,6 +433,32 @@ counted a device by dryrun.CostMode, the kernels' declared costs):
                           (d) hillclimb's smollm_dp_only and its terms
   slice18_total           the seconds these phases added
 
+and, between the k-medoid phases and the coverage problems, the paper's
+sequential Greedy on fused_step's global tier (the per-step fused kernel
+past a thread-block cluster's shared memory: its chunk partials in
+device memory, a span's last block summing them):
+
+  sequential_kmedoid      (after timing_stream, the other k-medoid
+                          tensors freed; the card holds the images, the
+                          40 GB f32 cache and its 1.25 GB of partials,
+                          ~46 GB) simulate.run_greedy_dense('kmedoid',
+                          …) over all 100,000 images, k = 200, engine
+                          auto: 1 pairwise and 200 fused_step launches;
+                          wall, steps' and build's device ms, the
+                          Greedy's global value beside `run`'s GreedyML
+                          one and their ratio; the same cache again, 8
+                          steps on the global tier and the earlier
+                          design bit for bit, the Greedy's first 8 ids;
+                          the global tier against its plain version at
+                          100,000 rows × 2,048 candidates, each storage
+  timing_fused_global     (the images freed) f32, bf16 and int8 at 1 ×
+                          100,000² on the global tier and on the earlier
+                          design (bit for bit) beside each bound; the
+                          earlier design's row blocks and last-block sum
+                          on the card's clock; the plain version; both
+                          tiers at the gate's shapes in each storage
+  slice20_total           the seconds these phases added
+
 (`reference_dispatch` also runs small coverage trees, kernel path
 against CPU path; every stream phase prints its summary's digest.) Then the card's name and power limit (nvidia-smi),
 the {"kernels": …} line (twenty kernels), and as the last line
@@ -1427,8 +1453,9 @@ def phase_timing(torch, x, cfg, seed, reps):
 
 
 def _vs_global(torch, step, reps) -> dict:
-    """fused_step at one shape beside its global tier, the earlier design
-    (the parent's kernel): the global tier's CUDA-event ms a call, and
+    """fused_step at one shape beside the earlier design (reference=True,
+    row blocks summed by one last block; the global tier's kernel before
+    its redesign): that design's CUDA-event ms a call (`global_ms`), and
     each design's device ms a launch by torch.profiler (at the node
     shapes the host sets the event time, so only device time compares
     the kernels)."""
@@ -1585,42 +1612,327 @@ def phase_timing_steps(torch, x, cfg, pools, reps):
     return out
 
 
+# the sequential Greedy's steps replayed on both fused_step designs, and
+# the candidates of its parity check against the plain version
+SEQ_REPLAY = 8
+SLICE20_SECONDS = {}
+SEQ_PARITY_C = 2_048
+
+
+@contextlib.contextmanager
+def _device_ms(torch, module, name: str, log: list):
+    """Record CUDA events around every call of module.<name> for the
+    duration; `log` gets the (start, end) pairs."""
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*a, **kw)
+        ev[1].record()
+        log.append(ev)
+        return out
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_sequential_kmedoid(torch, x, cfg, f32_run):
+    """The paper's sequential Greedy baseline over all n images on the
+    card: simulate.run_greedy_dense('kmedoid', x, k), engine 'auto' — the
+    fused engine on fused_step's global tier (the f32 (n, n) cache, 40 GB
+    at n = 100,000): 1 pairwise and k fused_step launches. The wall time,
+    the steps' and the cache build's device time (CUDA events around each
+    dispatch), the Greedy's global value beside phase `run`'s GreedyML
+    one and their ratio (the paper's quality comparison). Then the same
+    cache once more: its first SEQ_REPLAY steps on the global tier and on
+    the earlier design, bit for bit, their winners the Greedy's first
+    ids; and the global tier against its plain version
+    (parity.compare_steps) over all n ground rows and SEQ_PARITY_C
+    candidates, in each storage. Returns (launches, the largest gain
+    error against the plain version)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.simulate import run_greedy_dense
+    from repro_torch.kernels import counters, ops, parity, plans
+    from repro_torch.kernels import fused_step as F
+    from repro_torch.kernels import rules as R
+    t_phase = time.perf_counter()
+    n, k = x.shape[0], cfg.k
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    steps, builds = [], []
+    counters.reset()
+    t0 = time.perf_counter()
+    with _device_ms(torch, ops, "fused_step", steps), \
+            _device_ms(torch, ops, "pairwise_matrix", builds):
+        res = run_greedy_dense("kmedoid", x, k, device=x.device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c["launches"] for name, c in counters.snapshot().items()
+                if c["launches"]}
+    assert launches == {"pairwise": 1, "fused_step": k}, launches
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    ids = np.asarray(res.ids)
+    assert len(ids) == k and len(set(ids.tolist())) == k
+    assert np.isfinite(res.value) and res.value > 0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the replay: the same cache, built as the greedy builds it
+    obj = make_objective("kmedoid", device=x.device)
+    pay = x[None]
+    valid = torch.ones(1, n, dtype=torch.bool, device=x.device)
+    state = obj.init_state(pay, valid)
+    mat, plan = obj.prepare(state, pay, valid)
+    assert plans.fused_tier(plan.dtype, n, plan.block_n) == "global"
+    rule = obj.rule
+    row, mask = state.row.contiguous(), valid.float()
+    prev = torch.full((1,), -1, dtype=torch.int64, device=x.device)
+    entries = differing = 0
+    replayed = []
+    for _ in range(SEQ_REPLAY):
+        got = F.fused_step(mat, row, mask, prev, rule, block_n=plan.block_n)
+        yard = parity.compare_exact(got, F.fused_step(
+            mat, row, mask, prev, rule, block_n=plan.block_n,
+            reference=True), "sequential Greedy replay vs the earlier "
+            "design")
+        entries += yard["entries"]
+        differing += yard["differing"]
+        row, prev = got[0], got[1]
+        replayed.append(int(prev[0]))
+        mask[0, prev[0]] = 0.0
+    assert replayed == ids[:SEQ_REPLAY].tolist(), (replayed, ids[:8])
+    del mat, row, mask, state
+    torch.cuda.empty_cache()
+    # the global tier against its plain version at all n ground rows
+    cands = x[:SEQ_PARITY_C][None]
+    grow = R.empty_row(pay, valid, rule).contiguous()
+    gen = torch.Generator(device=x.device).manual_seed(cfg.seed)
+    gmask = (torch.rand(1, SEQ_PARITY_C, generator=gen, device=x.device)
+             > 0.2).float()
+    gprev = torch.tensor([7], device=x.device)
+    checks = {}
+    for dtype in ("float32",) + QUANT:
+        built = ops.pairwise_matrix(pay, cands, rule, dtype)
+        mat, scale = ((built.q, built.scale) if dtype == "int8"
+                      else (built, None))
+        got = F.fused_step(mat, grow, gmask, gprev, rule, scale=scale)
+        plain = F.fused_step_plain(mat, grow, gmask, gprev, rule,
+                                   scale=scale)
+        checks[dtype] = parity.compare_steps(
+            got, plain, R.logical(mat, scale), gmask, rule,
+            what=f"fused_step[{dtype}] global tier at {n} rows")
+        parity.compare_exact(got, F.fused_step(
+            mat, grow, gmask, gprev, rule, scale=scale, reference=True),
+            f"fused_step[{dtype}] global tier vs the earlier design")
+        del built, mat, scale
+    del cands
+    torch.cuda.empty_cache()
+    greedyml = f32_run[1]
+    seconds = time.perf_counter() - t_phase
+    SLICE20_SECONDS["sequential_kmedoid"] = seconds
+    emit({"phase": "sequential_kmedoid", "n": n, "d": x.shape[1], "k": k,
+          "engine": plan.engine, "dtype": plan.dtype,
+          "tier": plans.fused_tier(plan.dtype, n, plan.block_n),
+          "launches": launches, "wall_seconds": wall,
+          "pairwise_ms": sum(a.elapsed_time(b) for a, b in builds),
+          "steps_ms": sum(step_ms), "step_ms_mean": sum(step_ms) / k,
+          "step_ms_max": max(step_ms),
+          "held_gb_before": held_gb, "peak_gb": peak_gb,
+          "greedy_global_value": res.value,
+          "greedy_root_value": res.root_value,
+          "greedyml_global_value": greedyml,
+          "greedyml_over_greedy": greedyml / res.value,
+          "ids_sha1": _digest(ids, res.value)["ids_sha1"],
+          "replay": {"steps": SEQ_REPLAY, "ids": replayed,
+                     "entries": entries, "differing": differing},
+          "vs_plain": {dt: {"max_gain_err": v["max_gain_err"],
+                            "ties": v["ties"]}
+                       for dt, v in checks.items()},
+          "seconds": seconds})
+    return launches, max(v["max_gain_err"] for v in checks.values())
+
+
+# (B, N, C) caches where both fused_step tiers run (a cluster's shared
+# memory holds a span's partials up to 92,416 f32 rows): the gate's
+# comparison, from the knapsack node and leaf to 90,000 rows, each a view
+# of the first entries of the 100,000² cache
+GATE_SHAPES = ((32, 400, 400), (32, 3_125, 3_125), (8, 12_500, 12_500),
+               (1, 25_000, 100_000), (1, 50_000, 100_000),
+               (1, 90_000, 100_000))
+
+
+def _fused_global_storage(torch, parity, step, mat, scale, reps):
+    """One storage at the global tier's shape: the global tier beside the
+    earlier design (bit for bit, CUDA-event ms each) and the bound of the
+    step's bytes (the cache and int8 scales read once, the row read and
+    written, the mask read)."""
+    b, n, c = mat.shape
+    got = step(mat, scale)
+    yard = parity.compare_exact(got, step(mat, scale, reference=True),
+                                f"fused_step[{mat.dtype}] global tier vs "
+                                "the earlier design")
+    assert 0 <= int(got[1][0]) < c and bool(torch.isfinite(got[2]).all())
+    nbytes = (mat.numel() * mat.element_size()
+              + (0 if scale is None else 4.0 * b * n)
+              + 4.0 * b * (2 * n + c) + 16.0 * b)
+    bms, by = bound(3.0 * b * n * c, nbytes)
+    return {"ms": cuda_ms(torch, lambda: step(mat, scale), reps),
+            "earlier_ms": cuda_ms(torch, lambda: step(
+                mat, scale, reference=True), reps),
+            "bound_ms": bms, "bound_by": by,
+            "vs_earlier_design": {"entries": yard["entries"],
+                                  "differing": yard["differing"]}}
+
+
+@contextlib.contextmanager
+def _fused_tier(tier: str):
+    """fused_step's tier forced through the planner's chunk limit in
+    plans for the duration: 'global' everywhere, or 'cluster' wherever
+    the cluster design fits."""
+    from repro_torch.kernels import plans
+    old = plans.FUSED_CLUSTER_CHUNKS
+    plans.FUSED_CLUSTER_CHUNKS = 0 if tier == "global" else 1 << 30
+    try:
+        yield
+    finally:
+        plans.FUSED_CLUSTER_CHUNKS = old
+
+
+def _gate_table(torch, F, parity, plans, rule, mat, scale, block_n, reps):
+    """fused_step's two tiers at GATE_SHAPES, each a view of the first
+    entries of `mat` (and of its int8 scales), in its storage: the
+    cluster design where it fits (forced where the planner sends the
+    shape to the global tier) and the global tier (forced below the
+    gate), bit for bit (against the earlier design where no cluster
+    fits); CUDA-event ms a call and device ms a launch (torch.profiler:
+    at the node shape the host sets the event time); the tier the
+    planner picks."""
+    dtype = str(mat.dtype).removeprefix("torch.")
+    rows = []
+    for b, g, c in GATE_SHAPES:
+        sub = mat.view(-1)[:b * g * c].view(b, g, c)
+        ssub = (None if scale is None
+                else scale.view(-1)[:b * g].view(b, 1, g))
+        grow = torch.full((b, g), 2.0, device=mat.device)
+        gmask = torch.ones(b, c, device=mat.device)
+        gprev = torch.zeros(b, dtype=torch.int64, device=mat.device)
+
+        def gstep():
+            return F.fused_step(sub, grow, gmask, gprev, rule,
+                                block_n=block_n, scale=ssub)
+
+        def device_ms():
+            split = _kernel_split(torch, gstep, 10)["kernel_split"]
+            if not isinstance(split, dict):
+                return split
+            return sum(v["ms_per_launch"] for k, v in split.items()
+                       if "fused_step" in k)
+        row_ = {"shape": [b, g, c],
+                "planner": plans.fused_tier(dtype, g, block_n)}
+        if plans.fused_cluster_fits(dtype, g, block_n):
+            with _fused_tier("cluster"):
+                assert plans.fused_tier(dtype, g, block_n) == "cluster"
+                want, what = gstep(), "cluster design"
+                row_["cluster_ms"] = cuda_ms(torch, gstep, 5 * reps)
+                row_["cluster_device_ms"] = device_ms()
+        else:   # int8 past 77,056 rows: the earlier design is the yardstick
+            row_["cluster_ms"] = "fits no cluster"
+            want = F.fused_step(sub, grow, gmask, gprev, rule,
+                                block_n=block_n, scale=ssub, reference=True)
+            what = "the earlier design"
+        with _fused_tier("global"):
+            assert plans.fused_tier(dtype, g, block_n) == "global"
+            yard = parity.compare_exact(gstep(), want,
+                                        f"fused_step[{dtype}] global tier "
+                                        f"vs {what}")
+            row_["global_ms"] = cuda_ms(torch, gstep, 5 * reps)
+            row_["global_device_ms"] = device_ms()
+        nbytes = (b * g * c * mat.element_size()
+                  + (0 if scale is None else 4.0 * b * g)
+                  + 4.0 * b * (2 * g + c) + 16.0 * b)
+        row_["bound_ms"] = bound(3.0 * b * g * c, nbytes)[0]
+        row_["vs_yardstick"] = {"entries": yard["entries"],
+                                "differing": yard["differing"]}
+        rows.append(row_)
+        del sub, ssub, want
+    return rows
+
+
 def phase_timing_fused_global(torch, cfg, reps):
     """fused_step's global tier where the planner sends a step to it: the
     sequential Greedy over all n images (simulate.run_greedy_dense), one
     greedy whose f32 (n, n) cache (40,000 MB at n = 100,000) fits the
-    budget but whose span partials fit no cluster's shared memory. The
-    cache is random (the time does not depend on its values); the step
-    is held to finite gains and a winner in range. Reported, not in the
+    budget but whose span partials fit no cluster's shared memory. Each
+    storage (f32, bf16, int8) at 1 × n² on the global tier and on the
+    earlier design, bit for bit, beside its bound; the earlier design's
+    two phases on the card's clock (`earlier_split`: its row blocks, then
+    its last block's sum); the plain version over four column slices
+    (whole, it would hold two (n, n) f32 temporaries); both tiers at
+    GATE_SHAPES (`gate`, views of the same cache). The caches are random
+    (the time does not depend on their values). Reported, not in the
     kernels line."""
     from repro_torch.kernels import fused_step as F
-    from repro_torch.kernels import plans
+    from repro_torch.kernels import parity, plans
     from repro_torch.kernels import rules as R
+    t_phase = time.perf_counter()
     n = cfg.n
     plan = plans.select_engine(R.DIST_MIN, n, n, cfg.feature_dim)
     assert plan.engine == "fused", plan
-    assert not plans.fused_cluster_fits(plan.dtype, n, plan.block_n)
+    assert plans.fused_tier(plan.dtype, n, plan.block_n) == "global"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    mat = torch.rand((1, n, n), generator=gen, device=dev)
     row = torch.full((1, n), 2.0, device=dev)
     mask = torch.ones(1, n, device=dev)
     prev = torch.zeros(1, dtype=torch.int64, device=dev)
     rule = R.DIST_MIN
-    _, best, gain = F.fused_step(mat, row, mask, prev, rule,
-                                 block_n=plan.block_n)
-    assert 0 <= int(best[0]) < n and bool(torch.isfinite(gain).all())
-    ms = cuda_ms(torch, lambda: F.fused_step(mat, row, mask, prev, rule,
-                                             block_n=plan.block_n), reps)
-    bms, by = bound(3.0 * n * n, 4.0 * n * n + 4.0 * 4 * n + 16.0)
-    # the step engine's work a step at the same size: the products alone
-    step_bms = bound(2.0 * n * n * cfg.feature_dim, 4.0 * n * cfg.feature_dim)
-    emit({"phase": "timing_fused_global", "shape": [1, n, n],
-          "dtype": plan.dtype, "block_n": plan.block_n, "ms": ms,
-          "bound_ms": bms, "bound_by": by,
-          "step_engine_bound_ms": step_bms[0]})
+
+    def step(mat, scale=None, **kw):
+        return F.fused_step(mat, row, mask, prev, rule, block_n=plan.block_n,
+                            scale=scale, **kw)
+
+    def gate(mat, scale=None):
+        return _gate_table(torch, F, parity, plans, rule, mat, scale,
+                           plan.block_n, reps)
+    mat = torch.rand((1, n, n), generator=gen, device=dev)
+    out = {"float32": _fused_global_storage(torch, parity, step, mat,
+                                            None, reps)}
+    out["float32"]["earlier_split"] = F.earlier_design_split(
+        mat, row, mask, prev, rule, plan.block_n)
+    quarter = -(-n // 4)
+    out["float32"]["plain_ms"] = sum(
+        cuda_ms(torch, lambda c0=c0: F.fused_step_plain(
+            mat[..., c0:c0 + quarter], row, mask[:, c0:c0 + quarter], prev,
+            rule), reps) for c0 in range(0, n, quarter))
+    out["float32"]["gate"] = gate(mat)
     del mat
     torch.cuda.empty_cache()
+    mat = torch.rand((1, n, n), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    out["bfloat16"] = _fused_global_storage(torch, parity, step, mat,
+                                            None, reps)
+    out["bfloat16"]["gate"] = gate(mat)
+    del mat
+    torch.cuda.empty_cache()
+    mat = torch.randint(-127, 127, (1, n, n), generator=gen, device=dev,
+                        dtype=torch.int8)
+    scale = torch.rand((1, 1, n), generator=gen, device=dev) / 127
+    out["int8"] = _fused_global_storage(torch, parity, step, mat, scale,
+                                        reps)
+    out["int8"]["gate"] = gate(mat, scale)
+    del mat, scale
+    torch.cuda.empty_cache()
+    # the step engine's work a step at the same size: the products alone
+    step_bms = bound(2.0 * n * n * cfg.feature_dim, 4.0 * n * cfg.feature_dim)
+    SLICE20_SECONDS["timing_fused_global"] = time.perf_counter() - t_phase
+    emit({"phase": "timing_fused_global", "shape": [1, n, n],
+          "block_n": plan.block_n,
+          "chunks_a_block": {dt: plans.fused_global_chunks(dt, plan.block_n)
+                             for dt in ("float32", "bfloat16", "int8")},
+          **out, "step_engine_bound_ms": step_bms[0],
+          "seconds": SLICE20_SECONDS["timing_fused_global"]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7022,11 +7334,20 @@ def main(argv=None) -> int:
     times.update(phase_timing_quant(torch, x, cfg, pools, args.reps))
     times.update(phase_timing_stream(torch, x, cfg, pools, stream_inputs,
                                      args.reps, global_inputs))
-    # the coverage problems: the k-medoid tensors go first
-    del x, pools, stream_inputs, global_inputs
+    # the sequential Greedy over all images, then the coverage problems:
+    # the k-medoid tensors go first
+    del pools, stream_inputs, global_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_launches, seq_err = phase_sequential_kmedoid(torch, x, cfg, f32_run)
+    _add(launches, seq_launches)
+    errs["fused_step"] = max(errs["fused_step"], seq_err)
+    del x
     gc.collect()
     torch.cuda.empty_cache()
     phase_timing_fused_global(torch, cfg, args.reps)
+    emit({"phase": "slice20_total", "phases": SLICE20_SECONDS,
+          "seconds": sum(SLICE20_SECONDS.values())})
     kc = KOSARAK
     bits, words, sets = phase_data_kcover(torch, kc, KOSARAK_AVG_SIZE, dev)
     kpools = lane_pools(torch, words, kc.num_machines, kc.seed)

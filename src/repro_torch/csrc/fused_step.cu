@@ -48,12 +48,18 @@
 // 1,600 blocks of 49 chunks; at a 400-row node 4 spans x 2 (f32) a
 // greedy.
 //
-// Where a span's partials do not fit even a cluster of 8 blocks (more
-// than ~92,000 f32 or bf16 rows, ~77,000 int8 rows: the caller's gate,
-// plans.fused_cluster_fits) the step runs the earlier design,
-// rt_fused_step_global_kernel: a greedy's N / CH row blocks write (B, P,
-// C) f32 partials to device memory and the greedy's last block sums them
-// in block order - the same sums in the same order, so the same bits.
+// Past 16 chunks a block of a cluster of 8 (the caller's gate,
+// plans.fused_tier: 4,096 rows in chunks of 32), where a span's partials
+// crowd the SM's shared memory to one or two blocks or fit no cluster at
+// all (more than ~92,000 f32 or bf16 rows, ~77,000 int8 rows), the step
+// runs the global tier, rt_fused_step_spans_kernel: the same span pass,
+// its chunk partials in a (B, P, CP) f32 scratch in device memory, each
+// span's last block to arrive summing its columns in chunk order and the
+// greedy's last span picking the first maximum of the spans' pairs - the
+// same sums in the same order, so the same bits; at the sequential
+// Greedy's 1 x 100,000^2 f32 its 782 spans sum their chains in parallel
+// (the earlier design, rt_fused_step_global_kernel, kept as the tests'
+// yardstick, left that sum of 1.25 GB of partials to one block).
 //
 // bf16 and int8 storage run the same template: the span pass widens
 // each entry to the f32 value rules.dequant gives (an int8 row's scale
@@ -286,7 +292,7 @@ static cudaError_t rt_fused_step_launch(const void* mat, const float* scale,
   if (e != cudaSuccess) return e;
   smem_max -= 1024;  // the static argmax scratch
   const int CL = rt_fused_cluster<S>(B, N, C, CH, smem_max);
-  if (CL <= 0) return cudaErrorInvalidValue;  // the global tier's shapes
+  if (CL <= 0) return cudaErrorInvalidValue;  // no cluster fits: global tier
   const S* m = (const S*)mat;
   constexpr int VW = RtFusedVec<S>::VW;
   if ((uintptr_t)m % 16 != 0)
@@ -302,10 +308,199 @@ static cudaError_t rt_fused_step_launch(const void* mat, const float* scale,
       arrivals, B, N, C, CH, CL, rule, st);
 }
 
-// The global tier: the earlier design, P = N/R blocks of R rows a greedy,
-// (B, P, C) f32 partials in device memory, the greedy's last block
-// summing them alone - the same sums in the same order as
-// rt_fused_step_kernel.
+// The global tier: the cluster design's span pass with its chunk
+// partials in device memory. A span's NB blocks of CPB chunks each write
+// (CPB, SPAN) partials into the (B, P, CP) f32 scratch (CP = spans * SPAN,
+// so every vector store lies on the 16-byte grid) and count their arrival
+// on the (greedy, span) counter; the span's last block sums the span's
+// columns over all P partials in chunk order (the loads issued
+// RT_CHAIN_AHEAD chunks ahead of the chain), takes their masked
+// first-argmax and writes the span's (gain, column) pair; the greedy's
+// last span to arrive picks the first maximum of the pairs. The blocks
+// run span by span (blockIdx.x = span * NB + rank), so a span's sum runs
+// while later spans stream, and a span's partials are read back from L2.
+// arrivals: (B * spans) span counters, then (B,) greedy counters.
+#define RT_CHAIN_AHEAD 16
+
+template <class S, int PATH>
+__global__ void __launch_bounds__(RT_THREADS, RT_FUSED_MINB)
+    rt_fused_step_spans_kernel(const S* __restrict__ mat,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ row_in,
+                               const float* __restrict__ mask,
+                               const long long* __restrict__ prev_in,
+                               float* __restrict__ row_out,
+                               long long* __restrict__ best,
+                               float* __restrict__ gain,
+                               float* __restrict__ partials,
+                               float* __restrict__ pval,
+                               int* __restrict__ pidx,
+                               int* __restrict__ arrivals, int N, int C,
+                               int CH, int NB, int CPB, RtRule rule) {
+  constexpr int SPAN = RT_FUSED_SPAN;
+  extern __shared__ __align__(16) float smem[];
+  float* rows = smem;            // (CPB * CH,) the block's new state rows
+  float* scl = rows + CPB * CH;  // (CPB * CH,) their int8 scales
+  __shared__ float sv[32];
+  __shared__ int si[32];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const size_t b = blockIdx.y;
+  const int B = gridDim.y;
+  const int span = blockIdx.x / NB;
+  const int rank = blockIdx.x % NB;
+  const int spans = gridDim.x / NB;
+  const size_t CP = (size_t)spans * SPAN;
+  const int P = (N + CH - 1) / CH;
+  const int q0 = rank * CPB;
+  const int nq = max(0, min(P - q0, CPB));  // this block's chunks
+  const int r0 = q0 * CH;
+  const int nr = max(0, min(N - r0, nq * CH));
+  const int cs = span * SPAN;
+  const size_t e_greedy = b * N * C;  // the greedy's first entry
+  const long long prev = prev_in[b];
+  float* part = partials + b * P * CP;  // the greedy's (P, CP) partials
+
+  // 1. deferred update: fold the previous winner's column into the rows
+  for (int i = tid; i < nr; i += T) {
+    const size_t r = (size_t)(r0 + i);
+    const float s = rt_scaled<S>() ? scale[b * N + r] : 1.f;
+    if (rt_scaled<S>()) scl[i] = s;
+    float v = row_in[b * N + r];
+    if (prev >= 0) v = rt_fold(v, rt_entry(mat, e_greedy + r * C + prev, s),
+                               rule);
+    rows[i] = v;
+    if (span == 0) row_out[b * N + r] = v;
+  }
+  __syncthreads();
+
+  // 2. the chunk partials (span_pass.cuh), into device memory
+  rt_span_pass<S, PATH>(
+      mat, e_greedy, C, cs, r0, nr, nq, CH, rows, scl, rule,
+      [&](int j, int lane, const float (&acc)[RtFusedVec<S>::VW]) {
+        float4* dst = reinterpret_cast<float4*>(
+            &part[(size_t)(q0 + j) * CP + cs + lane * RtFusedVec<S>::VW]);
+#pragma unroll
+        for (int v = 0; v < RtFusedVec<S>::VW; v += 4)
+          dst[v / 4] = make_float4(acc[v], acc[v + 1], acc[v + 2],
+                                   acc[v + 3]);
+      });
+  __threadfence();
+  __syncthreads();
+  int* span_count = arrivals + b * spans + span;
+  if (tid == 0) is_last = atomicAdd(span_count, 1) == NB - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // 3. the span's last block: each column the sum of all P chunk
+  //    partials in chunk order, then masked first-argmax
+  float bv = -INFINITY;
+  int bi = RT_NO_INDEX;
+  if (tid < SPAN && cs + tid < C) {
+    const int c = cs + tid;
+    const float* src = part + c;
+    float g = 0.f;
+    int q = 0;
+    for (; q + RT_CHAIN_AHEAD <= P; q += RT_CHAIN_AHEAD) {
+      float v[RT_CHAIN_AHEAD];
+#pragma unroll
+      for (int u = 0; u < RT_CHAIN_AHEAD; ++u)
+        v[u] = __ldcg(&src[(size_t)(q + u) * CP]);
+#pragma unroll
+      for (int u = 0; u < RT_CHAIN_AHEAD; ++u) g += v[u];
+    }
+    for (; q < P; ++q) g += __ldcg(&src[(size_t)q * CP]);
+    rt_argmax_pair(bv, bi, mask[b * C + c] > 0.f ? g : -INFINITY, c);
+  }
+  rt_block_argmax(bv, bi, sv, si);
+  int* greedy_count = arrivals + (size_t)B * spans + b;
+  if (tid == 0) {
+    pval[b * spans + span] = bv;
+    pidx[b * spans + span] = bi;
+    *span_count = 0;  // ready for the next launch
+    __threadfence();
+    is_last = atomicAdd(greedy_count, 1) == spans - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+
+  // 4. the greedy's last span: the first maximum of its spans' pairs
+  bv = -INFINITY;
+  bi = RT_NO_INDEX;
+  for (int q = tid; q < spans; q += T)
+    rt_argmax_pair(bv, bi, __ldcg(&pval[b * spans + q]),
+                   __ldcg(&pidx[b * spans + q]));
+  rt_block_argmax(bv, bi, sv, si);
+  if (tid == 0) {
+    best[b] = bi;
+    gain[b] = bv;
+    *greedy_count = 0;  // ready for the next launch
+  }
+}
+
+template <class S, int PATH>
+static cudaError_t rt_fused_step_spans_path(
+    const S* mat, const float* scale, const float* row_in, const float* mask,
+    const long long* prev, float* row_out, long long* best, float* gain,
+    float* partials, float* pval, int* pidx, int* arrivals, int B, int N,
+    int C, int CH, int CPB, RtRule rule, cudaStream_t st) {
+  const int P = (N + CH - 1) / CH;
+  const int NB = max(1, (P + CPB - 1) / CPB);
+  const int spans = (C + RT_FUSED_SPAN - 1) / RT_FUSED_SPAN;
+  const size_t smem =
+      (size_t)CPB * CH * (rt_scaled<S>() ? 2 : 1) * sizeof(float);
+  void* fn = (void*)rt_fused_step_spans_kernel<S, PATH>;
+  if (smem > 48 * 1024) {  // beyond the default: opt in (a host call)
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  rt_fused_step_spans_kernel<S, PATH>
+      <<<dim3((unsigned)(spans * NB), (unsigned)B), RT_THREADS, smem, st>>>(
+          mat, scale, row_in, mask, prev, row_out, best, gain, partials, pval,
+          pidx, arrivals, N, C, CH, NB, CPB, rule);
+  return cudaGetLastError();
+}
+
+template <class S>
+static cudaError_t rt_fused_step_spans(const void* mat, const float* scale,
+                                       const float* row_in, const float* mask,
+                                       const long long* prev, float* row_out,
+                                       long long* best, float* gain,
+                                       float* partials, float* pval,
+                                       int* pidx, int* arrivals, int B, int N,
+                                       int C, int CH, int CPB, RtRule rule,
+                                       cudaStream_t st) {
+  if (CPB <= 0) return cudaErrorInvalidValue;
+  const S* m = (const S*)mat;
+  constexpr int VW = RtFusedVec<S>::VW;
+  if ((uintptr_t)m % 16 != 0)
+    return rt_fused_step_spans_path<S, RT_ROWS_SCALAR>(
+        m, scale, row_in, mask, prev, row_out, best, gain, partials, pval,
+        pidx, arrivals, B, N, C, CH, CPB, rule, st);
+  if (C % VW != 0)
+    return rt_fused_step_spans_path<S, RT_ROWS_SHIFT>(
+        m, scale, row_in, mask, prev, row_out, best, gain, partials, pval,
+        pidx, arrivals, B, N, C, CH, CPB, rule, st);
+  return rt_fused_step_spans_path<S, RT_ROWS_ALIGNED>(
+      m, scale, row_in, mask, prev, row_out, best, gain, partials, pval,
+      pidx, arrivals, B, N, C, CH, CPB, rule, st);
+}
+
+// The earlier design, kept as the tests' yardstick (reference=True): P =
+// N/R blocks of R rows a greedy read every column in scalar loads, write
+// (B, P, C) f32 partials to device memory, and the greedy's last block
+// sums them alone - the same sums in the same order as the other tiers.
+// stamps (B, 3), when not null: the card's clock (ns) as the greedy's
+// first block starts (the host sets it to ~0 first), as its last block
+// starts the sum, and as that block ends - the two phases' split.
+__device__ __forceinline__ unsigned long long rt_globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 template <class S>
 __global__ void __launch_bounds__(RT_THREADS)
     rt_fused_step_global_kernel(const S* __restrict__ mat,
@@ -317,8 +512,9 @@ __global__ void __launch_bounds__(RT_THREADS)
                                 long long* __restrict__ best,
                                 float* __restrict__ gain,
                                 float* __restrict__ partials,
-                                int* __restrict__ arrivals, int N, int C,
-                                int P, int R, RtRule rule) {
+                                int* __restrict__ arrivals,
+                                unsigned long long* __restrict__ stamps,
+                                int N, int C, int P, int R, RtRule rule) {
   extern __shared__ float rows[];  // (R,) this block's new state rows
   float* scl = rows + R;           // (R,) their int8 scales (int8 only)
   __shared__ float sv[32];
@@ -332,6 +528,7 @@ __global__ void __launch_bounds__(RT_THREADS)
   const int nr = max(0, min(N - r0, R));
   const S* M = mat + b * N * C + (size_t)r0 * C;
   const long long prev = prev_in[b];
+  if (stamps != nullptr && tid == 0) atomicMin(&stamps[b * 3], rt_globaltimer());
 
   // 1. deferred update: fold the previous winner's column into the rows
   for (int i = tid; i < nr; i += T) {
@@ -361,6 +558,7 @@ __global__ void __launch_bounds__(RT_THREADS)
   if (tid == 0) is_last = atomicAdd(arrivals + b, 1) == P - 1;
   __syncthreads();
   if (!is_last) return;
+  if (stamps != nullptr && tid == 0) stamps[b * 3 + 1] = rt_globaltimer();
 
   // 3. the greedy's last block: reduce the P partials in block order,
   //    masked first-argmax
@@ -377,6 +575,7 @@ __global__ void __launch_bounds__(RT_THREADS)
     best[b] = bi;
     gain[b] = bv;
     arrivals[b] = 0;  // ready for the next launch
+    if (stamps != nullptr) stamps[b * 3 + 2] = rt_globaltimer();
   }
 }
 
@@ -386,16 +585,22 @@ static cudaError_t rt_fused_step_global(const S* mat, const float* scale,
                                         const float* mask,
                                         const long long* prev, float* row_out,
                                         long long* best, float* gain,
-                                        float* partials, int* arrivals, int B,
+                                        float* partials, int* arrivals,
+                                        unsigned long long* stamps, int B,
                                         int N, int C, int R, RtRule rule,
                                         cudaStream_t st) {
   const int P = max(1, (N + R - 1) / R);
   const size_t smem = (size_t)R * (rt_scaled<S>() ? 2 : 1) * sizeof(float);
   rt_fused_step_global_kernel<S><<<B * P, RT_THREADS, smem, st>>>(
       mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-      arrivals, N, C, P, R, rule);
+      arrivals, stamps, N, C, P, R, rule);
   return cudaGetLastError();
 }
+
+// the tiers of rt_fused_step (kernels/fused_step.py:TIERS)
+#define RT_TIER_CLUSTER 0
+#define RT_TIER_GLOBAL 1
+#define RT_TIER_EARLIER 2
 
 template <class S>
 static cudaError_t rt_fused_step_any(const void* mat, const float* scale,
@@ -403,33 +608,49 @@ static cudaError_t rt_fused_step_any(const void* mat, const float* scale,
                                      const long long* prev, float* row_out,
                                      long long* best, float* gain,
                                      float* partials, int* pairs,
-                                     int* arrivals, int B, int N, int C,
-                                     int CH, RtRule rule, cudaStream_t st) {
-  if (partials != nullptr)
-    return rt_fused_step_global<S>((const S*)mat, scale, row_in, mask, prev,
-                                   row_out, best, gain, partials, arrivals,
-                                   B, N, C, CH, rule, st);
+                                     int* arrivals, void* stamps, int B,
+                                     int N, int C, int CH, int tier, int CPB,
+                                     RtRule rule, cudaStream_t st) {
   const int spans = (C + RT_FUSED_SPAN - 1) / RT_FUSED_SPAN;
-  float* pval = (float*)pairs;
-  int* pidx = pairs + (size_t)B * spans * RT_FUSED_CLUSTER_MAX;
-  return rt_fused_step_launch<S>(mat, scale, row_in, mask, prev, row_out,
-                                 best, gain, pval, pidx, arrivals, B, N, C,
-                                 CH, rule, st);
+  switch (tier) {
+    case RT_TIER_CLUSTER: {
+      float* pval = (float*)pairs;
+      int* pidx = pairs + (size_t)B * spans * RT_FUSED_CLUSTER_MAX;
+      return rt_fused_step_launch<S>(mat, scale, row_in, mask, prev, row_out,
+                                     best, gain, pval, pidx, arrivals, B, N,
+                                     C, CH, rule, st);
+    }
+    case RT_TIER_GLOBAL:
+      return rt_fused_step_spans<S>(mat, scale, row_in, mask, prev, row_out,
+                                    best, gain, partials, (float*)pairs,
+                                    pairs + (size_t)B * spans, arrivals, B, N,
+                                    C, CH, CPB, rule, st);
+    case RT_TIER_EARLIER:
+      return rt_fused_step_global<S>((const S*)mat, scale, row_in, mask,
+                                     prev, row_out, best, gain, partials,
+                                     arrivals, (unsigned long long*)stamps,
+                                     B, N, C, CH, rule, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // mat: (B, N, C) in `storage` (RT_STORE_F32 | BF16 | INT8); scale: (B, N)
 // f32 row scales for int8, else null; CH ground rows a chunk of the sum.
-// partials null: the cluster design, pairs 2 * B * ceil(C / 128) * 8
-// int32 scratch (the blocks' gains and columns); else the global tier,
-// partials (B, ceil(N / CH), C) f32 scratch (pairs unused). arrivals:
-// (B,) int32, zero on entry and left zero. Returns the cudaError_t.
+// tier RT_TIER_CLUSTER: pairs 2 * B * ceil(C / 128) * 8 int32 scratch
+// (the blocks' gains and columns), arrivals (B,). RT_TIER_GLOBAL:
+// partials (B, ceil(N / CH), ceil(C / 128) * 128) f32 scratch, pairs
+// 2 * B * ceil(C / 128) int32 (the spans' gains and columns), arrivals
+// B * ceil(C / 128) + B, CPB chunks a block. RT_TIER_EARLIER: partials
+// (B, ceil(N / CH), C) f32, arrivals (B,), stamps (B, 3) u64 or null.
+// The arrivals are zero on entry and left zero. Returns the cudaError_t.
 extern "C" int rt_fused_step(const void* mat, const float* scale,
                              const float* row_in, const float* mask,
                              const long long* prev, float* row_out,
                              long long* best, float* gain, float* partials,
-                             int* pairs, int* arrivals, int B, int N, int C,
-                             int CH, int storage, int fold, float cap,
-                             float lam, float lam1, void* stream) {
+                             int* pairs, int* arrivals, void* stamps, int B,
+                             int N, int C, int CH, int tier, int CPB,
+                             int storage, int fold, float cap, float lam,
+                             float lam1, void* stream) {
   if (B == 0) return 0;
   if (N < 0 || C <= 0 || CH <= 0) return (int)cudaErrorInvalidValue;
   const RtRule rule{fold, cap, lam, lam1};
@@ -438,15 +659,15 @@ extern "C" int rt_fused_step(const void* mat, const float* scale,
     case RT_STORE_F32:
       return (int)rt_fused_step_any<float>(
           mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-          pairs, arrivals, B, N, C, CH, rule, st);
+          pairs, arrivals, stamps, B, N, C, CH, tier, CPB, rule, st);
     case RT_STORE_BF16:
       return (int)rt_fused_step_any<__nv_bfloat16>(
           mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-          pairs, arrivals, B, N, C, CH, rule, st);
+          pairs, arrivals, stamps, B, N, C, CH, tier, CPB, rule, st);
     case RT_STORE_INT8:
       return (int)rt_fused_step_any<int8_t>(
           mat, scale, row_in, mask, prev, row_out, best, gain, partials,
-          pairs, arrivals, B, N, C, CH, rule, st);
+          pairs, arrivals, stamps, B, N, C, CH, tier, CPB, rule, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -160,6 +160,18 @@ LOOP_BLOCK_MIN = 8
 FUSED_BLOCK_N = 32
 FUSED_SPAN = 128
 FUSED_CLUSTER_MAX = 8
+# the most chunks a block of a cluster of FUSED_CLUSTER_MAX takes before
+# the planner sends the fused step to its global tier (fused_tier, read
+# at call time; tests force either tier through it): past it the
+# cluster's partials crowd the SM's shared memory to one or two blocks,
+# and the global tier, at 4 blocks an SM, is faster (PERF.md §6, row
+# 3g: from 8 × 12,500² on; within 3% at the knapsack leaf's 13 chunks a
+# block, slower at its nodes)
+FUSED_CLUSTER_CHUNKS = 16
+# the fused step's global tier: rounds of chunks a block's lane groups
+# take (a block holds FUSED_GLOBAL_ROUNDS × lane groups chunks: 512 KB of
+# the cache in each storage at 32-row chunks)
+FUSED_GLOBAL_ROUNDS = 4
 # candidates per block of the bitmap fused step and streaming loop (one
 # warp per candidate, 8 warps a block), which their wrappers size
 # themselves. fused_step: at the kcover leaf (32 greedies × 30,938) 484
@@ -238,9 +250,11 @@ def _row_bytes(dtype: str) -> int:
 
 def fused_block_n(dtype: str = "float32") -> int:
     """Rows a chunk of the per-step fused kernel's gain sum over a
-    `dtype` cache; 0 if none fits. A block of its global tier keeps a
-    chunk's state rows (in and out), their int8 scales and the argmax
-    scratch in shared memory, so the shape does not enter."""
+    `dtype` cache; 0 if none fits: the budget of a block of its first
+    design, which kept a chunk's state rows (in and out), their int8
+    scales and the argmax scratch in shared memory. The shape does not
+    enter: the global tier takes fewer chunks a block where their rows
+    would crowd shared memory (fused_global_chunks)."""
     bn = FUSED_BLOCK_N
     while bn >= LOOP_BLOCK_MIN:
         if (4 * 2 + _row_bytes(dtype)) * bn + REDUCE_BYTES <= _smem_budget():
@@ -250,18 +264,56 @@ def fused_block_n(dtype: str = "float32") -> int:
 
 
 def fused_cluster_fits(dtype: str, n: int, block_n: int) -> bool:
-    """Whether the per-step fused kernel's cluster design takes a
+    """Whether the per-step fused kernel's cluster design can take a
     `dtype` cache of n ground rows in chunks of `block_n`: a span's
     chunks spread over FUSED_CLUSTER_MAX blocks, each keeping its chunks'
     (FUSED_SPAN,) f32 partials, its rows' state and their int8 scales in
     the H100's shared memory less the kernel's 1 KB of static scratch
-    (csrc/fused_step.cu:rt_fused_cluster). Beyond (f32 or bf16 n ≳
-    92,000, int8 n ≳ 77,000) the step runs the global tier, its partials
-    in device memory: the same sums, the same bits."""
+    (csrc/fused_step.cu:rt_fused_cluster): f32 or bf16 n ≤ 92,416, int8
+    n ≤ 77,056."""
     chunks = -(-n // block_n)
     per_block = -(-chunks // FUSED_CLUSTER_MAX)
     need = per_block * (4 * FUSED_SPAN + (4 + _row_bytes(dtype)) * block_n)
     return need <= flags.H100_SMEM_PER_BLOCK - 1024
+
+
+def fused_tier(dtype: str, n: int, block_n: int) -> str:
+    """The fused step's tier for a `dtype` cache of n ground rows in
+    chunks of `block_n`: 'cluster' where the cluster design fits and a
+    block of a cluster of FUSED_CLUSTER_MAX holds at most
+    FUSED_CLUSTER_CHUNKS chunks (n ≤ 4,096 rows in chunks of 32), else
+    'global': the same span pass, its chunk partials in device memory,
+    each span's last block summing them and the greedy's last span
+    picking among the spans' winners — the same sums, the same bits."""
+    chunks = -(-n // block_n)
+    return ("cluster" if chunks <= FUSED_CLUSTER_MAX * FUSED_CLUSTER_CHUNKS
+            and fused_cluster_fits(dtype, n, block_n) else "global")
+
+
+def fused_global_chunks(dtype: str, block_n: int) -> int:
+    """Chunks of `block_n` rows a block of the fused step's global tier
+    takes: FUSED_GLOBAL_ROUNDS for each of its lane groups (256 threads
+    in groups of the lanes that read a 128-column row in 16-byte
+    vectors: 8 groups for f32, 16 for bf16, 32 for int8), fewer where
+    their rows and scales would take more than a quarter of a block's
+    shared memory (4 blocks an SM)."""
+    groups = 32 // cache_itemsize(dtype)
+    per_chunk = (4 + _row_bytes(dtype)) * block_n
+    fit = flags.H100_SMEM_PER_BLOCK // 4 // per_chunk
+    return max(1, min(FUSED_GLOBAL_ROUNDS * groups, fit))
+
+
+def fused_global_scratch(b: int, n: int, c: int,
+                         block_n: int) -> Tuple[Tuple[int, int, int], int,
+                                                int]:
+    """The global tier's device scratch for b greedies over (n, c)
+    caches in chunks of `block_n` rows: the (b, chunks, spans ×
+    FUSED_SPAN) f32 chunk partials (each span's columns on the 16-byte
+    grid), the int32 words of the spans' (gain, column) pairs, and the
+    arrival counters — one a (greedy, span), then one a greedy."""
+    spans = -(-c // FUSED_SPAN)
+    chunks = max(1, -(-n // block_n))
+    return (b, chunks, spans * FUSED_SPAN), 2 * b * spans, b * spans + b
 
 
 def loop_block_n(c: int, dtype: str = "float32") -> int:

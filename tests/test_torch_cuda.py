@@ -479,9 +479,16 @@ def test_cuda_gains_norms_are_the_rows_float64_chain(cuda):
 # csrc/fused_step.cu:rt_fused_cluster, the smallest of 1..8 leaving a lane
 # group one chunk of 32 rows): (1, 300, 131) 2 / 1 / 1; (3, 77, 160) and
 # (1, 5, 3) 1; (2, 1000, 257) 4 / 2 / 1; (1, 2000, 20) 8 / 4 / 2. The
-# last shape's partials fit no cluster: the global tier.
+# 100,000-row shapes' partials fit no cluster: the global tier, at one
+# span (C = 5) and at three, odd; (2, 80_000, 131) fits a cluster but
+# for int8, and runs the global tier in every storage (past
+# FUSED_CLUSTER_ROWS).
 FUSED_SHAPES = [(1, 300, 131), (3, 77, 160), (2, 1000, 257), (1, 2000, 20),
-                (1, 5, 3), (1, 100_000, 5)]
+                (1, 5, 3), (1, 100_000, 5), (1, 100_000, 257),
+                (2, 80_000, 131)]
+# the most rows the planner sends to the cluster design in chunks of 32
+# (plans.fused_tier: 16 chunks a block of a cluster of 8)
+FUSED_CLUSTER_ROWS = 4_096
 
 
 def _misaligned(t):
@@ -519,8 +526,8 @@ def test_cuda_fused_step_equals_the_earlier_design(cuda, shape, name, dtype):
     tag = {"float32": "", "bfloat16": "[bf16]", "int8": "[int8]"}[dtype]
     odd = _misaligned(mat)
     assert odd.data_ptr() % 16 != 0
-    assert plans.fused_cluster_fits(dtype, n, plans.FUSED_BLOCK_N) == (
-        n < 100_000)
+    assert plans.fused_tier(dtype, n, plans.FUSED_BLOCK_N) == (
+        "global" if n > FUSED_CLUSTER_ROWS else "cluster")
     for _ in range(2):
         counters.reset()
         got = TF.fused_step(mat, row, mask, prev, tr, scale=scale)
@@ -534,6 +541,50 @@ def test_cuda_fused_step_equals_the_earlier_design(cuda, shape, name, dtype):
         plain = TF.fused_step_plain(mat, row, mask, prev, tr, scale=scale)
         parity.compare_steps(got, plain, logical, mask, tr)
         row, prev = plain[0], plain[1]
+        mask = mask.scatter(1, prev[:, None], 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32"] + STORED)
+@pytest.mark.parametrize("shape", FUSED_SHAPES[:5] + [(4, 3000, 300)])
+def test_cuda_fused_step_global_tier_at_every_shape(cuda, shape, dtype,
+                                                    monkeypatch):
+    """The global tier forced (plans.FUSED_CLUSTER_CHUNKS = 0) at the
+    cluster design's shapes — ragged chunks, one to three spans, odd and
+    aligned C, B up to 4 — over two steps: bit for bit the cluster design
+    and the earlier design, also over a base off the 16-byte grid; one
+    counted launch a step; the arrival counters left at zero."""
+    from repro_torch.kernels import build
+    tr = TR.DIST_MIN
+    b, n, c = shape
+    g, cd = _dev_pools(cuda, b, n, c, 24, seed=29)
+    m32 = TP.pairwise_plain(g, cd, tr.pairwise).contiguous()
+    mat, scale = ((m32, None) if dtype == "float32"
+                  else _stored(m32, dtype))
+    valid = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    row = TR.empty_row(g, valid, tr).contiguous()
+    mask = torch.ones(b, c, device=cuda)
+    prev = torch.full((b,), -1, device=cuda)
+    tag = {"float32": "", "bfloat16": "[bf16]", "int8": "[int8]"}[dtype]
+    odd = _misaligned(mat)
+    for _ in range(2):
+        cluster = TF.fused_step(mat, row, mask, prev, tr, scale=scale)
+        monkeypatch.setattr(plans, "FUSED_CLUSTER_CHUNKS", 0)
+        assert plans.fused_tier(dtype, n, plans.FUSED_BLOCK_N) == "global"
+        counters.reset()
+        got = TF.fused_step(mat, row, mask, prev, tr, scale=scale)
+        assert counters.snapshot()["fused_step" + tag]["launches"] == 1
+        parity.compare_exact(got, cluster, "global tier vs cluster design")
+        parity.compare_exact(got, TF.fused_step(
+            mat, row, mask, prev, tr, scale=scale, reference=True),
+            "global tier vs the earlier design")
+        parity.compare_exact(TF.fused_step(odd, row, mask, prev, tr,
+                                           scale=scale), got,
+                             "global tier, base off the 16-byte grid")
+        monkeypatch.undo()
+        spans = -(-c // plans.FUSED_SPAN)
+        assert int(build.arrivals(cuda, b * spans + b).abs().sum()) == 0
+        row, prev = got[0], got[1]
         mask = mask.scatter(1, prev[:, None], 0.0)
 
 

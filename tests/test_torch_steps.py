@@ -169,6 +169,42 @@ def test_fused_tier_follows_the_kernels_shared_memory(dtype):
         assert not plans.fused_cluster_fits(dtype, n, bn)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_fused_global_tier_host_plan(dtype, monkeypatch):
+    """The global tier's host side: the gate — the cluster design up to
+    16 chunks a block of a cluster of 8 (4,096 rows in chunks of 32: the
+    knapsack node and leaf shapes), the global tier beyond, in every
+    storage, and everywhere once FUSED_CLUSTER_CHUNKS is 0 (as the
+    CUDA tests force it); a block's chunks (4 rounds of its lane groups:
+    512 KB of the cache at 32-row chunks, fewer where the rows would take
+    over a quarter of the shared memory); the scratch at the sequential
+    Greedy's shape (1 × 100,000²: 782 spans) and at a ragged one."""
+    for n in (1, 400, 3_125, 4_096):
+        assert plans.fused_tier(dtype, n, 32) == "cluster"
+    for n in (4_097, 12_500, 90_000, 100_000):
+        assert plans.fused_tier(dtype, n, 32) == "global"
+    assert plans.fused_tier(dtype, 2_048, 16) == "cluster"
+    assert plans.fused_tier(dtype, 2_049, 16) == "global"
+    monkeypatch.setattr(plans, "FUSED_CLUSTER_CHUNKS", 0)
+    assert plans.fused_tier(dtype, 1, 32) == "global"
+    monkeypatch.undo()
+    item = TR.cache_itemsize(dtype)
+    chunks = plans.fused_global_chunks(dtype, 32)
+    assert chunks == 4 * 32 // item
+    assert chunks * 32 * plans.FUSED_SPAN * item == 512 * 1024
+    row_bytes = 8 if dtype == "int8" else 4
+    for bn in (8, 512, 4096, 10 ** 6):
+        got = plans.fused_global_chunks(dtype, bn)
+        assert got == 1 or (got * bn * row_bytes
+                            <= flags.H100_SMEM_PER_BLOCK // 4)
+    assert plans.fused_global_chunks(dtype, 4096) < chunks
+    assert plans.fused_global_scratch(1, 100_000, 100_000, 32) == (
+        (1, 3125, 782 * 128), 2 * 782, 782 + 1)
+    assert plans.fused_global_scratch(3, 77, 257, 32) == (
+        (3, 3, 384), 2 * 3 * 3, 3 * 3 + 3)
+    assert plans.fused_global_scratch(2, 0, 5, 32) == ((2, 1, 128), 4, 4)
+
+
 def test_sequential_greedy_over_all_images_keeps_the_fused_engine(
         monkeypatch):
     """simulate.run_greedy_dense over all 100,000 Tiny-ImageNet images:
@@ -181,7 +217,7 @@ def test_sequential_greedy_over_all_images_keeps_the_fused_engine(
     plan = plans.select_engine(TR.DIST_MIN, 100_000, 100_000, 12_288)
     assert (plan.engine, plan.dtype) == ("fused", "float32")
     assert plan.block_n == plans.FUSED_BLOCK_N
-    assert not plans.fused_cluster_fits("float32", 100_000, plan.block_n)
+    assert plans.fused_tier("float32", 100_000, plan.block_n) == "global"
 
 
 def test_fused_step_cpu_ignores_the_launch_shape():
