@@ -208,6 +208,22 @@ card and its collectives staging the k-row solutions through the host):
                           gen_embeddings(65,536, 256), k = 128, through
                           the 8-rank group, every rank's ids equal to the
                           stacked dispatcher's over the same blocks
+  distributed_cards       (after distributed_nccl) on a machine of 4
+                          cards, one rank on each over NCCL, each making
+                          its data on its own card (its checksum held to
+                          the parent's): k-medoid at the Tiny-ImageNet
+                          shape (m cut 32 → 4, lanes of 25,000) and kdom
+                          (m cut 8 → 4) through greedyml_distributed over
+                          (2, 2) and randgreedi_distributed over (4,),
+                          select_coreset, stream_select_distributed on
+                          the kosarak stream, shard_greedy_distributed at
+                          65,536 × 256; every root on every rank bit for
+                          bit against its stacked yardstick on card 0;
+                          per rank its stages' wall, launches and peak
+                          memory, per level the gathers (a group's first
+                          collective apart); on fewer cards one line,
+                          "ran": false. `--only distributed_cards` runs
+                          it alone beside distributed_kdom and coreset
 
 and the sharded leaf tier, the lazy Minoux engine and the tree planner:
 
@@ -278,6 +294,13 @@ seconds printed):
   faultrun_smoke          `python -m repro_torch.launch.faultrun
                           --smoke` on the card exits 0
   slice13_total           the seconds these phases added
+  examples                the four examples_torch/*.py at the reference's
+                          sizes, side by side on the card: quickstart's
+                          and exemplar_clustering's GreedyML ratios in
+                          (0.9, 1.05], data_summarization's 8 gloo ranks'
+                          roots equal to the stacked dispatcher's,
+                          distributed_training done after its failure
+  slice21_total           the seconds the new phases added
 
 and the selection launchers and the measured-plan cache, after them
 (each CLI a subprocess on the card, `--device cuda`, the kernels already
@@ -619,6 +642,11 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=13)
     p.add_argument("--reps", type=int, default=3,
                    help="timed repetitions per kernel")
+    p.add_argument("--only", choices=("distributed_cards",), default=None,
+                   help="build the kernels and run this phase alone, "
+                        "beside what it is compared with: "
+                        "distributed_cards (a four-card machine) after "
+                        "the gloo phases distributed_kdom and coreset")
     return p.parse_args(argv)
 
 
@@ -4163,9 +4191,87 @@ def _rank_device(torch, dev: str):
     return torch.device(dev)
 
 
+def _rank_place(torch, rank: int, dev: str):
+    """(the rank's device, the device its TreeMesh is given): "cuda:rank"
+    puts rank r on card r, made current, and leaves the mesh its default
+    placement (None: ``cuda:r``, checked under NCCL for two ranks on one
+    card); any other `dev` is both."""
+    if dev == "cuda:rank":
+        card = torch.device("cuda", rank)
+        torch.cuda.set_device(card)
+        return card, None
+    dev = _rank_device(torch, dev)
+    return dev, dev
+
+
+def _make_data(torch, recipe, dev):
+    """A phase's data made from its recipe on `dev`: ("images", n, d,
+    classes, seed) by gen_images_on; ("kdom", n, universe, seed) and
+    ("kcover", n, universe, seed, avg_size) as bitmap words (the host's
+    numpy generators, then placed); ("embeddings", n, d, seed). The same
+    recipe gives the same bits on every card of one model."""
+    from repro_torch.data import synthetic as S
+    from repro_torch.kernels.rules import to_words
+    kind, *a = recipe
+    if kind == "images":
+        n, d, classes, seed = a
+        return S.gen_images_on(n, d, classes=classes, seed=seed, device=dev)
+    if kind == "kdom":
+        n, universe, seed = a
+        return to_words(S.pack_bitmaps(S.gen_graph_road(n, seed=seed),
+                                       universe)).to(dev)
+    if kind == "kcover":
+        n, universe, seed, avg = a
+        return to_words(S.pack_bitmaps(S.gen_kcover(
+            n, universe, seed=seed, avg_size=avg), universe)).to(dev)
+    if kind == "embeddings":
+        n, d, seed = a
+        return torch.as_tensor(S.gen_embeddings(n, d, seed=seed)).to(dev)
+    raise KeyError(kind)
+
+
+def _rank_data(torch, data, dev):
+    """A rank's data and, where it made them, their checksum: a tensor
+    handed to it (the gloo phases: CUDA IPC from the parent's card, or a
+    CPU tensor) as it is, with None; or a recipe made on the rank's own
+    device (`_make_data`): a rank on its own card opens nothing on
+    another."""
+    if isinstance(data, torch.Tensor):
+        return data, None
+    data = _make_data(torch, data, dev)
+    return data, _checksum(torch, data)
+
+
+def _checksum(torch, t, rows: int = 16_384) -> int:
+    """An int64 checksum of a tensor's 32-bit words (a weighted sum, row
+    chunk by row chunk): equal data gives equal sums on any device."""
+    w = t.reshape(t.shape[0], -1).view(torch.int32)
+    total = 0
+    for i in range(0, w.shape[0], rows):
+        c = w[i:i + rows].to(torch.int64)
+        wt = torch.arange(i, i + c.shape[0], device=c.device,
+                          dtype=torch.int64) % 251 + 1
+        total += int((c.sum(dim=1) * wt).sum())
+    return total
+
+
 def _sync(torch, dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _peak(torch, dev):
+    """The rank's peak allocation on its card since the last reset, or
+    None off the card."""
+    if torch.device(dev).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def _free(torch, dev) -> None:
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def lane_block(torch, x, lanes: int, seed: int, lane: int):
@@ -4185,18 +4291,27 @@ def lane_block(torch, x, lanes: int, seed: int, lane: int):
 
 def _stage_hook(torch, dev, stages):
     """on_level callback of the distributed drivers: a stage's wall (the
-    rank's device synchronised) and its launches."""
+    rank's device synchronised), its launches and, on a card, the
+    rank's peak allocation during the stage (max_memory_allocated, reset
+    after each stage) and what stays allocated after it."""
     from repro_torch.kernels import counters
+    on_card = torch.device(dev).type == "cuda"
     _sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
     t_last = [time.perf_counter()]
 
     def on_level(stage):
         _sync(torch, dev)
         now = time.perf_counter()
-        stages.append({"stage": stage, "seconds": now - t_last[0],
-                       "launches": {n: c["launches"] for n, c in
-                                    counters.snapshot().items()
-                                    if c["launches"]}})
+        rec = {"stage": stage, "seconds": now - t_last[0],
+               "launches": {n: c["launches"] for n, c in
+                            counters.snapshot().items() if c["launches"]}}
+        if on_card:
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            rec["allocated_bytes"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        stages.append(rec)
         counters.reset()
         t_last[0] = time.perf_counter()
     return on_level
@@ -4213,11 +4328,14 @@ def _dist_tree_rank(rank, x, name, k, universe, seed, radices, dev):
                                            randgreedi_distributed)
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import make_tree_mesh
-    dev = _rank_device(torch, dev)
-    mesh = make_tree_mesh(radices, device=dev)
+    dev, mesh_dev = _rank_place(torch, rank, dev)
+    mesh = make_tree_mesh(radices, device=mesh_dev)
     obj = make_objective(name, universe=universe, device=dev)
+    x, checksum = _rank_data(torch, x, dev)
+    out = {"device": str(mesh.device), "data_checksum": checksum}
     ids, pay, val = lane_block(torch, x, mesh.lanes, seed, rank)
-    out = {}
+    del x                       # a rank's own copy goes; an IPC one stays
+    _free(torch, dev)
     for algo, fn in (("greedyml", greedyml_distributed),
                      ("randgreedi", randgreedi_distributed)):
         stages = []
@@ -4231,8 +4349,25 @@ def _dist_tree_rank(rank, x, name, k, universe, seed, radices, dev):
                      "value": float(sol.value),
                      "wall_seconds": time.perf_counter() - t0,
                      "stages": stages, "collectives": mesh.log}
+        del sol
+        _free(torch, dev)
         mesh.log = None
+    # the mesh's world collectives the supervisor uses: every lane's bool
+    # (through the wire's uint8) in lane order, and the largest value
+    out["gather_lanes"] = mesh.gather_lanes(
+        torch.tensor([[rank % 2 == 1]], device=dev)).cpu()
+    out["world_max"] = mesh.world_max(float(rank))
     return out
+
+
+def _hold_world_ops(torch, results) -> None:
+    """Every rank got every lane's bool in lane order, and the world's
+    largest rank (`_dist_tree_rank`'s last two collectives)."""
+    want = torch.tensor([[r % 2 == 1] for r in range(len(results))])
+    for r, res in enumerate(results):
+        assert torch.equal(res["gather_lanes"], want), (r,
+                                                        res["gather_lanes"])
+        assert res["world_max"] == len(results) - 1, (r, res["world_max"])
 
 
 def _stacked_root(torch, name, pools, k, universe, radices):
@@ -4254,16 +4389,23 @@ def _stacked_root(torch, name, pools, k, universe, radices):
 
 
 def _levels_of(collectives) -> list:
-    """Per level: the gathers' bytes and seconds (three a level: ids,
-    payloads, valid); the root's broadcasts last."""
+    """Per level: the gathers' bytes, seconds and calls (three a level:
+    ids, payloads, valid); the root's broadcasts last. Of these, each
+    group's first collective in the rank's process (its seconds hold
+    NCCL's communicator set-up) also apart: `first_*`."""
     by = {}
     for c in collectives:
-        key = "broadcast" if c["level"] is None else c["level"]
+        key = c["op"] if c["level"] is None else c["level"]
         d = by.setdefault(key, {"level": key, "bytes": 0, "seconds": 0.0,
-                                "calls": 0})
+                                "calls": 0, "first_calls": 0,
+                                "first_bytes": 0, "first_seconds": 0.0})
         d["bytes"] += c["bytes"]
         d["seconds"] += c["seconds"]
         d["calls"] += 1
+        if c.get("first"):
+            d["first_calls"] += 1
+            d["first_bytes"] += c["bytes"]
+            d["first_seconds"] += c["seconds"]
     return list(by.values())
 
 
@@ -4311,6 +4453,7 @@ def phase_distributed_kdom(torch, words, cfg, dev: str = "cuda:0",
     want_rg, rg_wall = _stacked_root(torch, cfg.objective, pools, cfg.k,
                                      cfg.universe, (m,))
     _same_root(results, "randgreedi", want_rg)
+    _hold_world_ops(torch, results)
     del pools
     # one loop launch a stage: the planner's engine for one lane
     from repro_torch.kernels.plans import select_engine
@@ -4334,7 +4477,8 @@ def phase_distributed_kdom(torch, words, cfg, dev: str = "cuda:0",
           "stage the k-row solutions through the host",
           "radices": list(radices), "n": cfg.n, "k": cfg.k,
           "words": w, "stage_engines": engines,
-          "root_equal_to_stacked": True, "value": float(want.value),
+          "root_equal_to_stacked": True, "world_ops_equal": True,
+          "value": float(want.value),
           "randgreedi_value": float(want_rg.value),
           "digest": _digest(want.ids[want.valid].cpu().numpy(), want.value),
           "spawn_wall_seconds": spawn_wall,
@@ -4407,21 +4551,25 @@ def _dist_stream_rank(rank, words, universe, k, seed, batch, merge_every,
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import make_tree_mesh
     from repro_torch.streaming import stream_select_distributed
-    dev = _rank_device(torch, dev)
+    dev, mesh_dev = _rank_place(torch, rank, dev)
     mesh = make_tree_mesh((2,) * int(round(math.log2(
-        torch.distributed.get_world_size()))), device=dev)
+        torch.distributed.get_world_size()))), device=mesh_dev)
     obj = make_objective("kcover", universe=universe, device=dev)
+    words, checksum = _rank_data(torch, words, dev)
     order = np.random.default_rng(seed).permutation(words.shape[0])
     stream = Stream(words, order, batch)
     mesh.log = []
     counters.reset()
     _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     sol, info = stream_select_distributed(obj, stream, k, mesh,
                                           merge_every=merge_every, eps=eps)
     _sync(torch, dev)
     wall = time.perf_counter() - t0
-    return {"info": info, "wall_seconds": wall,
+    return {"info": info, "wall_seconds": wall, "device": str(mesh.device),
+            "data_checksum": checksum, "peak_bytes": _peak(torch, dev),
             "digest": _digest(sol.ids[sol.valid].cpu().numpy(), sol.value),
             "launches": {n: c["launches"] for n, c in
                          counters.snapshot().items() if c["launches"]},
@@ -4472,22 +4620,38 @@ CORESET_N, CORESET_D, CORESET_K = 65_536, 256, 128
 
 
 def _coreset_rank(rank, emb, k, radices, dev):
-    """One rank of the coreset phase: select_coreset over its block."""
+    """One rank of the coreset phase: select_coreset over its block; per
+    stage its wall, launches and peak memory (`_stage_hook`, handed to
+    the selection's greedyml_distributed in this rank only), per level
+    the gathers."""
     import torch
-    from repro_torch.data.selection import select_coreset
+    from repro_torch.data import selection
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import local_block, make_tree_mesh
-    dev = _rank_device(torch, dev)
-    mesh = make_tree_mesh(radices, device=dev)
+    dev, mesh_dev = _rank_place(torch, rank, dev)
+    mesh = make_tree_mesh(radices, device=mesh_dev)
+    emb, checksum = _rank_data(torch, emb, dev)
+    stages = []
+    driver = selection.greedyml_distributed
+    selection.greedyml_distributed = lambda *a, **kw: driver(
+        *a, on_level=hook, **kw)
+    mesh.log = []
     counters.reset()
-    _sync(torch, dev)
+    hook = _stage_hook(torch, dev, stages)
     t0 = time.perf_counter()
-    ids = select_coreset(local_block(emb, mesh), k, "greedyml:facility",
-                         mesh=mesh)
+    try:
+        ids = selection.select_coreset(local_block(emb, mesh), k,
+                                       "greedyml:facility", mesh=mesh)
+    finally:
+        selection.greedyml_distributed = driver
     _sync(torch, dev)
-    return {"ids": ids, "wall_seconds": time.perf_counter() - t0,
-            "launches": {n: c["launches"] for n, c in
-                         counters.snapshot().items() if c["launches"]}}
+    wall = time.perf_counter() - t0
+    launches = {}
+    for st in stages:
+        _add(launches, st["launches"])
+    return {"ids": ids, "wall_seconds": wall, "device": str(mesh.device),
+            "data_checksum": checksum, "stages": stages,
+            "collectives": _levels_of(mesh.log), "launches": launches}
 
 
 def phase_coreset(torch, cfg, dev: str = "cuda:0", n: int = CORESET_N,
@@ -4714,15 +4878,18 @@ def _shard_dist_rank(rank, emb, k, dev):
     from repro_torch.kernels import counters
     from repro_torch.kernels.shard_gains import shard_greedy_distributed
     from repro_torch.launch.mesh import make_tree_mesh
-    dev = _rank_device(torch, dev)
-    mesh = make_tree_mesh((), shard=SHARD_LANES, device=dev)
+    dev, mesh_dev = _rank_place(torch, rank, dev)
+    mesh = make_tree_mesh((), shard=SHARD_LANES, device=mesh_dev)
     obj = make_objective("facility", device=dev)
+    emb, checksum = _rank_data(torch, emb, dev)
     n = emb.shape[0]
     ids = torch.arange(n, device=dev)
     val = torch.ones(n, dtype=torch.bool, device=dev)
     mesh.log = []
     counters.reset()
     _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     sol = shard_greedy_distributed(obj, ids, emb, val, k, mesh)
     _sync(torch, dev)
@@ -4730,7 +4897,9 @@ def _shard_dist_rank(rank, emb, k, dev):
     log, mesh.log = mesh.log, None
     return {"sol": {f: getattr(sol, f).cpu() for f in
                     ("ids", "payloads", "valid", "value", "evals")},
-            "wall_seconds": wall,
+            "wall_seconds": wall, "device": str(mesh.device),
+            "data_checksum": checksum, "peak_bytes": _peak(torch, dev),
+            "collectives": _levels_of(log),
             "launches": {nm: c["launches"] for nm, c in
                          counters.snapshot().items() if c["launches"]},
             "gathers": len(log),
@@ -4785,6 +4954,476 @@ def phase_sharded_distributed(torch, cfg, dev: str = "cuda:0",
           "rank_gather_seconds": [res["gather_seconds"]
                                   for res in results]})
     return {nm: v * SHARD_LANES for nm, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# distributed GreedyML with one rank on each card (NCCL)
+# ---------------------------------------------------------------------------
+#
+# The drivers of the gloo phases above over NCCL, rank r on card r of a
+# four-card machine: run_ranks makes each rank's card current before the
+# group forms, and the meshes keep their default placement (checked for
+# two ranks on one card). A rank makes its data on its own card from the
+# phase's recipe (`_make_data`: no CUDA IPC, so a rank opens no context on
+# another card) and returns its checksum, held to the parent's. The
+# parent then makes the same data on card 0 and holds every rank's root
+# bit for bit against the stacked yardstick there. The paper's m = 32
+# machines (k-medoid) and kdom's 8 are cut to the 4 cards.
+
+CARDS = 4
+CARDS_DEADLINE = 600.0
+CARDS_RADICES = (2, 2)
+SLICE21_SECONDS = {}
+
+
+def _card_of(torch, rank_dev: str, rank: int) -> str:
+    return (f"cuda:{rank}" if rank_dev == "cuda:rank"
+            else str(torch.device(rank_dev)))
+
+
+def _hold_ranks(torch, results, rank_dev: str, checksum) -> None:
+    """Each rank ran on its own card (under "cuda:rank") and, where
+    `checksum` is given, on the data the parent made."""
+    for r, res in enumerate(results):
+        assert res["device"] == _card_of(torch, rank_dev, r), (
+            r, res["device"])
+        assert checksum is None or res["data_checksum"] == checksum, (
+            r, res["data_checksum"], checksum)
+
+
+def _cards_tree(torch, name, recipe, k, seed, universe, backend, rank_dev,
+                card, deadline) -> dict:
+    """greedyml_distributed over CARDS_RADICES and randgreedi_distributed
+    over (CARDS,), a rank a card (`_dist_tree_rank`); each root on every
+    rank equal bit for bit to LevelDispatcher(mesh=None) over the same
+    lane_pools stacked on `card`; both roots' global value over all the
+    data."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.core.simulate import global_value
+    from repro_torch.kernels.plans import select_engine
+    from repro_torch.launch.spawn import run_ranks
+    m = CARDS
+    t0 = time.perf_counter()
+    results = run_ranks(_dist_tree_rank, m, args=(
+        recipe, name, k, universe, seed, CARDS_RADICES, rank_dev),
+        backend=backend, timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    x = _make_data(torch, recipe, card)
+    _hold_ranks(torch, results, rank_dev, _checksum(torch, x))
+    pools = lane_pools(torch, x, m, seed)
+    want, want_wall = _stacked_root(torch, name, pools, k, universe,
+                                    CARDS_RADICES)
+    _same_root(results, "greedyml", want)
+    want_rg, rg_wall = _stacked_root(torch, name, pools, k, universe, (m,))
+    _same_root(results, "randgreedi", want_rg)
+    _hold_world_ops(torch, results)
+    rule = make_objective(name, universe=universe, device=card).rule
+    n_l, width = pools[1].shape[1], pools[1].shape[2]
+    del pools
+
+    def plan(reps: int) -> str:
+        """The planner's leaf engine for `reps` lanes' greedies at once."""
+        if rule.is_bitmap:
+            return select_engine(rule, width, n_l, replicas=reps).engine
+        return select_engine(rule, n_l, n_l, width, replicas=reps).engine
+
+    launches = {}
+    for res in results:
+        for algo in ("greedyml", "randgreedi"):
+            for st in res[algo]["stages"]:
+                # every stage of the path runs on the rank's kernels
+                assert st["launches"] or not _counts(torch, res["device"]), (
+                    algo, st)
+                _add(launches, st["launches"])
+    values = {algo: global_value(name, x, w.ids[w.valid].cpu().numpy(),
+                                 universe=universe)
+              for algo, w in (("greedyml", want), ("randgreedi", want_rg))}
+    del x
+    _free(torch, card)
+    return {"driver": name, "n": recipe[1], "k": k,
+            "radices": {"greedyml": list(CARDS_RADICES),
+                        "randgreedi": [m]},
+            "leaf_rows": int(n_l),
+            "leaf_engine": {"rank": plan(1), "stacked": plan(m)},
+            "roots_equal_to_stacked": True, "world_ops_equal": True,
+            "root_value": {"greedyml": float(want.value),
+                           "randgreedi": float(want_rg.value)},
+            "global_value": values,
+            "digest": {"greedyml": _digest(
+                want.ids[want.valid].cpu().numpy(), want.value),
+                "randgreedi": _digest(
+                    want_rg.ids[want_rg.valid].cpu().numpy(),
+                    want_rg.value)},
+            "spawn_wall_seconds": spawn_wall,
+            "stacked_wall_seconds": {"greedyml": want_wall,
+                                     "randgreedi": rg_wall},
+            "ranks_greedyml": _rank_summary(results, "greedyml"),
+            "ranks_randgreedi": _rank_summary(results, "randgreedi"),
+            "launches": launches}
+
+
+def _cards_coreset(torch, recipe, k, backend, rank_dev, card,
+                   deadline) -> dict:
+    """select_coreset('greedyml:facility') through the mesh branch, a
+    rank a card, each rank passing its contiguous block: every rank's
+    ids equal to the stacked dispatcher's over the same blocks."""
+    from repro_torch.core.greedyml import shard_lanes
+    from repro_torch.launch.spawn import run_ranks
+    t0 = time.perf_counter()
+    results = run_ranks(_coreset_rank, CARDS, args=(
+        recipe, k, CARDS_RADICES, rank_dev), backend=backend,
+        timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    emb = _make_data(torch, recipe, card)
+    _hold_ranks(torch, results, rank_dev, _checksum(torch, emb))
+    n = emb.shape[0]
+    pools = shard_lanes(torch.arange(n, device=emb.device), emb,
+                        torch.ones(n, dtype=torch.bool, device=emb.device),
+                        CARDS)
+    want, want_wall = _stacked_root(torch, "facility", pools, k, 0,
+                                    CARDS_RADICES)
+    want_ids = want.ids[want.valid].cpu().numpy()
+    launches = {}
+    for r, res in enumerate(results):
+        assert np.array_equal(res["ids"], want_ids), (r, res["ids"],
+                                                      want_ids)
+        _add(launches, res["launches"])
+    del pools, emb
+    _free(torch, card)
+    return {"driver": "coreset", "spec": "greedyml:facility", "n": n,
+            "d": recipe[2], "k": k, "radices": list(CARDS_RADICES),
+            "ids_equal_to_stacked": True, "selected": int(len(want_ids)),
+            "value": float(want.value),
+            "digest": _digest(want_ids, want.value),
+            "spawn_wall_seconds": spawn_wall,
+            "stacked_wall_seconds": want_wall,
+            "rank_detail": {str(r): {"wall_seconds": res["wall_seconds"],
+                                     "stages": res["stages"],
+                                     "collectives": res["collectives"]}
+                            for r, res in enumerate(results)},
+            "launches": launches}
+
+
+def _continuous_yardstick(torch, recipe, cfg, card) -> dict:
+    """continuous_kcover's merges, batches and digest, computed on `card`
+    (where that phase has not run in this process)."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.streaming import stream_select_continuous
+    words = _make_data(torch, recipe, card)
+    obj = make_objective("kcover", universe=cfg.universe, device=card)
+    stream, _ = _kcover_stream(torch, words, cfg)
+    sol, info = stream_select_continuous(
+        obj, stream, cfg.k, lanes=CONTINUOUS_LANES, branching=2,
+        merge_every=MERGE_EVERY, eps=STREAM_EPS)
+    out = {"merges": info["merges"], "batches": info["batches"],
+           "digest": _digest(sol.ids[sol.valid].cpu().numpy(), sol.value),
+           "checksum": _checksum(torch, words)}
+    del words, stream, sol
+    _free(torch, card)
+    return out
+
+
+def _cards_stream(torch, recipe, cfg, continuous, backend, rank_dev, card,
+                  deadline) -> dict:
+    """stream_select_distributed over the 4 ranks (b = 2), a rank a card,
+    on the kosarak stream of continuous_kcover: its merges and digest
+    equal that phase's (computed here where it has not run)."""
+    from repro_torch.launch.spawn import run_ranks
+    assert DIST_STREAM_LANES == CONTINUOUS_LANES == CARDS
+    t0 = time.perf_counter()
+    results = run_ranks(_dist_stream_rank, CARDS, args=(
+        recipe, cfg.universe, cfg.k, cfg.seed, STREAM_BATCH, MERGE_EVERY,
+        STREAM_EPS, rank_dev), backend=backend, timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    computed = continuous is None
+    if computed:
+        continuous = _continuous_yardstick(torch, recipe, cfg, card)
+    _hold_ranks(torch, results, rank_dev, continuous.get("checksum"))
+    launches = {}
+    for r, res in enumerate(results):
+        assert res["info"]["merges"] == continuous["merges"], (
+            r, res["info"]["merges"], continuous["merges"])
+        assert res["info"]["batches"] == continuous["batches"]
+        assert res["digest"] == continuous["digest"], (r, res["digest"])
+        if _counts(torch, res["device"]):
+            assert res["launches"].get("stream_filter[coverage]") == \
+                res["info"]["batches"], (r, res["launches"])
+        _add(launches, res["launches"])
+    return {"driver": "stream", "n": cfg.n, "k": cfg.k, "branching": 2,
+            "merge_every": MERGE_EVERY, "batch": STREAM_BATCH,
+            "batches": results[0]["info"]["batches"],
+            "merges": results[0]["info"]["merges"],
+            "digest": results[0]["digest"], "equal_to_continuous": True,
+            "continuous_computed_here": computed,
+            "spawn_wall_seconds": spawn_wall,
+            "rank_detail": {str(r): {"wall_seconds": res["wall_seconds"],
+                                     "peak_bytes": res["peak_bytes"],
+                                     "launches": res["launches"],
+                                     "collectives": res["collectives"]}
+                            for r, res in enumerate(results)},
+            "launches": launches}
+
+
+def _cards_sharded(torch, recipe, k, backend, rank_dev, card,
+                   deadline) -> dict:
+    """shard_greedy_distributed over make_tree_mesh((), shard=4), a rank
+    a card, at the uncut rows: every rank's Solution equal to
+    shard_greedy_sim over the same pool bit for bit, its launches the
+    stacked count."""
+    from repro_torch.core.functions import make_objective
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.shard_gains import shard_greedy_sim
+    from repro_torch.launch.spawn import run_ranks
+    assert SHARD_LANES == CARDS
+    t0 = time.perf_counter()
+    results = run_ranks(_shard_dist_rank, CARDS, args=(recipe, k, rank_dev),
+                        backend=backend, timeout=deadline)
+    spawn_wall = time.perf_counter() - t0
+    emb = _make_data(torch, recipe, card)
+    _hold_ranks(torch, results, rank_dev, _checksum(torch, emb))
+    n = emb.shape[0]
+    obj = make_objective("facility", device=emb.device)
+    counters.reset()
+    _sync(torch, card)
+    t0 = time.perf_counter()
+    want = shard_greedy_sim(obj, torch.arange(n, device=emb.device), emb,
+                            torch.ones(n, dtype=torch.bool,
+                                       device=emb.device), k,
+                            lanes=SHARD_LANES)
+    _sync(torch, card)
+    stacked_s = time.perf_counter() - t0
+    stacked = {nm: c["launches"] for nm, c in counters.snapshot().items()
+               if c["launches"]}
+    for r, res in enumerate(results):
+        for f, v in res["sol"].items():
+            assert torch.equal(v, getattr(want, f).cpu()), (r, f)
+        assert res["launches"] == stacked, (r, res["launches"], stacked)
+    ids = want.ids[want.valid].cpu().numpy()
+    del emb
+    _free(torch, card)
+    return {"driver": "sharded", "n": n, "d": recipe[2], "k": k,
+            "shard": SHARD_LANES, "bit_for_bit_with_stacked": True,
+            "launches_per_rank": stacked, "value": float(want.value),
+            "digest": _digest(ids, want.value),
+            "spawn_wall_seconds": spawn_wall,
+            "stacked_wall_seconds": stacked_s,
+            "rank_detail": {str(r): {"wall_seconds": res["wall_seconds"],
+                                     "peak_bytes": res["peak_bytes"],
+                                     "collectives": res["collectives"]}
+                            for r, res in enumerate(results)},
+            "launches": {nm: v * SHARD_LANES for nm, v in stacked.items()}}
+
+
+def _counts(torch, dev) -> bool:
+    """Whether the launch counters count on `dev` (they count on the card
+    only)."""
+    return torch.device(dev).type == "cuda"
+
+
+def phase_distributed_cards(torch, kmedoid_cfg, kdom_cfg, kcover_cfg,
+                            continuous=None, *, n: int = 0, seed=None,
+                            backend: str = "nccl",
+                            rank_dev: str = "cuda:rank",
+                            card: str = "cuda:0",
+                            emb_n: int = CORESET_N, emb_d: int = CORESET_D,
+                            coreset_k: int = CORESET_K,
+                            shard_k: int = SHARD_DIST_K,
+                            avg_size: float = 15.0,
+                            deadline: float = CARDS_DEADLINE) -> dict:
+    """The distributed drivers with one rank on each of 4 cards over NCCL
+    (ROADMAP §A 12), in order: k-medoid at the Tiny-ImageNet shape (m cut
+    32 → 4: lanes of 25,000 images) and kdom (m cut 8 → 4), each through
+    greedyml_distributed over (2, 2) and randgreedi_distributed over
+    (4,); select_coreset('greedyml:facility') on gen_embeddings(65,536,
+    256), k = 128; stream_select_distributed on the kosarak stream; and
+    shard_greedy_distributed at 65,536 × 256, k = 64, uncut. Every root
+    on every rank bit for bit equal to its yardstick on card 0; one line
+    a driver with each rank's stage walls, launches and peak memory and
+    each level's gathers (a group's first collective apart). On fewer
+    than 4 cards it runs nothing and prints one line saying so. Returns
+    the launches. (`backend`, `rank_dev` and `card` let the CPU rehearse
+    it over gloo.)"""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if rank_dev == "cuda:rank" and cards < CARDS:
+        emit({"phase": "distributed_cards", "ran": False, "cards": cards,
+              "why": f"needs {CARDS} cards, one rank on each; this "
+                     f"machine has {cards}"})
+        return {}
+    t_phase = time.perf_counter()
+    kc, kd, kv = kmedoid_cfg, kdom_cfg, kcover_cfg
+    seed = kc.seed if seed is None else seed
+    emb = ("embeddings", emb_n, emb_d, kd.seed)
+    drivers = [
+        lambda: _cards_tree(torch, "kmedoid", ("images", n or kc.n,
+                                               kc.feature_dim, 20, seed),
+                            kc.k, seed, 0, backend, rank_dev, card,
+                            deadline),
+        lambda: _cards_tree(torch, "kdom", ("kdom", kd.n, kd.universe,
+                                            kd.seed),
+                            kd.k, kd.seed, kd.universe, backend, rank_dev,
+                            card, deadline),
+        lambda: _cards_coreset(torch, emb, coreset_k, backend, rank_dev,
+                               card, deadline),
+        lambda: _cards_stream(torch, ("kcover", kv.n, kv.universe, kv.seed,
+                                      avg_size), kv, continuous, backend,
+                              rank_dev, card, deadline),
+        lambda: _cards_sharded(torch, emb, shard_k, backend, rank_dev,
+                               card, deadline),
+    ]
+    launches, seconds = {}, {}
+    for run in drivers:
+        t0 = time.perf_counter()
+        rec = run()
+        seconds[rec["driver"]] = time.perf_counter() - t0
+        _add(launches, rec["launches"])
+        emit({"phase": "distributed_cards", "backend": backend,
+              "ranks": CARDS, "placement": rank_dev, "yardstick": card,
+              **rec, "seconds": seconds[rec["driver"]]})
+    SLICE21_SECONDS["distributed_cards"] = time.perf_counter() - t_phase
+    emit({"phase": "distributed_cards", "ran": True, "cards": cards,
+          "backend": backend, "drivers": list(seconds),
+          "driver_seconds": seconds, "launches": launches,
+          "seconds": SLICE21_SECONDS["distributed_cards"]})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the reference's four examples on the port (examples_torch/)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "exemplar_clustering", "data_summarization",
+            "distributed_training")
+EXAMPLE_TIMEOUT = 300
+# more flags for an example (a rehearsal's sizes), by name
+EXAMPLE_EXTRA: dict = {}
+# data_summarization's defaults (its --n, --d, --k, --ranks)
+SUMMARY_N, SUMMARY_D, SUMMARY_K, SUMMARY_RANKS = 2048, 256, 32, 8
+RATIO_RANGE = (0.9, 1.05)
+
+
+def _run_examples() -> dict:
+    """Every example as its own process on CLI_DEVICE, all at once (their
+    outputs in files); → {name: (stdout lines, seconds from its start to
+    its exit)}. A non-zero exit raises with its output."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs, files, started, ended = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for name in EXAMPLES:
+                out = open(os.path.join(tmp, f"{name}.out"), "w+")
+                err = open(os.path.join(tmp, f"{name}.err"), "w+")
+                files[name] = (out, err)
+                started[name] = time.perf_counter()
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples_torch" /
+                                         f"{name}.py"),
+                     "--device", CLI_DEVICE, *EXAMPLE_EXTRA.get(name, ())],
+                    env=env, cwd=ROOT, stdout=out, stderr=err, text=True)
+            deadline = time.perf_counter() + EXAMPLE_TIMEOUT
+            while len(ended) < len(procs):
+                for name, p in procs.items():
+                    if name not in ended and p.poll() is not None:
+                        ended[name] = time.perf_counter()
+                assert time.perf_counter() < deadline, (
+                    "examples still running", sorted(set(procs) - set(ended)))
+                time.sleep(0.2)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res = {}
+        for name, p in procs.items():
+            out, err = files[name]
+            out.seek(0)
+            err.seek(0)
+            text, etext = out.read(), err.read()
+            out.close()
+            err.close()
+            assert p.returncode == 0, (name, p.returncode, text[-3000:],
+                                       etext[-3000:])
+            res[name] = (text.strip().splitlines(),
+                         ended[name] - started[name])
+    return res
+
+
+def _in_range(ratio: float) -> bool:
+    return RATIO_RANGE[0] < ratio <= RATIO_RANGE[1]
+
+
+def _summary_roots(torch) -> dict:
+    """data_summarization's roots as the stacked dispatcher gives them
+    over the same blocks (shard_lanes of its images over its ranks, the
+    tree (2,) × log2 ranks) on the card: → {objective: (value, sha1 of
+    the sorted ids)}."""
+    import hashlib
+    from repro_torch.core.greedyml import shard_lanes
+    from repro_torch.data.synthetic import gen_images
+    imgs = torch.as_tensor(gen_images(SUMMARY_N, SUMMARY_D, classes=16,
+                                      seed=3)).to(CLI_DEVICE)
+    n = imgs.shape[0]
+    pools = shard_lanes(torch.arange(n, device=imgs.device), imgs,
+                        torch.ones(n, dtype=torch.bool, device=imgs.device),
+                        SUMMARY_RANKS)
+    radices = (2,) * int(round(math.log2(SUMMARY_RANKS)))
+    out = {}
+    for name in ("kmedoid", "facility"):
+        root, _ = _stacked_root(torch, name, pools, SUMMARY_K, 0, radices)
+        ids = np.sort(root.ids[root.valid].cpu().numpy().astype(np.int64))
+        out[name] = (float(root.value), hashlib.sha1(ids.tobytes())
+                     .hexdigest())
+    return out
+
+
+def phase_examples(torch):
+    """The four examples_torch/*.py at the reference's sizes, as processes
+    on the card side by side: quickstart's GreedyML/Greedy and
+    GreedyML/RandGreedi and exemplar_clustering's GreedyML/RandGreedi
+    ratios in (0.9, 1.05]; data_summarization's 8-rank roots (gloo, the
+    one card) equal to the stacked dispatcher's over the same blocks;
+    distributed_training done at step 200 after its injected failure."""
+    t_phase = time.perf_counter()
+    runs = _run_examples()
+    report = {}
+    lines, wall = runs["quickstart"]
+    q = [ln for ln in lines if ln.startswith("quality:")]
+    assert len(q) == 1, lines
+    ratios = [float(v) for v in re.findall(r"= ([0-9.]+)", q[0])]
+    assert len(ratios) == 2 and all(map(_in_range, ratios)), q
+    report["quickstart"] = {"greedyml_over_greedy": ratios[0],
+                            "greedyml_over_randgreedi": ratios[1],
+                            "lines": lines, "seconds": wall}
+    lines, wall = runs["exemplar_clustering"]
+    ml = [ln for ln in lines if ln.startswith("GreedyML")]
+    quality = [float(_field(r"quality ([0-9.]+)", ln)) for ln in ml]
+    assert len(quality) == 3 and all(map(_in_range, quality)), ml
+    report["exemplar_clustering"] = {"greedyml_over_randgreedi": quality,
+                                     "lines": lines, "seconds": wall}
+    lines, wall = runs["data_summarization"]
+    roots = [ln for ln in lines if ln.strip().startswith("root:")]
+    assert len(roots) == 2, lines
+    got = {name: (float(_field(r"f=([-0-9.e]+)", ln)),
+                  _field(r"sha1=([0-9a-f]+)", ln))
+           for name, ln in zip(("kmedoid", "facility"), roots)}
+    want = _summary_roots(torch)
+    assert got == want, (got, want)
+    report["data_summarization"] = {"ranks": SUMMARY_RANKS,
+                                    "backend": "gloo",
+                                    "roots_equal_to_stacked": True,
+                                    "lines": lines, "seconds": wall}
+    lines, wall = runs["distributed_training"]
+    extra = list(EXAMPLE_EXTRA.get("distributed_training", ()))
+    steps = int(extra[extra.index("--steps") + 1]) if "--steps" in extra \
+        else 200
+    done = [ln for ln in lines if ln.startswith(f"done at step {steps};")]
+    assert done and "'failure'" in done[0] and "'restart'" in done[0], lines
+    assert any(ln.startswith("recovered from the injected failure")
+               for ln in lines), lines
+    report["distributed_training"] = {"done": done[0], "lines": lines[-4:],
+                                      "seconds": wall}
+    SLICE21_SECONDS["examples"] = time.perf_counter() - t_phase
+    emit({"phase": "examples", "side_by_side": True, **report,
+          "seconds": SLICE21_SECONDS["examples"]})
 
 
 def phase_lazy_kcover(torch, sets, words, cfg, dense):
@@ -7266,6 +7905,40 @@ def _dryrun_card_check(torch, DR, train_figures) -> dict:
     return {"card_check": check}
 
 
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _emit_ok(torch) -> None:
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def _only_distributed_cards(torch, args, cfg, kdom, kcover, avg_size,
+                            dev) -> int:
+    """`--only distributed_cards`: the gloo phases it is set beside
+    (distributed_kdom's 8 ranks and coreset's on card 0), then the phase
+    on the machine's cards; the cards' names and limits, and the ok
+    line."""
+    _, kwords = phase_data_kdom(torch, kdom, dev)
+    phase_distributed_kdom(torch, kwords, kdom)
+    del kwords
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_coreset(torch, kdom)
+    phase_distributed_cards(torch, cfg, kdom, kcover, n=args.n,
+                            seed=args.seed, avg_size=avg_size)
+    smi = _smi().splitlines()
+    for line in smi[1:]:
+        emit({"phase": "cards", "nvidia_smi": line})
+    print(smi[0], flush=True)
+    _emit_ok(torch)
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -7288,6 +7961,9 @@ def main(argv=None) -> int:
     cfg = TINY_IMAGENET
     dev = torch.device("cuda")
     phase_build()
+    if args.only == "distributed_cards":
+        return _only_distributed_cards(torch, args, cfg, KDOM, KOSARAK,
+                                       KOSARAK_AVG_SIZE, dev)
     t0 = time.perf_counter()
     x = gen_images_on(args.n, cfg.feature_dim, classes=20, seed=args.seed,
                       device=dev)
@@ -7392,6 +8068,11 @@ def main(argv=None) -> int:
     del kwords
     gc.collect()
     torch.cuda.empty_cache()
+    _add(launches, phase_distributed_cards(torch, cfg, KDOM, kc, continuous,
+                                           n=args.n, seed=args.seed,
+                                           avg_size=KOSARAK_AVG_SIZE))
+    gc.collect()
+    torch.cuda.empty_cache()
     _add(launches, phase_coreset(torch, KDOM))
     _add(launches, phase_sharded_distributed(torch, KDOM))
     phase_plan_tree(torch, [("kmedoid", cfg, cfg.feature_dim, None),
@@ -7402,6 +8083,9 @@ def main(argv=None) -> int:
     phase_faultrun_smoke()
     emit({"phase": "slice13_total", "phases": SLICE13_SECONDS,
           "seconds": sum(SLICE13_SECONDS.values())})
+    phase_examples(torch)
+    emit({"phase": "slice21_total", "phases": SLICE21_SECONDS,
+          "seconds": sum(SLICE21_SECONDS.values())})
     _add(launches, phase_summarize(torch))
     phase_stream_cli(torch)
     _add(launches, phase_qserve(torch))
@@ -7442,9 +8126,7 @@ def main(argv=None) -> int:
     phase_dryrun(torch, train_figures, traces=traces)
     emit({"phase": "slice18_total", "phases": SLICE18_SECONDS,
           "seconds": sum(SLICE18_SECONDS.values())})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = _smi()
     kernels = []
     for name in SOURCES:
         assert launches.get(name, 0) > 0, (name, launches)
@@ -7459,9 +8141,7 @@ def main(argv=None) -> int:
     counters.reset()
     print(smi.splitlines()[0], flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    _emit_ok(torch)
     return 0
 
 

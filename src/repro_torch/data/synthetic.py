@@ -1,8 +1,8 @@
 """Deterministic synthetic datasets (answers `src/repro/data/synthetic.py`).
 
 `gen_images`, `gen_embeddings`, `gen_tokens`, `gen_kcover`,
-`gen_graph_road`, `gen_graph_social`, `pack_bitmaps` and `gen_stream`
-are numpy copies of the reference's
+`gen_graph_road`, `gen_graph_social`, `pack_bitmaps`, `sets_stats` and
+`gen_stream` are numpy copies of the reference's
 generators: the same seed gives the same arrays and the same arrival
 orders. `gen_images_on` draws the same mixture-of-Gaussians recipe
 directly on a torch device (the card unless the caller names another)
@@ -123,6 +123,12 @@ def gen_tokens(n_docs: int, seq: int, vocab: int, seed: int = 0
     rng = np.random.default_rng(seed)
     toks = (rng.zipf(1.2, size=(n_docs, seq)) % (vocab - 1)) + 1
     return toks.astype(np.int32)
+
+
+def sets_stats(sets: List[np.ndarray]) -> Tuple[float, int]:
+    """(mean set size, total elements) of a list of index sets."""
+    sizes = np.asarray([len(s) for s in sets])
+    return float(sizes.mean()), int(sizes.sum())
 
 
 def gen_images_on(n: int, d: int, classes: int = 20, seed: int = 0,

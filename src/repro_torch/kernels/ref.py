@@ -24,6 +24,19 @@ from repro_torch.kernels.rules import KernelRule
 F32 = torch.float32
 
 
+def pairwise_dist(ground, cands):
+    """(…, N, D) × (…, C, D) → (…, N, C) Euclidean distances, f32: the
+    k-medoid cached matrix, by the ‖x‖²+‖c‖²−2⟨x,c⟩ expansion the
+    kernels use."""
+    return R.pairwise_block(ground.to(F32), cands.to(F32), "dist")
+
+
+def pairwise_sim(ground, cands):
+    """(…, N, D) × (…, C, D) → (…, N, C) inner products, f32: the
+    facility cached matrix."""
+    return torch.matmul(ground.to(F32), cands.to(F32).transpose(-1, -2))
+
+
 def pairwise(ground, cands, rule: KernelRule):
     """Full logical cached matrix for any rule: (…, N, C) f32, or the
     transposed (…, W, C) words for bitmap rules."""

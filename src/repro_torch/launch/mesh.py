@@ -151,8 +151,10 @@ class TreeMesh:
     ``machine``, ``shard_digit`` and ``coords`` are None too.
 
     ``log``: None, or a list that every collective appends a record to
-    ({'op', 'level', 'bytes', 'seconds'}; the rank's device is
-    synchronised around the call so the seconds are the collective's)."""
+    ({'op', 'level', 'bytes', 'seconds', 'first'}; the rank's device is
+    synchronised around the call so the seconds are the collective's;
+    ``first`` marks this process's first collective over that group,
+    whose seconds include NCCL's communicator set-up)."""
 
     def __init__(self, radices: Sequence[int], *, shard: int = 1,
                  axis_prefix: str = "lvl", device: DeviceSpec = None,
@@ -210,6 +212,7 @@ class TreeMesh:
         self.stage_on_host = (self.backend == "gloo"
                               and self.device.type == "cuda")
         self.log: Optional[List[dict]] = None
+        self._used_groups: set = set()
 
     def _place(self, device: DeviceSpec) -> torch.device:
         if device is not None:
@@ -286,11 +289,20 @@ class TreeMesh:
     def _unwire(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return t.to(device=like.device, dtype=like.dtype)
 
-    def _record(self, op: str, lvl, nbytes: int, t0: float) -> None:
+    def _first_use(self, group) -> bool:
+        """Whether this is the process's first collective over `group`
+        (None: the world), and mark it used."""
+        first = id(group) not in self._used_groups
+        self._used_groups.add(id(group))
+        return first
+
+    def _record(self, op: str, lvl, nbytes: int, t0: float,
+                first: bool = False) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.log.append({"op": op, "level": lvl, "bytes": nbytes,
-                         "seconds": time.perf_counter() - t0})
+                         "seconds": time.perf_counter() - t0,
+                         "first": first})
 
     def _start(self) -> float:
         if self.log is not None and self.device.type == "cuda":
@@ -313,11 +325,12 @@ class TreeMesh:
         t0 = self._start()
         t = self._wire(x)
         parts = [torch.empty_like(t) for _ in range(size)]
+        first = self._first_use(group)
         dist.all_gather(parts, t, group=group)
         out = self._unwire(torch.cat(parts, 0), x)
         if self.log is not None:
             self._record(op, lvl, t.numel() * t.element_size()
-                         * len(parts), t0)
+                         * len(parts), t0, first)
         return out
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -328,11 +341,12 @@ class TreeMesh:
         t = self._wire(x)
         if t.data_ptr() == x.data_ptr():
             t = t.clone()
+        first = self._first_use(None)
         dist.broadcast(t, src=self.ranks[src])
         out = self._unwire(t, x)
         if self.log is not None:
             self._record("broadcast", None, t.numel() * t.element_size(),
-                         t0)
+                         t0, first)
         return out
 
     def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
@@ -341,6 +355,7 @@ class TreeMesh:
         placeholder of the same shape and dtype."""
         t = self._wire(x)
         parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        self._first_use(None)
         dist.all_gather(parts, t)
         return self._unwire(torch.cat([parts[r] for r in self.ranks], 0), x)
 
@@ -348,6 +363,7 @@ class TreeMesh:
         """The largest `value` over every rank of the world."""
         dev = self.device if self.backend == "nccl" else torch.device("cpu")
         t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
+        self._first_use(None)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return float(t.item())
 
